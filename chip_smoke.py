@@ -25,7 +25,21 @@ Phases; any failed check raises and the script exits non-zero:
    (``KAN_SAS_INFERENCE_METHOD=compact``), logits compared.
 5. The same requests again, warm, and one bucket's ``generate`` under
    ``torch.profiler``: the device's busy share and time by kernel name.
-6. A JSON line with every ported kernel's numbers (and the TPU kernels not
+6. The continuous paged path: the block-table gather kernel against its
+   plain version, bitwise, fp32 and bf16, at the shadow view's stacked
+   shape and the step mode's per-layer shape, timed beside its plain
+   version, ``torch.index_select`` (``library_ms``) and its byte bound.
+   Then full-width kanformer-100m serves 16 requests through
+   ``Engine.serve_continuous`` four times (dense; paged, shadow reads;
+   paged, step reads; paged, shadow, a pool small enough to preempt), each
+   with the launch counts reset just before and checked exactly just
+   after.  Every stream equals the request served alone by ``generate``,
+   unless the first divergence is a near-tie (top-2 logit gap below
+   ``LOGIT_ATOL`` on the static path); one admission group is
+   teacher-forced through paged prefill and 4 paged decode steps on the
+   kernel path and the plain path, logits compared; one warm repeat of
+   the shadow run is profiled.
+7. A JSON line with every ported kernel's numbers (and the TPU kernels not
    ported yet), the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -63,12 +77,18 @@ KERNELS = {
         "replaces": "src/repro/kernels/kan_sparse_gemm.py:69",
         "main_shape": [4, 512, 1024],       # decode: 4 rows, c1 layer
     },
+    "gather_blocks": {
+        "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
+        "replaces": "src/repro/kernels/paged_gather.py:45",
+        "main_shape": "shadow",             # the stacked view of one chunk
+    },
 }
+# the device symbols of the port's kernels, as the profiler names them
+PORT_KERNEL_SYMBOLS = ("kan_fused_kernel", "kan_sparse_kernel", "paged_gather_kernel")
 # The TPU kernels of the JAX package that the port has not reached yet.
 PENDING = [
     {"name": "kan_sparse_int8_gemm", "replaces": "src/repro/kernels/kan_sparse_gemm.py:167"},
     {"name": "kan_int8_gemm", "replaces": "src/repro/kernels/kan_int8_gemm.py:45"},
-    {"name": "gather_blocks", "replaces": "src/repro/kernels/paged_gather.py:45"},
     {"name": "bspline_lut", "replaces": "src/repro/kernels/bspline_lut.py:25"},
 ]
 
@@ -158,7 +178,7 @@ def check_kernels(torch, grid):
     cases += [("kan_sparse_gemm", r, K, N) for r in (1, 4, 8)
               for K, N in ((512, 1024), (1024, 512))]
     cases += [("kan_sparse_gemm", 13, 100, 200)]
-    results = {name: {"max_abs_err": 0.0, "timed": []} for name in KERNELS}
+    results = {name: {"max_abs_err": 0.0, "timed": []} for name in plain}
     seed = 0
     for name, rows, K, N in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -193,7 +213,7 @@ def check_kernels(torch, grid):
     # timing at the main path's shapes: both FFN layers, fp32 at every row
     # count, bf16 at prefill's 512 and decode's 4 rows
     cycles_per_ms = spin_cycles_per_ms(torch)
-    for name in KERNELS:
+    for name in plain:
         for rows, K, N, dtype in results[name]["timed"]:
             dname = str(dtype)[6:]
             esize = torch.tensor([], dtype=dtype).element_size()
@@ -242,6 +262,306 @@ def check_kernels(torch, grid):
     return results
 
 
+# Phase 6: the continuous paged path.  The cell: 16 requests, prompt
+# lengths in 32..128, every other one starting with the same 64-token
+# prefix (4 blocks), budgets in 8..48, 8 slots, 8-step chunks, 16-token
+# blocks, max_seq 192, EOS off.
+CONT = {"n_req": 16, "slots": 8, "chunk_steps": 8, "block_size": 16, "max_seq": 192,
+        "prefix_len": 64}
+CONT_RUNS = [("dense", {}), ("paged_shadow", {"paged": True}),
+             ("paged_step", {"paged": True, "paged_read": "step"}),
+             ("paged_preempt", {"paged": True, "pool_blocks": 25})]
+# the gather at its two main-path uses: one launch per leaf over the 8
+# stacked layers of the shadow view, and one per layer and leaf in step
+# mode; pool of the default size (8 slots x 12 logical blocks + sentinel)
+GATHER_USES = {"shadow": (True, 8), "step": (False, 8)}
+GATHER_POOL = (97, 16, 8, 64)                 # (n_blocks, block_size, KV, D)
+
+
+def continuous_requests(np, vocab: int):
+    """The continuous cell's requests and budgets, from seed 12."""
+    rs = np.random.RandomState(12)
+    prefix = rs.randint(0, vocab, CONT["prefix_len"]).astype(np.int32)
+    lens = rs.randint(32, 129, CONT["n_req"])
+    budgets = [int(b) for b in rs.randint(8, 49, CONT["n_req"])]
+    reqs = []
+    for i, L in enumerate(lens):
+        r = rs.randint(0, vocab, L).astype(np.int32)
+        if i % 2:
+            n = min(int(L), CONT["prefix_len"])
+            r[:n] = prefix[:n]
+        reqs.append(r)
+    return reqs, budgets
+
+
+def engine_table(torch, np, slots: int, n_logical: int, n_blocks: int, seed: int):
+    """A block table as the engine builds one: each slot maps its first
+    logical blocks to live blocks of its own, the rest to the sentinel."""
+    rs = np.random.RandomState(seed)
+    ids = rs.permutation(np.arange(1, n_blocks))[: slots * n_logical].reshape(slots, n_logical)
+    for b in range(slots):
+        ids[b, rs.randint(3, n_logical + 1):] = 0
+    return torch.tensor(ids.astype(np.int32), device="cuda")
+
+
+def check_gather(torch, np):
+    """The gather kernel against its plain version, bitwise, and timed."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as PG
+
+    cycles_per_ms = spin_cycles_per_ms(torch)
+    n_blocks, bs, KV, D = GATHER_POOL
+    result = {"max_abs_err": 0.0, "timings": []}
+    for use, (stacked, layers) in GATHER_USES.items():
+        table = engine_table(torch, np, CONT["slots"], CONT["max_seq"] // bs, n_blocks, 5)
+        idx = table.reshape(-1).long().clamp(0, n_blocks - 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            shape = ((layers,) if stacked else ()) + GATHER_POOL
+            esize = torch.tensor([], dtype=dtype).element_size()
+            n_sets = max(1, math.ceil(L2_FLUSH_BYTES / (math.prod(shape) * esize)))
+            g = torch.Generator(device="cuda").manual_seed(11)
+            pools = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                     for _ in range(n_sets)]
+            got = ops.gather_blocks(pools[0], table, stacked)
+            torch.cuda.synchronize()
+            want = PG.gather_blocks_reference(pools[0], table, stacked)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want)
+            log(f"[check] gather_blocks {use} pool={list(shape)} table={list(table.shape)} "
+                f"{dname} bitwise_equal={ok} max_abs_err={err:.1e}")
+            if not ok:
+                raise RuntimeError("gather_blocks disagrees with its plain version")
+            ax = 1 if stacked else 0
+            ms = time_ms(torch, [lambda p=p: ops.gather_blocks(p, table, stacked)
+                                 for p in pools], cycles_per_ms)
+            plain_ms = time_ms(torch, [lambda p=p: PG.gather_blocks_reference(p, table, stacked)
+                                       for p in pools], cycles_per_ms)
+            lib_ms = time_ms(torch, [lambda p=p: torch.index_select(p, ax, idx)
+                                     for p in pools], cycles_per_ms)
+            # bytes: each distinct block the table names, read once per
+            # layer, the view written once, the table read once
+            n_distinct = int(torch.unique(idx).numel())
+            nbytes = (layers if stacked else 1) * n_distinct * bs * KV * D * esize \
+                + got.numel() * esize + table.numel() * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            entry = {"use": use, "pool": list(shape), "table": list(table.shape),
+                     "dtype": dname, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+                     "distinct_blocks": n_distinct}
+            result["timings"].append(entry)
+            log(f"[time] gather_blocks {use} {dname}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} (bytes: {nbytes / 1e6:.2f} MB, "
+                f"{n_distinct} distinct blocks)")
+    return result
+
+
+def expected_launches(model, stats: dict, run: dict) -> dict:
+    """The launches a continuous run implies, from its own stats: per
+    admission prefill two KAN layers per block (fused or sparse, by its row
+    count) and, paged, one gather per layer and leaf; per decode step two
+    KAN layers per block at ``slots`` rows; per chunk, shadow reads, one
+    gather per leaf, or step reads, one per layer and leaf per step."""
+    from repro_torch.core import kan_layer as KL
+
+    kan = 2 * len(model.unit) * model.n_repeats
+    leaves = 2 * len(model.unit)
+    want = {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
+    paged = run.get("paged", False)
+    for k, t_pad in stats["prefill_groups"]:
+        want["kan_" + KL.resolve_inference_method("cuda", k * t_pad) + "_gemm"] += kan
+        want["gather_blocks"] += leaves * model.n_repeats if paged else 0
+    steps = stats["chunks_run"] * CONT["chunk_steps"]
+    want["kan_" + KL.resolve_inference_method("cuda", CONT["slots"]) + "_gemm"] += steps * kan
+    if paged:
+        step_reads = run.get("paged_read") == "step"
+        want["gather_blocks"] += (steps * leaves * model.n_repeats if step_reads
+                                  else stats["chunks_run"] * leaves)
+    return want
+
+
+def continuous_path(torch, np):
+    import dataclasses
+
+    from repro_torch.configs import kanformer_100m
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as PG
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.kv_pool import blocks_for
+
+    cfg = kanformer_100m.config().model
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    reqs, budgets = continuous_requests(np, cfg.vocab)
+    lens = [len(r) for r in reqs]
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"])
+    log(f"[cont] {CONT['n_req']} requests, prompt lengths {lens}, budgets {budgets}, "
+        f"every other one starting with the same {CONT['prefix_len']}-token prefix; "
+        f"slots {CONT['slots']}, chunk_steps {CONT['chunk_steps']}, block_size "
+        f"{CONT['block_size']}, max_seq {CONT['max_seq']}, eos off")
+
+    def serve(eng):
+        return eng.serve_continuous(reqs, slots=CONT["slots"],
+                                    chunk_steps=CONT["chunk_steps"], max_new=budgets)
+
+    runs, engines = {}, {}
+    for name, extra in CONT_RUNS:
+        eng = engines[name] = Engine(params, cfg, dataclasses.replace(base, **extra),
+                                     device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = serve(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        st = eng.last_serve_stats
+        want = expected_launches(cfg, st, extra)
+        log(f"[cont] {name}: launches {launches}, expected {want}")
+        if launches != want:
+            raise RuntimeError(f"{name}: launch counts {launches} != expected {want}")
+        pg = st.get("paged", {})
+        lat = sorted(st["request_latency_s"])
+        m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
+             "latency_mean_s": sum(lat) / len(lat),
+             "latency_p95_s": lat[min(len(lat) - 1, math.ceil(0.95 * len(lat)) - 1)],
+             "useful_tokens": st["useful_tokens"],
+             "mean_slot_utilization": st["mean_slot_utilization"],
+             "chunks": st["chunks_run"], "n_preemptions": st["n_preemptions"],
+             "prefill_groups": len(st["prefill_groups"]),
+             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+             "decode_ms_per_step": st["decode_s"] * 1e3 / (st["chunks_run"] * CONT["chunk_steps"]),
+             "prefill_tokens_computed": pg.get("prefill_tokens_computed", sum(lens)),
+             "prefill_tokens_saved": pg.get("prefill_tokens_saved", 0),
+             "prefix_hit_blocks": pg.get("prefix_hit_blocks", 0),
+             "prefix_evictions": pg.get("prefix_evictions", 0),
+             "blocks_watermark": pg.get("blocks_in_use_watermark"),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches}
+        log(f"[cont] {name}: {m['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.1f} tok/s; "
+            f"latency mean {m['latency_mean_s']:.3f} s p95 {m['latency_p95_s']:.3f} s; "
+            f"slot utilization {m['mean_slot_utilization']:.3f}; chunks {m['chunks']} "
+            f"({m['decode_ms_per_step']:.3f} ms per decode step); admission prefills "
+            f"{m['prefill_groups']} ({m['prefill_s'] * 1e3:.1f} ms); preemptions "
+            f"{m['n_preemptions']}; prefill tokens computed {m['prefill_tokens_computed']} "
+            f"saved {m['prefill_tokens_saved']}; prefix hit blocks {m['prefix_hit_blocks']} "
+            f"evictions {m['prefix_evictions']}; block watermark {m['blocks_watermark']}; "
+            f"peak_mem_GB={m['peak_mem_bytes'] / 1e9:.3f}")
+        if extra.get("paged") and m["prefill_tokens_saved"] <= 0:
+            raise RuntimeError(f"{name}: no prefix hit")
+        if name == "paged_preempt" and m["n_preemptions"] < 1:
+            raise RuntimeError(f"{name}: the tight pool preempted nothing")
+        for o, b in zip(outs, budgets):
+            if o.shape != (b,) or o.min() < 0 or o.max() >= cfg.vocab:
+                raise RuntimeError(f"{name}: bad output {o}")
+        runs[name] = (outs, m)
+
+    # every stream against the request served alone on the static path;
+    # a divergence must start at a near-tie of the static path's logits
+    static = Engine(params, cfg, base, device="cuda")
+    solo = [static.generate(r[None], max_new=b)[0] for r, b in zip(reqs, budgets)]
+    gaps = {}
+
+    def top2_gap(i: int, j: int) -> float:
+        if (i, j) not in gaps:
+            seq = np.concatenate([reqs[i], solo[i][:j]]).astype(np.int64)
+            logits, _ = lm.prefill(params, cfg, torch.as_tensor(seq[None], device="cuda"),
+                                   len(seq))
+            top = torch.topk(logits[0, -1], 2).values
+            gaps[(i, j)] = (top[0] - top[1]).item()
+        return gaps[(i, j)]
+
+    divergences = []
+    for name, (outs, _) in runs.items():
+        for i, (o, s_) in enumerate(zip(outs, solo)):
+            diff = np.nonzero(o != s_)[0]
+            if diff.size:
+                j = int(diff[0])
+                gap = top2_gap(i, j)
+                divergences.append({"run": name, "request": i, "step": j, "top2_gap": gap})
+                log(f"[cont] {name}: request {i} diverges from its solo stream at step {j}; "
+                    f"top-2 logit gap on the static path {gap:.3e} (tol {LOGIT_ATOL:.1e})")
+                if gap >= LOGIT_ATOL:
+                    raise RuntimeError(f"{name}: request {i} diverges at step {j}, not a near-tie")
+    n_equal = sum(np.array_equal(a, b) for outs, _ in runs.values() for a, b in zip(outs, solo))
+    log(f"[cont] streams equal to the solo static stream: {n_equal} of "
+        f"{len(runs) * len(reqs)}; near-tie divergences: {len(divergences)}")
+
+    # one admission group teacher-forced through the paged prefill and 4
+    # paged decode steps: kernel path against plain path
+    group = list(range(4))
+    bs = CONT["block_size"]
+    n_logical = CONT["max_seq"] // bs
+    need = [blocks_for(lens[i] + 4, bs) for i in group]
+    tables = np.zeros((len(group), n_logical), np.int32)
+    nxt = 1
+    for r, n in enumerate(need):
+        tables[r, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    t_pad = -(-max(lens[i] for i in group) // 8) * 8
+    toks = torch.as_tensor(np.stack([np.pad(reqs[i], (0, t_pad - lens[i])) for i in group])
+                           .astype(np.int64), device="cuda")
+    glens = torch.as_tensor(np.asarray([lens[i] for i in group], np.int64), device="cuda")
+    tbl = torch.as_tensor(tables, device="cuda")
+    forced = [torch.as_tensor(np.asarray([solo[i][s] for i in group], np.int64),
+                              device="cuda")[:, None] for s in range(4)]
+    kernel_gather = ops.gather_blocks
+
+    def run(plain: bool):
+        if plain:
+            os.environ["KAN_SAS_INFERENCE_METHOD"] = "compact"
+            ops.gather_blocks = PG.gather_blocks_reference
+        try:
+            caches = lm.init_paged_caches(cfg, nxt, bs, torch.float32, "cuda")
+            last, caches = lm.prefill_into_pages(params, cfg, toks, glens, tbl, caches, 0,
+                                                 torch.float32, blocks_for(t_pad, bs))
+            got = [last]
+            pos = glens.clone()
+            for s in range(4):
+                lg, caches = lm.decode_step(params, cfg, forced[s], caches, pos,
+                                            torch.float32, tbl)
+                got.append(lg)
+                pos = pos + 1
+            return torch.stack(got)
+        finally:
+            os.environ.pop("KAN_SAS_INFERENCE_METHOD", None)
+            ops.gather_blocks = kernel_gather
+
+    kern, ref = run(False), run(True)
+    err = (kern - ref).abs().max().item()
+    agree = (kern.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    if not (torch.isfinite(kern).all() and kern.shape == (5, len(group), cfg.vocab)):
+        raise RuntimeError("paged logits not finite or of the wrong shape")
+    log(f"[cont] paged kernel vs plain path logits (prefill + 4 decode steps, "
+        f"{len(group)} rows): max_abs_err={err:.3e} tol={LOGIT_ATOL:.1e} "
+        f"greedy_agreement={agree:.3f}")
+    if err > LOGIT_ATOL:
+        raise RuntimeError("paged kernel path logits disagree with the plain path")
+
+    # one warm repeat of the shadow run, then the same under the profiler
+    shadow = engines["paged_shadow"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = serve(shadow)
+    torch.cuda.synchronize()
+    warm_wall = time.perf_counter() - t0
+    if any(not np.array_equal(a, o) for a, o in zip(again, runs["paged_shadow"][0])):
+        raise RuntimeError("a second paged_shadow run gave other tokens")
+    st = shadow.last_serve_stats
+    warm = {"tok_s": st["useful_tokens"] / warm_wall, "wall_s": warm_wall,
+            "decode_ms_per_step": st["decode_s"] * 1e3 / (st["chunks_run"] * CONT["chunk_steps"]),
+            "prefill_s": st["prefill_s"]}
+    log(f"[cont] paged_shadow warm: {warm['tok_s']:.1f} tok/s, "
+        f"{warm['decode_ms_per_step']:.3f} ms per decode step, admission prefills "
+        f"{warm['prefill_s'] * 1e3:.1f} ms")
+    prof = profile_call(torch, lambda: serve(shadow),
+                        lambda: f"one paged_shadow run ({st['chunks_run']} chunks)")
+    return {"runs": {k: m for k, (_, m) in runs.items()}, "divergences": divergences,
+            "logit_max_abs_err": err, "greedy_agreement": agree, "warm_shadow": warm,
+            "profile": prof}
+
+
 def main_path(torch, np):
     from repro_torch.configs import kanformer_100m
     from repro_torch.kernels import ops
@@ -280,7 +600,7 @@ def main_path(torch, np):
     n_buckets = len(stats["buckets"])
     per_pass = 2 * cfg.n_repeats                  # 2 KAN layers x blocks
     want = {"kan_fused_gemm": n_buckets * per_pass,
-            "kan_sparse_gemm": n_buckets * (max_new - 1) * per_pass}
+            "kan_sparse_gemm": n_buckets * (max_new - 1) * per_pass, "gather_blocks": 0}
     log(f"[main] launches {launches}, expected {want}")
     if launches != want:
         raise RuntimeError(f"launch counts {launches} != expected {want}")
@@ -362,20 +682,29 @@ def main_path(torch, np):
 
 
 def profile_generate(torch, eng, prompts, lens):
-    """One warm ``Engine.generate`` of a bucket under ``torch.profiler``:
-    device busy time (the union of all kernel intervals) and device time by
-    kernel name.  The profiler slows the host, so the busy share is given
-    against the wall time of the same call run without it, and against the
-    profiled wall."""
+    """One warm ``Engine.generate`` of a bucket under ``torch.profiler``."""
+    def what():
+        gs = eng.last_generate_stats
+        return (f"one bucket ({gs['rows']} rows, prompt_len {gs['prompt_len']}, "
+                f"{gs['decode_steps']} decode steps)")
+    return profile_call(torch, lambda: eng.generate(prompts, lengths=lens), what)
+
+
+def profile_call(torch, fn, what):
+    """``fn`` once unprofiled, then once under ``torch.profiler``: device
+    busy time (the union of all kernel intervals) and device time by kernel
+    name.  The profiler slows the host, so the busy share is given against
+    the wall time of the same call run without it, and against the
+    profiled wall.  ``what()`` names the call in the log."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    eng.generate(prompts, lengths=lens)
+    fn()
     torch.cuda.synchronize()
     plain_wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, lengths=lens)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -390,18 +719,27 @@ def profile_generate(torch, eng, prompts, lens):
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + e - s, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    gs = eng.last_generate_stats
-    log(f"[profile] one bucket ({gs['rows']} rows, prompt_len {gs['prompt_len']}, "
-        f"{gs['decode_steps']} decode steps): wall {plain_wall_us / 1e3:.2f} ms unprofiled, "
+    log(f"[profile] {what()}: wall {plain_wall_us / 1e3:.2f} ms unprofiled, "
         f"{wall_us / 1e3:.2f} ms profiled; device busy {busy / 1e3:.2f} ms = "
         f"{busy / plain_wall_us:.3f} of the unprofiled wall ({busy / wall_us:.3f} of the "
         f"profiled); {len(spans)} kernels")
     for name, (t, n) in top:
         log(f"[profile]   {t / 1e3:9.3f} ms  {n:5d}x  {name[:110]}")
+    # the port's own kernels, each with its share of the device's busy time
+    ours = {}
+    for name, (t, n) in by_name.items():
+        for kern in PORT_KERNEL_SYMBOLS:
+            if kern in name:
+                t0_, n0 = ours.get(kern, (0.0, 0))
+                ours[kern] = (t0_ + t, n0 + n)
+    for kern, (t, n) in sorted(ours.items()):
+        log(f"[profile]   port kernel {kern}: {t / 1e3:.3f} ms in {n} launches = "
+            f"{t / busy:.4f} of the device's busy time")
     return {"wall_ms": plain_wall_us / 1e3, "profiled_wall_ms": wall_us / 1e3,
             "busy_ms": busy / 1e3, "busy_share": busy / plain_wall_us,
             "busy_share_profiled": busy / wall_us, "kernels": len(spans),
-            "top": [{"name": n[:200], "ms": t / 1e3, "count": c} for n, (t, c) in top]}
+            "top": [{"name": n[:200], "ms": t / 1e3, "count": c} for n, (t, c) in top],
+            "port_kernels": {k: {"ms": t / 1e3, "count": n} for k, (t, n) in ours.items()}}
 
 
 def main() -> int:
@@ -442,21 +780,36 @@ def main() -> int:
         log(f"[build] {name}: {regs[:2]}")
 
     grid = SplineGrid(-1.0, 1.0, 5, 3)
+    t0 = time.perf_counter()
     results = check_kernels(torch, grid)
+    results["gather_blocks"] = check_gather(torch, np)
+    t1 = time.perf_counter()
     launches, e2e = main_path(torch, np)
+    t2 = time.perf_counter()
+    cont = continuous_path(torch, np)
+    log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
+        f"continuous path {time.perf_counter() - t2:.1f} s")
 
     line = {"kernels": [], "pending": [dict(p, status="pending", launches=0) for p in PENDING],
-            "main_path": e2e}
+            "main_path": e2e, "continuous_path": cont}
+    by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()}}
     for name, meta in KERNELS.items():
-        t = next(e for e in results[name]["timings"]
-                 if e["dtype"] == "float32" and e["shape"] == meta["main_shape"])
+        if name == "gather_blocks":       # the continuous path's default, shadow reads
+            t = next(e for e in results[name]["timings"]
+                     if e["dtype"] == "float32" and e["use"] == meta["main_shape"])
+            n = by_path["paged_shadow"][name]
+        else:
+            t = next(e for e in results[name]["timings"]
+                     if e["dtype"] == "float32" and e["shape"] == meta["main_shape"])
+            n = launches[name]
         line["kernels"].append({
             "name": name, "status": "ported", "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[name],
+            "replaces": meta["replaces"], "launches": n,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": results[name]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"], "timings": results[name]["timings"],
+            "shape": t.get("shape", t.get("pool")), "timings": results[name]["timings"],
         })
     for k in line["kernels"] + line["pending"]:
         log(f"[kernels] {k['name']:<22} {k['status']:<8} launches={k['launches']:<5} "

@@ -41,6 +41,10 @@ LIBRARIES = {
             "kan_sparse_gemm_partials": ([_I, _I, _I], ctypes.c_longlong),
         },
     ),
+    "paged_gather": (
+        "paged_gather.cu",
+        {"paged_gather": ([_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P], _I)},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
-"""Public wrappers for the KAN kernels (counterpart of ``repro/kernels/ops.py``).
+"""Public wrappers for the kernels (counterpart of ``repro/kernels/ops.py``).
 
-Each wrapper flattens the leading dims of ``x`` and then:
+Each KAN wrapper flattens the leading dims of ``x`` and then:
 
 * for a tensor on the CPU, runs the kernel's plain PyTorch version;
 * for a CUDA tensor, launches the hand-written CUDA kernel (building it at
@@ -10,6 +10,8 @@ Tiles are the kernels' fixed defaults (see each ``csrc/*.cu``); the JAX
 package's tile autotuner is not ported yet.  ``LAUNCHES`` counts kernel
 launches per kernel, so a run can show that its main path went through the
 kernels: a wrapper adds one exactly where it launches, never on the CPU.
+The block-table gather of the paged KV cache (:func:`gather_blocks`)
+follows the same rule.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import torch
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.kernels import kan_fused_gemm as _fused
 from repro_torch.kernels import kan_sparse_gemm as _sparse
+from repro_torch.kernels import paged_gather as _gather
 
-LAUNCHES: dict[str, int] = {"kan_fused_gemm": 0, "kan_sparse_gemm": 0}
+LAUNCHES: dict[str, int] = {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
 
 
 def reset_launches() -> None:
@@ -57,3 +60,16 @@ def kan_sparse_gemm(
     term + optional base term in ONE launch.  ``x (..., K)`` -> ``(..., N)``."""
     return _apply("kan_sparse_gemm", _sparse.kan_sparse_gemm_reference,
                   _sparse.kan_sparse_gemm_cuda, x, coeff, grid, base_w)
+
+
+def gather_blocks(pool: torch.Tensor, table: torch.Tensor,
+                  stacked: bool = False) -> torch.Tensor:
+    """Block-table gather of a paged KV pool (``kernels/paged_gather.py``):
+    ``pool (n_blocks, bs, ...)`` or, ``stacked``, ``(layers, n_blocks, bs,
+    ...)`` in one launch; ``table (B, L)`` int32 -> the logical view."""
+    if pool.device.type == "cpu":
+        return _gather.gather_blocks_reference(pool, table, stacked)
+    view = _gather.gather_blocks_cuda(pool, table, stacked)
+    if view.numel():
+        LAUNCHES["gather_blocks"] += 1
+    return view

@@ -1,11 +1,15 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch kanformer-100m``.
 
-Takes the flags of ``repro/launch/serve.py``.  The static greedy engine
-(``--engine static``, ``Engine.serve_requests``) is ported; the continuous
-engine, ``--paged``, ``--spec-k > 0``, ``--mesh`` and ``--temperature > 0``
-exit with rc=2 and say they are not ported yet.  Reduced shapes are the
-default; ``--full`` selects the full config.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+Takes the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
+length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
+continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
+``--batch`` slots, ``--chunk-steps`` per chunk) and reports its slot
+utilization; ``--paged`` (continuous only) serves from the paged block pool
+with prefix caching and preemption (``--block-size``, ``--pool-blocks``).
+``--spec-k > 0``, ``--mesh`` and ``--temperature > 0`` exit with rc=2 and
+say they are not ported yet.  Reduced shapes are the default; ``--full``
+selects the full config.  Runs on ``cuda`` unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -32,11 +36,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the full config (default: reduced)")
     ap.add_argument("--engine", choices=("static", "continuous"), default="static")
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--batch", type=int, default=4, help="static: bucket size")
-    ap.add_argument("--chunk-steps", type=int, default=8)
-    ap.add_argument("--paged", action="store_true")
-    ap.add_argument("--block-size", type=int, default=8)
-    ap.add_argument("--pool-blocks", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static: bucket size; continuous: slot count")
+    ap.add_argument("--chunk-steps", type=int, default=8,
+                    help="continuous: decode steps per chunk")
+    ap.add_argument("--paged", action="store_true",
+                    help="continuous: paged KV cache (block pool + prefix caching "
+                         "+ preemption)")
+    ap.add_argument("--block-size", type=int, default=8,
+                    help="paged: tokens per KV block (must divide max_seq)")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="paged: physical blocks incl. the sentinel "
+                         "(default: dense-equivalent capacity)")
     ap.add_argument("--mesh", type=str, default=None, metavar="DxM")
     ap.add_argument("--spec-k", type=int, default=0)
     ap.add_argument("--draft-layers", type=int, default=1)
@@ -54,10 +65,8 @@ def _refusal(args) -> str | None:
     """Why these flags cannot be served (rc=2), or None."""
     if args.spec_k < 0:
         return f"--spec-k must be >= 0, got {args.spec_k}"
-    if args.engine != "static":
-        return "--engine continuous is not ported yet (ROADMAP queue 1, item 7)"
-    if args.paged:
-        return "--paged is not ported yet (ROADMAP queue 1, item 8)"
+    if args.paged and args.engine != "continuous":
+        return "--paged requires --engine continuous"
     if args.spec_k != 0:
         return "--spec-k is not ported yet (ROADMAP queue 1, item 9)"
     if args.mesh is not None:
@@ -76,19 +85,37 @@ def main(argv=None) -> int:
     model = pick_config(args.arch, args.full).model
     params = lm.init_params(model, seed=args.seed, device=args.device)
     max_seq = args.prompt_len + args.max_new + 8
+    if args.paged:                    # the paged pool addresses whole blocks
+        max_seq = -(-max_seq // args.block_size) * args.block_size
     eng = Engine(params, model,
                  ServeConfig(max_seq=max_seq, max_new_tokens=args.max_new,
-                             eos_id=args.eos_id),
+                             eos_id=args.eos_id, paged=args.paged,
+                             block_size=args.block_size, pool_blocks=args.pool_blocks),
                  device=args.device)
     rs = np.random.RandomState(args.seed)
     reqs = [rs.randint(0, model.vocab, rs.randint(4, args.prompt_len + 1)).astype(np.int32)
             for _ in range(args.requests)]
     t0 = time.time()
-    outs = eng.serve_requests(reqs, batch_size=args.batch, seed=args.seed)
+    if args.engine == "continuous":
+        outs = eng.serve_continuous(reqs, slots=args.batch, chunk_steps=args.chunk_steps,
+                                    seed=args.seed)
+    else:
+        outs = eng.serve_requests(reqs, batch_size=args.batch, seed=args.seed)
     dt = time.time() - t0
     total_new = sum(len(o) for o in outs)
-    print(f"[serve:static] {len(reqs)} requests, {total_new} tokens in {dt:.2f}s "
+    print(f"[serve:{args.engine}] {len(reqs)} requests, {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s) on {eng.device}")
+    if args.engine == "continuous":
+        s = eng.last_serve_stats
+        print(f"[serve:continuous] slot_utilization={s['mean_slot_utilization']:.3f} "
+              f"chunks={s['chunks_run']} served={s['n_served']}/{s['n_submitted']}")
+        if args.paged:
+            p = s["paged"]
+            print(f"[serve:paged] block_size={p['block_size']} "
+                  f"blocks_watermark={p['blocks_in_use_watermark']}/{p['pool_blocks'] - 1} "
+                  f"prefix_hit_blocks={p.get('prefix_hit_blocks', 0)} "
+                  f"prefill_tokens_saved={p['prefill_tokens_saved']} "
+                  f"preemptions={s['n_preemptions']}")
     print("sample output ids:", outs[0][:10].tolist())
     return 0
 

@@ -8,10 +8,17 @@
 * :func:`attn_decode_step` — one token against the cache.  The cache is
   written IN PLACE (the torch analogue of the reference's buffer donation):
   a scalar ``pos`` writes one slot for every row, a per-row ``(B,)`` ``pos``
-  writes each row at its own slot.
+  writes each row at its own slot, and a row whose slot is past the cache
+  writes nothing (the reference's scatter drops it);
+* the paged KV cache (DESIGN.md §3b): :func:`paged_view`,
+  :func:`paged_route`, :func:`paged_write_span`,
+  :func:`attn_decode_step_paged` and :func:`attn_prefill_paged`.  Pools
+  ``(n_blocks, bs, KV, D)`` are written in place with ``index_put_``; reads
+  gather the logical view with the block-table kernel
+  (``kernels.ops.gather_blocks``) and run the unchanged dense math on it.
 
-Sliding windows, int8 KV caches, MLA and the paged paths are not ported yet
-(ROADMAP queue 1); they raise ``NotImplementedError``.
+Sliding windows, int8 KV caches and MLA are not ported yet (ROADMAP queue
+1); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -143,13 +151,23 @@ def attn_forward(
 def _write_cache(cache: dict, name: str, val: torch.Tensor,
                  slot: torch.Tensor) -> None:
     """Write one token's K or V (``val (B, 1, KV, D)``) into ``cache[name]``
-    in place: at one shared slot (scalar ``slot``) or per row (``(B,)``)."""
+    in place: at one shared slot (scalar ``slot``) or per row (``(B,)``).
+
+    Per row, a slot ``>= S`` writes nothing, as the reference's scatter
+    drops it: continuous batching's fixed-length chunks decode a finished
+    row past ``max_seq``.  Such a row rewrites slot ``S-1`` with the value
+    it already holds, so no live slot changes and nothing syncs with the
+    host."""
     buf = cache[name]
     v = val[:, 0].to(buf.dtype)
     if slot.dim() == 0:
         buf[:, slot] = v
     else:
-        buf[torch.arange(v.shape[0], device=buf.device), slot] = v
+        rows = torch.arange(v.shape[0], device=buf.device)
+        S = buf.shape[1]
+        keep = (slot < S).reshape((-1,) + (1,) * (v.dim() - 1))
+        slot_in = torch.clamp_max(slot, S - 1)
+        buf[rows, slot_in] = torch.where(keep, v, buf[rows, slot_in])
 
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
@@ -197,3 +215,128 @@ def _cache_attend(
     o = torch.einsum("bgrs,bsgd->bgrd", p.to(cv.dtype), cv)
     o = o.reshape(B, 1, H, D).to(x.dtype)
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (DESIGN.md §3b): pool + block-table addressing.
+#
+# Each cache leaf is a POOL ``(n_blocks, block_size, KV, D)`` shared by all
+# batch rows; a per-row block table ``(B, n_logical)`` maps logical block l
+# of row b to a physical block (``n_logical * block_size == max_seq``).
+# Physical block 0 is the reserved sentinel: unassigned table entries point
+# at it and out-of-coverage writes land in it; the causal mask hides its
+# contents.  Reads gather the logical ``(B, max_seq, KV, D)`` view and run
+# the unchanged dense math (:func:`_cache_attend` / :func:`flash_attention`).
+# ---------------------------------------------------------------------------
+
+
+def paged_view(cache: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
+    """The logical contiguous view of a paged cache tree: pools
+    ``(n_blocks, bs, ...)`` and table ``(B, L)`` -> ``(B, L·bs, ...)``
+    leaves, gathered with the block-table kernel."""
+    return {name: ops.gather_blocks(pool, table) for name, pool in cache.items()}
+
+
+def paged_route(
+    table: torch.Tensor,              # (B, L) block table
+    positions: torch.Tensor,          # (B, T) absolute cache positions
+    block_size: int,
+    valid: torch.Tensor | None = None,  # extra (B, T) mask (e.g. pad positions)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """THE block-table write routing: absolute positions -> ``(phys, off)``
+    scatter targets.  Positions past the table span, and any position the
+    caller masks, go to the sentinel block 0.  Every paged write (decode
+    token, prefill span, shadow-chunk writeback) routes through here."""
+    L = table.shape[1]
+    lb = torch.clamp_max(torch.div(positions, block_size, rounding_mode="floor"), L - 1)
+    ok = positions < L * block_size
+    if valid is not None:
+        ok = ok & valid
+    phys = torch.where(ok, torch.gather(table, 1, lb.long()), 0)
+    return phys, torch.remainder(positions, block_size)
+
+
+def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
+    cache: dict, name: str, val: torch.Tensor, table: torch.Tensor,
+    start, lengths: torch.Tensor,
+) -> None:
+    """Scatter a span of K or V into pool blocks, in place.
+
+    ``val (B, T, KV, D)`` holds positions ``start + t`` (``start`` a scalar
+    (grouped admission prefill) or per row ``(B,)`` (decode steps)); rows
+    are right-padded, and positions ``>= lengths[b]`` go to the sentinel
+    block so pad K/V never lands in a real block.  The same redirect takes
+    positions past the table span.  Duplicate writes to the sentinel land
+    in no defined order; the sentinel is never attended."""
+    pool = cache[name]
+    B, T = val.shape[:2]
+    bs = pool.shape[1]
+    if isinstance(start, torch.Tensor):
+        positions = start.reshape(-1, 1) + torch.arange(T, device=val.device)[None, :]
+    else:
+        positions = torch.arange(start, start + T, device=val.device)[None, :]
+    positions = positions.expand(B, T)
+    phys, off = paged_route(table, positions, bs,
+                            valid=positions < lengths.reshape(-1, 1))
+    pool.index_put_((phys.long(), off.long()), val.to(pool.dtype))
+
+
+def attn_decode_step_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, 1, d_model)
+    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    table: torch.Tensor,              # (B, n_logical) int32 block table
+    pos: torch.Tensor,                # (B,) absolute positions
+) -> tuple[torch.Tensor, dict]:
+    """One-token decode against the paged pool: the QKV math of
+    :func:`attn_decode_step`, writes routed through the block table, then
+    :func:`_cache_attend` on the gathered logical view."""
+    check_supported(cfg)
+    B = x.shape[0]
+    pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
+    # the T=1 span at per-row starts; lengths pos_b + 1 mask nothing, and
+    # positions past the table still go to the sentinel
+    paged_write_span(cache, "k", k, table, pos_b, pos_b + 1)
+    paged_write_span(cache, "v", v, table, pos_b, pos_b + 1)
+    return _cache_attend(params, cfg, x, paged_view(cache, table), q, pos_b), cache
+
+
+def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, Ts, d_model): the UNCACHED suffix
+    positions: torch.Tensor,          # (B or 1, Ts) absolute positions (start + t)
+    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    table: torch.Tensor,              # (B, n_logical)
+    lengths: torch.Tensor,            # (B,) true total prompt lengths
+    start: int,                       # first uncached position
+    chunk: int = 1024,
+    view_blocks: int | None = None,   # table columns the attention view needs
+                                      # (covers start + Ts); None: all
+) -> tuple[torch.Tensor, dict]:
+    """Suffix prefill into pool blocks: a prefix-cache hit makes ``start >
+    0`` and computes only positions ``start..len-1``.
+
+    Attention runs over the logical view with the fresh span overlaid RAW
+    at ``start`` (the reference's ``dynamic_update_slice``, which clamps
+    the offset so the span fits): positions ``< start`` come from reused
+    blocks, the suffix attends its own raw K/V as a full prefill would.
+    The view is cut to ``view_blocks`` table columns; KV chunks past the
+    last query are empty in the causal online softmax."""
+    check_supported(cfg)
+    T = x.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    paged_write_span(cache, "k", k, table, start, lengths)
+    paged_write_span(cache, "v", v, table, start, lengths)
+    view = paged_view(cache, table if view_blocks is None
+                      else table[:, :view_blocks].contiguous())
+    ck = view["k"].to(x.dtype)
+    cv = view["v"].to(x.dtype)
+    at = max(0, min(int(start), ck.shape[1] - T))
+    ck[:, at:at + T] = k.to(ck.dtype)
+    cv[:, at:at + T] = v.to(cv.dtype)
+    o = flash_attention(q, ck, cv, causal=True, q_offset=int(start), chunk=chunk)
+    y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    return y, cache

@@ -51,6 +51,30 @@ def _kan_ffn(
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
 
 
+def block_supports_paging(blk: BlockCfg) -> bool:
+    """Paged KV (DESIGN.md §3b) covers full-attention GQA layers (windowed
+    rings and MLA latents do not strand per-token memory as a dense
+    ``max_seq`` row does)."""
+    return (blk.kind in ("attn_mlp", "attn_moe", "attn_kan")
+            and blk.attn.kv_lora_rank is None and blk.attn.window is None)
+
+
+def block_init_paged_cache(blk: BlockCfg, n_blocks: int, block_size: int,
+                           dtype, device) -> dict:
+    """Pool-shaped decode cache: ``(n_blocks, block_size, KV, D)`` leaves in
+    place of :func:`block_init_cache`'s ``(batch, max_seq, KV, D)`` rows.
+    Physical block 0 is the engine's sentinel (``serve/kv_pool.py``)."""
+    if not block_supports_paging(blk):
+        raise NotImplementedError(
+            f"paged KV cache: unsupported block kind {blk.kind!r} "
+            "(full-attention GQA layers only)")
+    check_supported(blk)
+    c = blk.attn
+    shape = (n_blocks, block_size, c.n_kv_heads, c.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
                      device) -> dict:
     """Per-block decode state: the ``(batch, max_seq, KV, D)`` K/V rows."""
@@ -89,16 +113,51 @@ def block_prefill(  # kanlint: ignore[KL105]
     return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
 
 
+def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
+    params: dict,
+    blk: BlockCfg,
+    x: torch.Tensor,                  # (B, Ts, d): uncached suffix tokens only
+    *,
+    positions: torch.Tensor,          # (B or 1, Ts) absolute positions
+    cache: dict,                      # pool leaves (n_blocks, bs, KV, D), in place
+    table: torch.Tensor,              # (B, n_logical)
+    lengths: torch.Tensor,            # (B,) true total prompt lengths
+    start: int,                       # first uncached position
+    chunk: int = 1024,
+    view_blocks: int | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Suffix prefill writing K/V straight into pool blocks: the paged
+    counterpart of :func:`block_prefill`.  A prefix-cache hit enters with
+    ``start > 0`` and skips the cached positions."""
+    if not block_supports_paging(blk):
+        raise NotImplementedError(f"paged prefill: unsupported kind {blk.kind!r}")
+    check_supported(blk)
+    h = L.rmsnorm(params["ln1"], x)
+    y, cache = A.attn_prefill_paged(params["attn"], blk.attn, h, positions, cache,
+                                    table, lengths, start, chunk=chunk,
+                                    view_blocks=view_blocks)
+    x = x + y
+    h2 = L.rmsnorm(params["ln2"], x)
+    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+
+
 def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     params: dict,
     blk: BlockCfg,
     x: torch.Tensor,                  # (B, 1, d)
     cache: dict,                      # updated in place
     pos: torch.Tensor,                # scalar or (B,)
+    table: torch.Tensor | None = None,  # (B, n_logical): paged block table
 ) -> tuple[torch.Tensor, dict]:
+    """One decode step; with ``table``, ``cache`` holds pools and the step
+    reads and writes through the block table."""
     check_supported(blk)
     h = L.rmsnorm(params["ln1"], x)
-    y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos)
+    if table is not None:
+        y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
+                                            table, pos)
+    else:
+        y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos)
     x = x + y
     h2 = L.rmsnorm(params["ln2"], x)
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA

@@ -3,7 +3,10 @@
 The model is a repeating ``unit`` of blocks driven ``n_repeats`` times.  As
 in the reference, the unit's parameters (and its decode caches) are stacked
 along a leading layers axis; here a Python loop walks that axis, and the
-caches are updated in place through views of the stacked buffers.
+caches are updated in place through views of the stacked buffers.  Dense
+caches have one layout, ``(n_repeats, B, S, KV, D)``, so the batch axis is
+axis 1 (the reference finds it by name through ``cache_axes``); paged pools
+are ``(n_repeats, n_blocks, block_size, KV, D)``.
 
 Prologue, epilogue and shared blocks, and inputs other than tokens, are not
 ported yet; a config that uses them raises ``NotImplementedError``.
@@ -16,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BlockCfg
@@ -179,6 +184,152 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     return {"unit": unit}
 
 
+def model_supports_paging(cfg: ModelConfig) -> bool:
+    """Every block must hold a full-attention GQA KV cache (DESIGN.md §3b)."""
+    blks = cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared
+    return all(B.block_supports_paging(b) for b in blks)
+
+
+def model_kv_quant(cfg: ModelConfig) -> bool:
+    """True if any attention block stores an int8-quantized KV cache."""
+    blks = cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared
+    return any(b.attn is not None and b.attn.kv_quant for b in blks)
+
+
+def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
+                      dtype=torch.float32, device="cuda") -> dict:
+    """Zeroed pools ``{"unit": [{"k", "v"}: (n_repeats, n_blocks,
+    block_size, KV, D)]}``: one physical block id addresses every layer's
+    pool, so one allocation covers a token's KV through the whole depth."""
+    check_supported(cfg)
+    if not model_supports_paging(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: paged KV needs full-attention GQA blocks throughout")
+    unit = []
+    for blk in cfg.unit:
+        one = B.block_init_paged_cache(blk, n_blocks, block_size, dtype, device)
+        unit.append({k: v[None].repeat((cfg.n_repeats,) + (1,) * v.dim())
+                     for k, v in one.items()})
+    return {"unit": unit}
+
+
+def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
+    """The logical dense view of every pool, shaped as :func:`init_caches`
+    (batch = table rows, seq = n_logical·block_size): the engine's "shadow"
+    read path gathers it once per decode chunk, runs the dense decode on it
+    and writes the chunk's span back with :func:`writeback_paged_chunk`.
+    One gather launch per leaf covers every stacked layer (the reference's
+    ``vmap``)."""
+    return {"unit": [{k: ops.gather_blocks(pool, table, stacked=True)
+                      for k, pool in c.items()} for c in caches["unit"]]}
+
+
+def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
+    caches: dict, view: dict, table: torch.Tensor, pos0: torch.Tensor, steps: int,
+) -> dict:
+    """Scatter a finished chunk's writes from the dense shadow ``view`` back
+    into the pools, in place.
+
+    The chunk wrote rows only at positions ``pos0[b] .. pos0[b] + steps -
+    1`` (latched rows rewrote their frozen slot; the other positions of the
+    window still hold the gathered pool values, so copying them back changes
+    nothing).  Positions past the table (a chunk overrunning ``max_seq``) go
+    to the sentinel block through ``attention.paged_route``."""
+    dev = pos0.device
+    positions = pos0.reshape(-1, 1) + torch.arange(steps, device=dev)[None, :]
+    rows = torch.arange(positions.shape[0], device=dev)[:, None]
+    block_size = caches["unit"][0]["k"].shape[2]
+    phys, off = (t.long() for t in A.paged_route(table, positions, block_size))
+    for pools, views in zip(caches["unit"], view["unit"]):
+        for name, pool in pools.items():
+            v = views[name]                                      # (R, B, S, ...)
+            vals = v[:, rows, torch.clamp_max(positions, v.shape[2] - 1)]
+            pool[:, phys, off] = vals.to(pool.dtype)             # (R, B, steps, ...)
+    return caches
+
+
+def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ignore[KL105]
+                      slot: int) -> dict:
+    """Write a batch-1 cache tree ``one`` into batch row ``slot`` of a live
+    cache, in place (both built for the same ``max_seq``)."""
+    for big, small in zip(caches["unit"], one["unit"]):
+        for name, buf in big.items():
+            buf[:, slot] = small[name][:, 0].to(buf.dtype)
+    return caches
+
+
+@torch.no_grad()
+def prefill_into_slot(  # kanlint: ignore[KL105] (see decode_step)
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor, length: int, slot: int,
+    caches: dict, max_seq: int, compute_dtype=torch.float32,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill ONE right-padded request ``tokens (1, T_pad)`` and splice
+    its KV into row ``slot``; returns ``(last_logits (vocab,), caches)`` at
+    its last real token.  The k=1 case of :func:`prefill_into_slots`."""
+    last, caches = prefill_into_slots(
+        params, cfg, tokens, torch.full((1,), length, device=tokens.device), [slot],
+        caches, max_seq, compute_dtype)
+    return last[0], caches
+
+
+@torch.no_grad()
+def prefill_into_slots(  # kanlint: ignore[KL105] (see decode_step)
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,             # (k, T_pad) int, right-padded prompts
+    lengths: torch.Tensor,            # (k,) true prompt lengths
+    slots,                            # k target batch rows (host ints)
+    caches: dict,                     # live (n_repeats, slots, max_seq, ...) caches
+    max_seq: int,
+    compute_dtype=torch.float32,
+) -> tuple[torch.Tensor, dict]:
+    """Prefill ``k`` queued requests in ONE pass and splice each row's KV
+    into its slot of the live cache (continuous batching's admission).
+    Returns ``(last_logits (k, vocab), caches)``, each row's logits at its
+    own last real token."""
+    k = tokens.shape[0]
+    logits, many = prefill(params, cfg, tokens, max_seq, compute_dtype)
+    last = logits[torch.arange(k, device=tokens.device), lengths.long() - 1]
+    for i, slot in enumerate(slots):
+        one = {"unit": [{n: a[:, i:i + 1] for n, a in c.items()} for c in many["unit"]]}
+        insert_cache_slot(cfg, caches, one, int(slot))
+    return last, caches
+
+
+@torch.no_grad()
+def prefill_into_pages(  # kanlint: ignore[KL105] (see decode_step)
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,             # (k, Ts_pad) int, right-padded SUFFIX tokens
+    lengths: torch.Tensor,            # (k,) true TOTAL prompt lengths
+    tables: torch.Tensor,             # (k, n_logical) int32 block tables
+    caches: dict,                     # paged pools (init_paged_caches), in place
+    start: int,                       # first uncached position
+    compute_dtype=torch.float32,
+    view_blocks: int | None = None,   # attention-view table columns (covers
+                                      # start + Ts_pad); None: all
+) -> tuple[torch.Tensor, dict]:
+    """Paged admission prefill: compute ONLY the uncached suffix (positions
+    ``start .. len-1``; a prefix-cache hit makes ``start > 0``) and scatter
+    its K/V into the pool blocks ``tables`` maps.  Returns ``(last_logits
+    (k, vocab), caches)`` at each request's last real token (suffix row
+    ``lengths - 1 - start``)."""
+    k, Ts = tokens.shape
+    dev = tokens.device
+    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    positions = torch.arange(start, start + Ts, device=dev)[None, :]
+    for r in range(cfg.n_repeats):
+        rep = _layer(params["unit"], r)
+        for i, blk in enumerate(cfg.unit):
+            h, _ = B.block_prefill_paged(
+                rep[i], blk, h, positions=positions,
+                cache=_layer(caches["unit"][i], r), table=tables, lengths=lengths,
+                start=start, chunk=cfg.attn_chunk, view_blocks=view_blocks)
+    logits = _logits(params, cfg, h)
+    last = logits[torch.arange(k, device=dev), lengths.long() - 1 - start]
+    return last, caches
+
+
 def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(params["final_ln"], h)
     logits = L.unembed_logits(params["embed"], h)
@@ -225,12 +376,16 @@ def decode_step(  # kanlint: ignore[KL105]
     caches: dict,                     # updated in place
     pos: torch.Tensor,                # scalar or (B,) int
     compute_dtype=torch.float32,
+    table: torch.Tensor | None = None,  # (B, n_logical) int32: paged block tables
 ) -> tuple[torch.Tensor, dict]:
-    """One decode step for the whole model -> ``(logits (B, vocab), caches)``."""
+    """One decode step for the whole model -> ``(logits (B, vocab), caches)``.
+
+    With ``table``, ``caches`` holds paged pools (:func:`init_paged_caches`)
+    and every layer reads and writes through the block table."""
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     for r in range(cfg.n_repeats):
         rep = _layer(params["unit"], r)
         for i, blk in enumerate(cfg.unit):
             h, _ = B.block_decode_step(rep[i], blk, h,
-                                       _layer(caches["unit"][i], r), pos)
+                                       _layer(caches["unit"][i], r), pos, table)
     return _logits(params, cfg, h)[:, 0], caches

@@ -1,1 +1,2 @@
-"""Serving: the static greedy engine (counterpart of ``repro.serve``)."""
+"""Serving: the static and continuous greedy engines, the paged KV pool and
+the prefix cache (counterpart of ``repro.serve``)."""

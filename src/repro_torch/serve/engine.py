@@ -1,22 +1,37 @@
-"""Static batched greedy serving (counterpart of ``repro/serve/engine.py``).
+"""Greedy serving engines (counterpart of ``repro/serve/engine.py``).
 
-``Engine.generate`` prefills a batch and then decodes it step by step in a
-Python loop (one ``lm.decode_step`` per token; CUDA graphs come later).
-``Engine.serve_requests`` sorts requests by length into fixed batches, pads
-short batches with copies of their last request, and drains each batch.
+Two serving entry points share one decode loop
+(:meth:`Engine._decode_chunk`, a Python loop of ``lm.decode_step`` calls;
+CUDA graphs come later):
+
+* ``serve_requests``: static bucketing.  ``Engine.generate`` prefills a
+  batch and decodes it to the end; requests are sorted by length into fixed
+  batches, short batches padded with copies of their last request;
+* ``serve_continuous``: continuous batching.  A slot table
+  (``serve/scheduler.py``) runs fixed-length decode chunks over ``slots``
+  rows and swaps finished rows for queued requests between chunks
+  (``lm.prefill_into_slots`` prefills an admission group and splices its KV
+  into the live rows).  With ``ServeConfig.paged`` the per-slot rows become
+  a block pool with per-request block tables (``serve/kv_pool.py``),
+  prefix caching (``serve/prefix_cache.py``) and preemption with recompute
+  (DESIGN.md §3b); the decode chunk then reads the pool through the
+  block-table gather kernel, once per chunk (``paged_read="shadow"``) or
+  every step (``"step"``).
 
 Padding is right-padding with per-row ``lengths``: real tokens sit at
 positions ``0..len-1``, each row takes its first token from the logits at
 its own last real position, and decode starts ragged at ``pos_b = len_b``,
 overwriting the pad K/V in the cache before the mask ``kv_slot <= pos_b``
-can expose it.  Without ``lengths`` and with EOS off, decode uses one scalar
-position for every row.
+can expose it.  Without ``lengths`` and with EOS off, ``generate`` uses one
+scalar position for every row.
 
 EOS (``eos_id >= 0``) latches per row: the EOS token is emitted, every
-later step of that row emits ``pad_id`` and its position freezes.
+later step of that row emits ``pad_id`` and its position freezes.  A
+request's output is the same whether it is served alone by ``generate``,
+in a static bucket or by either continuous engine.
 
-Continuous batching, the paged KV pool, speculative decoding and sampling at
-``temperature > 0`` are not ported yet (ROADMAP queue 1).
+Speculative decoding, meshes and sampling at ``temperature > 0`` are not
+ported yet (ROADMAP queue 1, items 9, 14 and 11).
 """
 
 from __future__ import annotations
@@ -30,6 +45,9 @@ import torch
 from repro_torch import set_ieee_fp32
 from repro_torch.models import lm
 from repro_torch.serve import speculative
+from repro_torch.serve.kv_pool import BlockPool, blocks_for, worst_case_blocks
+from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.scheduler import ContinuousScheduler
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,6 +60,19 @@ class ServeConfig:
     eos_id: int = -1             # -1: never stops early
     pad_id: int = 0              # emitted after a row latches on EOS
     compute_dtype: str = "float32"
+    # Paged KV cache (DESIGN.md §3b), serve_continuous only: fixed-size
+    # blocks bound to requests on demand, shared prompt prefixes stored
+    # once, preempt-with-recompute when the pool runs out.  Same outputs as
+    # the dense cache.
+    paged: bool = False
+    block_size: int = 16         # must divide max_seq
+    pool_blocks: int | None = None   # physical blocks incl. the sentinel;
+                                     # None -> slots·(max_seq/block_size)+1
+    prefix_caching: bool = True  # off under an int8 KV cache (not ported)
+    # "shadow": gather the dense view once per chunk, decode on it, write
+    # the chunk's span back; "step": read and write through the block
+    # table every token (no transient view, one gather per layer per step)
+    paged_read: str = "shadow"
 
 
 def _to_device(tree, device):
@@ -81,6 +112,30 @@ class Engine:
             raise ValueError(
                 f"request {rid}: prompt_len {prompt_len} + max_new {max_new} "
                 f"= {prompt_len + max_new} exceeds max_seq {self.cfg.max_seq}")
+
+    def _decode_chunk(self, steps: int, tok, caches, pos, eos_hit, eos: int, table=None):
+        """``steps`` greedy decode steps from ``tok (B, 1)`` at ``pos``
+        (scalar, or ``(B,)`` per row); the counterpart of the reference's
+        ``_scan_impl``.  A row whose EOS latch is set emits ``pad_id`` and
+        its per-row position freezes.  Returns ``(toks (steps, B), tok,
+        caches, pos, eos_hit)``, the carry the next chunk resumes from."""
+        pad = torch.full((), self.cfg.pad_id, dtype=torch.int32, device=tok.device)
+        toks = []
+        for _ in range(steps):
+            lg, caches = lm.decode_step(self.params, self.model, tok, caches, pos,
+                                        self._dt, table)
+            nxt = speculative.sample_tokens(lg, self.cfg.temperature)
+            emitted = torch.where(eos_hit, pad, nxt)
+            if pos.dim() == 0:                # one shared position
+                pos = pos + 1
+            else:                             # latched rows freeze
+                pos = torch.where(eos_hit, pos, pos + 1)
+            eos_hit = eos_hit | (nxt == eos)
+            tok = emitted[:, None]
+            toks.append(emitted)
+        if not toks:
+            return tok.new_empty((0, tok.shape[0])), tok, caches, pos, eos_hit
+        return torch.stack(toks), tok, caches, pos, eos_hit
 
     @torch.no_grad()
     def generate(
@@ -132,22 +187,8 @@ class Engine:
         self._sync()
         t1 = time.perf_counter()
         eos_hit = tok == eos                  # eos = -1 never matches
-        pad = torch.tensor(self.cfg.pad_id, dtype=torch.int32, device=dev)
-        outs = [tok]
-        tok = tok[:, None]
-        for _ in range(max_new - 1):
-            lg, caches = lm.decode_step(self.params, self.model, tok, caches, pos,
-                                        self._dt)
-            nxt = speculative.sample_tokens(lg, self.cfg.temperature)
-            emitted = torch.where(eos_hit, pad, nxt)
-            if pos.dim() == 0:
-                pos = pos + 1
-            else:                             # latched rows freeze
-                pos = torch.where(eos_hit, pos, pos + 1)
-            eos_hit = eos_hit | (nxt == eos)
-            tok = emitted[:, None]
-            outs.append(emitted)
-        out = torch.stack(outs, dim=1).cpu().numpy()
+        toks, *_ = self._decode_chunk(max_new - 1, tok[:, None], caches, pos, eos_hit, eos)
+        out = torch.cat([tok[None], toks]).T.cpu().numpy()
         t2 = time.perf_counter()
         self.last_generate_stats = {
             "rows": B, "prompt_len": T, "prefill_s": t1 - t0,
@@ -195,3 +236,362 @@ class Engine:
             ],
         }
         return results  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------
+    # continuous batching
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def serve_continuous(
+        self,
+        requests: list[np.ndarray],
+        slots: int = 8,
+        chunk_steps: int = 8,
+        seed: int = 0,
+        max_new: int | list[int] | None = None,
+        prompt_pad_multiple: int = 8,
+    ) -> list[np.ndarray]:
+        """Continuous batching: a ``slots``-row decode batch whose rows are
+        recycled as soon as a request finishes (EOS latch or token budget).
+
+        The loop alternates an admission prefill (queued requests grouped
+        by padded prompt length, ``prompt_pad_multiple`` apart, one prefill
+        per group) with a decode chunk of ``chunk_steps`` steps over all
+        slots.  Between chunks the scheduler retires finished slots and
+        admits from the FIFO queue.  ``max_new``: per-request (list) or
+        global token budgets, default ``cfg.max_new_tokens``; each output
+        has its budget's length, ``pad_id`` after EOS, and equals a solo
+        :meth:`generate` of the request.
+
+        With ``cfg.paged`` the KV cache is a block pool: a request enters a
+        slot only when its prompt's blocks are free, shared prompt prefixes
+        reuse cached blocks (prefill computes only the uncached suffix),
+        and when the pool runs out the engine evicts LRU prefix entries,
+        then preempts the youngest running request (requeued at the head,
+        recomputed from scratch on re-admission).
+
+        Sets ``self.last_serve_stats``: the scheduler's counters, wall
+        time, per-request latency, useful tokens and, paged, a ``"paged"``
+        sub-dict of pool and prefix counters, as the reference does (its
+        ``compiles`` and ``mesh_shape`` describe JAX tracing and meshes and
+        have no counterpart here).  The port adds ``prefill_s`` and
+        ``decode_s`` (host time of admission prefills and decode chunks,
+        each ending in a read of its tokens) and ``prefill_groups`` (``[rows,
+        padded length]`` of each admission prefill), from which a caller
+        can count the kernel launches a run implies.
+        """
+        n = len(requests)
+        if max_new is None:
+            budgets = [self.cfg.max_new_tokens] * n
+        elif isinstance(max_new, int):
+            budgets = [max_new] * n
+        else:
+            budgets = [int(m) for m in max_new]
+            if len(budgets) != n:
+                raise ValueError(f"{len(budgets)} budgets for {n} requests")
+        eos, pad = self.cfg.eos_id, self.cfg.pad_id
+        for rid, (r, m) in enumerate(zip(requests, budgets)):
+            self._validate_request(rid, int(r.shape[0]), m)
+        if chunk_steps < 1 or slots < 1:
+            raise ValueError(f"chunk_steps ({chunk_steps}) and slots ({slots}) must be >= 1")
+        dev, max_seq = self.device, self.cfg.max_seq
+        sched = ContinuousScheduler(slots, range(n))
+        paged = self.cfg.paged
+        prefix = None
+        if paged:
+            if self.cfg.paged_read not in ("shadow", "step"):
+                raise ValueError(f"paged_read must be 'shadow' or 'step', "
+                                 f"got {self.cfg.paged_read!r}")
+            bs_blk = self.cfg.block_size
+            if bs_blk < 1 or max_seq % bs_blk:
+                raise ValueError(f"block_size {bs_blk} must divide max_seq {max_seq}")
+            n_logical = max_seq // bs_blk
+            pool_blocks = self.cfg.pool_blocks
+            if pool_blocks is None:           # dense-equivalent capacity + sentinel
+                pool_blocks = slots * n_logical + 1
+            if pool_blocks < 2:
+                raise ValueError(
+                    f"pool_blocks must be >= 2 (the reserved sentinel plus at least "
+                    f"one usable block), got {pool_blocks}")
+            pool = BlockPool(pool_blocks, bs_blk)
+            # any single request must fit an otherwise empty pool, so that
+            # preemption can always make progress
+            for rid, (r, m) in enumerate(zip(requests, budgets)):
+                need = worst_case_blocks(int(r.shape[0]), m, chunk_steps, bs_blk, max_seq)
+                if need > pool.usable:
+                    raise ValueError(
+                        f"request {rid}: worst-case footprint {need} blocks (prompt "
+                        f"{r.shape[0]} + max_new {m}, block_size {bs_blk}) exceeds the "
+                        f"pool's {pool.usable} usable blocks — raise pool_blocks or "
+                        f"shrink the request")
+            if self.cfg.prefix_caching and not lm.model_kv_quant(self.model):
+                prefix = PrefixCache(bs_blk)
+            caches = lm.init_paged_caches(self.model, pool_blocks, bs_blk, self._dt, dev)
+            tables = np.zeros((slots, n_logical), np.int32)     # 0 == sentinel
+            table_dev = {"arr": None, "dirty": True}           # uploaded per change
+            covered = np.zeros((slots,), np.int64)             # blocks bound per slot
+            slot_rid = np.full((slots,), -1, np.int64)
+            prefill_tok = {"computed": 0, "saved": 0}
+            key_chains: dict[int, list] = {}   # rid -> its prompt's hash chain
+        else:
+            caches = lm.init_caches(self.model, slots, max_seq, self._dt, dev)
+        # host mirrors of the per-slot device state fed to each chunk
+        tok = np.zeros((slots, 1), np.int32)
+        pos = np.zeros((slots,), np.int64)
+        eos_hit = np.ones((slots,), bool)      # empty slots stay latched
+        bufs: list[list[int]] = [[] for _ in range(n)]
+        outputs: list[np.ndarray | None] = [None] * n
+        latency = [0.0] * n
+        timing = {"prefill_s": 0.0, "decode_s": 0.0}
+        prefill_groups: list[list[int]] = []
+        t0 = time.perf_counter()
+
+        def dev_int(a) -> torch.Tensor:           # a copy, never a view of a mirror
+            return torch.tensor(np.asarray(a, np.int64), device=dev)
+
+        def finalize(rid: int) -> None:
+            got = bufs[rid][: budgets[rid]]
+            out = np.full((budgets[rid],), pad, np.int32)
+            out[: len(got)] = got
+            outputs[rid] = out
+            latency[rid] = time.perf_counter() - t0
+
+        def activate_group(pairs, lens, last) -> None:
+            """Shared admission tail (dense and paged): each request's first
+            token from its prefill logits, then activate its slot, or retire
+            it at once (a budget of one token, or a first token that is
+            EOS)."""
+            firsts = speculative.sample_tokens(last, self.cfg.temperature).cpu().numpy()
+            for j, (b, rid) in enumerate(pairs):
+                first = int(firsts[j])
+                bufs[rid].append(first)
+                hit = eos >= 0 and first == eos
+                if sched.confirm_admit(b, rid, int(lens[j]), budgets[rid] - 1, hit):
+                    finalize(rid)
+                    sched.retire(b)
+                    if paged:
+                        release_slot_blocks(b)
+                    eos_hit[b] = True
+                else:
+                    tok[b, 0] = first
+                    pos[b] = int(lens[j])
+                    eos_hit[b] = False
+
+        def admit_all() -> None:
+            while True:
+                ready = sched.admit_ready()
+                if not ready:
+                    return
+                groups: dict[int, list[tuple[int, int]]] = {}
+                for b, rid in ready:
+                    L = requests[rid].shape[0]
+                    t_pad = min(-(-L // prompt_pad_multiple) * prompt_pad_multiple, max_seq)
+                    groups.setdefault(t_pad, []).append((b, rid))
+                for t_pad, grp in sorted(groups.items()):
+                    t1 = time.perf_counter()
+                    lens = np.asarray([requests[rid].shape[0] for _, rid in grp], np.int64)
+                    padded = np.stack([np.pad(requests[rid], (0, t_pad - requests[rid].shape[0]))
+                                       for _, rid in grp])
+                    last, _ = lm.prefill_into_slots(
+                        self.params, self.model, dev_int(padded), dev_int(lens),
+                        [b for b, _ in grp], caches, max_seq, self._dt)
+                    prefill_groups.append([len(grp), t_pad])
+                    activate_group(grp, lens, last)
+                    timing["prefill_s"] += time.perf_counter() - t1
+
+        # ------------------------- paged machinery --------------------------
+
+        def release_slot_blocks(b: int) -> None:
+            """Drop slot b's blocks (retire or preempt): the pool drops the
+            request's references (prefix-cache blocks survive) and the table
+            row resets to the sentinel, where the dead row's writes land."""
+            pool.release_request(int(slot_rid[b]))
+            tables[b, :] = 0
+            table_dev["dirty"] = True
+            covered[b] = 0
+            slot_rid[b] = -1
+
+        def free_up(need: int, protect_slot: int) -> bool:
+            """Make ``need`` blocks free: evict LRU prefix entries, then
+            preempt the youngest live request.  False once ``protect_slot``
+            itself was preempted."""
+            while pool.free_count() < need:
+                if prefix is not None and prefix.evict_lru(pool) is not None:
+                    continue
+                victim = sched.youngest_live_slot()
+                if victim is None:
+                    raise RuntimeError("pool exhausted with no live rows")
+                rid_v = sched.preempt(victim)
+                bufs[rid_v] = []          # restart from scratch on re-admission
+                release_slot_blocks(victim)
+                eos_hit[victim] = True
+                if victim == protect_slot:
+                    return False
+            return True
+
+        def admit_all_paged() -> None:
+            while True:
+                ready = sched.admit_ready()
+                if not ready:
+                    return
+                # bind blocks per request; one prefill per (prefix start,
+                # padded suffix length)
+                groups: dict[tuple[int, int], list] = {}
+                deferred: list[int] = []
+                for b, rid in ready:
+                    toks_r = requests[rid]
+                    L = toks_r.shape[0]
+                    if prefix is not None:
+                        n_hit, hit_blocks, keys_r = prefix.match(toks_r, key_chains.get(rid))
+                        key_chains[rid] = keys_r
+                    else:
+                        n_hit, hit_blocks, keys_r = 0, [], []
+                    start = n_hit * bs_blk
+                    n_new = blocks_for(L, bs_blk) - n_hit
+                    # share first: a matched cache-only block must not be
+                    # evicted while room is made for the suffix blocks
+                    pool.share(rid, hit_blocks)
+                    ok = pool.free_count() >= n_new
+                    while not ok and prefix is not None:
+                        if prefix.evict_lru(pool) is None:
+                            break
+                        ok = pool.free_count() >= n_new
+                    if not ok:
+                        # admission never preempts; blocks free as rows retire
+                        pool.release_request(rid)
+                        deferred.append(rid)
+                        continue
+                    row = hit_blocks + pool.alloc(rid, n_new)
+                    if prefix is not None:
+                        prefix.record_admission(n_hit, L)
+                    tables[b, :] = 0
+                    tables[b, : len(row)] = row
+                    table_dev["dirty"] = True
+                    covered[b] = len(row)
+                    slot_rid[b] = rid
+                    prefill_tok["saved"] += start
+                    prefill_tok["computed"] += L - start
+                    t_pad = min(-(-(L - start) // prompt_pad_multiple) * prompt_pad_multiple,
+                                max_seq - start)
+                    groups.setdefault((start, t_pad), []).append((b, rid, L, keys_r))
+                for (start, t_pad), grp in sorted(groups.items()):
+                    t1 = time.perf_counter()
+                    lens = np.asarray([L for _, _, L, _ in grp], np.int64)
+                    suffix = np.stack([np.pad(requests[rid][start:], (0, t_pad - (L - start)))
+                                       for _, rid, L, _ in grp])
+                    tbls = torch.as_tensor(tables[[b for b, *_ in grp]], device=dev)
+                    last, _ = lm.prefill_into_pages(
+                        self.params, self.model, dev_int(suffix), dev_int(lens), tbls,
+                        caches, start, self._dt, blocks_for(start + t_pad, bs_blk))
+                    prefill_groups.append([len(grp), t_pad])
+                    # register the fresh full prompt blocks for later
+                    # admissions (first writer wins)
+                    if prefix is not None:
+                        for b, rid, L, keys_r in grp:
+                            for i, key in enumerate(keys_r):
+                                if prefix.insert(key, int(tables[b, i])):
+                                    pool.cache_ref(int(tables[b, i]))
+                    activate_group([(b, rid) for b, rid, _, _ in grp], lens, last)
+                    timing["prefill_s"] += time.perf_counter() - t1
+                if deferred:
+                    # back to the head of the queue, in their order
+                    for rid in reversed(deferred):
+                        sched.queue.push_front(rid)
+                    return
+
+        def ensure_chunk_coverage() -> None:
+            """Before a chunk, every live row's table must cover its
+            ``chunk_steps`` writes (the chunk advances positions whatever the
+            budget left; writes past ``max_seq`` go to the sentinel).  Pool
+            exhaustion here evicts prefix entries, then preempts."""
+            for b in list(sched.table.live_slots()):
+                s = sched.table.slots[b]
+                if not s.occupied or s.eos_hit:
+                    continue                  # preempted or retired meanwhile
+                want = blocks_for(min(int(pos[b]) + chunk_steps, max_seq), bs_blk)
+                need = int(want - covered[b])
+                if need <= 0:
+                    continue
+                if not free_up(need, protect_slot=b):
+                    continue                  # b itself was preempted
+                fresh = pool.alloc(int(slot_rid[b]), need)
+                tables[b, int(covered[b]): int(covered[b]) + need] = fresh
+                table_dev["dirty"] = True
+                covered[b] += need
+
+        while True:
+            admit_all_paged() if paged else admit_all()
+            sched.check_invariants()
+            if paged:
+                ensure_chunk_coverage()
+            if not sched.can_run_chunk():
+                if paged and sched.has_work():
+                    continue                  # everything preempted: re-admit
+                break
+            t1 = time.perf_counter()
+            if paged and table_dev["dirty"]:
+                table_dev["arr"] = torch.tensor(tables, device=dev)
+                table_dev["dirty"] = False
+            tok_d = torch.tensor(tok, device=dev)
+            pos_d = dev_int(pos)
+            eos_d = torch.tensor(eos_hit, device=dev)
+            if paged and self.cfg.paged_read == "shadow":
+                # gather once per chunk, decode on the dense view, write the
+                # chunk's span back to the pools
+                view = lm.paged_views(caches, table_dev["arr"])
+                toks, tok_l, view, pos_l, eos_l = self._decode_chunk(
+                    chunk_steps, tok_d, view, pos_d, eos_d, eos)
+                lm.writeback_paged_chunk(caches, view, table_dev["arr"], pos_d, chunk_steps)
+            else:
+                toks, tok_l, caches, pos_l, eos_l = self._decode_chunk(
+                    chunk_steps, tok_d, caches, pos_d, eos_d, eos,
+                    table_dev["arr"] if paged else None)
+            toks, tok, pos, eos_hit = (a.cpu().numpy().copy() for a in (toks, tok_l, pos_l, eos_l))
+            timing["decode_s"] += time.perf_counter() - t1
+            if eos >= 0:
+                # first in-chunk EOS per slot (chunk_steps if none): pads
+                # after it count as waste in the utilization
+                hits = toks == eos
+                eos_steps = np.where(hits.any(axis=0), hits.argmax(axis=0), chunk_steps)
+            else:
+                eos_steps = None
+            for b, rid, n_keep, finished in sched.complete_chunk(chunk_steps, eos_hit,
+                                                                 eos_steps):
+                bufs[rid].extend(int(t) for t in toks[:n_keep, b])
+                if finished:
+                    finalize(rid)
+                    sched.retire(b)
+                    if paged:
+                        release_slot_blocks(b)
+                    eos_hit[b] = True
+
+        sched.check_invariants()
+        self.last_serve_stats = {
+            **sched.stats(),
+            "wall_s": time.perf_counter() - t0,
+            "request_latency_s": latency,
+            "useful_tokens": int(sum(budget_used(bufs[i], budgets[i], eos)
+                                     for i in range(n))),
+            **timing,
+            "prefill_groups": prefill_groups,
+        }
+        if paged:
+            # after the drain every block is free or held by the prefix
+            # cache alone: a leaked block or a wrong refcount fails here
+            pool.check_balanced(n_live_requests=0)
+            self.last_serve_stats["paged"] = {
+                **pool.stats(),
+                **(prefix.stats() if prefix is not None else {"prefix_caching": False}),
+                "prefill_tokens_computed": prefill_tok["computed"],
+                "prefill_tokens_saved": prefill_tok["saved"],
+            }
+        return outputs  # type: ignore[return-value]
+
+
+def budget_used(buf: list[int], budget: int, eos: int) -> int:
+    """Tokens a request actually used: up to and including its EOS, else
+    its full budget."""
+    toks = buf[:budget]
+    if eos >= 0 and eos in toks:
+        return toks.index(eos) + 1
+    return len(toks)

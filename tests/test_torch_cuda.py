@@ -8,7 +8,8 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 inputs, and the reduced kanformer's kernel path against the plain path on
 the CPU.  Tolerances: fp32 atol 1e-4 (|y| ~ 2, sums in another order);
 bf16 one bf16 ulp of max|y| (same products, fp32 sums in another order,
-one final rounding); logits atol 1e-4.
+one final rounding); logits atol 1e-4.  The block-table gather moves data
+only and must be bit-equal to its plain version.
 """
 
 import numpy as np
@@ -20,7 +21,9 @@ from repro_torch.core.bspline import SplineGrid
 from repro_torch.kernels import ops
 from repro_torch.kernels import kan_fused_gemm as F
 from repro_torch.kernels import kan_sparse_gemm as S
+from repro_torch.kernels import paged_gather as G
 from repro_torch.models import lm
+from repro_torch.serve.engine import Engine, ServeConfig
 
 BF16_ULP = 2.0 ** -7
 PLAIN = {"kan_fused_gemm": F.kan_fused_gemm_reference,
@@ -99,7 +102,8 @@ def test_reduced_kanformer_kernel_path_matches_plain_path(cuda_device):
     ops.reset_launches()
     got, gc = lm.prefill(gpu, model, toks.to(cuda_device), 16)
     want, wc = lm.prefill(params, model, toks, 16)
-    assert ops.LAUNCHES == {"kan_fused_gemm": 2 * model.n_repeats, "kan_sparse_gemm": 0}
+    assert ops.LAUNCHES == {"kan_fused_gemm": 2 * model.n_repeats, "kan_sparse_gemm": 0,
+                            "gather_blocks": 0}
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     pos = torch.tensor(9)
     for s in range(3):
@@ -109,3 +113,98 @@ def test_reduced_kanformer_kernel_path_matches_plain_path(cuda_device):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
         pos = pos + 1
     assert ops.LAUNCHES["kan_sparse_gemm"] == 3 * 2 * model.n_repeats
+
+
+def _gather_case(device, dtype, stacked, shape, B, L, ids, seed):
+    """A pool of random values (``shape`` = (n_blocks, bs, ...)) and a
+    ``(B, L)`` table: live ids, the sentinel repeated, or ids outside the
+    pool."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    full = ((3,) if stacked else ()) + shape
+    if dtype == torch.int8:
+        pool = torch.randint(-128, 128, full, generator=g, dtype=torch.int8)
+    else:
+        pool = torch.randn(full, generator=g).to(dtype)
+    n_blocks = shape[0]
+    if ids == "live":
+        table = torch.randint(1, n_blocks, (B, L), generator=g)
+    elif ids == "sentinel":
+        table = torch.randint(1, n_blocks, (B, L), generator=g)
+        table[:, L // 2:] = 0
+    else:
+        table = torch.randint(-3 * n_blocks, 3 * n_blocks, (B, L), generator=g)
+    return pool.to(device), table.to(torch.int32).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", ["live", "sentinel", "outside"])
+@pytest.mark.parametrize("shape", [(13, 4, 2, 8), (97, 16, 8, 64), (9, 2, 3, 5)])
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_gather_kernel_equals_plain_version_bitwise(cuda_device, dtype, stacked, shape, ids):
+    """(9, 2, 3, 5) has blocks of 30 elements: not a whole number of
+    16-byte units in any dtype, so the kernel copies element by element."""
+    pool, table = _gather_case(cuda_device, dtype, stacked, shape, 8, 12, ids,
+                               sum(shape) + 7 * stacked + len(ids))
+    ops.reset_launches()
+    got = ops.gather_blocks(pool, table, stacked=stacked)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_blocks"] == 1
+    assert got.dtype == dtype and torch.equal(got, G.gather_blocks_reference(pool, table, stacked))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_one_launch_covers_a_stacked_pool(cuda_device):
+    pool = torch.randn(8, 97, 16, 8, 64, device=cuda_device)
+    table = torch.randint(0, 97, (8, 12), device=cuda_device, dtype=torch.int32)
+    ops.reset_launches()
+    got = ops.gather_blocks(pool, table, stacked=True)
+    assert ops.LAUNCHES["gather_blocks"] == 1 and got.shape == (8, 8, 192, 8, 64)
+    for layer in range(8):
+        assert torch.equal(got[layer], ops.gather_blocks(pool[layer], table))
+    assert ops.LAUNCHES["gather_blocks"] == 9
+
+
+@pytest.mark.cuda
+def test_gather_kernel_raises_and_never_falls_back(cuda_device):
+    pool = torch.zeros(13, 4, 2, 8, device=cuda_device)
+    table = torch.zeros(2, 3, dtype=torch.int32, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="dtype"):
+        ops.gather_blocks(pool.double(), table)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gather_blocks(pool.transpose(2, 3), table)
+    with pytest.raises(ValueError, match="int32"):
+        ops.gather_blocks(pool, table.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.gather_blocks(pool, table.cpu())
+    assert ops.LAUNCHES["gather_blocks"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, {"paged": True}, {"paged": True, "paged_read": "step"},
+                                 {"paged": True, "pool_blocks": 12}])
+def test_reduced_continuous_engine_on_card_matches_cpu(cuda_device, cfg):
+    """The continuous engine, dense and paged, on the card (KAN kernels and
+    the gather kernel) gives the CPU's streams and counters."""
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    rs = np.random.RandomState(0)
+    common = rs.randint(1, model.vocab, 8).astype(np.int32)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(8)]
+    reqs = [np.concatenate([common, r]) if i % 2 else r for i, r in enumerate(reqs)]
+    scfg = ServeConfig(max_seq=32, max_new_tokens=8, block_size=4, **cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(params, model, scfg, device=dev)
+        ops.reset_launches()
+        streams = eng.serve_continuous(reqs, slots=3, chunk_steps=3)
+        out[dev] = (streams, eng.last_serve_stats, dict(ops.LAUNCHES))
+    (cs, cst, _), (gs, gst, launches) = out["cpu"], out["cuda"]
+    for a, b in zip(cs, gs):
+        np.testing.assert_array_equal(a, b)
+    for key in ("chunks_run", "useful_token_steps", "n_preemptions", "paged"):
+        assert cst.get(key) == gst.get(key)
+    assert (launches["gather_blocks"] > 0) == bool(cfg)
+    assert launches["kan_sparse_gemm"] > 0

@@ -106,7 +106,7 @@ def test_cli_static_engine_runs_on_cpu():
     assert "[serve:static] 3 requests, 12 tokens" in r.stdout
 
 
-@pytest.mark.parametrize("flags", [["--paged"], ["--engine", "continuous"],
+@pytest.mark.parametrize("flags", [["--paged"], ["--engine", "continuous", "--temperature", "0.7"],
                                    ["--spec-k", "2"], ["--spec-k", "-1"],
                                    ["--mesh", "1x1"], ["--temperature", "0.7"]])
 def test_cli_rejects_what_is_not_ported(flags, capsys):

@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "triton", "repro")
@@ -50,6 +52,20 @@ def test_importing_every_module_loads_no_jax_triton_or_repro():
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", r.stdout
+
+
+# the modules the continuous paged engine added; the three serving ones are
+# host bookkeeping and import not even torch
+SLICE_MODULES = {"serve/scheduler.py": True, "serve/kv_pool.py": True,
+                 "serve/prefix_cache.py": True, "kernels/paged_gather.py": False}
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_MODULES))
+def test_continuous_paged_modules_import_neither_jax_nor_repro(module):
+    roots = _imported_roots(PORT / module)
+    assert not roots & set(FORBIDDEN)
+    if SLICE_MODULES[module]:
+        assert roots <= {"__future__", "dataclasses", "collections", "hashlib", "numpy"}
 
 
 def _smoke(cwd: Path) -> subprocess.CompletedProcess:

@@ -132,7 +132,7 @@ def test_cpu_wrapper_flattens_leading_dims_and_counts_no_launch(name):
     assert tuple(y.shape) == (2, 3, 7)
     flat = getattr(ops, name)(torch.tensor(x), torch.tensor(c), grid, torch.tensor(w))
     torch.testing.assert_close(y.reshape(6, 7), flat, rtol=0, atol=0)
-    assert ops.LAUNCHES == {"kan_fused_gemm": 0, "kan_sparse_gemm": 0}
+    assert ops.LAUNCHES == {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
 
 
 def test_fused_and_sparse_plain_versions_agree():

@@ -189,3 +189,32 @@ def test_unported_variants_raise():
 
     with pytest.raises(NotImplementedError, match="attn_mlp"):
         blk_check(BlockCfg("attn_mlp", attn=AttnConfig(64, 4, 4, 16), d_ff=8))
+
+
+def test_per_row_cache_write_past_max_seq_is_dropped(models):
+    """A per-row decode position at ``max_seq`` writes nothing, as the
+    reference's scatter drops it (continuous batching's fixed-length chunks
+    decode a finished row past the cache).  Both ``attn_decode_step``s give
+    the same cache, that row's cache row is untouched, and the live rows'
+    outputs match."""
+    jmodel, tmodel, jparams, tparams = models
+    jcfg, tcfg = jmodel.unit[0].attn, tmodel.unit[0].attn
+    jp = jax.tree.map(lambda a: a[0], jparams["unit"][0]["attn"])
+    tp = {k: v[0] for k, v in tparams["unit"][0]["attn"].items()}
+    B, S = 3, 8
+    rs = np.random.RandomState(7)
+    x = rs.randn(B, 1, jmodel.d_model).astype(np.float32)
+    cache = {n: rs.randn(B, S, tcfg.n_kv_heads, tcfg.head_dim).astype(np.float32)
+             for n in ("k", "v")}
+    pos = np.array([3, S, 5])
+    jy, jc = JA.attn_decode_step(jp, jcfg, jnp.asarray(x),
+                                 {n: jnp.asarray(a) for n, a in cache.items()},
+                                 jnp.asarray(pos, jnp.int32))
+    tc = {n: torch.tensor(a) for n, a in cache.items()}
+    ty, tc = TA.attn_decode_step(tp, tcfg, torch.tensor(x), tc, torch.tensor(pos))
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(tc[n][1].numpy(), cache[n][1])
+        np.testing.assert_array_equal(np.asarray(jc[n])[1], cache[n][1])
+        np.testing.assert_allclose(tc[n].numpy(), np.asarray(jc[n]), atol=LAYER_ATOL)
+    live = [0, 2]
+    np.testing.assert_allclose(ty.numpy()[live], np.asarray(jy)[live], atol=LAYER_ATOL)
