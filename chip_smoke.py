@@ -39,9 +39,29 @@ Phases; any failed check raises and the script exits non-zero:
    teacher-forced through paged prefill and 4 paged decode steps on the
    kernel path and the plain path, logits compared; one warm repeat of
    the shadow run is profiled.
-7. A JSON line with every ported kernel's numbers (and the TPU kernels not
-   ported yet), the card's line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. Integer-only KAN inference of full-width MNIST-KAN ([784, 64, 10],
+   G=10, P=3, random weights from seed 0): every layer quantised on the
+   card and held equal to a CPU quantisation; 2048 inputs (uniform over
+   [-1.2, 1.2], x_min, x_max and the knots planted) through
+   ``quantized_kan_forward_fused`` per layer with tanh between (the
+   dense-band int8 kernel), and 8 of them (the sparse int8 kernel), the
+   fp32 net through ``kan_net_apply(method="auto")`` at 2048 rows (fused
+   kernel) and 8 rows (the sparse kernel at M = 13), and the LUT path
+   (``method="lut"``, the B-spline LUT kernel) at 2048 rows, each run with
+   the launch counts reset just before and checked exactly just after.
+   Each layer's int32 accumulator is bit-equal to the plain version on the
+   card and the int8 net's logits equal the plain integer path's; the
+   int8-vs-fp32 top-1 agreement and max |logit difference| are reported.
+   The sparse int8 kernel at 1, 4 and 8 rows of each layer is bit-equal to
+   the dense-band one and to its plain version (int32, fp32 and bf16 out);
+   the LUT kernel on layer 1's 2048 x 784 inputs is exact; every ROM
+   address of P = 1, 2, 3 at value scales 128/256 and 192 reads
+   ``build_lut_u8``'s byte.  The three kernels are timed at MNIST-KAN
+   layer 1 and CF-KAN layer 1 (2810 -> 512, G=2) beside their plain
+   versions, a bf16 matmul over the materialised u8 band (``library_ms``)
+   and their bounds; one warm int8 run is profiled.
+8. A JSON line with every ported kernel's numbers, the card's line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
 checkout of the repository.  Imports nothing of JAX.
@@ -60,7 +80,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,    # CUDA cores, no tensor cores
-              "bfloat16": 989e12}  # dense tensor cores
+              "bfloat16": 989e12,  # dense tensor cores
+              "int8": 1979e12}     # dense tensor cores, TOPS
 FP32_ATOL = 1e-4                   # fp32 sums in another order, |y| ~ 2
 BF16_REL = 2.0 ** -7               # one bf16 ulp of max|y| (8 mantissa bits)
 LOGIT_ATOL = 2e-3                  # fp32 logits ~|20| after 8 blocks
@@ -82,15 +103,28 @@ KERNELS = {
         "replaces": "src/repro/kernels/paged_gather.py:45",
         "main_shape": "shadow",             # the stacked view of one chunk
     },
+    "kan_int8_gemm": {
+        "source": "src/repro_torch/kernels/csrc/kan_int8_gemm.cu",
+        "replaces": "src/repro/kernels/kan_int8_gemm.py:45",
+        "main_shape": [2048, 784, 64],      # MNIST-KAN layer 1, 2048 inputs
+        "path": "int8_2048",
+    },
+    "kan_sparse_int8_gemm": {
+        "source": "src/repro_torch/kernels/csrc/kan_sparse_int8_gemm.cu",
+        "replaces": "src/repro/kernels/kan_sparse_gemm.py:167",
+        "main_shape": [8, 784, 64],         # MNIST-KAN layer 1, 8 inputs
+        "path": "int8_8",
+    },
+    "bspline_lut": {
+        "source": "src/repro_torch/kernels/csrc/bspline_lut.cu",
+        "replaces": "src/repro/kernels/bspline_lut.py:25",
+        "main_shape": [2048, 784],          # MNIST-KAN layer 1's inputs
+        "path": "lut_2048",
+    },
 }
 # the device symbols of the port's kernels, as the profiler names them
-PORT_KERNEL_SYMBOLS = ("kan_fused_kernel", "kan_sparse_kernel", "paged_gather_kernel")
-# The TPU kernels of the JAX package that the port has not reached yet.
-PENDING = [
-    {"name": "kan_sparse_int8_gemm", "replaces": "src/repro/kernels/kan_sparse_gemm.py:167"},
-    {"name": "kan_int8_gemm", "replaces": "src/repro/kernels/kan_int8_gemm.py:45"},
-    {"name": "bspline_lut", "replaces": "src/repro/kernels/bspline_lut.py:25"},
-]
+PORT_KERNEL_SYMBOLS = ("kan_fused_kernel", "kan_sparse_kernel", "paged_gather_kernel",
+                       "kan_int8_kernel", "kan_sparse_int8_kernel", "bspline_lut_kernel")
 
 
 def log(msg: str) -> None:
@@ -366,7 +400,9 @@ def expected_launches(model, stats: dict, run: dict) -> dict:
 
     kan = 2 * len(model.unit) * model.n_repeats
     leaves = 2 * len(model.unit)
-    want = {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(ops.LAUNCHES, 0)
     paged = run.get("paged", False)
     for k, t_pad in stats["prefill_groups"]:
         want["kan_" + KL.resolve_inference_method("cuda", k * t_pad) + "_gemm"] += kan
@@ -599,8 +635,8 @@ def main_path(torch, np):
     stats = eng.last_serve_stats
     n_buckets = len(stats["buckets"])
     per_pass = 2 * cfg.n_repeats                  # 2 KAN layers x blocks
-    want = {"kan_fused_gemm": n_buckets * per_pass,
-            "kan_sparse_gemm": n_buckets * (max_new - 1) * per_pass, "gather_blocks": 0}
+    want = dict(dict.fromkeys(ops.LAUNCHES, 0), kan_fused_gemm=n_buckets * per_pass,
+                kan_sparse_gemm=n_buckets * (max_new - 1) * per_pass)
     log(f"[main] launches {launches}, expected {want}")
     if launches != want:
         raise RuntimeError(f"launch counts {launches} != expected {want}")
@@ -742,6 +778,287 @@ def profile_call(torch, fn, what):
             "port_kernels": {k: {"ms": t / 1e3, "count": n} for k, (t, n) in ours.items()}}
 
 
+# Phase 7: integer-only KAN inference of full-width MNIST-KAN (Table II,
+# the paper's §V int8 claim), the cell of the int8 kernels and the LUT one.
+MNIST = {"layers": (784, 64, 10), "G": 10, "P": 3, "rows": 2048, "decode_rows": 8}
+CFKAN_L1 = {"K": 2810, "N": 512, "G": 2}        # CF-KAN's widest layer, P = 3
+ROM_GRIDS = ((2, 1), (3, 2), (10, 3))            # P = 1, 2, 3
+
+
+def net_inputs(torch, grid, rows, K, device, seed=13):
+    """Uniform over [-1.2, 1.2] (past the domain on both sides) with x_min,
+    x_max and every knot planted at the front."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(rows, K, generator=g, device=device) * 2.4 - 1.2
+    plant = [grid.x_min, grid.x_max, *grid.knots().tolist()]
+    x.view(-1)[: len(plant)] = torch.tensor(plant, dtype=torch.float32, device=device)
+    return x
+
+
+def counted(torch, name, fn, want, device):
+    """``fn()`` with the launch counts reset just before and checked
+    exactly just after (on the CPU the wrappers launch nothing)."""
+    from repro_torch.kernels import ops
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    expected = dict(dict.fromkeys(ops.LAUNCHES, 0), **(want if device == "cuda" else {}))
+    log(f"[int8] {name}: {wall * 1e3:.2f} ms, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, expected "
+        f"{ {k: v for k, v in expected.items() if v} }")
+    if launches != expected:
+        raise RuntimeError(f"{name}: launch counts {launches} != expected {expected}")
+    return out, {"wall_ms": wall * 1e3, "launches": launches}
+
+
+def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows"]):
+    """Phase 7's checks (any miss raises); ``device="cpu"`` with narrow
+    ``layers`` rehearses them on the kernels' plain versions."""
+    from repro_torch.core import kan_layer as KL
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.bspline import SplineGrid, build_lut
+    from repro_torch.kernels import bspline_lut as L
+    from repro_torch.kernels import kan_int8_gemm as I8
+    from repro_torch.kernels import kan_sparse_gemm as S
+    from repro_torch.kernels import ops
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = KL.KANNetConfig(layers=tuple(layers), G=MNIST["G"], P=MNIST["P"])
+    grid = cfg.grid()
+    params = KL.init_kan_net(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for p in params for t in p.values())
+    sync()
+    t0 = time.perf_counter()
+    qlayers = [Q.quantize_kan_layer(p, grid) for p in params]
+    sync()
+    quant_ms = (time.perf_counter() - t0) * 1e3
+    for i, (p, ql) in enumerate(zip(params, qlayers)):
+        cpu = Q.quantize_kan_layer({k: v.cpu() for k, v in p.items()}, grid)
+        for f in ("coeff_q", "coeff_scale", "base_w_q", "base_w_scale", "lut_u8"):
+            if not torch.equal(getattr(cpu, f), getattr(ql, f).cpu()):
+                raise RuntimeError(f"layer {i}: {f} quantised on {device} != on the CPU")
+    log(f"[int8] MNIST-KAN {list(layers)} G={grid.G} P={grid.P}: {n_params} fp32 parameters, "
+        f"quantised on {device} in {quant_ms:.2f} ms; coeff_q, base_w_q and the scales "
+        f"equal a CPU quantisation of the same weights")
+
+    x = net_inputs(torch, grid, rows, layers[0], device)
+    lut = torch.as_tensor(build_lut(grid.P), device=device)
+    dr, nl = MNIST["decode_rows"], len(qlayers)
+
+    def int8_net(xin):                   # benchmarks/quant_accuracy.py's loop
+        h = xin
+        for i, ql in enumerate(qlayers):
+            if i:
+                h = torch.tanh(h)
+            h = Q.quantized_kan_forward_fused(ql, h)
+        return h
+
+    runs = {}
+    y8, runs["int8_2048"] = counted(torch, f"int8 net, {rows} rows", lambda: int8_net(x),
+                                    {"kan_int8_gemm": nl}, device)
+    y8s, runs["int8_8"] = counted(torch, f"int8 net, {dr} rows", lambda: int8_net(x[:dr]),
+                                  {"kan_sparse_int8_gemm": nl}, device)
+    yf, runs["fp32_auto_2048"] = counted(
+        torch, f"fp32 net auto, {rows} rows", lambda: KL.kan_net_apply(params, x, cfg, "auto"),
+        {"kan_fused_gemm": nl}, device)
+    yfs, runs["fp32_auto_8"] = counted(
+        torch, f"fp32 net auto, {dr} rows",
+        lambda: KL.kan_net_apply(params, x[:dr], cfg, "auto"), {"kan_sparse_gemm": nl}, device)
+    yl, runs["lut_2048"] = counted(
+        torch, f"fp32 net lut, {rows} rows",
+        lambda: KL.kan_net_apply(params, x, cfg, "lut", lut=lut), {"bspline_lut": nl}, device)
+    out_shape = (rows, layers[-1])
+    for name, y in (("int8", y8), ("fp32", yf), ("lut", yl)):
+        if y.shape != out_shape or y.dtype != torch.float32 or not torch.isfinite(y).all():
+            raise RuntimeError(f"{name} logits not finite or not {out_shape} float32")
+
+    # the kernel paths against the plain ones on the same device
+    h_in, plain, h = [], x, x
+    for i, ql in enumerate(qlayers):
+        if i:
+            h, plain = torch.tanh(h), torch.tanh(plain)
+        h_in.append(h)
+        plain = Q.quantized_kan_forward(ql, plain)
+        x_q = ql.qg.x_quant.quantize(h)
+        cq = ql.coeff_q.to(torch.int8)
+        acc = ops.kan_int8_gemm(x_q, ql.lut_u8, cq, grid, lut_scale=ql.qg.lut_scale)
+        want = I8.kan_int8_gemm_reference(x_q, cq, grid, S=ql.qg.S, lut_scale=ql.qg.lut_scale)
+        if acc.dtype != torch.int32 or not torch.equal(acc, want):
+            raise RuntimeError(f"layer {i}: int32 accumulator != the plain version's")
+        log(f"[int8] layer {i}: int32 accumulator {tuple(acc.shape)} bit-equal to the plain "
+            f"version (max |acc| {acc.abs().max().item()})")
+        h = Q.quantized_kan_forward_fused(ql, h)
+    if not torch.equal(y8, plain):
+        raise RuntimeError("int8 logits != the plain integer path's (table fetch, slabs)")
+    if not torch.equal(y8s, y8[:dr]):
+        raise RuntimeError("int8 logits at 8 rows (sparse int8) != at 2048 rows (dense band)")
+    compact = KL.kan_net_apply(params, x, cfg, "compact")
+    err_f = (yf - compact).abs().max().item()
+    err_fs = (yfs - compact[:dr]).abs().max().item()
+    log(f"[int8] fp32 net auto vs compact (plain): {rows} rows max_abs_err={err_f:.3e}, "
+        f"{dr} rows (sparse kernel, M={grid.n_basis}) max_abs_err={err_fs:.3e} "
+        f"tol={FP32_ATOL:.1e}")
+    if max(err_f, err_fs) > FP32_ATOL:
+        raise RuntimeError("fp32 net kernel path disagrees with the plain path")
+    agree = (y8.argmax(-1) == yf.argmax(-1)).float().mean().item()
+    d_int8 = (y8 - yf).abs().max().item()
+    agree_lut = (yl.argmax(-1) == yf.argmax(-1)).float().mean().item()
+    d_lut = (yl - yf).abs().max().item()
+    log(f"[int8] int8 vs fp32 logits: top-1 agreement {agree:.4f}, max |dlogit| {d_int8:.4e} "
+        f"(max |logit| {yf.abs().max().item():.4f}); lut vs fp32: top-1 agreement "
+        f"{agree_lut:.4f}, max |dlogit| {d_lut:.4e}")
+
+    # kernel 3 against kernel 4 and its plain version at decode rows
+    checked = 0
+    for i, ql in enumerate(qlayers):
+        cq = ql.coeff_q.to(torch.int8)
+        sc = ql.coeff_scale.reshape(-1) / torch.full((), ql.qg.lut_scale,
+                                                      dtype=torch.float32, device=device)
+        for r in (1, 4, 8):
+            x_q = ql.qg.x_quant.quantize(h_in[i][:r])
+            for kw in ({}, dict(scale=sc), dict(scale=sc, out_dtype=torch.bfloat16)):
+                a = ops.kan_sparse_int8_gemm(x_q, ql.lut_u8, cq, grid,
+                                             lut_scale=ql.qg.lut_scale, **kw)
+                b = ops.kan_int8_gemm(x_q, ql.lut_u8, cq, grid, lut_scale=ql.qg.lut_scale, **kw)
+                c = S.kan_sparse_int8_gemm_reference(x_q, cq, grid, S=ql.qg.S,
+                                                     lut_scale=ql.qg.lut_scale, **kw)
+                if not (torch.equal(a, b) and torch.equal(a, c)):
+                    raise RuntimeError(f"layer {i}, {r} rows, {kw.get('out_dtype', 'int32')}: "
+                                       f"sparse int8 != dense band or plain")
+                checked += 1
+    log(f"[int8] sparse int8 kernel bit-equal to the dense-band kernel and its plain version: "
+        f"{checked} cases (layers x 1/4/8 rows x int32/fp32/bf16 out)")
+
+    # kernel 6 on layer 1's inputs
+    vals, k = ops.bspline_lut(x, lut, grid)
+    rv, rk = L.bspline_lut_reference(x.reshape(-1), lut, grid)
+    if not (torch.equal(k.reshape(-1), rk) and torch.equal(vals.reshape(-1, grid.P + 1), rv)):
+        raise RuntimeError("bspline_lut disagrees with its plain version")
+    log(f"[int8] bspline_lut on {x.numel()} inputs: k equal, vals exact")
+
+    # every ROM address through both int8 kernels
+    n_rom = 0
+    for G, P in ROM_GRIDS:
+        g = SplineGrid(-1.0, 1.0, G, P)
+        x_q, qmax, coeff = I8.rom_probe(g, 256)
+        u = (G + 2 * P) * x_q[:, 0].numpy().astype(np.int64)
+        kk = np.clip(u // qmax, P, g.n_basis - 1)
+        addrs = set(((np.clip(u - qmax * kk, 0, qmax) * 255) // qmax).tolist())
+        if addrs != set(range(256)):
+            raise RuntimeError(f"P={P}: the ROM probe misses addresses")
+        for scale in sorted({Q.lut_value_scale(P), 256, 192}):
+            lut8 = torch.as_tensor(Q.build_lut_u8(P, 256, scale))
+            want = ops.kan_int8_gemm(x_q, lut8, coeff, g, qmax=qmax)      # table fetch, CPU
+            for fn in (ops.kan_int8_gemm, ops.kan_sparse_int8_gemm):
+                got = fn(x_q.to(device), lut8.to(device), coeff.to(device), g, qmax=qmax)
+                if not torch.equal(got.cpu(), want):
+                    raise RuntimeError(f"P={P} scale={scale}: ROM values != build_lut_u8")
+            n_rom += 1
+    log(f"[int8] ROM: all 256 addresses of {n_rom} tables (P = 1, 2, 3; value scales "
+        f"128/256 and 192) read build_lut_u8's bytes through both int8 kernels")
+    return {"runs": runs, "quantize_ms": quant_ms, "top1_agreement": agree,
+            "max_abs_dlogit": d_int8, "lut_top1_agreement": agree_lut,
+            "lut_max_abs_dlogit": d_lut, "fp32_kernel_vs_plain_err": max(err_f, err_fs),
+            "rom_tables_checked": n_rom, "sparse_int8_cases": checked,
+            "int8_net": lambda: int8_net(x)}
+
+
+def time_int8_kernels(torch, np):
+    """Kernels 3, 4 and 6 at MNIST-KAN layer 1 and CF-KAN layer 1, with the
+    dequant epilogue to fp32 as the int8 path runs them: kernel, plain
+    version, a bf16 matmul over the materialised u8 band (``library_ms``;
+    exact operands, a time yardstick only) and the bound."""
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.bspline import SplineGrid, build_lut
+    from repro_torch.kernels import bspline_lut as L
+    from repro_torch.kernels import kan_int8_gemm as I8
+    from repro_torch.kernels import kan_sparse_gemm as S
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import band_scatter, int8_compact_values_inblock
+
+    cycles_per_ms = spin_cycles_per_ms(torch)
+    K1, N1 = MNIST["layers"][:2]
+    cases = [("kan_int8_gemm", 2048, K1, N1, MNIST["G"]),
+             ("kan_int8_gemm", 2048, CFKAN_L1["K"], CFKAN_L1["N"], CFKAN_L1["G"]),
+             ("kan_sparse_int8_gemm", 8, K1, N1, MNIST["G"]),
+             ("kan_sparse_int8_gemm", 2048, K1, N1, MNIST["G"]),
+             ("kan_sparse_int8_gemm", 8, CFKAN_L1["K"], CFKAN_L1["N"], CFKAN_L1["G"])]
+    wrapper = {"kan_int8_gemm": ops.kan_int8_gemm, "kan_sparse_int8_gemm": ops.kan_sparse_int8_gemm}
+    plain = {"kan_int8_gemm": I8.kan_int8_gemm_reference,
+             "kan_sparse_int8_gemm": S.kan_sparse_int8_gemm_reference}
+    results = {n: {"max_abs_err": 0.0, "timings": []} for n in (*wrapper, "bspline_lut")}
+    for name, rows, K, N, G in cases:
+        grid = SplineGrid(-1.0, 1.0, G, 3)
+        M, P = grid.n_basis, grid.P
+        qg = Q.QuantizedGrid.make(grid)
+        lut8 = torch.as_tensor(Q.build_lut_u8(P, qg.S), device="cuda")
+        set_bytes = rows * K * 4 + K * M * N
+        n_sets = max(1, math.ceil(L2_FLUSH_BYTES / set_bytes))
+        g = torch.Generator(device="cuda").manual_seed(rows + K)
+        sets = []
+        for _ in range(n_sets):
+            x = torch.rand(rows, K, generator=g, device="cuda") * 2.4 - 1.2
+            cq = torch.randint(-127, 128, (K, M, N), generator=g, device="cuda",
+                               dtype=torch.int8)
+            sets.append((qg.x_quant.quantize(x), cq))
+        sc = torch.rand(N, generator=g, device="cuda") * 1e-3
+        kw = dict(scale=sc, lut_scale=qg.lut_scale)
+        ms = time_ms(torch, [lambda a=a, c=c: wrapper[name](a, lut8, c, grid, **kw)
+                             for a, c in sets], cycles_per_ms)
+        plain_ms = time_ms(torch, [lambda a=a, c=c: plain[name](a, c, grid, scale=sc,
+                                                                lut_scale=qg.lut_scale)
+                                   for a, c in sets], cycles_per_ms, reps=10)
+        bvals, k = int8_compact_values_inblock(sets[0][0], grid, qg.S, 255, qg.lut_scale)
+        band = band_scatter(bvals.float(), k, M).to(torch.bfloat16).reshape(rows, K * M)
+        w_lib = [c.to(torch.bfloat16).reshape(K * M, N) for _, c in sets]
+        lib_ms = time_ms(torch, [lambda w=w: torch.matmul(band, w) for w in w_lib],
+                         cycles_per_ms)
+        ops_ = 2.0 * rows * K * (P + 1) * N
+        if name == "kan_int8_gemm":
+            coeff_bytes = K * M * N
+        else:                            # the int8 rows the inputs' windows touch
+            touched = torch.zeros(K, M, dtype=torch.bool, device="cuda")
+            jj = torch.arange(K, device="cuda")[None, :].expand(rows, K)
+            for i in range(P + 1):
+                touched[jj, k.long() - P + i] = True
+            coeff_bytes = int(touched.sum().item()) * N
+        nbytes = rows * K * 4 + coeff_bytes + N * 4 + rows * N * 4
+        t_ops = ops_ / PEAK_FLOPS["int8"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        entry = {"shape": [rows, K, N], "M": M, "dtype": "float32", "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "ops": ops_, "bytes": nbytes}
+        results[name]["timings"].append(entry)
+        log(f"[time] {name} rows={rows} K={K} N={N} M={M}: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={entry['bound_ms']:.4f} "
+            f"({entry['bound_by']}: {ops_ / 1e9:.3f} G int8 ops, {nbytes / 1e6:.2f} MB)")
+
+    grid = SplineGrid(-1.0, 1.0, MNIST["G"], MNIST["P"])
+    lut = torch.as_tensor(build_lut(grid.P), device="cuda")
+    n = MNIST["rows"] * K1
+    n_sets = max(1, math.ceil(L2_FLUSH_BYTES / (n * 4)))
+    xs = [net_inputs(torch, grid, MNIST["rows"], K1, "cuda", seed=30 + i).reshape(-1)
+          for i in range(n_sets)]
+    ms = time_ms(torch, [lambda x=x: ops.bspline_lut(x, lut, grid) for x in xs], cycles_per_ms)
+    plain_ms = time_ms(torch, [lambda x=x: L.bspline_lut_reference(x, lut, grid) for x in xs],
+                       cycles_per_ms, reps=10)
+    nbytes = n * 4 + lut.numel() * 4 + n * (grid.P + 1) * 4 + n * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    results["bspline_lut"]["timings"].append(
+        {"shape": [MNIST["rows"], K1], "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+         "library_ms": None, "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes})
+    log(f"[time] bspline_lut n={n} S={lut.shape[0]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=None bound_ms={bound:.4f} (bytes: {nbytes / 1e6:.2f} MB)")
+    return results
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -787,17 +1104,28 @@ def main() -> int:
     launches, e2e = main_path(torch, np)
     t2 = time.perf_counter()
     cont = continuous_path(torch, np)
+    t3 = time.perf_counter()
+    int8 = int8_path(torch, np)
+    int8["profile"] = profile_call(torch, int8.pop("int8_net"),
+                                   lambda: "one warm int8 MNIST-KAN run (2048 inputs)")
+    results.update(time_int8_kernels(torch, np))
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
-        f"continuous path {time.perf_counter() - t2:.1f} s")
+        f"continuous path {t3 - t2:.1f} s, int8 path {time.perf_counter() - t3:.1f} s")
 
-    line = {"kernels": [], "pending": [dict(p, status="pending", launches=0) for p in PENDING],
-            "main_path": e2e, "continuous_path": cont}
-    by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()}}
+    line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
+            "int8_path": int8}
+    by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
+               **{k: m["launches"] for k, m in int8["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"]
                      if e["dtype"] == "float32" and e["use"] == meta["main_shape"])
             n = by_path["paged_shadow"][name]
+        elif "path" in meta:              # the int8 cell's counted runs
+            t = next(e for e in results[name]["timings"] if e["shape"] == meta["main_shape"])
+            n = by_path[meta["path"]][name]
+            if n < 1:
+                raise RuntimeError(f"{name} was not launched on its path {meta['path']}")
         else:
             t = next(e for e in results[name]["timings"]
                      if e["dtype"] == "float32" and e["shape"] == meta["main_shape"])

@@ -11,7 +11,9 @@ Boundary convention (shared by every evaluation path): out-of-domain inputs
 saturate to the boundary basis (the paper's Eq. 5 address clip), and
 ``x == x_max`` activates the last in-domain interval.
 
-The tabulated (LUT) evaluation is not ported yet.
+The tabulated evaluation (paper §III-B, Fig. 4-5) is :func:`build_lut`,
+:func:`lut_basis_compact` and :func:`lut_basis_dense`; the CUDA kernel of
+the tabulated unit is ``kernels/bspline_lut.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ __all__ = [
     "interval_index",
     "compact_basis",
     "compact_to_dense",
+    "build_lut",
+    "lut_basis_compact",
+    "lut_basis_dense",
 ]
 
 
@@ -159,3 +164,48 @@ def compact_to_dense(
     gathered = torch.gather(vals, -1, torch.clamp(rel, 0, grid.P))
     return torch.where(inside, gathered, torch.zeros((), dtype=vals.dtype,
                                                       device=vals.device))
+
+
+def build_lut(P: int, S: int = 256, dtype=np.float32) -> np.ndarray:
+    """Half-table of the cardinal B-spline: ``T[a, c] = B_{0,P}(a/(S-1) + c)``
+    for ``a in [0, S)`` and ``c in [0, ceil((P+1)/2))``.
+
+    Evaluated in float32, as the reference evaluates it (its float64 grid
+    becomes float32 in JAX's default precision), then cast to ``dtype``.
+    """
+    cols = math.ceil((P + 1) / 2)
+    a = np.arange(S, dtype=np.float64) / (S - 1)
+    u = a[:, None] + np.arange(cols)[None, :]
+    tab = cardinal_bspline(torch.as_tensor(u, dtype=torch.float32), P).numpy()
+    return tab.astype(dtype)
+
+
+def lut_basis_compact(
+    x: torch.Tensor, grid: SplineGrid, lut: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tabulated compact evaluation (paper Fig. 5) -> ``(vals, k)``.
+
+    The in-interval offset ``x_a`` becomes the address
+    ``addr = round(x_a·(S-1))`` (half to even); ``B0(x_a + j)`` is the
+    direct fetch ``T[addr, j]`` for ``j < ceil((P+1)/2)`` and the
+    inverted-address fetch ``T[S-1-addr, P-j]`` otherwise.  ``vals[..., i]``
+    is ordered by ascending basis index (``j = P-i``), in ``lut.dtype``.
+    """
+    S, half = lut.shape
+    P = grid.P
+    z = align(x, grid)
+    k = interval_index(x, grid)
+    xa = torch.clamp(z - k.to(z.dtype), 0.0, 1.0)
+    addr = torch.clamp(torch.round(xa * (S - 1)).to(torch.int64), 0, S - 1)
+    addr_inv = (S - 1) - addr
+    cols = []
+    for i in range(P + 1):
+        j = P - i
+        cols.append(lut[addr, j] if j < half else lut[addr_inv, P - j])
+    return torch.stack(cols, dim=-1), k
+
+
+def lut_basis_dense(x: torch.Tensor, grid: SplineGrid, lut: torch.Tensor) -> torch.Tensor:
+    """Tabulated evaluation scattered to the dense ``(..., G+P)`` layout."""
+    vals, k = lut_basis_compact(x, grid, lut)
+    return compact_to_dense(vals, k, grid)

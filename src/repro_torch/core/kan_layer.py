@@ -12,13 +12,19 @@ Forward paths (``kan_layer_apply(method=...)``):
   coefficient slabs (the plain path on the CPU);
 * ``fused``   — the fused CUDA kernel (``kernels/ops.kan_fused_gemm``);
 * ``sparse``  — the sparse CUDA kernel (``kernels/ops.kan_sparse_gemm``);
+* ``lut``     — tabulated evaluation (paper Fig. 5) through the B-spline LUT
+  kernel (``kernels/ops.bspline_lut``), scattered dense, then an einsum;
 * ``auto``    — :func:`resolve_inference_method`.
 
-The LUT path, KAN stacks and ConvKAN are not ported yet.
+KAN stacks (MNIST-KAN and the other Table II networks) are
+:func:`kan_net_apply`.  ConvKAN (``im2col``, ``conv_kan_apply``) is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 import os
 from typing import Any
@@ -29,6 +35,33 @@ from repro_torch.core import bspline
 from repro_torch.core.bspline import SplineGrid
 
 Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class KANLayerConfig:
+    in_dim: int
+    out_dim: int
+    grid: SplineGrid = SplineGrid()
+    base: bool = True           # include the w_b · ReLU(x) term of Eq. 1
+    noise_scale: float = 0.1    # init scale for spline coefficients
+    lut_size: int = 256         # paper: 8-bit address -> 256 entries
+
+
+def init_kan_layer(cfg: KANLayerConfig, gen: torch.Generator,
+                   dtype=torch.float32) -> Params:
+    """Coefficients ``(K, M, N)`` + base weight ``(K, N)`` on ``gen``'s
+    device, with the reference's shapes and scales (values differ from
+    JAX's draws)."""
+    M = cfg.grid.n_basis
+    dev = gen.device
+    coeff = cfg.noise_scale * torch.randn(
+        (cfg.in_dim, M, cfg.out_dim), generator=gen, device=dev
+    ) / math.sqrt(cfg.in_dim * (cfg.grid.P + 1))
+    params: Params = {"coeff": coeff.to(dtype)}
+    if cfg.base:
+        w = torch.randn((cfg.in_dim, cfg.out_dim), generator=gen, device=dev)
+        params["base_w"] = (w * math.sqrt(2.0 / cfg.in_dim)).to(dtype)
+    return params
 
 
 def _result_dtype(params: Params, x: torch.Tensor) -> torch.dtype:
@@ -70,6 +103,25 @@ def kan_layer_compact(params: Params, x: torch.Tensor, grid: SplineGrid) -> torc
     return y + _base_term(params, x)
 
 
+def kan_layer_lut(
+    params: Params, x: torch.Tensor, grid: SplineGrid, lut: torch.Tensor
+) -> torch.Tensor:
+    """Tabulated inference path (paper Fig. 5): the compact values from the
+    LUT kernel, scattered dense, then one einsum."""
+    from repro_torch.kernels import ops as kops
+
+    dt = _result_dtype(params, x)
+    vals, k = kops.bspline_lut(x, lut, grid)
+    B = bspline.compact_to_dense(vals, k, grid)            # (..., K, M)
+    y = torch.einsum("...km,kmn->...n", B.to(dt), params["coeff"].to(dt))
+    return y + _base_term(params, x)
+
+
+@functools.lru_cache(maxsize=16)
+def _default_lut(P: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(bspline.build_lut(P), device=device)
+
+
 def resolve_inference_method(device: str | torch.device | None = None,
                              rows: int | None = None) -> str:
     """The default serving path per device and batch regime.
@@ -94,6 +146,7 @@ def resolve_inference_method(device: str | torch.device | None = None,
 
 def kan_layer_apply(
     params: Params, x: torch.Tensor, grid: SplineGrid, method: str = "dense",
+    lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
     if method == "auto":
         method = resolve_inference_method(x.device, rows=math.prod(x.shape[:-1]))
@@ -112,6 +165,59 @@ def kan_layer_apply(
         return kops.kan_sparse_gemm(x, params["coeff"], grid,
                                     base_w=params.get("base_w"))
     if method == "lut":
-        raise NotImplementedError(
-            "method='lut' is not ported yet (ROADMAP queue 1, item 2)")
+        if lut is None:
+            lut = _default_lut(grid.P, x.device)
+        return kan_layer_lut(params, x, grid, lut)
     raise ValueError(f"unknown method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# KAN stacks (MLP-style): the paper's application workloads.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KANNetConfig:
+    """A KAN MLP: e.g. MNIST-KAN is ``layers=[784, 64, 10], G=10, P=3``."""
+
+    layers: tuple[int, ...]
+    G: int = 5
+    P: int = 3
+    x_min: float = -1.0
+    x_max: float = 1.0
+    base: bool = True
+    layer_norm: bool = True  # keep activations in-domain between layers
+
+    def grid(self) -> SplineGrid:
+        return SplineGrid(self.x_min, self.x_max, self.G, self.P)
+
+
+def init_kan_net(cfg: KANNetConfig, seed: int = 0, device="cuda",
+                 dtype=torch.float32) -> list[Params]:
+    """One parameter dict per layer, drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=torch.device(device)).manual_seed(seed)
+    return [
+        init_kan_layer(KANLayerConfig(cfg.layers[i], cfg.layers[i + 1], cfg.grid(),
+                                      base=cfg.base), gen, dtype)
+        for i in range(len(cfg.layers) - 1)
+    ]
+
+
+def _tanh_norm(h: torch.Tensor) -> torch.Tensor:
+    """Map intermediate activations back into the spline domain (a smooth
+    squash, which keeps the LUT and int8 paths' clipping honest)."""
+    return torch.tanh(h)
+
+
+def kan_net_apply(
+    params: list[Params], x: torch.Tensor, cfg: KANNetConfig, method: str = "dense",
+    lut: torch.Tensor | None = None,
+) -> torch.Tensor:
+    g = cfg.grid()
+    h = x
+    for i, p in enumerate(params):
+        if i > 0 and cfg.layer_norm:
+            h = _tanh_norm(h)
+        h = kan_layer_apply(p, h, g, method=method, lut=lut)
+    return h

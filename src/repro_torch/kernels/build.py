@@ -45,6 +45,23 @@ LIBRARIES = {
         "paged_gather.cu",
         {"paged_gather": ([_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P], _I)},
     ),
+    "kan_int8_gemm": (
+        "kan_int8_gemm.cu",
+        {"kan_int8_gemm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
+    ),
+    "kan_sparse_int8_gemm": (
+        "kan_sparse_int8_gemm.cu",
+        {
+            "kan_sparse_int8_gemm": (
+                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+            "kan_sparse_int8_gemm_tickets": ([_I, _I], ctypes.c_longlong),
+            "kan_sparse_int8_gemm_accumulators": ([_I, _I, _I], ctypes.c_longlong),
+        },
+    ),
+    "bspline_lut": (
+        "bspline_lut.cu",
+        {"bspline_lut": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I)},
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

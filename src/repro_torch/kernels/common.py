@@ -11,7 +11,10 @@ here are what the kernels' plain versions (and the CPU tests) run:
   whatever the input dtype, then the values;
 * :func:`band_scatter`: the compact values placed into the dense ``M`` band;
 * :func:`gather_coeff_slabs`: per input, the ``(P+1, N)`` coefficient slab
-  ``C[j, k-P .. k, :]`` its non-zero basis values touch.
+  ``C[j, k-P .. k, :]`` its non-zero basis values touch;
+* :func:`int8_compact_values_inblock`: the integer Align/Compare units
+  (paper Eq. 5) and the uint8 ROM values of the int8 datapath, fetched
+  from the ROM (:func:`rom_table`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bspline import SplineGrid
+from repro_torch.core.quantization import build_lut_u8
 
 
 def cardinal_values_inblock(xa: torch.Tensor, P: int) -> torch.Tensor:
@@ -72,3 +76,44 @@ def gather_coeff_slabs(c: torch.Tensor, k: torch.Tensor, P: int) -> torch.Tensor
     idx = k.to(torch.int64)[..., None] - P + offs              # (B, K, P+1)
     kk = torch.arange(K, device=k.device)[None, :, None]
     return c[kk, idx]
+
+
+_roms: dict[tuple, torch.Tensor] = {}
+
+
+def rom_table(P: int, S: int, lut_scale: int, device: torch.device) -> torch.Tensor:
+    """The paper's ROM, ``build_lut_u8(P, S, lut_scale)`` (uint8, ``(S,
+    ceil((P+1)/2))``), on ``device``; made once per key."""
+    key = (P, S, lut_scale, device.type, device.index)
+    t = _roms.get(key)
+    if t is None:
+        t = _roms[key] = torch.as_tensor(build_lut_u8(P, S, lut_scale), device=device)
+    return t
+
+
+def int8_compact_values_inblock(
+    x_q: torch.Tensor, grid: SplineGrid, S: int, qmax: int, lut_scale: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Integer Align + Compare (paper Eq. 5) and the uint8 ROM values.
+
+    ``x_q (...)`` int activations quantised over the extended domain ->
+    ``(bvals (..., P+1) int32, k (...) int32)``: ``u = (G+2P)·x_q``,
+    ``k = clamp(u // qmax, P, M-1)`` (floor division),
+    ``addr = (clamp(u - qmax·k, 0, qmax)·(S-1)) // qmax``, and the values
+    ``B0(x_a + j)``, ``j = P-i``, fetched from ``build_lut_u8(P, S,
+    lut_scale)`` directly (``j < ceil((P+1)/2)``) or at the inverted address.
+
+    The reference's kernels evaluate these entries from the float
+    Cox-de Boor triangle instead of reading the table; for ``P = 2`` at the
+    value scale 192 that rounds one entry (address 2, exactly 94.50002)
+    down to 94 where the table holds 95.  The port reads the table.
+    """
+    P, M = grid.P, grid.n_basis
+    u = (grid.G + 2 * P) * x_q.to(torch.int32)
+    k = torch.clamp(torch.div(u, qmax, rounding_mode="floor"), P, M - 1)
+    addr = torch.clamp(u - qmax * k, 0, qmax)
+    addr = torch.div(addr * (S - 1), qmax, rounding_mode="floor").to(torch.int64)
+    rom = rom_table(P, S, lut_scale, x_q.device)
+    half = rom.shape[1]
+    cols = [rom[addr, P - i] if P - i < half else rom[(S - 1) - addr, i] for i in range(P + 1)]
+    return torch.stack(cols, dim=-1).to(torch.int32), k.to(torch.int32)

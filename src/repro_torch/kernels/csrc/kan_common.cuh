@@ -9,7 +9,16 @@
 //   * band_scatter<P, T>     == band_scatter: one input's dense M-wide band;
 //   * gather_coeff_rows<..>  == gather_coeff_slabs: the coefficient rows an
 //     input's window touches, one output column at a time (window_mask
-//     gives the rows).
+//     gives the rows);
+//   * int_address<P> + rom_fetch<P> == int8_compact_values_inblock: the
+//     integer Align/Compare units (Eq. 5, floor division as the reference's
+//     `//`, int32 wrap-around as its int32 arithmetic) and the P+1 uint8 ROM
+//     values by the direct and inverted-address fetch from the half-table
+//     build_lut_u8 (held in shared memory by the int8 kernels): the table's
+//     bytes by construction, no float arithmetic to round differently.  (The
+//     reference's kernels evaluate the entries from the float Cox-de Boor
+//     triangle instead, which rounds one entry of the P = 2, scale 192 table
+//     the other way; see common.py.)
 // The plain PyTorch versions live in repro_torch/kernels/common.py.
 #pragma once
 
@@ -93,6 +102,39 @@ __device__ __forceinline__ void gather_coeff_rows(const T* __restrict__ c_jn, si
 #pragma unroll
   for (int m = 0; m < MAXM; ++m)
     cm[m] = (m < M && ((rows >> m) & 1u)) ? to_float(c_jn[m * stride]) : 0.0f;
+}
+
+// floor(a / b) for b > 0 (C's `/` truncates toward zero).
+__device__ __forceinline__ int floor_div(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// Integer Align + Compare (Eq. 5): returns k, writes the ROM address.
+// u = (G+2P) * x_q and u - qmax*k wrap as int32 does (unsigned arithmetic,
+// so the wrap is defined).
+template <int P>
+__device__ __forceinline__ int int_address(int x_q, int G, int M, int qmax, int S, int* addr) {
+  const int u = (int)((unsigned)(G + 2 * P) * (unsigned)x_q);
+  int k = floor_div(u, qmax);
+  k = k < P ? P : (k > M - 1 ? M - 1 : k);
+  int a = (int)((unsigned)u - (unsigned)(qmax * k));
+  a = a < 0 ? 0 : (a > qmax ? qmax : a);
+  *addr = (a * (S - 1)) / qmax;     // a >= 0: truncation is the floor
+  return k;
+}
+
+// The P+1 uint8 ROM values at `addr`, ascending basis index: B0(x_a + j)
+// for j = P-i is the direct fetch rom[addr][j] for j < half, else the
+// inverted-address fetch rom[S-1-addr][P-j] (paper Fig. 5).
+template <int P>
+__device__ __forceinline__ void rom_fetch(const uint8_t* rom, int S, int addr, int* vals) {
+  constexpr int half = (P + 2) / 2;   // ceil((P+1)/2)
+#pragma unroll
+  for (int i = 0; i <= P; ++i) {
+    const int j = P - i;
+    vals[i] = j < half ? (int)rom[addr * half + j] : (int)rom[(S - 1 - addr) * half + (P - j)];
+  }
 }
 
 }  // namespace kan

@@ -12,11 +12,12 @@
 //     selects which m rows to load; untouched rows are never read);
 //   * threads run along n, so every load of C and Wb is coalesced;
 //   * per input j the block first evaluates (vals, k) of every row once into
-//     a shared-memory band of kMaxM = 8 slots (kan_common.cuh, fp32), then
-//     each thread accumulates sum_m band[r][j][m] * C[j,m,n] + ReLU(x[r,j]) *
-//     Wb[j,n].  The band width is a compile-time 8 (M = G+P <= 8), so a row
-//     takes 8 FMAs per input, of which P+1 are non-zero; the loads, not the
-//     FMAs, set the time;
+//     a shared-memory band of MAXM slots (kan_common.cuh, fp32), then each
+//     thread accumulates sum_m band[r][j][m] * C[j,m,n] + ReLU(x[r,j]) *
+//     Wb[j,n].  The band width MAXM is a compile-time 8 or 16, the smallest
+//     that holds M = G+P (16 serves G = 10, MNIST-KAN), so a row takes MAXM
+//     FMAs per input, of which P+1 are non-zero; the loads, not the FMAs,
+//     set the time;
 //   * each thread issues the loads of kUnroll = 4 inputs before it uses any
 //     of them, so a block has up to 4 x 9 loads per thread in flight instead
 //     of waiting out one device-memory latency per input;
@@ -39,17 +40,16 @@ namespace {
 constexpr int kRows = 8;       // rows per block
 constexpr int kJC = 32;        // inputs per K slice
 constexpr int kCols = 128;     // columns per block == threads
-constexpr int kMaxM = 8;       // band slots per input: supports M = G+P <= 8
 constexpr int kUnroll = 4;     // inputs whose loads are in flight together
 static_assert(kJC % kUnroll == 0, "a slice is a whole number of unrolled steps");
 
-template <typename TX, typename TC, int P>
+template <typename TX, typename TC, int P, int MAXM>
 __global__ void __launch_bounds__(kCols)
 kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
                   const TC* __restrict__ base_w, float* __restrict__ partial,
                   unsigned* __restrict__ tickets, TX* __restrict__ y, int BS, int K, int N,
                   int M, float t0, float delta) {
-  __shared__ float band_s[kRows][kJC][kMaxM];
+  __shared__ float band_s[kRows][kJC][MAXM];
   __shared__ float xr_s[kRows][kJC];
   __shared__ unsigned mask_s[kJC];
   __shared__ bool last_s;
@@ -74,12 +74,12 @@ kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
       const float xf = kan::to_float(x[(size_t)(r0 + r) * K + j]);
       float vals[P + 1];
       const int k = kan::compact_basis<P>(xf, t0, delta, M, vals);
-      kan::band_scatter<P, TC>(vals, k, kMaxM, band);
+      kan::band_scatter<P, TC>(vals, k, MAXM, band);
       xr = kan::round_to<TC>(fmaxf(xf, 0.0f));
       atomicOr(&mask_s[jj], kan::window_mask<P>(k));
     } else {
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) band[m] = 0.0f;   // masked: contributes nothing
+      for (int m = 0; m < MAXM; ++m) band[m] = 0.0f;   // masked: contributes nothing
     }
     xr_s[r][jj] = xr;
   }
@@ -94,13 +94,13 @@ kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
       // The M-to-N multiplexer run forward: the touched rows of C[j] for
       // kUnroll inputs, all loads issued before any is used.  An input past
       // K has an empty mask and a zero band, so it loads and adds nothing.
-      float cm[kUnroll][kMaxM];
+      float cm[kUnroll][MAXM];
       float wb[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int jj = jb + u;
         const size_t j = (size_t)(j0 + jj);
-        kan::gather_coeff_rows<kMaxM>(coeff + j * M * N + n, (size_t)N, M, mask_s[jj],
+        kan::gather_coeff_rows<MAXM>(coeff + j * M * N + n, (size_t)N, M, mask_s[jj],
                                       cm[u]);
         wb[u] = (has_base && jj < jn) ? kan::to_float(base_w[j * N + n]) : 0.0f;
       }
@@ -112,7 +112,7 @@ kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
           if (r < nrows) {
             float s = acc[r];
 #pragma unroll
-            for (int m = 0; m < kMaxM; ++m) s = fmaf(band_s[r][jj][m], cm[u][m], s);
+            for (int m = 0; m < MAXM; ++m) s = fmaf(band_s[r][jj][m], cm[u][m], s);
             acc[r] = fmaf(xr_s[r][jj], wb[u], s);
           }
         }
@@ -147,7 +147,8 @@ int launch(const void* x, const void* coeff, const void* base_w, void* tickets, 
            void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t stream) {
   const int slices = (K + kJC - 1) / kJC;
   dim3 grid((N + kCols - 1) / kCols, slices, (BS + kRows - 1) / kRows);
-  kan_sparse_kernel<TX, TC, 3><<<grid, kCols, 0, stream>>>(
+  auto kern = M <= 8 ? kan_sparse_kernel<TX, TC, 3, 8> : kan_sparse_kernel<TX, TC, 3, 16>;
+  kern<<<grid, kCols, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TC*>(coeff),
       static_cast<const TC*>(base_w), static_cast<float*>(partial),
       static_cast<unsigned*>(tickets), static_cast<TX*>(y), BS, K, N, M, t0, delta);
@@ -167,13 +168,13 @@ extern "C" long long kan_sparse_gemm_partials(int BS, int K, int N) {
   return (long long)((K + kJC - 1) / kJC) * BS * N;
 }
 
-// Compiled for P = 3 (every config of the port) and M <= 8.  dtype codes:
+// Compiled for P = 3 (every config of the port) and M <= 16.  dtype codes:
 // 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
 extern "C" int kan_sparse_gemm(const void* x, const void* coeff, const void* base_w,
                                void* tickets, void* partial, void* y, int BS, int K, int N,
                                int M, int P, float t0, float delta, int x_dtype, int c_dtype,
                                void* stream) {
-  if (P != 3 || M <= P || M > kMaxM) return (int)cudaErrorInvalidValue;
+  if (P != 3 || M <= P || M > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && c_dtype == 0)
     return launch<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0, delta, s);

@@ -1,0 +1,168 @@
+"""Integer-only fused KAN GEMM: the int8 datapath of paper §III-B2 and §V.
+
+Counterpart of ``repro/kernels/kan_int8_gemm.py`` (the Pallas TPU kernel
+``_int8_kernel`` / ``kan_int8_gemm_pallas``): integer Align/Compare
+(Eq. 5), the uint8 ROM values, the dense ``u8`` band, an int8 GEMM with
+int32 accumulation and, given a per-channel ``scale``, the dequant epilogue
+(``acc·scale`` rounded once into ``out_dtype``) in one launch.  Without
+``scale`` it returns the int32 accumulator.
+
+The CUDA kernel (``csrc/kan_int8_gemm.cu``) and the plain version read
+the ROM, the paper's uint8 half-table ``build_lut_u8(P, S, lut_scale)``,
+with the direct and inverted-address fetch, so their values are the
+table's by construction (see
+:func:`repro_torch.kernels.common.int8_compact_values_inblock` for the one
+entry where the reference's kernels, which evaluate the table without
+reading it, differ).  :func:`resolve_lut_scale` keeps the reference's
+contract: the table must be ``build_lut_u8``'s at some integer value scale.
+
+:func:`kan_int8_gemm_reference` is the plain PyTorch version: the band
+materialised and one float64 matmul, exact for these integers (every
+partial sum is below 2^53), cast to int32.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import bspline
+from repro_torch.core.bspline import SplineGrid
+from repro_torch.core.quantization import build_lut_u8, lut_value_scale
+from repro_torch.kernels import build
+from repro_torch.kernels.common import band_scatter, int8_compact_values_inblock, rom_table
+
+SUPPORTED_P = (1, 2, 3)       # the degrees the int8 kernels are compiled for
+MAX_M = 64                    # the dense-band kernel's band width per K step
+MAX_ROM_BYTES = 16384         # shared memory the kernels give the uint8 ROM
+OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+@functools.lru_cache(maxsize=8)
+def _max_cardinal(P: int) -> float:
+    return float(bspline.cardinal_bspline(torch.tensor((P + 1) / 2.0), P))
+
+
+@functools.lru_cache(maxsize=32)
+def _reference_lut(P: int, S: int, scale: int) -> np.ndarray:
+    return build_lut_u8(P, S, scale)
+
+
+def resolve_lut_scale(lut_u8, grid: SplineGrid, S: int) -> int:
+    """The integer value scale of ``lut_u8``, which must equal
+    ``build_lut_u8(P, S, scale)`` (the kernels reproduce that table and no
+    other).  Reads the table on the host.  Raises ``ValueError`` for any
+    other table."""
+    default = lut_value_scale(grid.P)
+    concrete = (lut_u8.detach().cpu().numpy() if isinstance(lut_u8, torch.Tensor)
+                else np.asarray(lut_u8))
+    inferred = int(round(float(concrete.max()) / _max_cardinal(grid.P)))
+    for scale in dict.fromkeys((default, inferred, inferred - 1, inferred + 1)):
+        if scale > 0 and np.array_equal(concrete, _reference_lut(grid.P, S, scale)):
+            return scale
+    raise ValueError(
+        "kan_int8_gemm computes the build_lut_u8 ROM; the given table matches "
+        "no integer value scale, and arbitrary LUT tables are not supported")
+
+
+def dequant_epilogue(acc: torch.Tensor, scale: torch.Tensor | None,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """``acc`` (int32) as is, or ``acc·scale`` in float32 rounded once
+    (nearest even) into ``out_dtype``."""
+    if scale is None:
+        return acc
+    return (acc.to(torch.float32) * scale.to(torch.float32).reshape(1, -1)).to(out_dtype)
+
+
+def kan_int8_gemm_reference(
+    x_q: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, S: int = 256,
+    lut_scale: int = 256, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``x_q (BS, K)`` int, ``coeff_q (K, M, N)`` int8 values -> int32
+    ``(BS, N)``, or ``out_dtype`` with ``scale (N,)``."""
+    BS, K = x_q.shape
+    _, M, N = coeff_q.shape
+    bvals, k = int8_compact_values_inblock(x_q, grid, S, qmax, lut_scale)
+    band = band_scatter(bvals.to(torch.float64), k, M).reshape(BS, K * M)
+    acc = (band @ coeff_q.to(torch.float64).reshape(K * M, N)).to(torch.int32)
+    return dequant_epilogue(acc, scale, out_dtype)
+
+
+def rom_probe(grid: SplineGrid, S: int) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """Operands under which an int8 kernel reads every ROM address and
+    returns the values it read: ``(x_q (R, 1) int32, qmax, coeff_q (1, M, M)
+    int8)``.  With ``coeff_q`` the identity, row ``r`` of the accumulator
+    is input ``r``'s dense band.  ``qmax = (G+2P)(S-1) + 1`` is coprime to
+    ``G+2P`` and makes each address bucket wider than the step of ``u``, so
+    the codes ``x_q`` from below ``t0`` to past ``t_last`` reach every one
+    of the ``S`` addresses (the last through the clip at ``qmax``)."""
+    c = grid.G + 2 * grid.P
+    qmax = c * (S - 1) + 1
+    x_q = torch.arange(-2, (grid.n_basis + 1) * qmax // c + 3, dtype=torch.int32)[:, None]
+    coeff = torch.eye(grid.n_basis, dtype=torch.int8)[None]
+    return x_q, qmax, coeff
+
+
+def check_int8_operands(x_q, coeff_q, grid, scale, out_dtype, S, qmax, max_m) -> None:
+    """Raise on what an int8 CUDA kernel compiled for ``M <= max_m`` does
+    not take."""
+    if x_q.dim() != 2 or coeff_q.dim() != 3:
+        raise ValueError(f"x_q must be (BS, K) and coeff_q (K, M, N); got "
+                         f"{tuple(x_q.shape)} and {tuple(coeff_q.shape)}")
+    K = x_q.shape[1]
+    Kc, M, N = coeff_q.shape
+    if Kc != K or M != grid.n_basis:
+        raise ValueError(f"coeff_q {tuple(coeff_q.shape)} does not match x_q "
+                         f"{tuple(x_q.shape)} and M={grid.n_basis}")
+    if grid.P not in SUPPORTED_P or M > max_m:
+        raise ValueError(f"the CUDA kernel is compiled for P in {SUPPORTED_P} and "
+                         f"M=G+P <= {max_m}; got P={grid.P}, M={M}")
+    if S * grid.half_cols() > MAX_ROM_BYTES or S < 2:
+        raise ValueError(f"a ROM of S={S} rows does not fit the kernel's "
+                         f"{MAX_ROM_BYTES} bytes of shared memory")
+    if qmax < 1:
+        raise ValueError(f"qmax must be positive; got {qmax}")
+    if x_q.dtype != torch.int32 or coeff_q.dtype != torch.int8:
+        raise ValueError(f"x_q must be int32 and coeff_q int8; got {x_q.dtype}, "
+                         f"{coeff_q.dtype}")
+    tensors = [x_q, coeff_q] + ([scale] if scale is not None else [])
+    for t in tensors:
+        if t.device != x_q.device:
+            raise ValueError("x_q, coeff_q and scale must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if scale is not None:
+        if scale.dtype != torch.float32 or scale.numel() != N:
+            raise ValueError(f"scale must be float32 with {N} values")
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"out_dtype {out_dtype} not supported (float32, bfloat16)")
+
+
+def kan_int8_gemm_cuda(
+    x_q: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, S: int = 256,
+    lut_scale: int = 256, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors ``x_q (BS, K)`` (one launch)."""
+    if scale is not None:
+        scale = scale.to(torch.float32).reshape(-1).contiguous()
+    check_int8_operands(x_q, coeff_q, grid, scale, out_dtype, S, qmax, MAX_M)
+    BS, K = x_q.shape
+    _, M, N = coeff_q.shape
+    odt = torch.int32 if scale is None else out_dtype
+    y = torch.empty((BS, N), dtype=odt, device=x_q.device)
+    if BS == 0:
+        return y
+    table = rom_table(grid.P, S, lut_scale, x_q.device)
+    lib = build.load("kan_int8_gemm")
+    err = lib.kan_int8_gemm(
+        x_q.data_ptr(), coeff_q.data_ptr(),
+        scale.data_ptr() if scale is not None else None, table.data_ptr(), y.data_ptr(),
+        BS, K, N, M, grid.G, grid.P, S, qmax, OUT_CODES[odt],
+        torch.cuda.current_stream(x_q.device).cuda_stream,
+    )
+    build.check(err, "kan_int8_gemm")
+    return y

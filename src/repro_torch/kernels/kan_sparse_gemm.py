@@ -1,18 +1,28 @@
-"""Compact N:M sparse KAN GEMM, the decode path (float kernel only).
+"""Compact N:M sparse KAN GEMM, the decode path: float and int8 kernels.
 
-Counterpart of ``repro/kernels/kan_sparse_gemm.py`` (the Pallas TPU kernel
-``_sparse_kernel`` / ``kan_sparse_gemm_pallas``): each input contracts only
-its ``P+1`` non-zero basis values against the coefficient slab
-``C[j, k-P .. k, :]`` it touches, plus the base term, in one launch.  The
-CUDA kernel (``csrc/kan_sparse_gemm.cu``) is a GEMV for up to 8 rows per
-block that reads each touched coefficient row once for all rows, splits K
-into slices and sums the slices' fp32 partials in the same launch; its
-source note states its bound.  It takes ``P = 3`` and ``M = G+P <= 8``.  The
-int8 variant is not ported yet.
+Counterpart of ``repro/kernels/kan_sparse_gemm.py`` (the Pallas TPU kernels
+``_sparse_kernel`` / ``kan_sparse_gemm_pallas`` and ``_sparse_int8_kernel``
+/ ``kan_sparse_int8_gemm_pallas``): each input contracts only its ``P+1``
+non-zero basis values against the coefficient slab ``C[j, k-P .. k, :]`` it
+touches, in one launch.
 
-:func:`kan_sparse_gemm_reference` is the plain PyTorch version: gathered
-slabs and an einsum.  Its ``(BS, K, P+1, N)`` gather is fine at decode row
-counts and at the CPU tests' sizes.
+* Float (``csrc/kan_sparse_gemm.cu``): plus the base term; a GEMV for up to
+  8 rows per block that reads each touched coefficient row once for all
+  rows, splits K into slices and sums the slices' fp32 partials in the same
+  launch.  It takes ``P = 3`` and ``M = G+P <= 16`` (a band of 8 or 16
+  slots, chosen by M).
+* int8 (``csrc/kan_sparse_int8_gemm.cu``): the same layout on the integer
+  datapath of ``kan_int8_gemm`` (Eq. 5 address arithmetic, uint8 ROM values,
+  int8 slabs, K slices summed by int32 atomics, optional dequant epilogue);
+  its integers are the dense-band kernel's.  It takes ``P in {1, 2, 3}`` and
+  ``M <= 16``.
+
+Both kernels keep their workspace per stream and share its tickets.  Their
+source notes state their bounds.  :func:`kan_sparse_gemm_reference` and
+:func:`kan_sparse_int8_gemm_reference` are the plain PyTorch versions:
+gathered slabs and an einsum (float64 for the integers, exact).  Their
+``(BS, K, P+1, N)`` gather is fine at decode row counts and at the CPU
+tests' sizes.
 """
 
 from __future__ import annotations
@@ -21,31 +31,39 @@ import torch
 
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.kernels import build
-from repro_torch.kernels.common import compact_basis_inblock, gather_coeff_slabs
+from repro_torch.kernels.common import (
+    compact_basis_inblock, gather_coeff_slabs, int8_compact_values_inblock, rom_table)
 from repro_torch.kernels.kan_fused_gemm import DTYPE_CODES, check_operands
+from repro_torch.kernels.kan_int8_gemm import OUT_CODES, check_int8_operands, dequant_epilogue
 
-MAX_M = 8                     # the kernel's compile-time band width
+MAX_M = 16                    # the widest compile-time band (8 or 16 slots)
 
-# The kernel's device workspace, one per (device, stream) so that calls
+# The kernels' device workspace, one per (device, stream) so that calls
 # ordered on one stream share it and calls on two streams never do: ticket
-# counters (zero when made, and every launch leaves them zero) and the K
-# slices' fp32 partials.  Each buffer only ever grows.
+# counters (zero when made, and every launch leaves them zero), and per
+# kernel a scratch buffer: the float kernel's fp32 partials of the K slices
+# (any contents) or the int8 kernel's int32 accumulators (zero when made,
+# and every launch leaves them zero).  Each buffer only ever grows.
+_SCRATCH = {"kan_sparse_gemm": ("partials", torch.float32),
+            "kan_sparse_int8_gemm": ("accumulators", torch.int32)}
 _workspaces: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
-_workspace_sizes: dict[tuple[int, int, int], tuple[int, int]] = {}
+_workspace_sizes: dict[tuple[str, int, int, int], tuple[int, int]] = {}
 
 
-def _workspace(lib, device: torch.device, stream: int, BS: int, K: int, N: int):
-    sizes = _workspace_sizes.get((BS, K, N))
+def _workspace(lib, fn: str, device: torch.device, stream: int, BS: int, K: int, N: int):
+    what, dtype = _SCRATCH[fn]
+    sizes = _workspace_sizes.get((fn, BS, K, N))
     if sizes is None:
-        sizes = _workspace_sizes[(BS, K, N)] = (int(lib.kan_sparse_gemm_tickets(BS, N)),
-                                                int(lib.kan_sparse_gemm_partials(BS, K, N)))
-    n_tickets, n_partial = sizes
+        sizes = _workspace_sizes[(fn, BS, K, N)] = (
+            int(getattr(lib, fn + "_tickets")(BS, N)),
+            int(getattr(lib, f"{fn}_{what}")(BS, K, N)))
+    n_tickets, n_scratch = sizes
     ws = _workspaces.setdefault((device.index, stream), {})
     if "tickets" not in ws or ws["tickets"].numel() < n_tickets:
         ws["tickets"] = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    if "partial" not in ws or ws["partial"].numel() < n_partial:
-        ws["partial"] = torch.empty(n_partial, dtype=torch.float32, device=device)
-    return ws["tickets"], ws["partial"]
+    if what not in ws or ws[what].numel() < n_scratch:
+        ws[what] = torch.zeros(n_scratch, dtype=dtype, device=device)
+    return ws["tickets"], ws[what]
 
 
 def kan_sparse_gemm_reference(
@@ -80,7 +98,7 @@ def kan_sparse_gemm_cuda(
         return y
     lib = build.load("kan_sparse_gemm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    tickets, partial = _workspace(lib, x.device, stream, BS, K, N)
+    tickets, partial = _workspace(lib, "kan_sparse_gemm", x.device, stream, BS, K, N)
     err = lib.kan_sparse_gemm(
         x.data_ptr(), coeff.data_ptr(),
         base_w.data_ptr() if base_w is not None else None,
@@ -89,4 +107,46 @@ def kan_sparse_gemm_cuda(
         DTYPE_CODES[x.dtype], DTYPE_CODES[coeff.dtype], stream,
     )
     build.check(err, "kan_sparse_gemm")
+    return y
+
+
+def kan_sparse_int8_gemm_reference(
+    x_q: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, S: int = 256,
+    lut_scale: int = 256, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """``x_q (BS, K)`` int, ``coeff_q (K, M, N)`` int8 values -> int32
+    ``(BS, N)``, or ``out_dtype`` with ``scale (N,)``."""
+    bvals, k = int8_compact_values_inblock(x_q, grid, S, qmax, lut_scale)
+    slabs = gather_coeff_slabs(coeff_q, k, grid.P).to(torch.float64)
+    acc = torch.einsum("bki,bkin->bn", bvals.to(torch.float64), slabs).to(torch.int32)
+    return dequant_epilogue(acc, scale, out_dtype)
+
+
+def kan_sparse_int8_gemm_cuda(
+    x_q: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, S: int = 256,
+    lut_scale: int = 256, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors ``x_q (BS, K)`` (one launch)."""
+    if scale is not None:
+        scale = scale.to(torch.float32).reshape(-1).contiguous()
+    check_int8_operands(x_q, coeff_q, grid, scale, out_dtype, S, qmax, MAX_M)
+    BS, K = x_q.shape
+    _, M, N = coeff_q.shape
+    odt = torch.int32 if scale is None else out_dtype
+    y = torch.empty((BS, N), dtype=odt, device=x_q.device)
+    if BS == 0:
+        return y
+    table = rom_table(grid.P, S, lut_scale, x_q.device)
+    lib = build.load("kan_sparse_int8_gemm")
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    tickets, sums = _workspace(lib, "kan_sparse_int8_gemm", x_q.device, stream, BS, K, N)
+    err = lib.kan_sparse_int8_gemm(
+        x_q.data_ptr(), coeff_q.data_ptr(),
+        scale.data_ptr() if scale is not None else None, table.data_ptr(),
+        tickets.data_ptr(), sums.data_ptr(), y.data_ptr(),
+        BS, K, N, M, grid.G, grid.P, S, qmax, OUT_CODES[odt], stream,
+    )
+    build.check(err, "kan_sparse_int8_gemm")
     return y

@@ -10,8 +10,9 @@ Tiles are the kernels' fixed defaults (see each ``csrc/*.cu``); the JAX
 package's tile autotuner is not ported yet.  ``LAUNCHES`` counts kernel
 launches per kernel, so a run can show that its main path went through the
 kernels: a wrapper adds one exactly where it launches, never on the CPU.
-The block-table gather of the paged KV cache (:func:`gather_blocks`)
-follows the same rule.
+The block-table gather of the paged KV cache (:func:`gather_blocks`), the
+integer KAN GEMMs (:func:`kan_int8_gemm`, :func:`kan_sparse_int8_gemm`) and
+the tabulated B-spline unit (:func:`bspline_lut`) follow the same rule.
 """
 
 from __future__ import annotations
@@ -19,11 +20,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bspline import SplineGrid
+from repro_torch.kernels import bspline_lut as _lut
 from repro_torch.kernels import kan_fused_gemm as _fused
+from repro_torch.kernels import kan_int8_gemm as _int8
 from repro_torch.kernels import kan_sparse_gemm as _sparse
 from repro_torch.kernels import paged_gather as _gather
 
-LAUNCHES: dict[str, int] = {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
+LAUNCHES: dict[str, int] = {
+    "kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0,
+    "kan_int8_gemm": 0, "kan_sparse_int8_gemm": 0, "bspline_lut": 0,
+}
 
 
 def reset_launches() -> None:
@@ -73,3 +79,66 @@ def gather_blocks(pool: torch.Tensor, table: torch.Tensor,
     if view.numel():
         LAUNCHES["gather_blocks"] += 1
     return view
+
+
+def _apply_int8(name, plain, cuda, x_q, lut_u8, coeff_q, grid, scale, qmax, lut_scale,
+                out_dtype) -> torch.Tensor:
+    if lut_scale is None:
+        lut_scale = _int8.resolve_lut_scale(lut_u8, grid, lut_u8.shape[0])
+    lead = x_q.shape[:-1]
+    x2 = x_q.reshape(-1, x_q.shape[-1]).to(torch.int32).contiguous()
+    kw = dict(scale=scale, qmax=qmax, S=lut_u8.shape[0], lut_scale=lut_scale,
+              out_dtype=out_dtype)
+    if x2.device.type == "cpu":
+        y = plain(x2, coeff_q, grid, **kw)
+    else:
+        y = cuda(x2, coeff_q.to(torch.int8).contiguous(), grid, **kw)
+        LAUNCHES[name] += 1
+    return y.reshape(lead + (coeff_q.shape[-1],))
+
+
+def kan_int8_gemm(
+    x_q: torch.Tensor, lut_u8: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, lut_scale: int | None = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Integer-only fused KAN GEMM through the dense u8 band (paper §V).
+
+    ``x_q (..., K)`` activations quantised over the extended domain,
+    ``coeff_q (K, M, N)`` int8 values; ``lut_u8`` fixes the table size
+    ``S`` and, when ``lut_scale`` is None, its value scale (read and
+    verified on the host, :func:`~repro_torch.kernels.kan_int8_gemm.resolve_lut_scale`).
+    Returns the int32 accumulator, or with ``scale (N,)`` the dequantised
+    ``out_dtype`` from the fused epilogue."""
+    return _apply_int8("kan_int8_gemm", _int8.kan_int8_gemm_reference,
+                       _int8.kan_int8_gemm_cuda, x_q, lut_u8, coeff_q, grid, scale, qmax,
+                       lut_scale, out_dtype)
+
+
+def kan_sparse_int8_gemm(
+    x_q: torch.Tensor, lut_u8: torch.Tensor, coeff_q: torch.Tensor, grid: SplineGrid,
+    scale: torch.Tensor | None = None, qmax: int = 255, lut_scale: int | None = None,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Integer sparse KAN GEMM: :func:`kan_int8_gemm`'s contract and
+    integers, through gathered int8 slabs instead of the dense band (the
+    int8 decode path)."""
+    return _apply_int8("kan_sparse_int8_gemm", _sparse.kan_sparse_int8_gemm_reference,
+                       _sparse.kan_sparse_int8_gemm_cuda, x_q, lut_u8, coeff_q, grid,
+                       scale, qmax, lut_scale, out_dtype)
+
+
+def bspline_lut(
+    x: torch.Tensor, lut: torch.Tensor, grid: SplineGrid
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tabulated B-spline unit (paper Fig. 5): ``x (...)`` -> ``(vals
+    (..., P+1) in x.dtype, k (...) int32)`` from the half-table ``lut
+    (S, ceil((P+1)/2))``."""
+    lead = x.shape
+    x1 = x.reshape(-1).contiguous()
+    if x1.device.type == "cpu":
+        vals, k = _lut.bspline_lut_reference(x1, lut, grid)
+    else:
+        vals, k = _lut.bspline_lut_cuda(x1, lut.contiguous(), grid)
+        LAUNCHES["bspline_lut"] += 1
+    return vals.reshape(lead + (grid.P + 1,)), k.reshape(lead)

@@ -9,7 +9,11 @@ inputs, and the reduced kanformer's kernel path against the plain path on
 the CPU.  Tolerances: fp32 atol 1e-4 (|y| ~ 2, sums in another order);
 bf16 one bf16 ulp of max|y| (same products, fp32 sums in another order,
 one final rounding); logits atol 1e-4.  The block-table gather moves data
-only and must be bit-equal to its plain version.
+only and must be bit-equal to its plain version.  The integer kernels
+(``kan_int8_gemm``, ``kan_sparse_int8_gemm``) must be bit-equal to their
+plain versions and to each other, with and without the dequant epilogue,
+and read every ROM address as ``build_lut_u8`` holds it; the B-spline LUT
+kernel's values and ``k`` must equal its plain version's exactly.
 """
 
 import numpy as np
@@ -17,7 +21,11 @@ import pytest
 import torch
 
 from repro_torch import configs, set_ieee_fp32
-from repro_torch.core.bspline import SplineGrid
+from repro_torch.core import kan_layer as KL
+from repro_torch.core import quantization as Q
+from repro_torch.core.bspline import SplineGrid, build_lut
+from repro_torch.kernels import bspline_lut as L
+from repro_torch.kernels import kan_int8_gemm as I8
 from repro_torch.kernels import ops
 from repro_torch.kernels import kan_fused_gemm as F
 from repro_torch.kernels import kan_sparse_gemm as S
@@ -56,7 +64,7 @@ def _inputs(grid, BS, K, N, seed, with_base):
 @pytest.mark.parametrize("BS,K,N", [(13, 100, 200), (512, 512, 1024), (4, 1024, 512),
                                     (1, 512, 1024), (8, 512, 1024)])
 @pytest.mark.parametrize("name", ["kan_fused_gemm", "kan_sparse_gemm"])
-@pytest.mark.parametrize("G,P", [(5, 3), (4, 3)])
+@pytest.mark.parametrize("G,P", [(5, 3), (4, 3), (10, 3), (13, 3)])
 def test_cuda_kernel_matches_plain_version(cuda_device, G, P, name, BS, K, N, dtype,
                                            with_base):
     grid = SplineGrid(-1.0, 1.0, G, P)
@@ -103,7 +111,8 @@ def test_reduced_kanformer_kernel_path_matches_plain_path(cuda_device):
     got, gc = lm.prefill(gpu, model, toks.to(cuda_device), 16)
     want, wc = lm.prefill(params, model, toks, 16)
     assert ops.LAUNCHES == {"kan_fused_gemm": 2 * model.n_repeats, "kan_sparse_gemm": 0,
-                            "gather_blocks": 0}
+                            "gather_blocks": 0, "kan_int8_gemm": 0,
+                            "kan_sparse_int8_gemm": 0, "bspline_lut": 0}
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     pos = torch.tensor(9)
     for s in range(3):
@@ -208,3 +217,167 @@ def test_reduced_continuous_engine_on_card_matches_cpu(cuda_device, cfg):
         assert cst.get(key) == gst.get(key)
     assert (launches["gather_blocks"] > 0) == bool(cfg)
     assert launches["kan_sparse_gemm"] > 0
+
+
+INT8 = {"kan_int8_gemm": ops.kan_int8_gemm, "kan_sparse_int8_gemm": ops.kan_sparse_int8_gemm}
+INT8_PLAIN = {"kan_int8_gemm": I8.kan_int8_gemm_reference,
+              "kan_sparse_int8_gemm": S.kan_sparse_int8_gemm_reference}
+
+
+def _int8_case(grid, BS, K, N, seed):
+    """Codes over [-40, 300] (0, qmax and negative ones planted at the
+    front), int8 coefficients over [-127, 127], per-channel scales."""
+    rs = np.random.RandomState(seed)
+    xq = rs.randint(-40, 300, (BS, K)).astype(np.int32)
+    xq.reshape(-1)[:6] = [0, 255, -1, -255, 256, 128][: xq.size]
+    cq = rs.randint(-127, 128, (K, grid.n_basis, N)).astype(np.int8)
+    sc = rs.uniform(1e-5, 1e-3, N).astype(np.float32)
+    return torch.tensor(xq), torch.tensor(cq), torch.tensor(sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BS,K,N", [(13, 100, 200), (1, 784, 64), (8, 784, 64),
+                                    (70, 37, 10), (4, 64, 512)])
+@pytest.mark.parametrize("G,P", [(10, 3), (13, 3), (3, 2), (2, 1)])
+@pytest.mark.parametrize("name", sorted(INT8))
+def test_int8_kernel_equals_plain_version_bitwise(cuda_device, name, G, P, BS, K, N, out):
+    """M = 13 (MNIST-KAN) and 16 (the widest sparse band), P = 1, 2, 3,
+    ragged shapes, codes at 0, qmax and negative, with and without the
+    dequant epilogue."""
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, BS, K, N, G + BS + K + N))
+    lut = torch.tensor(Q.build_lut_u8(P, 256), device=cuda_device)
+    kw = {} if out is None else dict(scale=sc, out_dtype=out)
+    ops.reset_launches()
+    got = INT8[name](xq, lut, cq, grid, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 1 and got.dtype == (out or torch.int32)
+    want = INT8_PLAIN[name](xq, cq, grid, S=256, lut_scale=Q.lut_value_scale(P),
+                            scale=kw.get("scale"), out_dtype=out or torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 8])
+@pytest.mark.parametrize("K,N", [(784, 64), (64, 10), (2810, 512)])
+def test_sparse_int8_kernel_bit_equal_to_dense_band_kernel(cuda_device, rows, K, N):
+    """MNIST-KAN's layers (G=10) and CF-KAN's first (G=2), at decode rows."""
+    grid = SplineGrid(-1.0, 1.0, 2 if K == 2810 else 10, 3)
+    xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, rows, K, N, rows * K))
+    lut = torch.tensor(Q.build_lut_u8(3, 256, 192), device=cuda_device)
+    for kw in ({}, dict(scale=sc), dict(scale=sc, out_dtype=torch.bfloat16)):
+        a = ops.kan_int8_gemm(xq, lut, cq, grid, **kw)
+        b = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, **kw)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_", [256, 4096])
+@pytest.mark.parametrize("scale", [None, 192])
+@pytest.mark.parametrize("G,P", [(2, 1), (3, 2), (10, 3)])
+def test_int8_kernels_read_every_rom_address(cuda_device, G, P, scale, S_):
+    """Under ``rom_probe``'s operands the accumulator rows are the bands the
+    kernel built: every one of the S addresses, as ``build_lut_u8`` holds
+    it (the plain version reads the table on the CPU)."""
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    lut = torch.tensor(Q.build_lut_u8(P, S_, scale))
+    x_q, qmax, coeff = I8.rom_probe(grid, S_)
+    want = ops.kan_int8_gemm(x_q, lut, coeff, grid, qmax=qmax)
+    for fn in INT8.values():
+        got = fn(x_q.to(cuda_device), lut.to(cuda_device), coeff.to(cuda_device), grid,
+                 qmax=qmax)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sparse_kernels_share_a_workspace_across_shapes_and_dtypes(cuda_device):
+    """The float and int8 sparse kernels share the workspace of a stream;
+    calls of growing and shrinking shapes, alternating between them, each
+    match their plain versions and repeat bit-equal."""
+    grid = SplineGrid(-1.0, 1.0, 10, 3)
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    for BS, K, N in [(1, 64, 128), (8, 784, 64), (3, 2810, 512), (2, 33, 17), (13, 100, 200),
+                     (1, 5, 3)]:
+        xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, BS, K, N, BS * K + N))
+        got = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, scale=sc)
+        assert torch.equal(got, ops.kan_sparse_int8_gemm(xq, lut, cq, grid, scale=sc))
+        assert torch.equal(got, S.kan_sparse_int8_gemm_reference(xq, cq, grid, scale=sc))
+        x, c, w = _inputs(grid, BS, K, N, BS + K, True)
+        tx, tc, tw = (torch.tensor(a).to(cuda_device) for a in (x, c, w))
+        y = ops.kan_sparse_gemm(tx, tc, grid, tw)
+        torch.testing.assert_close(y, S.kan_sparse_gemm_reference(tx, tc, grid, tw),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_", [256, 4096, 100])
+@pytest.mark.parametrize("G,P", [(10, 3), (5, 3), (3, 2), (2, 1)])
+@pytest.mark.parametrize("n", [1, 1000, 300_000])
+def test_bspline_lut_kernel_equals_plain_version(cuda_device, G, P, S_, n):
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    rs = np.random.RandomState(n + G)
+    x = rs.uniform(-1.2, 1.2, n).astype(np.float32)
+    plant = np.concatenate([[grid.x_min, grid.x_max], grid.knots(), [-3.0, 2.5]])
+    x[: min(n, plant.size)] = plant[:n]
+    tx = torch.tensor(x, device=cuda_device)
+    lut = torch.tensor(build_lut(P, S_), device=cuda_device)
+    ops.reset_launches()
+    vals, k = ops.bspline_lut(tx, lut, grid)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["bspline_lut"] == 1
+    want_v, want_k = L.bspline_lut_reference(tx, lut, grid)
+    assert torch.equal(k, want_k) and torch.equal(vals, want_v)
+    cpu_v, cpu_k = L.bspline_lut_reference(tx.cpu(), lut.cpu(), grid)
+    assert torch.equal(k.cpu(), cpu_k) and torch.equal(vals.cpu(), cpu_v)
+
+
+@pytest.mark.cuda
+def test_int8_and_lut_kernels_raise_and_never_fall_back(cuda_device):
+    ops.reset_launches()
+    lut8 = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    xq = torch.zeros(2, 8, dtype=torch.int32, device=cuda_device)
+    wide = SplineGrid(-1.0, 1.0, 14, 3)                        # M = 17
+    with pytest.raises(ValueError, match="M=G\\+P <= 16"):
+        ops.kan_sparse_int8_gemm(xq, lut8, torch.zeros(8, 17, 4, dtype=torch.int8,
+                                                       device=cuda_device), wide)
+    p4 = SplineGrid(-1.0, 1.0, 5, 4)
+    with pytest.raises(ValueError, match="compiled for P"):
+        ops.kan_int8_gemm(xq, torch.tensor(Q.build_lut_u8(4, 256), device=cuda_device),
+                          torch.zeros(8, 9, 4, dtype=torch.int8, device=cuda_device), p4)
+    g = SplineGrid(-1.0, 1.0, 10, 3)
+    with pytest.raises(ValueError, match="float32"):
+        ops.bspline_lut(torch.zeros(8, dtype=torch.bfloat16, device=cuda_device),
+                        torch.tensor(build_lut(3), device=cuda_device), g)
+    with pytest.raises(ValueError, match="one device"):
+        ops.kan_int8_gemm(xq, lut8, torch.zeros(8, 13, 4, dtype=torch.int8), g)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_mnist_kan_int8_and_lut_paths_on_card_match_cpu(cuda_device):
+    """A narrow MNIST-KAN ([96, 32, 10], G=10) quantised on the card and on
+    the CPU: equal integers; each layer's fused int8 forward on the same
+    input bit-equal to the CPU's (dense band at 40 rows, sparse at 8); the
+    lut path within fp32 sums of the CPU's."""
+    cfg = KL.KANNetConfig(layers=(96, 32, 10), G=10, P=3)
+    params = KL.init_kan_net(cfg, seed=0, device="cpu")
+    gpu = [{k: v.to(cuda_device) for k, v in p.items()} for p in params]
+    x = torch.tensor(np.random.RandomState(0).uniform(-1.2, 1.2, (40, 96)).astype(np.float32))
+    h = x
+    for i, (p, pg) in enumerate(zip(params, gpu)):
+        ql, qg = Q.quantize_kan_layer(p, cfg.grid()), Q.quantize_kan_layer(pg, cfg.grid())
+        assert torch.equal(ql.coeff_q, qg.coeff_q.cpu())
+        assert torch.equal(ql.base_w_q, qg.base_w_q.cpu())
+        if i:
+            h = torch.tanh(h)
+        for rows in (40, 8):
+            ops.reset_launches()
+            got = Q.quantized_kan_forward_fused(qg, h[:rows].to(cuda_device))
+            kernel = "kan_int8_gemm" if rows > 8 else "kan_sparse_int8_gemm"
+            assert ops.LAUNCHES[kernel] == 1
+            assert torch.equal(got.cpu(), Q.quantized_kan_forward_fused(ql, h[:rows]))
+        h = Q.quantized_kan_forward(ql, h)
+    got = KL.kan_net_apply(gpu, x.to(cuda_device), cfg, method="lut")
+    want = KL.kan_net_apply(params, x, cfg, method="lut")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -68,6 +68,24 @@ def test_continuous_paged_modules_import_neither_jax_nor_repro(module):
         assert roots <= {"__future__", "dataclasses", "collections", "hashlib", "numpy"}
 
 
+# the modules the integer KAN inference slice added
+INT8_MODULES = ["core/quantization.py", "kernels/kan_int8_gemm.py", "kernels/bspline_lut.py",
+                "kernels/kan_sparse_gemm.py", "core/kan_layer.py", "core/bspline.py"]
+
+
+@pytest.mark.parametrize("module", INT8_MODULES)
+def test_int8_slice_modules_import_neither_jax_nor_repro(module):
+    assert not _imported_roots(PORT / module) & set(FORBIDDEN)
+
+
+def test_every_csrc_source_is_built_by_one_library():
+    from repro_torch.kernels import build
+
+    sources = {src for src, _ in build.LIBRARIES.values()}
+    assert sources == {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
+    assert len(sources) == 6
+
+
 def _smoke(cwd: Path) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
                           text=True, timeout=300, cwd=cwd,
@@ -78,6 +96,22 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
     r = _smoke(ROOT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and "no CUDA device" in r.stderr
+
+
+def test_chip_smoke_int8_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 7's checks run on the kernels' plain versions at a narrow
+    width (on the CPU the wrappers launch nothing, so every count is 0)."""
+    import numpy as np
+    import torch
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    out = chip_smoke.int8_path(torch, np, device="cpu", layers=(96, 32, 10), rows=64)
+    assert out["rom_tables_checked"] == 7 and out["sparse_int8_cases"] == 18
+    assert set(out["runs"]) == {"int8_2048", "int8_8", "fp32_auto_2048", "fp32_auto_8",
+                                "lut_2048"}
+    assert 0.5 <= out["top1_agreement"] <= 1.0 and out["fp32_kernel_vs_plain_err"] == 0.0
 
 
 def test_chip_smoke_fails_outside_a_checkout(tmp_path):

@@ -114,5 +114,8 @@ def test_unknown_and_unported_methods_raise():
     tp = {k: torch.tensor(v) for k, v in p.items()}
     with pytest.raises(ValueError, match="unknown method"):
         tkl.kan_layer_apply(tp, torch.tensor(x), SplineGrid(), "bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkl.kan_layer_apply(tp, torch.tensor(x), SplineGrid(), "lut")
+    # "lut" was the last unported method: it now runs, as the reference's
+    got = tkl.kan_layer_apply(tp, torch.tensor(x), SplineGrid(), "lut")
+    want = jkl.kan_layer_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                               JGrid(), "lut")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=LAYER_ATOL)

@@ -132,7 +132,8 @@ def test_cpu_wrapper_flattens_leading_dims_and_counts_no_launch(name):
     assert tuple(y.shape) == (2, 3, 7)
     flat = getattr(ops, name)(torch.tensor(x), torch.tensor(c), grid, torch.tensor(w))
     torch.testing.assert_close(y.reshape(6, 7), flat, rtol=0, atol=0)
-    assert ops.LAUNCHES == {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0}
+    assert ops.LAUNCHES == {"kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0,
+                            "kan_int8_gemm": 0, "kan_sparse_int8_gemm": 0, "bspline_lut": 0}
 
 
 def test_fused_and_sparse_plain_versions_agree():
@@ -181,10 +182,11 @@ def test_cuda_launchers_reject_what_the_kernels_do_not_take(launcher):
 
 
 def test_sparse_launcher_rejects_a_band_wider_than_its_compiled_width():
-    """The sparse kernel's band is a compile-time 8 slots (M = G+P <= 8)."""
-    grid = SplineGrid(-1.0, 1.0, 6, 3)
-    assert grid.n_basis == S.MAX_M + 1
-    with pytest.raises(ValueError, match="M=G\\+P <= 8"):
+    """The sparse kernel's band is a compile-time 8 or 16 slots (M = G+P <=
+    16, so MNIST-KAN's G=10 runs)."""
+    grid = SplineGrid(-1.0, 1.0, 14, 3)
+    assert grid.n_basis == S.MAX_M + 1 == 17
+    with pytest.raises(ValueError, match="M=G\\+P <= 16"):
         S.kan_sparse_gemm_cuda(torch.zeros(4, 16), torch.zeros(16, grid.n_basis, 8), grid)
 
 
