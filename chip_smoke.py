@@ -17,7 +17,9 @@ Phases; any failed check raises and the script exits non-zero:
    over the materialised band (``library_ms``, a yardstick the port never
    calls) with CUDA events behind a spin kernel (so the host's launch rate
    does not set the time), rotating input copies so the 50 MB L2 stays
-   cold as in the model; compute each kernel's bound from its shapes.
+   cold as in the model; compute each kernel's bound from its shapes.  The
+   fused kernel is also timed where the fp32 MNIST-KAN net of phase 7
+   launches it (2048 x 784 -> 64 and 2048 x 64 -> 10, M = 13).
 4. The main path: full-width kanformer-100m (random weights from a seed,
    fp32) served through ``Engine.serve_requests`` with the launch counts
    reset just before and read just after; then the same tokens through
@@ -194,6 +196,7 @@ def special_inputs(torch, rows, K, dtype, grid, seed):
 
 
 def check_kernels(torch, grid):
+    from repro_torch.core.bspline import SplineGrid
     from repro_torch.kernels import kan_fused_gemm as F
     from repro_torch.kernels import kan_sparse_gemm as S
     from repro_torch.kernels import ops
@@ -242,13 +245,20 @@ def check_kernels(torch, grid):
                 if dtype == torch.float32:
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
                 if with_base and rows != 13 and (dtype == torch.float32 or rows in (512, 4)):
-                    results[name]["timed"].append((rows, K, N, dtype))
+                    results[name]["timed"].append((rows, K, N, dtype, grid))
+    # the fused kernel where the fp32 MNIST-KAN net launches it (phase 7:
+    # 2048 inputs, G=10, M=13; checked there against the plain path)
+    mnist = SplineGrid(-1.0, 1.0, MNIST["G"], MNIST["P"])
+    results["kan_fused_gemm"]["timed"] += [
+        (MNIST["rows"], K, N, torch.float32, mnist)
+        for K, N in zip(MNIST["layers"][:-1], MNIST["layers"][1:])]
 
     # timing at the main path's shapes: both FFN layers, fp32 at every row
     # count, bf16 at prefill's 512 and decode's 4 rows
     cycles_per_ms = spin_cycles_per_ms(torch)
     for name in plain:
-        for rows, K, N, dtype in results[name]["timed"]:
+        for rows, K, N, dtype, grid in results[name]["timed"]:
+            M = grid.n_basis
             dname = str(dtype)[6:]
             esize = torch.tensor([], dtype=dtype).element_size()
             set_bytes = (K * M * N + K * N) * esize
@@ -285,12 +295,12 @@ def check_kernels(torch, grid):
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
-            entry = {"shape": [rows, K, N], "dtype": dname, "ms": ms, "plain_ms": plain_ms,
+            entry = {"shape": [rows, K, N], "M": M, "dtype": dname, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": flops, "bytes": nbytes}
             results[name].setdefault("timings", []).append(entry)
-            log(f"[time] {name} rows={rows} K={K} N={N} {dname}: kernel_ms={ms:.4f} "
+            log(f"[time] {name} rows={rows} K={K} N={N} M={M} {dname}: kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
                 f"({entry['bound_by']}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return results
@@ -840,7 +850,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
     quant_ms = (time.perf_counter() - t0) * 1e3
     for i, (p, ql) in enumerate(zip(params, qlayers)):
         cpu = Q.quantize_kan_layer({k: v.cpu() for k, v in p.items()}, grid)
-        for f in ("coeff_q", "coeff_scale", "base_w_q", "base_w_scale", "lut_u8"):
+        for f in ("coeff_q", "coeff_i8", "coeff_scale", "base_w_q", "base_w_scale", "lut_u8"):
             if not torch.equal(getattr(cpu, f), getattr(ql, f).cpu()):
                 raise RuntimeError(f"layer {i}: {f} quantised on {device} != on the CPU")
     log(f"[int8] MNIST-KAN {list(layers)} G={grid.G} P={grid.P}: {n_params} fp32 parameters, "
@@ -886,7 +896,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
         h_in.append(h)
         plain = Q.quantized_kan_forward(ql, plain)
         x_q = ql.qg.x_quant.quantize(h)
-        cq = ql.coeff_q.to(torch.int8)
+        cq = ql.coeff_i8
         acc = ops.kan_int8_gemm(x_q, ql.lut_u8, cq, grid, lut_scale=ql.qg.lut_scale)
         want = I8.kan_int8_gemm_reference(x_q, cq, grid, S=ql.qg.S, lut_scale=ql.qg.lut_scale)
         if acc.dtype != torch.int32 or not torch.equal(acc, want):
@@ -917,7 +927,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
     # kernel 3 against kernel 4 and its plain version at decode rows
     checked = 0
     for i, ql in enumerate(qlayers):
-        cq = ql.coeff_q.to(torch.int8)
+        cq = ql.coeff_i8
         sc = ql.coeff_scale.reshape(-1) / torch.full((), ql.qg.lut_scale,
                                                       dtype=torch.float32, device=device)
         for r in (1, 4, 8):

@@ -139,6 +139,7 @@ class QuantizedKANLayer:
     base_w_scale: torch.Tensor | None   # (1, N)
     qg: QuantizedGrid
     lut_u8: torch.Tensor                # (S, ceil((P+1)/2)) uint8
+    coeff_i8: torch.Tensor              # coeff_q as int8, the kernels' operand
 
 
 def _quantize_symmetric(w: torch.Tensor, axis) -> tuple[torch.Tensor, torch.Tensor]:
@@ -157,6 +158,7 @@ def quantize_kan_layer(params, grid: SplineGrid, S: int = 256) -> QuantizedKANLa
     return QuantizedKANLayer(
         coeff_q=coeff_q, coeff_scale=cs, base_w_q=base_q, base_w_scale=bs_, qg=qg,
         lut_u8=torch.as_tensor(build_lut_u8(grid.P, S), device=coeff.device),
+        coeff_i8=coeff_q.to(torch.int8),
     )
 
 
@@ -196,7 +198,7 @@ def quantized_kan_forward_fused(qlayer: QuantizedKANLayer, x: torch.Tensor) -> t
     scale = qlayer.coeff_scale.reshape(-1) / _scalar(qg.lut_scale, qlayer.coeff_scale)
     method = resolve_int8_method(x.device, math.prod(x.shape[:-1]))
     gemm = {"int8": kops.kan_int8_gemm, "sparse_int8": kops.kan_sparse_int8_gemm}[method]
-    y = gemm(x_q, qlayer.lut_u8, qlayer.coeff_q.to(torch.int8), qg.grid, scale=scale,
+    y = gemm(x_q, qlayer.lut_u8, qlayer.coeff_i8, qg.grid, scale=scale,
              lut_scale=qg.lut_scale, out_dtype=x.dtype)
     base = _quantized_base_term(qlayer, x_q, y.shape)
     return y if base is None else y + base.to(y.dtype)

@@ -30,7 +30,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES = {
     "kan_fused_gemm": (
         "kan_fused_gemm.cu",
-        {"kan_fused_gemm": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I)},
+        {
+            "kan_fused_gemm": (
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
+            "kan_fused_gemm_tickets": ([_I, _I], ctypes.c_longlong),
+            "kan_fused_gemm_partials": ([_I, _I, _I], ctypes.c_longlong),
+        },
     ),
     "kan_sparse_gemm": (
         "kan_sparse_gemm.cu",
@@ -47,7 +52,12 @@ LIBRARIES = {
     ),
     "kan_int8_gemm": (
         "kan_int8_gemm.cu",
-        {"kan_int8_gemm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
+        {
+            "kan_int8_gemm": (
+                [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+            "kan_int8_gemm_tickets": ([_I, _I], ctypes.c_longlong),
+            "kan_int8_gemm_accumulators": ([_I, _I, _I], ctypes.c_longlong),
+        },
     ),
     "kan_sparse_int8_gemm": (
         "kan_sparse_int8_gemm.cu",

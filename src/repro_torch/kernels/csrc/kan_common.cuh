@@ -19,6 +19,10 @@
 //     reference's kernels evaluate the entries from the float Cox-de Boor
 //     triangle instead, which rounds one entry of the P = 2, scale 192 table
 //     the other way; see common.py.)
+//   * cp_async<BYTES> / cp_async_commit / cp_async_wait<N>: Ampere's
+//     asynchronous global-to-shared copies (cp.async), zero-filled past the
+//     bytes read, used by the dense-band kernels' staging rings;
+//   * sm_count: the current device's SM count (host), cached.
 // The plain PyTorch versions live in repro_torch/kernels/common.py.
 #pragma once
 
@@ -135,6 +139,38 @@ __device__ __forceinline__ void rom_fetch(const uint8_t* rom, int S, int addr, i
     const int j = P - i;
     vals[i] = j < half ? (int)rom[addr * half + j] : (int)rom[(S - 1 - addr) * half + (P - j)];
   }
+}
+
+// Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory of
+// which only the first `src_bytes` (0 .. BYTES) are read; the rest of the
+// BYTES shared bytes are zero-filled.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(BYTES), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Streaming multiprocessors of the current device (host side), cached.
+inline int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 132;
 }
 
 }  // namespace kan

@@ -3,10 +3,14 @@
 Counterpart of ``repro/kernels/kan_fused_gemm.py`` (the Pallas TPU kernel
 ``_fused_kernel`` / ``kan_fused_gemm_pallas``).  The CUDA kernel
 (``csrc/kan_fused_gemm.cu``) builds the dense ``(rows, K*M)`` B-spline band
-in shared memory from the raw x tile, never in device memory, and adds the
-base term from the same resident tile in the same K loop.  Its source note
-states its bound; its tiles are fixed (64 x 64 outputs, 64/M inputs per K
-step).
+in shared memory from the raw x tile, never in device memory, and folds
+the base term into the same band (ReLU(x) columns against the rows of Wb),
+so one fp32 inner loop covers both.  Its source note states its bound; its
+tiles are fixed (128 x 128 outputs; 128 x 64 where N <= 64, 128 x 256
+where N >= 256; 36/(M+1) inputs per K step), and it splits K across
+blocks where the output tiles are few, summing the fp32 slices in slice
+order in a per-stream workspace (:mod:`.workspace`), so two calls give
+the same bits.
 
 :func:`kan_fused_gemm_reference` is the plain PyTorch version of the same
 function: the dense band materialised, then one matmul.  It runs on any
@@ -21,10 +25,11 @@ import torch
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.kernels import build
 from repro_torch.kernels.common import band_scatter, compact_basis_inblock
+from repro_torch.kernels.workspace import workspace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_P = 3               # the spline degree both .cu files are compiled for
-MAX_M = 64                    # largest M = G+P of the fused kernel (its band width)
+MAX_M = 64                    # largest M = G+P of the fused kernel
 
 
 def kan_fused_gemm_reference(
@@ -85,12 +90,14 @@ def kan_fused_gemm_cuda(
     if BS == 0:
         return y
     lib = build.load("kan_fused_gemm")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tickets, partial = workspace(lib, "kan_fused_gemm", x.device, stream, BS, K, N)
     err = lib.kan_fused_gemm(
         x.data_ptr(), coeff.data_ptr(),
-        base_w.data_ptr() if base_w is not None else None, y.data_ptr(),
+        base_w.data_ptr() if base_w is not None else None,
+        tickets.data_ptr(), partial.data_ptr(), y.data_ptr(),
         BS, K, N, M, grid.P, grid.t0, grid.delta,   # ctypes rounds to fp32
-        DTYPE_CODES[x.dtype], DTYPE_CODES[coeff.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        DTYPE_CODES[x.dtype], DTYPE_CODES[coeff.dtype], stream,
     )
     build.check(err, "kan_fused_gemm")
     return y

@@ -7,7 +7,10 @@ int32 accumulation and, given a per-channel ``scale``, the dequant epilogue
 (``acc·scale`` rounded once into ``out_dtype``) in one launch.  Without
 ``scale`` it returns the int32 accumulator.
 
-The CUDA kernel (``csrc/kan_int8_gemm.cu``) and the plain version read
+The CUDA kernel (``csrc/kan_int8_gemm.cu``) multiplies on the int8 tensor
+cores and splits K across blocks where the output tiles are few, summing
+the slices exactly with int32 atomics in a per-stream workspace
+(:mod:`.workspace`).  It and the plain version read
 the ROM, the paper's uint8 half-table ``build_lut_u8(P, S, lut_scale)``,
 with the direct and inverted-address fetch, so their values are the
 table's by construction (see
@@ -33,9 +36,10 @@ from repro_torch.core.bspline import SplineGrid
 from repro_torch.core.quantization import build_lut_u8, lut_value_scale
 from repro_torch.kernels import build
 from repro_torch.kernels.common import band_scatter, int8_compact_values_inblock, rom_table
+from repro_torch.kernels.workspace import workspace
 
 SUPPORTED_P = (1, 2, 3)       # the degrees the int8 kernels are compiled for
-MAX_M = 64                    # the dense-band kernel's band width per K step
+MAX_M = 64                    # the dense-band kernel's widest band (256/M inputs per K step)
 MAX_ROM_BYTES = 16384         # shared memory the kernels give the uint8 ROM
 OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -156,13 +160,17 @@ def kan_int8_gemm_cuda(
     y = torch.empty((BS, N), dtype=odt, device=x_q.device)
     if BS == 0:
         return y
+    if x_q.data_ptr() % 16:              # the kernel reads x_q in 16-byte chunks
+        x_q = x_q.clone()
     table = rom_table(grid.P, S, lut_scale, x_q.device)
     lib = build.load("kan_int8_gemm")
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    tickets, sums = workspace(lib, "kan_int8_gemm", x_q.device, stream, BS, K, N)
     err = lib.kan_int8_gemm(
         x_q.data_ptr(), coeff_q.data_ptr(),
-        scale.data_ptr() if scale is not None else None, table.data_ptr(), y.data_ptr(),
-        BS, K, N, M, grid.G, grid.P, S, qmax, OUT_CODES[odt],
-        torch.cuda.current_stream(x_q.device).cuda_stream,
+        scale.data_ptr() if scale is not None else None, table.data_ptr(),
+        tickets.data_ptr(), sums.data_ptr(), y.data_ptr(),
+        BS, K, N, M, grid.G, grid.P, S, qmax, OUT_CODES[odt], stream,
     )
     build.check(err, "kan_int8_gemm")
     return y

@@ -17,7 +17,7 @@ touches, in one launch.
   its integers are the dense-band kernel's.  It takes ``P in {1, 2, 3}`` and
   ``M <= 16``.
 
-Both kernels keep their workspace per stream and share its tickets.  Their
+Both kernels keep their workspace per stream (:mod:`.workspace`).  Their
 source notes state their bounds.  :func:`kan_sparse_gemm_reference` and
 :func:`kan_sparse_int8_gemm_reference` are the plain PyTorch versions:
 gathered slabs and an einsum (float64 for the integers, exact).  Their
@@ -35,36 +35,9 @@ from repro_torch.kernels.common import (
     compact_basis_inblock, gather_coeff_slabs, int8_compact_values_inblock, rom_table)
 from repro_torch.kernels.kan_fused_gemm import DTYPE_CODES, check_operands
 from repro_torch.kernels.kan_int8_gemm import OUT_CODES, check_int8_operands, dequant_epilogue
+from repro_torch.kernels.workspace import workspace
 
 MAX_M = 16                    # the widest compile-time band (8 or 16 slots)
-
-# The kernels' device workspace, one per (device, stream) so that calls
-# ordered on one stream share it and calls on two streams never do: ticket
-# counters (zero when made, and every launch leaves them zero), and per
-# kernel a scratch buffer: the float kernel's fp32 partials of the K slices
-# (any contents) or the int8 kernel's int32 accumulators (zero when made,
-# and every launch leaves them zero).  Each buffer only ever grows.
-_SCRATCH = {"kan_sparse_gemm": ("partials", torch.float32),
-            "kan_sparse_int8_gemm": ("accumulators", torch.int32)}
-_workspaces: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
-_workspace_sizes: dict[tuple[str, int, int, int], tuple[int, int]] = {}
-
-
-def _workspace(lib, fn: str, device: torch.device, stream: int, BS: int, K: int, N: int):
-    what, dtype = _SCRATCH[fn]
-    sizes = _workspace_sizes.get((fn, BS, K, N))
-    if sizes is None:
-        sizes = _workspace_sizes[(fn, BS, K, N)] = (
-            int(getattr(lib, fn + "_tickets")(BS, N)),
-            int(getattr(lib, f"{fn}_{what}")(BS, K, N)))
-    n_tickets, n_scratch = sizes
-    ws = _workspaces.setdefault((device.index, stream), {})
-    if "tickets" not in ws or ws["tickets"].numel() < n_tickets:
-        ws["tickets"] = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    if what not in ws or ws[what].numel() < n_scratch:
-        ws[what] = torch.zeros(n_scratch, dtype=dtype, device=device)
-    return ws["tickets"], ws[what]
-
 
 def kan_sparse_gemm_reference(
     x: torch.Tensor, coeff: torch.Tensor, grid: SplineGrid,
@@ -98,7 +71,7 @@ def kan_sparse_gemm_cuda(
         return y
     lib = build.load("kan_sparse_gemm")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    tickets, partial = _workspace(lib, "kan_sparse_gemm", x.device, stream, BS, K, N)
+    tickets, partial = workspace(lib, "kan_sparse_gemm", x.device, stream, BS, K, N)
     err = lib.kan_sparse_gemm(
         x.data_ptr(), coeff.data_ptr(),
         base_w.data_ptr() if base_w is not None else None,
@@ -141,7 +114,7 @@ def kan_sparse_int8_gemm_cuda(
     table = rom_table(grid.P, S, lut_scale, x_q.device)
     lib = build.load("kan_sparse_int8_gemm")
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    tickets, sums = _workspace(lib, "kan_sparse_int8_gemm", x_q.device, stream, BS, K, N)
+    tickets, sums = workspace(lib, "kan_sparse_int8_gemm", x_q.device, stream, BS, K, N)
     err = lib.kan_sparse_int8_gemm(
         x_q.data_ptr(), coeff_q.data_ptr(),
         scale.data_ptr() if scale is not None else None, table.data_ptr(),

@@ -62,7 +62,8 @@ def _inputs(grid, BS, K, N, seed, with_base):
 @pytest.mark.parametrize("with_base", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BS,K,N", [(13, 100, 200), (512, 512, 1024), (4, 1024, 512),
-                                    (1, 512, 1024), (8, 512, 1024)])
+                                    (1, 512, 1024), (8, 512, 1024), (2048, 784, 64),
+                                    (129, 1024, 512), (512, 1000, 130)])
 @pytest.mark.parametrize("name", ["kan_fused_gemm", "kan_sparse_gemm"])
 @pytest.mark.parametrize("G,P", [(5, 3), (4, 3), (10, 3), (13, 3)])
 def test_cuda_kernel_matches_plain_version(cuda_device, G, P, name, BS, K, N, dtype,
@@ -94,6 +95,68 @@ def test_sparse_kernel_workspace_serves_calls_of_every_shape(cuda_device):
         assert torch.equal(got, ops.kan_sparse_gemm(tx, tc, grid, tw))
         want = S.kan_sparse_gemm_reference(tx, tc, grid, tw)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# Shapes that cross the dense-band kernels' tile, stage and split-K
+# boundaries: K split over many slices (2048 x 784 -> 64, 512 x 1024 -> 512),
+# one slice (2048 x 2810 -> 512), ragged rows, K and N.
+DENSE_SPLIT_SHAPES = [(512, 1024, 512), (2048, 784, 64), (2048, 64, 10), (129, 1024, 512),
+                      (512, 1000, 130), (1, 512, 1024), (77, 1000, 130)]
+
+
+def _dense_calls(grid, lut, BS, K, N, seed, dev):
+    """``(call, plain result, atol)`` for each dense-band kernel: fused fp32
+    (atol 1e-4) and bf16 (one bf16 ulp of max|y|), int8 with and without
+    the dequant epilogue (bit-equal: atol None)."""
+    x, c, w = _inputs(grid, BS, K, N, seed, True)
+    tx, tc, tw = (torch.tensor(a).to(dev) for a in (x, c, w))
+    bx, bc, bw = (t.to(torch.bfloat16) for t in (tx, tc, tw))
+    xq, cq, sc = (t.to(dev) for t in _int8_case(grid, BS, K, N, seed))
+    want_b16 = F.kan_fused_gemm_reference(bx, bc, grid, bw)
+    return [(lambda: ops.kan_fused_gemm(tx, tc, grid, tw),
+             F.kan_fused_gemm_reference(tx, tc, grid, tw), 1e-4),
+            (lambda: ops.kan_fused_gemm(bx, bc, grid, bw), want_b16,
+             BF16_ULP * want_b16.float().abs().max().item()),
+            (lambda: ops.kan_int8_gemm(xq, lut, cq, grid),
+             I8.kan_int8_gemm_reference(xq, cq, grid), None),
+            (lambda: ops.kan_int8_gemm(xq, lut, cq, grid, scale=sc),
+             I8.kan_int8_gemm_reference(xq, cq, grid, scale=sc), None)]
+
+
+def _check_dense_calls(calls):
+    for call, want, atol in calls:
+        got = call()
+        assert torch.equal(got, call())
+        if atol is None:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BS,K,N", DENSE_SPLIT_SHAPES)
+def test_dense_band_kernels_repeat_bitwise(cuda_device, BS, K, N):
+    """Split K sums fp32 slices in slice order and int32 slices exactly, so
+    two calls on the same inputs give the same bits."""
+    grid = SplineGrid(-1.0, 1.0, 10 if N <= 64 else 5, 3)
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    _check_dense_calls(_dense_calls(grid, lut, BS, K, N, BS + K + N, cuda_device))
+
+
+@pytest.mark.cuda
+def test_dense_band_kernels_share_a_workspace_across_shapes(cuda_device):
+    """The fused and int8 dense-band kernels share their stream's workspace
+    (tickets, fp32 partials, int32 accumulators) with the sparse kernels;
+    calls of growing and shrinking shapes, interleaved, each match their
+    plain versions and repeat bit-equal."""
+    grid = SplineGrid(-1.0, 1.0, 10, 3)
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    for BS, K, N in [(9, 64, 128), (2048, 784, 64), (512, 1024, 512), (13, 100, 200),
+                     (2048, 64, 10), (600, 96, 1000), (2, 33, 17), (512, 512, 1024)]:
+        _check_dense_calls(_dense_calls(grid, lut, BS, K, N, BS * K + N, cuda_device))
+        xq, cq, _ = (t.to(cuda_device) for t in _int8_case(grid, min(BS, 8), K, N, K))
+        got = ops.kan_sparse_int8_gemm(xq, lut, cq, grid)
+        assert torch.equal(got, S.kan_sparse_int8_gemm_reference(xq, cq, grid))
 
 
 @pytest.mark.cuda
@@ -237,14 +300,17 @@ def _int8_case(grid, BS, K, N, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("out", [None, torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BS,K,N", [(13, 100, 200), (1, 784, 64), (8, 784, 64),
-                                    (70, 37, 10), (4, 64, 512)])
+@pytest.mark.parametrize("name,BS,K,N", [
+    (name, *shape) for name in sorted(INT8)
+    for shape in [(13, 100, 200), (1, 784, 64), (8, 784, 64), (70, 37, 10), (4, 64, 512)]
+] + [("kan_int8_gemm", 2048, 2810, 512), ("kan_int8_gemm", 2048, 784, 64),
+     ("kan_int8_gemm", 2048, 64, 10), ("kan_int8_gemm", 77, 1000, 130)])
 @pytest.mark.parametrize("G,P", [(10, 3), (13, 3), (3, 2), (2, 1)])
-@pytest.mark.parametrize("name", sorted(INT8))
 def test_int8_kernel_equals_plain_version_bitwise(cuda_device, name, G, P, BS, K, N, out):
     """M = 13 (MNIST-KAN) and 16 (the widest sparse band), P = 1, 2, 3,
     ragged shapes, codes at 0, qmax and negative, with and without the
-    dequant epilogue."""
+    dequant epilogue; the dense-band kernel also at the int8 path's and
+    CF-KAN's layer shapes, across its tile, stage and split-K boundaries."""
     grid = SplineGrid(-1.0, 1.0, G, P)
     xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, BS, K, N, G + BS + K + N))
     lut = torch.tensor(Q.build_lut_u8(P, 256), device=cuda_device)

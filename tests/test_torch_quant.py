@@ -203,6 +203,39 @@ def test_fused_and_plain_int8_paths_agree_exactly_in_fp32():
     assert torch.equal(tq.quantized_kan_forward(ql, x), tq.quantized_kan_forward_fused(ql, x))
 
 
+@pytest.mark.parametrize("G,P,BS,K,N", SHAPES[:3] + SHAPES[4:5])
+def test_int8_coefficient_copy_is_made_once_and_keeps_the_integers(G, P, BS, K, N,
+                                                                   monkeypatch):
+    """``quantize_kan_layer`` keeps ``coeff_q`` (int32, compared with the JAX
+    package) and its int8 copy; ``quantized_kan_forward_fused`` hands the
+    kernel that copy itself, not a new cast, and its int32 accumulator is
+    the one the int32 ``coeff_q`` gives."""
+    from repro_torch.kernels import ops as kops
+
+    tg, jg = _grids(G, P)
+    tp, jp = _both(_params(tg, K, N, G + K * N))
+    ql = tq.quantize_kan_layer(tp, tg)
+    assert ql.coeff_i8.dtype == torch.int8 and ql.coeff_i8.is_contiguous()
+    assert torch.equal(ql.coeff_i8.to(torch.int32), ql.coeff_q)
+    _eq(jq.quantize_kan_layer(jp, jg).coeff_q.astype(jnp.int8), ql.coeff_i8)
+    seen, accs = [], []
+    gemm = kops.kan_int8_gemm
+
+    def spy(x_q, lut_u8, coeff, grid, **kw):
+        seen.append(coeff)
+        accs.append(gemm(x_q, lut_u8, coeff, grid, lut_scale=kw["lut_scale"]))
+        return gemm(x_q, lut_u8, coeff, grid, **kw)
+
+    monkeypatch.setattr(kops, "kan_int8_gemm", spy)
+    x = torch.tensor(_x(tg, BS, K, K + N))
+    y = tq.quantized_kan_forward_fused(ql, x)
+    assert len(seen) == 1 and seen[0] is ql.coeff_i8
+    x_q = ql.qg.x_quant.quantize(x)
+    want = I8.kan_int8_gemm_reference(x_q, ql.coeff_q, tg, lut_scale=ql.qg.lut_scale)
+    assert torch.equal(accs[0], want)
+    assert torch.equal(y, tq.quantized_kan_forward(ql, x))
+
+
 def test_resolve_int8_method_takes_the_sparse_kernel_at_decode_rows(monkeypatch):
     r = tq.resolve_int8_method
     assert r(torch.device("cuda"), 8) == r(torch.device("cuda", 0), 1) == "sparse_int8"
