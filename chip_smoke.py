@@ -8,8 +8,9 @@ Phases; any failed check raises and the script exits non-zero:
 1. torch and CUDA versions, the card's name and power limit
    (``nvidia-smi``); float32 matmuls and convolutions set to IEEE fp32
    (TF32 off).
-2. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   ``sm_90a``), timed.
+2. Build the six kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, ``sm_90a``, all at once), each library's own
+   seconds logged.
 3. Hold each kernel against its plain PyTorch version on the card: fp32 and
    bf16, with and without the base term, at the main path's shapes and a
    ragged one, on inputs that include ``x_min``, ``x_max``, knot values and
@@ -61,8 +62,15 @@ Phases; any failed check raises and the script exits non-zero:
    ``build_lut_u8``'s byte.  The three kernels are timed at MNIST-KAN
    layer 1 and CF-KAN layer 1 (2810 -> 512, G=2) beside their plain
    versions, a bf16 matmul over the materialised u8 band (``library_ms``)
-   and their bounds; one warm int8 run is profiled.
-8. A JSON line with every ported kernel's numbers, the card's line, and as
+   and their bounds, and the dense-band kernel also at the sparse kernel's
+   two 8-row shapes (a yardstick for the sparse one); one warm int8 run is
+   profiled.
+8. GKAN (Table II: [200, 16, 7], G=2, P=1, random weights from seed 0)
+   through ``kan_net_apply(method="auto")``: 8 rows (the sparse kernel at
+   P = 1, M = 3) and 2048 rows (the fused kernel), each with the launch
+   counts reset just before and checked exactly just after, and each
+   within ``FP32_ATOL`` of ``method="compact"`` on the card.
+9. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -161,6 +169,9 @@ def time_ms(torch, fns, cycles_per_ms: float, reps: int = 30) -> float:
     otherwise be timed at the host's launch rate; so a spin kernel holds
     the stream, for twice as long as the calls took untimed, while the
     host enqueues every call, and the events time the device's work only.
+    Where the host was slower than that (a pause of the host, not of the
+    card), the run is taken again behind a spin twice as long, at most
+    three times.
     """
     for f in fns:
         f()
@@ -172,15 +183,17 @@ def time_ms(torch, fns, cycles_per_ms: float, reps: int = 30) -> float:
     untimed_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(cycles_per_ms * (2 * untimed_ms + 5)))
-    start.record()
-    for i in range(reps):
-        fns[i % len(fns)]()
-    end.record()
-    if end.query():
-        raise RuntimeError("the spin kernel ended before the host enqueued every call")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for factor in (2, 4, 8):
+        torch.cuda._sleep(int(cycles_per_ms * (factor * untimed_ms + 5)))
+        start.record()
+        for i in range(reps):
+            fns[i % len(fns)]()
+        end.record()
+        held = not end.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+    raise RuntimeError("the spin kernel ended before the host enqueued every call")
 
 
 def special_inputs(torch, rows, K, dtype, grid, seed):
@@ -805,7 +818,7 @@ def net_inputs(torch, grid, rows, K, device, seed=13):
     return x
 
 
-def counted(torch, name, fn, want, device):
+def counted(torch, name, fn, want, device, tag="int8"):
     """``fn()`` with the launch counts reset just before and checked
     exactly just after (on the CPU the wrappers launch nothing)."""
     from repro_torch.kernels import ops
@@ -819,7 +832,7 @@ def counted(torch, name, fn, want, device):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     expected = dict(dict.fromkeys(ops.LAUNCHES, 0), **(want if device == "cuda" else {}))
-    log(f"[int8] {name}: {wall * 1e3:.2f} ms, launches "
+    log(f"[{tag}] {name}: {wall * 1e3:.2f} ms, launches "
         f"{ {k: v for k, v in launches.items() if v} }, expected "
         f"{ {k: v for k, v in expected.items() if v} }")
     if launches != expected:
@@ -996,6 +1009,8 @@ def time_int8_kernels(torch, np):
     K1, N1 = MNIST["layers"][:2]
     cases = [("kan_int8_gemm", 2048, K1, N1, MNIST["G"]),
              ("kan_int8_gemm", 2048, CFKAN_L1["K"], CFKAN_L1["N"], CFKAN_L1["G"]),
+             ("kan_int8_gemm", 8, K1, N1, MNIST["G"]),           # yardsticks for kernel 3
+             ("kan_int8_gemm", 8, CFKAN_L1["K"], CFKAN_L1["N"], CFKAN_L1["G"]),
              ("kan_sparse_int8_gemm", 8, K1, N1, MNIST["G"]),
              ("kan_sparse_int8_gemm", 2048, K1, N1, MNIST["G"]),
              ("kan_sparse_int8_gemm", 8, CFKAN_L1["K"], CFKAN_L1["N"], CFKAN_L1["G"])]
@@ -1069,6 +1084,38 @@ def time_int8_kernels(torch, np):
     return results
 
 
+# Phase 8: GKAN (benchmarks/workloads.py, Table II), the P = 1 workload
+GKAN = {"layers": (200, 16, 7), "G": 2, "P": 1, "rows": 2048, "decode_rows": 8}
+
+
+def gkan_path(torch, device="cuda", rows=GKAN["rows"]):
+    """GKAN through ``kan_net_apply(method="auto")`` at 8 rows (the sparse
+    kernel) and ``rows`` rows (the fused kernel), each against
+    ``method="compact"`` on the same device; any miss raises."""
+    from repro_torch.core import kan_layer as KL
+
+    cfg = KL.KANNetConfig(layers=GKAN["layers"], G=GKAN["G"], P=GKAN["P"])
+    grid = cfg.grid()
+    params = KL.init_kan_net(cfg, seed=0, device=device)
+    x = net_inputs(torch, grid, rows, GKAN["layers"][0], device, seed=16)
+    n_layers = len(GKAN["layers"]) - 1
+    runs, errs = {}, {}
+    for n, kernel in ((GKAN["decode_rows"], "kan_sparse_gemm"), (rows, "kan_fused_gemm")):
+        y, runs[f"gkan_{n}"] = counted(
+            torch, f"GKAN {list(GKAN['layers'])} G={grid.G} P={grid.P} auto, {n} rows",
+            lambda n=n: KL.kan_net_apply(params, x[:n], cfg, "auto"), {kernel: n_layers},
+            device, tag="gkan")
+        want = KL.kan_net_apply(params, x[:n], cfg, "compact")
+        if y.shape != (n, GKAN["layers"][-1]) or not torch.isfinite(y).all():
+            raise RuntimeError(f"GKAN logits at {n} rows not finite or of the wrong shape")
+        errs[n] = (y - want).abs().max().item()
+        log(f"[gkan] {n} rows ({kernel}, M={grid.n_basis}) vs compact: "
+            f"max_abs_err={errs[n]:.3e} tol={FP32_ATOL:.1e}")
+        if errs[n] > FP32_ATOL:
+            raise RuntimeError(f"GKAN at {n} rows: the kernel path disagrees with compact")
+    return {"runs": runs, "max_abs_err": max(errs.values())}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1100,8 +1147,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build.build_all()
-    log(f"[build] {len(built)} libraries built in {time.perf_counter() - t0:.1f} s "
-        f"(per library, parallel: {built})")
+    log(f"[build] {len(built)} libraries built in {time.perf_counter() - t0:.1f} s, all at "
+        f"once; each library's own seconds: "
+        f"{ {n: round(t, 1) for n, t in built.items()} }")
     for name, text in build.build_log.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         log(f"[build] {name}: {regs[:2]}")
@@ -1119,13 +1167,17 @@ def main() -> int:
     int8["profile"] = profile_call(torch, int8.pop("int8_net"),
                                    lambda: "one warm int8 MNIST-KAN run (2048 inputs)")
     results.update(time_int8_kernels(torch, np))
+    t4 = time.perf_counter()
+    gkan = gkan_path(torch)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
-        f"continuous path {t3 - t2:.1f} s, int8 path {time.perf_counter() - t3:.1f} s")
+        f"continuous path {t3 - t2:.1f} s, int8 path {t4 - t3:.1f} s, "
+        f"GKAN {time.perf_counter() - t4:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
-            "int8_path": int8}
+            "int8_path": int8, "gkan_path": gkan, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
-               **{k: m["launches"] for k, m in int8["runs"].items()}}
+               **{k: m["launches"] for k, m in int8["runs"].items()},
+               **{k: m["launches"] for k, m in gkan["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"]
@@ -1148,6 +1200,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t.get("shape", t.get("pool")), "timings": results[name]["timings"],
+            "build_s": built.get(Path(meta["source"]).stem),
         })
     for k in line["kernels"] + line["pending"]:
         log(f"[kernels] {k['name']:<22} {k['status']:<8} launches={k['launches']:<5} "

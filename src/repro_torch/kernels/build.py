@@ -103,7 +103,8 @@ def _lib_path(name: str) -> Path:
 def build_all(names=None) -> dict[str, float]:
     """Compile every missing library, all ``nvcc`` processes at once.
 
-    Returns seconds per library built now (absent if it was cached)."""
+    Returns each library's own ``nvcc`` seconds, from the common start to
+    the end of its process (absent if it was cached)."""
     names = list(LIBRARIES) if names is None else list(names)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
@@ -117,15 +118,22 @@ def build_all(names=None) -> dict[str, float]:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / LIBRARIES[n][0])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp, out)
-    errors, seconds = [], {}
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_log[n] = log
-        seconds[n] = time.perf_counter() - t0
+        log = open(f"{tmp}.log", "w+")          # a file, not a pipe: nothing blocks nvcc
+        procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, tmp, out)
+    seconds = {}
+    while len(seconds) < len(procs):      # each process's end, to 50 ms
+        for n, (proc, *_) in procs.items():
+            if n not in seconds and proc.poll() is not None:
+                seconds[n] = time.perf_counter() - t0
+        time.sleep(0.05)
+    errors = []
+    for n, (proc, log, tmp, out) in procs.items():
+        log.seek(0)
+        build_log[n] = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n} (rc={proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {n} (rc={proc.returncode}):\n{build_log[n]}")
             continue
         os.replace(tmp, out)
     if errors:

@@ -42,6 +42,8 @@
 //     float atomics), and resets its ticket;
 //   * ragged edges are masked: an input past K or a row past BS contributes
 //     zeros, and columns past N are not stored.
+// Compiled for spline degrees P in {1, 2, 3} (GKAN has P = 1), as the
+// TPU kernel takes any P; M = G+P <= 64.
 // Numerics follow the TPU kernel: basis values are rounded to C's dtype
 // before the product (band.astype(c.dtype)), ReLU(x) is rounded to Wb's
 // dtype, accumulation is fp32, the output is x's dtype.
@@ -62,7 +64,6 @@ namespace {
 constexpr int kBM = 128;           // output rows per block
 constexpr int kKW = 36;            // target band columns per K step: BK*(M+1) <= kKW
 constexpr int kStages = 3;         // cp.async ring of C/Wb rows
-constexpr int kMaxPairs = 8;       // (row, input) pairs per thread and step
 constexpr int kMaxSplits = 32;
 
 template <typename T> constexpr int kVec = 16 / (int)sizeof(T);   // elements per 16-byte copy
@@ -146,6 +147,10 @@ kan_fused_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
                  unsigned* __restrict__ tickets, TX* __restrict__ y, int BS, int K, int N,
                  int M, int BK, int steps_per_split, float t0, float delta) {
   constexpr int THREADS = 2 * BN;
+  // (row, input) pairs per thread and step, enough for BK <= kKW/(P+2)
+  // (M >= P+1); at least 8, the unrolling the P = 3 tiles were timed with
+  constexpr int kNeed = (kBM * (kKW / (P + 2)) + THREADS - 1) / THREADS;
+  constexpr int kPairs = kNeed > 8 ? kNeed : 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ bool last_s;
   const bool has_base = base_w != nullptr;
@@ -194,9 +199,9 @@ kan_fused_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
     kan::cp_async_commit();
     // x of step s+1, loaded now, turned into its band after this step's FMAs
     const bool next = s + 1 < s_end;
-    float xv[kMaxPairs];
+    float xv[kPairs];
 #pragma unroll
-    for (int q = 0; q < kMaxPairs; ++q) {
+    for (int q = 0; q < kPairs; ++q) {
       const int p = tid + q * THREADS;
       const int r = p % kBM, jj = p / kBM, row = m0 + r, j = (s + 1) * BK + jj;
       xv[q] = (next && p < npairs && row < BS && j < K) ? kan::to_float(x[(size_t)row * K + j])
@@ -219,7 +224,7 @@ kan_fused_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
     if (next) {
       float* nb = band_s + ((it + 1) % 2) * W * kBM;
 #pragma unroll
-      for (int q = 0; q < kMaxPairs; ++q) {
+      for (int q = 0; q < kPairs; ++q) {
         const int p = tid + q * THREADS;
         if (p >= npairs) break;
         const int r = p % kBM, jj = p / kBM, row = m0 + r, j = (s + 1) * BK + jj;
@@ -295,13 +300,13 @@ int max_splits(int BS, int N, int BN) {
   return max(1, min(kMaxSplits, 256 / BN * kan::sm_count() / tiles(BS, N, BN)));
 }
 
-template <typename TX, typename TC, int BN, bool VEC>
+template <typename TX, typename TC, int P, int BN, bool VEC>
 int launch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
            void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t stream) {
   const int BK = max(1, kKW / (M + 1));
   const int W = BK * (M + 1);
   const size_t smem = (size_t)kStages * W * BN * sizeof(TC) + 2 * (size_t)W * kBM * sizeof(float);
-  auto kern = kan_fused_kernel<TX, TC, 3, BN, VEC>;
+  auto kern = kan_fused_kernel<TX, TC, P, BN, VEC>;
   // the dynamic shared memory granted so far, per instantiation and device
   static size_t granted[64] = {};
   int dev = 0;
@@ -331,25 +336,40 @@ int launch(const void* x, const void* coeff, const void* base_w, void* tickets, 
   return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TC>
+template <typename TX, typename TC, int P>
 int dispatch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
              void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t s) {
   const bool vec = N % kVec<TC> == 0 && reinterpret_cast<uintptr_t>(coeff) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(base_w) % 16 == 0;
   switch (tile_n(N, M, vec)) {
     case 64:
-      return vec ? launch<TX, TC, 64, true>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                            t0, delta, s)
-                 : launch<TX, TC, 64, false>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                             t0, delta, s);
+      return vec ? launch<TX, TC, P, 64, true>(x, coeff, base_w, tickets, partial, y, BS, K, N,
+                                               M, t0, delta, s)
+                 : launch<TX, TC, P, 64, false>(x, coeff, base_w, tickets, partial, y, BS, K, N,
+                                                M, t0, delta, s);
     case 256:
-      return launch<TX, TC, 256, true>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                       delta, s);
+      return launch<TX, TC, P, 256, true>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                          delta, s);
     default:
-      return vec ? launch<TX, TC, 128, true>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                             t0, delta, s)
-                 : launch<TX, TC, 128, false>(x, coeff, base_w, tickets, partial, y, BS, K, N,
-                                              M, t0, delta, s);
+      return vec ? launch<TX, TC, P, 128, true>(x, coeff, base_w, tickets, partial, y, BS, K, N,
+                                                M, t0, delta, s)
+                 : launch<TX, TC, P, 128, false>(x, coeff, base_w, tickets, partial, y, BS, K,
+                                                 N, M, t0, delta, s);
+  }
+}
+
+template <typename TX, typename TC>
+int dispatch_p(const void* x, const void* coeff, const void* base_w, void* tickets,
+               void* partial, void* y, int BS, int K, int N, int M, int P, float t0, float delta,
+               cudaStream_t s) {
+  switch (P) {
+    case 1: return dispatch<TX, TC, 1>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                       delta, s);
+    case 2: return dispatch<TX, TC, 2>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                       delta, s);
+    case 3: return dispatch<TX, TC, 3>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                       delta, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -372,25 +392,25 @@ extern "C" long long kan_fused_gemm_partials(int BS, int K, int N) {
   return most;
 }
 
-// Compiled for P = 3 (every config of the port) and M <= 64.  dtype codes:
-// 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// Compiled for P in {1, 2, 3} and M <= 64.  dtype codes: 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t (0 = success).
 extern "C" int kan_fused_gemm(const void* x, const void* coeff, const void* base_w,
                               void* tickets, void* partial, void* y, int BS, int K, int N,
                               int M, int P, float t0, float delta, int x_dtype, int c_dtype,
                               void* stream) {
-  if (P != 3 || M <= P || M > 64) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > 3 || M <= P || M > 64) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && c_dtype == 0)
-    return dispatch<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0, delta,
-                                  s);
+    return dispatch_p<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, P, t0,
+                                    delta, s);
   if (x_dtype == 1 && c_dtype == 1)
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K,
-                                                  N, M, t0, delta, s);
+    return dispatch_p<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS,
+                                                    K, N, M, P, t0, delta, s);
   if (x_dtype == 1 && c_dtype == 0)
-    return dispatch<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                          delta, s);
+    return dispatch_p<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
+                                            P, t0, delta, s);
   if (x_dtype == 0 && c_dtype == 1)
-    return dispatch<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                          delta, s);
+    return dispatch_p<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
+                                            P, t0, delta, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,8 @@
 //     block that finishes a column tile last (a ticket counter per tile)
 //     sums that tile's slices in slice order (deterministic, no float
 //     atomics), casts to x's dtype and resets its ticket for the next call.
+// Compiled for spline degrees P in {1, 2, 3} (GKAN has P = 1), as the TPU
+// kernel takes any P; M = G+P <= 16.
 // Numerics follow the TPU kernel: basis values rounded to C's dtype before
 // the product, ReLU(x) rounded to Wb's dtype, fp32 accumulation.
 //
@@ -142,17 +144,32 @@ kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
   if (tid == 0) tickets[tile] = 0u;   // ready for the next launch on this workspace
 }
 
-template <typename TX, typename TC>
+template <typename TX, typename TC, int P>
 int launch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
            void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t stream) {
   const int slices = (K + kJC - 1) / kJC;
   dim3 grid((N + kCols - 1) / kCols, slices, (BS + kRows - 1) / kRows);
-  auto kern = M <= 8 ? kan_sparse_kernel<TX, TC, 3, 8> : kan_sparse_kernel<TX, TC, 3, 16>;
+  auto kern = M <= 8 ? kan_sparse_kernel<TX, TC, P, 8> : kan_sparse_kernel<TX, TC, P, 16>;
   kern<<<grid, kCols, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TC*>(coeff),
       static_cast<const TC*>(base_w), static_cast<float*>(partial),
       static_cast<unsigned*>(tickets), static_cast<TX*>(y), BS, K, N, M, t0, delta);
   return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TC>
+int dispatch_p(const void* x, const void* coeff, const void* base_w, void* tickets,
+               void* partial, void* y, int BS, int K, int N, int M, int P, float t0, float delta,
+               cudaStream_t s) {
+  switch (P) {
+    case 1: return launch<TX, TC, 1>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                     delta, s);
+    case 2: return launch<TX, TC, 2>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                     delta, s);
+    case 3: return launch<TX, TC, 3>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
+                                     delta, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -168,24 +185,25 @@ extern "C" long long kan_sparse_gemm_partials(int BS, int K, int N) {
   return (long long)((K + kJC - 1) / kJC) * BS * N;
 }
 
-// Compiled for P = 3 (every config of the port) and M <= 16.  dtype codes:
-// 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
+// Compiled for P in {1, 2, 3} and M <= 16.  dtype codes: 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t (0 = success).
 extern "C" int kan_sparse_gemm(const void* x, const void* coeff, const void* base_w,
                                void* tickets, void* partial, void* y, int BS, int K, int N,
                                int M, int P, float t0, float delta, int x_dtype, int c_dtype,
                                void* stream) {
-  if (P != 3 || M <= P || M > 16) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > 3 || M <= P || M > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && c_dtype == 0)
-    return launch<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0, delta, s);
+    return dispatch_p<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, P, t0,
+                                    delta, s);
   if (x_dtype == 1 && c_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                                t0, delta, s);
+    return dispatch_p<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS,
+                                                    K, N, M, P, t0, delta, s);
   if (x_dtype == 1 && c_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                        delta, s);
+    return dispatch_p<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
+                                            P, t0, delta, s);
   if (x_dtype == 0 && c_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                        delta, s);
+    return dispatch_p<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
+                                            P, t0, delta, s);
   return (int)cudaErrorInvalidValue;
 }

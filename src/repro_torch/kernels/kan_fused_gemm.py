@@ -7,7 +7,8 @@ in shared memory from the raw x tile, never in device memory, and folds
 the base term into the same band (ReLU(x) columns against the rows of Wb),
 so one fp32 inner loop covers both.  Its source note states its bound; its
 tiles are fixed (128 x 128 outputs; 128 x 64 where N <= 64, 128 x 256
-where N >= 256; 36/(M+1) inputs per K step), and it splits K across
+where N >= 256; 36/(M+1) inputs per K step; spline degree P in {1, 2,
+3}), and it splits K across
 blocks where the output tiles are few, summing the fp32 slices in slice
 order in a per-stream workspace (:mod:`.workspace`), so two calls give
 the same bits.
@@ -28,7 +29,7 @@ from repro_torch.kernels.common import band_scatter, compact_basis_inblock
 from repro_torch.kernels.workspace import workspace
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-SUPPORTED_P = 3               # the spline degree both .cu files are compiled for
+SUPPORTED_P = (1, 2, 3)       # the spline degrees both .cu files are compiled for
 MAX_M = 64                    # largest M = G+P of the fused kernel
 
 
@@ -61,8 +62,8 @@ def check_operands(x, coeff, grid, base_w, max_m: int) -> None:
     if Kc != K or M != grid.n_basis:
         raise ValueError(f"coeff {tuple(coeff.shape)} does not match x "
                          f"{tuple(x.shape)} and M={grid.n_basis}")
-    if grid.P != SUPPORTED_P or M > max_m:
-        raise ValueError(f"the CUDA kernel is compiled for P={SUPPORTED_P} and "
+    if grid.P not in SUPPORTED_P or M > max_m:
+        raise ValueError(f"the CUDA kernel is compiled for P in {SUPPORTED_P} and "
                          f"M=G+P <= {max_m}; got P={grid.P}, M={M}")
     tensors = [x, coeff] + ([base_w] if base_w is not None else [])
     for t in tensors:

@@ -9,12 +9,14 @@ touches, in one launch.
 * Float (``csrc/kan_sparse_gemm.cu``): plus the base term; a GEMV for up to
   8 rows per block that reads each touched coefficient row once for all
   rows, splits K into slices and sums the slices' fp32 partials in the same
-  launch.  It takes ``P = 3`` and ``M = G+P <= 16`` (a band of 8 or 16
-  slots, chosen by M).
-* int8 (``csrc/kan_sparse_int8_gemm.cu``): the same layout on the integer
-  datapath of ``kan_int8_gemm`` (Eq. 5 address arithmetic, uint8 ROM values,
-  int8 slabs, K slices summed by int32 atomics, optional dequant epilogue);
-  its integers are the dense-band kernel's.  It takes ``P in {1, 2, 3}`` and
+  launch.  It takes ``P in {1, 2, 3}`` and ``M = G+P <= 16`` (a band of 8
+  or 16 slots, chosen by M).
+* int8 (``csrc/kan_sparse_int8_gemm.cu``): the integer datapath of
+  ``kan_int8_gemm`` (Eq. 5 address arithmetic, uint8 ROM values, int8
+  slabs, optional dequant epilogue) as a GEMV split over K into about two
+  blocks per SM; per (row, input) one packed word of (window, ROM values)
+  and one ``dp4a`` per column; K slices summed by int32 atomics; its
+  integers are the dense-band kernel's.  It takes ``P in {1, 2, 3}`` and
   ``M <= 16``.
 
 Both kernels keep their workspace per stream (:mod:`.workspace`).  Their

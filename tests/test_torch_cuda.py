@@ -65,7 +65,7 @@ def _inputs(grid, BS, K, N, seed, with_base):
                                     (1, 512, 1024), (8, 512, 1024), (2048, 784, 64),
                                     (129, 1024, 512), (512, 1000, 130)])
 @pytest.mark.parametrize("name", ["kan_fused_gemm", "kan_sparse_gemm"])
-@pytest.mark.parametrize("G,P", [(5, 3), (4, 3), (10, 3), (13, 3)])
+@pytest.mark.parametrize("G,P", [(5, 3), (4, 3), (10, 3), (13, 3), (2, 1), (3, 2)])
 def test_cuda_kernel_matches_plain_version(cuda_device, G, P, name, BS, K, N, dtype,
                                            with_base):
     grid = SplineGrid(-1.0, 1.0, G, P)
@@ -79,6 +79,37 @@ def test_cuda_kernel_matches_plain_version(cuda_device, G, P, name, BS, K, N, dt
     want = PLAIN[name](tx, tc, grid, tw)
     atol = 1e-4 if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kan_fused_gemm", "kan_sparse_gemm"])
+def test_fp32_kernels_raise_on_an_uncompiled_degree(cuda_device, name):
+    """P = 4 is not compiled: the wrapper raises before any launch, and
+    nothing falls back to the plain version."""
+    grid = SplineGrid(-1.0, 1.0, 5, 4)
+    x = torch.zeros(4, 16, device=cuda_device)
+    c = torch.zeros(16, grid.n_basis, 8, device=cuda_device)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="compiled for P in"):
+        getattr(ops, name)(x, c, grid)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_gkan_net_auto_on_card_runs_both_kernels(cuda_device):
+    """GKAN ([200, 16, 7], G=2, P=1): ``kan_net_apply(method="auto")``
+    through the sparse kernel at 8 rows and the fused one at 40, each
+    within fp32 sums of the plain ``compact`` path on the card."""
+    cfg = KL.KANNetConfig(layers=(200, 16, 7), G=2, P=1)
+    params = KL.init_kan_net(cfg, seed=0, device="cuda")
+    x = torch.rand(40, 200, device=cuda_device) * 2.4 - 1.2
+    for rows, kernel in ((8, "kan_sparse_gemm"), (40, "kan_fused_gemm")):
+        ops.reset_launches()
+        got = KL.kan_net_apply(params, x[:rows], cfg, method="auto")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
+        want = KL.kan_net_apply(params, x[:rows], cfg, method="compact")
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -336,6 +367,74 @@ def test_sparse_int8_kernel_bit_equal_to_dense_band_kernel(cuda_device, rows, K,
         a = ops.kan_int8_gemm(xq, lut, cq, grid, **kw)
         b = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, **kw)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,P", [(2, 1), (13, 3)])
+@pytest.mark.parametrize("N", [10, 130, 512])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 7, 8])
+def test_sparse_int8_kernel_across_its_tiles(cuda_device, rows, N, G, P):
+    """M = 3 (P = 1) and M = 16 (the widest band); N = 10 (a tile wider than
+    N, element copies), 130 (a ragged second tile) and 512 (four full
+    tiles); K = 789, a multiple of no slice width; bit-equal to its plain
+    version and to the dense-band kernel, every out code."""
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    K = 789
+    xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, rows, K, N, rows * N + G))
+    lut = torch.tensor(Q.build_lut_u8(P, 256), device=cuda_device)
+    for out in (None, torch.float32, torch.bfloat16):
+        kw = {} if out is None else dict(scale=sc, out_dtype=out)
+        got = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, **kw)
+        want = S.kan_sparse_int8_gemm_reference(xq, cq, grid, lut_scale=Q.lut_value_scale(P),
+                                                scale=kw.get("scale"),
+                                                out_dtype=out or torch.float32)
+        assert torch.equal(got, want)
+        assert torch.equal(got, ops.kan_int8_gemm(xq, lut, cq, grid, **kw))
+
+
+def _stream_workspace(t: torch.Tensor):
+    """The workspace the kernels use on ``t``'s device and current stream."""
+    from repro_torch.kernels import workspace
+
+    return workspace._workspaces[(t.device.index,
+                                  torch.cuda.current_stream(t.device).cuda_stream)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,K,N", [(8, 784, 64), (8, 2810, 512), (3, 100, 130)])
+def test_sparse_int8_kernel_repeats_and_leaves_its_workspace_zero(cuda_device, rows, K, N):
+    """Two calls in a row are bit-equal, and after each the stream's ticket
+    counters and int32 accumulators read back zero."""
+    grid = SplineGrid(-1.0, 1.0, 2 if K == 2810 else 10, 3)
+    xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, rows, K, N, rows + K + N))
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    first = None
+    for _ in range(2):
+        got = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, scale=sc)
+        torch.cuda.synchronize()
+        ws = _stream_workspace(got)
+        assert not ws["tickets"].any() and not ws["accumulators"].any()
+        if first is None:
+            first = got
+        assert torch.equal(got, first)
+
+
+@pytest.mark.cuda
+def test_sparse_int8_kernel_interleaves_with_the_dense_band_kernel(cuda_device):
+    """Kernels 3 and 4 share the stream's tickets and accumulators; calls of
+    both, alternating over growing and shrinking shapes on one stream, each
+    equal the plain version."""
+    grid = SplineGrid(-1.0, 1.0, 10, 3)
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+    for i, (BS, K, N) in enumerate([(8, 784, 64), (2048, 784, 64), (1, 64, 10), (5, 2810, 512),
+                                    (300, 100, 130), (7, 33, 17), (8, 784, 64)]):
+        xq, cq, _ = (t.to(cuda_device) for t in _int8_case(grid, BS, K, N, i))
+        want = I8.kan_int8_gemm_reference(xq, cq, grid)
+        for fn in (ops.kan_sparse_int8_gemm, ops.kan_int8_gemm, ops.kan_sparse_int8_gemm):
+            assert torch.equal(fn(xq, lut, cq, grid), want)
+    torch.cuda.synchronize()
+    ws = _stream_workspace(xq)
+    assert not ws["tickets"].any() and not ws["accumulators"].any()
 
 
 @pytest.mark.cuda

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of the two dense-band kernels goes, on one NVIDIA GPU.
+"""Where the time of the KAN kernels goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_breakdown.py
+    python3 tools/kernel_breakdown.py [--only int8,fused,sparse_int8]
+                                      [--sparse-int8-src FILE.cu ...]
 
-Three measurements, all at the shapes ``chip_smoke.py`` times:
+Measurements at the shapes ``chip_smoke.py`` times:
 
 1. ``cuobjdump -sass`` of the built ``kan_int8_gemm`` library: its
    integer tensor-core instructions (``IMMA``) and ``IMAD``s, per
    instantiation (the IMADs are index arithmetic; the contraction is the
    IMMAs).
-2. Phase removal: copies of ``kan_int8_gemm.cu`` and ``kan_fused_gemm.cu``
-   with one phase cut out (the band, the transposition, the MMAs or FMAs,
-   the copies after the prologue, the split-K sums), each built with the
+2. Phase removal: copies of ``kan_int8_gemm.cu``, ``kan_fused_gemm.cu``
+   and ``kan_sparse_int8_gemm.cu`` with one phase cut out (the band or
+   address build, the transposition, the coefficient loads, the MMAs,
+   FMAs or dp4a contraction, the copies after the prologue, the split-K
+   sums or atomics and epilogue, the split itself), each built with the
    port's flags and timed like the real kernel.  A variant computes wrong
    values; only its time is read.  What a phase costs is the base time
-   minus the variant's (phases overlap, so the differences need not add up).
-3. Per-block phase clocks of ``kan_int8_gemm``: ``clock64()`` around each
-   phase of its K loop, ``%globaltimer`` at a block's start and end, read
-   back from a device array after one call.
+   minus the variant's (phases overlap, so the differences need not add
+   up).
+3. Per-block clocks: ``clock64()`` around each phase of ``kan_int8_gemm``'s
+   K loop; ``%globaltimer`` at each block's start and end in both int8
+   kernels, read back from a device array after one call.
+4. The time of an empty kernel through the same timer (``time_ms``): the
+   least any kernel can show in this harness.
+
+``--sparse-int8-src`` times other versions of ``kan_sparse_int8_gemm.cu``
+beside the repository's (for example an earlier commit's, from ``git
+show``), in one process on one card; each source's phase variants are
+those of its design (``SPARSE_INT8_DESIGNS``, recognised by their text).
 
 Needs a CUDA card and ``nvcc``; builds into ``build/kernel_breakdown/``.
 Imports nothing of JAX.
@@ -25,8 +36,10 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -109,18 +122,158 @@ CLOCKS = [
 CLOCK_NAMES = ["prologue", "wait_zero", "band_transpose", "copies_issued", "mma", "loop",
                "epilogue"]
 
+# Phase variants of kan_sparse_int8_gemm.cu, per design (each recognised by
+# its variants' text).  "band": one block per 8 rows x 128 columns x 32
+# inputs, a MAXM-wide int32 band per (row, input) in shared memory, byte
+# loads of the touched rows, MAXM multiply-adds per (row, input, column).
+SPARSE_INT8_DESIGNS = {
+    "band": {
+        "base": [],
+        "no_band": [("      const int k = kan::int_address<P>(x_q[(size_t)(r0 + r) * K + j], G, M, "
+                     "qmax, S, &addr);\n      kan::rom_fetch<P>(rom_s, S, addr, vals);\n"
+                     "#pragma unroll\n      for (int i = 0; i <= P; ++i) band[k - P + i] = vals[i];\n"
+                     "      atomicOr(&mask_s[jj], kan::window_mask<P>(k));",
+                     "      (void)addr; (void)vals; atomicOr(&mask_s[jj], (1u << M) - 1u);")],
+        "no_loads": [("cm[u][m] = (m < M && ((rows >> m) & 1u)) ? (int)c_jn[(size_t)m * N] : 0;",
+                      "cm[u][m] = (int)(rows >> m) + (int)(c_jn - coeff);")],
+        "no_contraction": [("for (int m = 0; m < MAXM; ++m) s += band_s[r][jj][m] * cm[u][m];",
+                            "s += cm[u][r % MAXM];")],
+        "no_atomics_epilogue": [
+            ("      if (r < nrows) atomicAdd(&sums[(size_t)(r0 + r) * N + n], acc[r]);",
+             "      if (r < nrows && acc[r] == 0x7fffffff) sums[(size_t)(r0 + r) * N + n] = 1;"),
+            ("  // The last slice of this column tile to finish writes the tile.\n",
+             "  return;\n")],
+        "one_slice": [("  const int slices = (K + kJC - 1) / kJC;", "  const int slices = 1;")],
+    },
+}
+# "dp4a": 8 rows x 4*TQ columns x JS inputs a block, every copy asked for
+# first, a packed (offset, ROM word) per (row, input), a byte transpose and
+# one dp4a per (row, input, column), input lanes summed in shared memory,
+# then one atomic per (row, column) and a ticket per block.
+SPARSE_INT8_DESIGNS["dp4a"] = {
+    "base": [],
+    "no_band": [("        int addr, vals[P + 1];\n"
+                 "        const int k = kan::int_address<P>(xv[q], G, M, qmax, S, &addr);\n"
+                 "        kan::rom_fetch<P>(rom_s, S, addr, vals);\n"
+                 "        unsigned w = 0u;\n#pragma unroll\n"
+                 "        for (int i = 0; i <= P; ++i) w |= (unsigned)vals[i] << (8 * i);\n"
+                 "        info = make_int2((jj * M + k - P) * CT / 4, (int)w);",
+                 "        info = make_int2(jj * M * CT / 4, xv[q]);")],
+    "no_loads": [("      kan::cp_async<16>(c_s + row * CT + c,\n"
+                  "                        ok ? coeff + ((size_t)j0 * M + row) * N + n0 + c : coeff, "
+                  "ok ? 16 : 0);", "      (void)ok;")],
+    "no_contraction": [("          unsigned a[P + 1], col[4];\n#pragma unroll\n"
+                        "          for (int i = 0; i <= P; ++i) a[i] = w[i * ctw];\n"
+                        "          columns<P>(a, col);\n#pragma unroll\n"
+                        "          for (int cc = 0; cc < 4; ++cc) acc[r][cc] = "
+                        "dp4a_us((unsigned)info.y, col[cc], acc[r][cc]);",
+                        "          acc[r][0] += (int)(w - c32) ^ info.y;")],
+    "no_atomics_epilogue": [
+        ("      atomicAdd(&sums[(size_t)(r0 + r) * N + n0 + c], s);",
+         "      if (s == 0x7fffffff) sums[(size_t)(r0 + r) * N + n0 + c] = 1;"),
+        ("  // 5. The last slice of this tile to finish writes the tile.\n", "  return;\n")],
+    "one_slice": [("  s.slices = (K + s.JS - 1) / s.JS;", "  s.slices = 1;")],
+    # tilings beside the chosen one: a grid of 1 or 4 blocks per SM, and
+    # 128-thread blocks (half the input lanes)
+    "blocks_per_sm_1": [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 1;")],
+    "blocks_per_sm_4": [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 4;")],
+    "threads_128": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+}
+# %globaltimer at each block's start, at phase boundaries (STAMP(i), where
+# a design marks them), before its ticket test and, in the tile's last
+# block, after the epilogue; thread 0 of each block writes [start, stamp 1,
+# stamp 2, stamp 3, ticket tested, epilogue done (ns), SM id] to g_times.
+START = ("  unsigned long long G0, GS[4] = {0ull, 0ull, 0ull, 0ull};\n"
+         "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(G0));\n")
+SPARSE_INT8_TIMES = {
+    "band": [
+        ("  const int nrows = min(kRows, BS - r0);\n",
+         "  const int nrows = min(kRows, BS - r0);\n" + START),
+        ("  if (!last_s) return;\n", "  BLOCK_END(4);\n  if (!last_s) return;\n"),
+        ("  if (tid == 0) tickets[tile] = 0u;   // ready for the next launch on this workspace\n}",
+         "  if (tid == 0) tickets[tile] = 0u;   // ready for the next launch on this workspace\n"
+         "  BLOCK_END(5);\n}"),
+    ],
+}
+# "dp4a": stamps after the (row, input) words are built, after the
+# contraction, and after the atomics are issued
+# "dp4a": stamps after the (row, input) words are built, after the
+# contraction, and after the atomics are issued
+SPARSE_INT8_TIMES["dp4a"] = [
+    ("  const int npairs = kRows * JS;\n", "  const int npairs = kRows * JS;\n" + START),
+    ("  // 3. The contraction, chunk", "  STAMP(0);\n  // 3. The contraction, chunk"),
+    ("  // 4. Sum the TJ input lanes", "  STAMP(1);\n  // 4. Sum the TJ input lanes"),
+    ("  // 5. The last slice of this tile", "  STAMP(2);\n  // 5. The last slice of this tile"),
+    *SPARSE_INT8_TIMES["band"][1:],
+]
+# what the stamps of a design delimit
+SPARSE_INT8_PHASES = {
+    "dp4a": ("loads_and_words", "contraction", "lane_sums_and_atomics", "fence_and_ticket"),
+}
+BLOCK_END = r"""
+#define STAMP(i) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(GS[i]))
+#define BLOCK_END(slot)                                                              \
+  do {                                                                               \
+    unsigned long long G1;                                                           \
+    unsigned smid;                                                                   \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(G1));                           \
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));                                \
+    if (threadIdx.x == 0) {                                                          \
+      unsigned long long* t = g_times + 7 * (blockIdx.x + gridDim.x *                \
+                                             (blockIdx.y + gridDim.y * blockIdx.z)); \
+      t[0] = G0; t[1] = GS[0]; t[2] = GS[1]; t[3] = GS[2];                           \
+      t[slot] = G1; t[6] = smid;                                                     \
+    }                                                                                \
+  } while (0)
+__device__ unsigned long long g_times[65536 * 7];
+extern "C" int copy_times(void* dst, long long n) {
+  return (int)cudaMemcpyFromSymbol(dst, g_times, n * 8);
+}
+extern "C" int clear_times() {
+  static unsigned long long zero[65536 * 7];
+  return (int)cudaMemcpyToSymbol(g_times, zero, sizeof(zero));
+}
+"""
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def variant_source(lib: str, subs) -> str:
-    text = (CSRC / f"{lib}.cu").read_text()
+def variant_source(lib: str, subs, text: str | None = None) -> str:
+    text = (CSRC / f"{lib}.cu").read_text() if text is None else text
     for old, new in subs:
         if text.count(old) != 1:
             raise RuntimeError(f"{lib}: the source no longer has {old[:60]!r}")
         text = text.replace(old, new)
     return text
+
+
+def sparse_int8_design(text: str) -> str:
+    """The design of a ``kan_sparse_int8_gemm.cu`` source: the one whose
+    variants' and timers' text it all holds."""
+    for design, variants in SPARSE_INT8_DESIGNS.items():
+        subs = [o for v in variants.values() for o, _ in v] + \
+            [o for o, _ in SPARSE_INT8_TIMES[design]]
+        if all(text.count(o) == 1 for o in subs):
+            return design
+    raise RuntimeError("kan_sparse_int8_gemm.cu: no design's text matches this source")
+
+
+def timed_source(text: str, design: str) -> str:
+    """``text`` with ``%globaltimer`` read at each block's start, phase
+    boundaries and end."""
+    body = variant_source("kan_sparse_int8_gemm", SPARSE_INT8_TIMES[design], text)
+    head = '#include "kan_common.cuh"\n'
+    return body.replace(head, head + BLOCK_END, 1)
 
 
 def build_variants(build, jobs: dict[str, tuple[str, str]]) -> dict[str, ctypes.CDLL]:
@@ -141,11 +294,24 @@ def build_variants(build, jobs: dict[str, tuple[str, str]]) -> dict[str, ctypes.
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{out[-3000:]}")
         handle = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in build.LIBRARIES[lib][1].items():
+        for fn, (argtypes, restype) in build.LIBRARIES.get(lib, (None, {}))[1].items():
             f = getattr(handle, fn)
             f.argtypes, f.restype = argtypes, restype
         libs[key] = handle
     return libs
+
+
+def use_library(lib: str, handle) -> None:
+    """Make ``handle`` the library the wrappers launch for ``lib``, with a
+    zeroed workspace sized by its own exports (a variant may have left
+    counters set, and two designs may size their workspace differently)."""
+    from repro_torch.kernels import build, workspace
+
+    build._loaded[lib] = handle
+    workspace._sizes.clear()
+    for ws in workspace._workspaces.values():
+        for t in ws.values():
+            t.zero_()
 
 
 def sass_counts(build) -> dict:
@@ -181,47 +347,22 @@ def int8_case(torch, Q, SplineGrid, G, rows, K, N, n_sets):
     return grid, qg, lut8, sets, scale
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("[breakdown] no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke as cs
-    from repro_torch import set_ieee_fp32
-    from repro_torch.core import quantization as Q
-    from repro_torch.core.bspline import SplineGrid
-    from repro_torch.kernels import build, ops
-
-    set_ieee_fp32()
-    log(f"[breakdown] {cs.card_line()}")
-    result = {"card": cs.card_line(), "sass": sass_counts(build)}
-    log(f"[sass] kan_int8_gemm: {json.dumps(result['sass'])}")
-
-    jobs = {f"int8_{v}": ("kan_int8_gemm", variant_source("kan_int8_gemm", subs))
-            for v, subs in INT8_VARIANTS.items()}
-    jobs |= {f"fused_{v}": ("kan_fused_gemm", variant_source("kan_fused_gemm", subs))
-             for v, subs in FUSED_VARIANTS.items()}
-    jobs["int8_clocks"] = ("kan_int8_gemm", variant_source("kan_int8_gemm", CLOCKS) +
-                           '\nextern "C" int copy_clocks(void* dst, long long n) {\n'
-                           '  return (int)cudaMemcpyFromSymbol(dst, g_clocks, n * 8);\n}\n')
-    libs = build_variants(build, jobs)
-    cycles_per_ms = cs.spin_cycles_per_ms(torch)
-
-    result["int8"] = {}
+def int8_section(torch, np, cs, Q, SplineGrid, ops, libs, cycles_per_ms):
+    """Kernel 4 at MNIST-KAN and CF-KAN layer 1: phase variants and the
+    per-phase clocks of one call."""
+    out = {}
     for G, rows, K, N in [(10, 2048, 784, 64), (2, 2048, 2810, 512)]:
         grid, qg, lut8, sets, scale = int8_case(torch, Q, SplineGrid, G, rows, K, N, 4)
         times = {}
         for v in INT8_VARIANTS:
-            build._loaded["kan_int8_gemm"] = libs[f"int8_{v}"]
+            use_library("kan_int8_gemm", libs[f"int8_{v}"])
             times[v] = cs.time_ms(torch, [
                 lambda a=a, c=c: ops.kan_int8_gemm(a, lut8, c, grid, scale=scale,
                                                    lut_scale=qg.lut_scale)
                 for a, c in sets], cycles_per_ms)
         lib = libs["int8_clocks"]
         lib.copy_clocks.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
-        build._loaded["kan_int8_gemm"] = lib
+        use_library("kan_int8_gemm", lib)
         a, c = sets[0]
         ops.kan_int8_gemm(a, lut8, c, grid, scale=scale, lut_scale=qg.lut_scale)
         torch.cuda.synchronize()
@@ -240,7 +381,7 @@ def main() -> int:
                                 if 1 <= i <= 4},
         }
         key = f"{rows}x{K}->{N}"
-        result["int8"][key] = {"ms": times, "clocks": clocks}
+        out[key] = {"ms": times, "clocks": clocks}
         log(f"[int8] {key} M={grid.n_basis} ms: " +
             " ".join(f"{v}={ms:.4f}" for v, ms in times.items()))
         log(f"[int8] {key} clocks: {clocks['blocks']} blocks, {clocks['blocks_per_sm']} per SM, "
@@ -249,8 +390,13 @@ def main() -> int:
             "; cycles per block " +
             " ".join(f"{n}={clocks['cycles_per_block'][n]:.0f}"
                      for n in ("prologue", "loop", "epilogue")))
+    return out
 
-    result["fused"] = {}
+
+def fused_section(torch, cs, SplineGrid, ops, libs, cycles_per_ms):
+    """Kernel 1 at the LM shapes and the fp32 MNIST-KAN net's layer 1:
+    phase variants, and the FMAs' rate over the dense band."""
+    out = {}
     for G, rows, K, N in [(5, 512, 512, 1024), (5, 512, 1024, 512), (10, 2048, 784, 64)]:
         grid = SplineGrid(-1.0, 1.0, G, 3)
         M = grid.n_basis
@@ -260,18 +406,147 @@ def main() -> int:
                  0.02 * torch.randn(K, N, generator=g, device="cuda")) for _ in range(4)]
         times = {}
         for v in FUSED_VARIANTS:
-            build._loaded["kan_fused_gemm"] = libs[f"fused_{v}"]
+            use_library("kan_fused_gemm", libs[f"fused_{v}"])
             times[v] = cs.time_ms(torch, [lambda c=c, w=w: ops.kan_fused_gemm(x, c, grid, w)
                                           for c, w in sets], cycles_per_ms)
         fma_ms = times["base"] - times["no_fma"]
         band_flops = 2.0 * rows * K * (M + 1) * N
         key = f"{rows}x{K}->{N}"
-        result["fused"][key] = {"ms": times, "dense_band_gflop": band_flops / 1e9,
-                                "fma_share_ms": fma_ms,
-                                "fma_tflops": band_flops / (fma_ms * 1e-3) / 1e12}
+        out[key] = {"ms": times, "dense_band_gflop": band_flops / 1e9, "fma_share_ms": fma_ms,
+                    "fma_tflops": band_flops / (fma_ms * 1e-3) / 1e12}
         log(f"[fused] {key} M={M} ms: " + " ".join(f"{v}={ms:.4f}" for v, ms in times.items()) +
             f"; base - no_fma = {fma_ms:.4f} ms = "
-            f"{result['fused'][key]['fma_tflops']:.1f} TFLOP/s over the dense band")
+            f"{out[key]['fma_tflops']:.1f} TFLOP/s over the dense band")
+    return out
+
+
+SPARSE_INT8_SHAPES = [(10, 8, 784, 64), (2, 8, 2810, 512)]    # (G, rows, K, N)
+
+
+def sparse_int8_section(torch, np, cs, Q, SplineGrid, ops, sources, libs, cycles_per_ms):
+    """Kernel 3 at its two decode shapes, per source: the phase variants'
+    times, and each block's start and end from one call."""
+    out = {}
+    for G, rows, K, N in SPARSE_INT8_SHAPES:
+        M = G + 3
+        n_sets = max(1, math.ceil(cs.L2_FLUSH_BYTES / (rows * K * 4 + K * M * N)))
+        grid, qg, lut8, sets, scale = int8_case(torch, Q, SplineGrid, G, rows, K, N, n_sets)
+        key = f"{rows}x{K}->{N}"
+        out[key] = {}
+        for src, design in sources.items():
+            times = {}
+            for v in SPARSE_INT8_DESIGNS[design]:
+                use_library("kan_sparse_int8_gemm", libs[f"sparse_int8_{src}_{v}"])
+                times[v] = cs.time_ms(torch, [
+                    lambda a=a, c=c: ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale,
+                                                              lut_scale=qg.lut_scale)
+                    for a, c in sets], cycles_per_ms)
+            lib = libs[f"sparse_int8_{src}_times"]
+            lib.copy_times.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+            use_library("kan_sparse_int8_gemm", lib)
+            a, c = sets[0]
+            ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale, lut_scale=qg.lut_scale)
+            torch.cuda.synchronize()
+            if lib.clear_times() != 0:
+                raise RuntimeError("clear_times failed")
+            ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale, lut_scale=qg.lut_scale)
+            torch.cuda.synchronize()
+            buf = np.zeros(65536 * 7, dtype=np.uint64)
+            if lib.copy_times(buf.ctypes.data, buf.size) != 0:
+                raise RuntimeError("copy_times failed")
+            t = buf.reshape(-1, 7)
+            t = t[t[:, 4] > 0].astype(np.float64)
+            last = t[t[:, 5] > 0]
+            dur = (t[:, 4] - t[:, 0]) / 1e3
+            blocks = {"blocks": int(len(t)),
+                      "blocks_per_sm": int(np.bincount(t[:, 6].astype(int)).max()),
+                      "sms_used": int(np.unique(t[:, 6]).size),
+                      "span_us": (np.maximum(t[:, 4], t[:, 5]).max() - t[:, 0].min()) / 1e3,
+                      "last_start_us": (t[:, 0].max() - t[:, 0].min()) / 1e3,
+                      "block_us_mean": float(dur.mean()), "block_us_max": float(dur.max()),
+                      "epilogue_us_mean": float(((last[:, 5] - last[:, 4]) / 1e3).mean())}
+            if (t[:, 1:4] > 0).all():          # the design's phase stamps
+                edges = [t[:, 0], t[:, 1], t[:, 2], t[:, 3], t[:, 4]]
+                blocks["phase_us_mean"] = {
+                    name: float(((b - a) / 1e3).mean()) for name, a, b in zip(
+                        SPARSE_INT8_PHASES[design], edges[:-1], edges[1:])}
+            out[key][src] = {"design": design, "ms": times, "blocks": blocks}
+            log(f"[sparse_int8] {key} M={M} {src} ({design}) ms: " +
+                " ".join(f"{v}={ms:.4f}" for v, ms in times.items()))
+            log(f"[sparse_int8] {key} {src} blocks: {blocks['blocks']} on {blocks['sms_used']} "
+                f"SMs (at most {blocks['blocks_per_sm']} per SM), span {blocks['span_us']:.2f} "
+                f"us, last block starts at {blocks['last_start_us']:.2f} us, a block takes "
+                f"{blocks['block_us_mean']:.2f} us (max {blocks['block_us_max']:.2f}) to its "
+                f"ticket, the last of a tile {blocks['epilogue_us_mean']:.2f} us more" +
+                ("; phases (us, mean): " + " ".join(
+                    f"{n}={v:.2f}" for n, v in blocks["phase_us_mean"].items())
+                 if "phase_us_mean" in blocks else ""))
+    return out
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="int8,fused,sparse_int8",
+                    help="comma-separated sections: int8, fused, sparse_int8")
+    ap.add_argument("--sparse-int8-src", nargs="*", default=[],
+                    help="other kan_sparse_int8_gemm.cu sources timed beside the repository's")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not torch.cuda.is_available():
+        print("[breakdown] no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from repro_torch import set_ieee_fp32
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.bspline import SplineGrid
+    from repro_torch.kernels import build, ops
+
+    set_ieee_fp32()
+    log(f"[breakdown] {cs.card_line()}")
+    result = {"card": cs.card_line()}
+
+    jobs = {"empty": ("empty", EMPTY_KERNEL)}
+    if "int8" in only:
+        result["sass"] = sass_counts(build)
+        log(f"[sass] kan_int8_gemm: {json.dumps(result['sass'])}")
+        jobs |= {f"int8_{v}": ("kan_int8_gemm", variant_source("kan_int8_gemm", subs))
+                 for v, subs in INT8_VARIANTS.items()}
+        jobs["int8_clocks"] = ("kan_int8_gemm", variant_source("kan_int8_gemm", CLOCKS) +
+                               '\nextern "C" int copy_clocks(void* dst, long long n) {\n'
+                               '  return (int)cudaMemcpyFromSymbol(dst, g_clocks, n * 8);\n}\n')
+    if "fused" in only:
+        jobs |= {f"fused_{v}": ("kan_fused_gemm", variant_source("kan_fused_gemm", subs))
+                 for v, subs in FUSED_VARIANTS.items()}
+    sources = {}
+    if "sparse_int8" in only:
+        texts = {"repo": (CSRC / "kan_sparse_int8_gemm.cu").read_text()}
+        texts |= {Path(f).stem: Path(f).read_text() for f in args.sparse_int8_src}
+        for src, text in texts.items():
+            design = sources[src] = sparse_int8_design(text)
+            for v, subs in SPARSE_INT8_DESIGNS[design].items():
+                jobs[f"sparse_int8_{src}_{v}"] = (
+                    "kan_sparse_int8_gemm", variant_source("kan_sparse_int8_gemm", subs, text))
+            jobs[f"sparse_int8_{src}_times"] = ("kan_sparse_int8_gemm", timed_source(text, design))
+    libs = build_variants(build, jobs)
+    cycles_per_ms = cs.spin_cycles_per_ms(torch)
+
+    empty = libs["empty"]
+    empty.empty_launch.argtypes, empty.empty_launch.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    result["empty_kernel_ms"] = cs.time_ms(torch, [lambda: empty.empty_launch(stream)],
+                                           cycles_per_ms)
+    log(f"[empty] an empty kernel through time_ms: {result['empty_kernel_ms']:.4f} ms")
+
+    if "sparse_int8" in only:
+        result["sparse_int8"] = sparse_int8_section(torch, np, cs, Q, SplineGrid, ops, sources,
+                                                    libs, cycles_per_ms)
+    if "int8" in only:
+        result["int8"] = int8_section(torch, np, cs, Q, SplineGrid, ops, libs, cycles_per_ms)
+    if "fused" in only:
+        result["fused"] = fused_section(torch, cs, SplineGrid, ops, libs, cycles_per_ms)
     build._loaded.clear()
     print(json.dumps(result), flush=True)
     return 0
