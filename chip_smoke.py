@@ -19,8 +19,9 @@ Phases; any failed check raises and the script exits non-zero:
    calls) with CUDA events behind a spin kernel (so the host's launch rate
    does not set the time), rotating input copies so the 50 MB L2 stays
    cold as in the model; compute each kernel's bound from its shapes.  The
-   fused kernel is also timed where the fp32 MNIST-KAN net of phase 7
-   launches it (2048 x 784 -> 64 and 2048 x 64 -> 10, M = 13).
+   fused and sparse kernels are also timed where the fp32 MNIST-KAN net of
+   phase 7 launches them (2048 and 8 rows of 784 -> 64 and 64 -> 10,
+   M = 13).
 4. The main path: full-width kanformer-100m (random weights from a seed,
    fp32) served through ``Engine.serve_requests`` with the launch counts
    reset just before and read just after; then the same tokens through
@@ -259,12 +260,15 @@ def check_kernels(torch, grid):
                     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
                 if with_base and rows != 13 and (dtype == torch.float32 or rows in (512, 4)):
                     results[name]["timed"].append((rows, K, N, dtype, grid))
-    # the fused kernel where the fp32 MNIST-KAN net launches it (phase 7:
-    # 2048 inputs, G=10, M=13; checked there against the plain path)
+    # the fused and sparse kernels where the fp32 MNIST-KAN net launches
+    # them (phase 7: 2048 and 8 inputs, G=10, M=13; checked there against
+    # the plain path)
     mnist = SplineGrid(-1.0, 1.0, MNIST["G"], MNIST["P"])
-    results["kan_fused_gemm"]["timed"] += [
-        (MNIST["rows"], K, N, torch.float32, mnist)
-        for K, N in zip(MNIST["layers"][:-1], MNIST["layers"][1:])]
+    for name, rows in (("kan_fused_gemm", MNIST["rows"]),
+                       ("kan_sparse_gemm", MNIST["decode_rows"])):
+        results[name]["timed"] += [
+            (rows, K, N, torch.float32, mnist)
+            for K, N in zip(MNIST["layers"][:-1], MNIST["layers"][1:])]
 
     # timing at the main path's shapes: both FFN layers, fp32 at every row
     # count, bf16 at prefill's 512 and decode's 4 rows

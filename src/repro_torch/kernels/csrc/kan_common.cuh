@@ -6,10 +6,8 @@
 //   * compact_basis<P>       == compact_basis_inblock: z = (x - t0)/delta with
 //     a true IEEE division (no fast math: k must equal the reference's k at
 //     knot values), k = clamp(floor z, P, M-1), xa = clamp(z - k, 0, 1);
-//   * band_scatter<P, T>     == band_scatter: one input's dense M-wide band;
-//   * gather_coeff_rows<..>  == gather_coeff_slabs: the coefficient rows an
-//     input's window touches, one output column at a time (window_mask
-//     gives the rows);
+//   * window_mask<P>: the coefficient rows an input's window touches (the
+//     rows gather_coeff_slabs reads);
 //   * int_address<P> + rom_fetch<P> == int8_compact_values_inblock: the
 //     integer Align/Compare units (Eq. 5, floor division as the reference's
 //     `//`, int32 wrap-around as its int32 arithmetic) and the P+1 uint8 ROM
@@ -21,7 +19,10 @@
 //     the other way; see common.py.)
 //   * cp_async<BYTES> / cp_async_commit / cp_async_wait<N>: Ampere's
 //     asynchronous global-to-shared copies (cp.async), zero-filled past the
-//     bytes read, used by the dense-band kernels' staging rings;
+//     bytes read, used by the dense-band kernels' staging rings and the
+//     sparse kernels' staged rows;
+//   * atomic_add_acq_rel: a device-scope counter increment that releases
+//     and acquires, for the split-K tickets;
 //   * sm_count: the current device's SM count (host), cached.
 // The plain PyTorch versions live in repro_torch/kernels/common.py.
 #pragma once
@@ -81,31 +82,10 @@ __device__ __forceinline__ int compact_basis(float x, float t0, float delta, int
   return k;
 }
 
-// The M-to-N multiplexer run in reverse: writes one input's dense M-wide
-// band, its P+1 values at k-P .. k rounded to T as the product sees them
-// (band.astype(c.dtype)), zeros elsewhere.
-template <int P, typename T>
-__device__ __forceinline__ void band_scatter(const float* vals, int k, int M, float* band) {
-  for (int m = 0; m < M; ++m) band[m] = 0.0f;
-#pragma unroll
-  for (int i = 0; i <= P; ++i) band[k - P + i] = round_to<T>(vals[i]);
-}
-
 // Bit m set for each basis row B_{k-P} .. B_k an input in interval k touches.
 template <int P>
 __device__ __forceinline__ unsigned window_mask(int k) {
   return ((1u << (P + 1)) - 1u) << (k - P);
-}
-
-// The M-to-N multiplexer run forward: column n of the coefficient rows
-// C[j, m, :] whose bit is set in `rows` (c_jn points at C[j, 0, n], rows
-// `stride` elements apart).  Rows not set are never read and load as 0.
-template <int MAXM, typename T>
-__device__ __forceinline__ void gather_coeff_rows(const T* __restrict__ c_jn, size_t stride,
-                                                  int M, unsigned rows, float* cm) {
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-    cm[m] = (m < M && ((rows >> m) & 1u)) ? to_float(c_jn[m * stride]) : 0.0f;
 }
 
 // floor(a / b) for b > 0 (C's `/` truncates toward zero).
@@ -161,6 +141,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// *p += v at device scope, with release and acquire semantics; returns the
+// old value.  After a block barrier, one thread's release covers the
+// writes of the whole block (the barrier orders them before it).
+__device__ __forceinline__ unsigned atomic_add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 // Streaming multiprocessors of the current device (host side), cached.

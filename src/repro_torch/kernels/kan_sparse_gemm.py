@@ -6,11 +6,17 @@ Counterpart of ``repro/kernels/kan_sparse_gemm.py`` (the Pallas TPU kernels
 non-zero basis values against the coefficient slab ``C[j, k-P .. k, :]`` it
 touches, in one launch.
 
-* Float (``csrc/kan_sparse_gemm.cu``): plus the base term; a GEMV for up to
-  8 rows per block that reads each touched coefficient row once for all
-  rows, splits K into slices and sums the slices' fp32 partials in the same
-  launch.  It takes ``P in {1, 2, 3}`` and ``M = G+P <= 16`` (a band of 8
-  or 16 slots, chosen by M).
+* Float (``csrc/kan_sparse_gemm.cu``): plus the base term; a GEMV split
+  over K into about two blocks per SM (the split taken from K, N, M and
+  C's dtype, never from the row count, so a row's bits do not depend on
+  the rows beside it); per block up to 8 rows, 4 fp32 or 8 bf16 columns a
+  thread, and the slice's coefficient and Wb rows asked for at once into
+  shared memory (all M rows, or at 1-2 rows only those the windows
+  touch); per (row, input) one packed entry and P+1 FMAs per column;
+  input lanes summed in shared memory, and the K slices' fp32 partials
+  summed in a fixed order by the tile's last block in the same launch.
+  Bound by the bytes of the touched rows.  It takes ``P in {1, 2, 3}``
+  and ``M = G+P <= 16``.
 * int8 (``csrc/kan_sparse_int8_gemm.cu``): the integer datapath of
   ``kan_int8_gemm`` (Eq. 5 address arithmetic, uint8 ROM values, int8
   slabs, optional dequant epilogue) as a GEMV split over K into about two
@@ -39,7 +45,7 @@ from repro_torch.kernels.kan_fused_gemm import DTYPE_CODES, check_operands
 from repro_torch.kernels.kan_int8_gemm import OUT_CODES, check_int8_operands, dequant_epilogue
 from repro_torch.kernels.workspace import workspace
 
-MAX_M = 16                    # the widest compile-time band (8 or 16 slots)
+MAX_M = 16                    # the widest M both sparse kernels are compiled for
 
 def kan_sparse_gemm_reference(
     x: torch.Tensor, coeff: torch.Tensor, grid: SplineGrid,

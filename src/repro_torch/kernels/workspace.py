@@ -20,7 +20,7 @@ SCRATCH = {"kan_sparse_gemm": ("partials", torch.float32),
            "kan_sparse_int8_gemm": ("accumulators", torch.int32),
            "kan_int8_gemm": ("accumulators", torch.int32)}
 _workspaces: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
-_sizes: dict[tuple[str, int, int, int], tuple[int, int]] = {}
+_sizes: dict[tuple[str, int, int, int, int], tuple[int, int]] = {}
 
 
 def workspace(lib, fn: str, device: torch.device, stream: int, BS: int, K: int, N: int
@@ -28,9 +28,10 @@ def workspace(lib, fn: str, device: torch.device, stream: int, BS: int, K: int, 
     """``(tickets, scratch)`` of stream ``stream`` on ``device``, large
     enough for one call of kernel ``fn`` at ``(BS, K, N)``."""
     what, dtype = SCRATCH[fn]
-    sizes = _sizes.get((fn, BS, K, N))
+    key = (fn, device.index, BS, K, N)          # a split may follow the SM count
+    sizes = _sizes.get(key)
     if sizes is None:
-        sizes = _sizes[(fn, BS, K, N)] = (
+        sizes = _sizes[key] = (
             int(getattr(lib, fn + "_tickets")(BS, N)),
             int(getattr(lib, f"{fn}_{what}")(BS, K, N)))
     n_tickets, n_scratch = sizes

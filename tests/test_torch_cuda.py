@@ -25,6 +25,7 @@ from repro_torch.core import kan_layer as KL
 from repro_torch.core import quantization as Q
 from repro_torch.core.bspline import SplineGrid, build_lut
 from repro_torch.kernels import bspline_lut as L
+from repro_torch.kernels import build
 from repro_torch.kernels import kan_int8_gemm as I8
 from repro_torch.kernels import ops
 from repro_torch.kernels import kan_fused_gemm as F
@@ -126,6 +127,92 @@ def test_sparse_kernel_workspace_serves_calls_of_every_shape(cuda_device):
         assert torch.equal(got, ops.kan_sparse_gemm(tx, tc, grid, tw))
         want = S.kan_sparse_gemm_reference(tx, tc, grid, tw)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,P,BS,K,N", [(10, 3, 8, 784, 64), (10, 3, 8, 64, 10),
+                                        (2, 1, 8, 200, 16), (2, 1, 8, 16, 7),
+                                        (5, 3, 1, 64, 128), (5, 3, 4, 512, 1024),
+                                        (5, 3, 8, 1024, 512), (5, 3, 3, 2810, 512)])
+def test_sparse_kernel_writes_only_the_workspace_it_exports(cuda_device, G, P, BS, K, N,
+                                                            dtype):
+    """Given tickets and partials of exactly the sizes the library exports
+    (``kan_sparse_gemm_tickets`` / ``_partials``), followed by guard
+    elements, a launch leaves the guards untouched and the tickets zero,
+    and matches the plain version: the fp32 MNIST-KAN and GKAN decode
+    layers (slices of fewer inputs than a round), the LM layers and a K
+    of many rounds.  A fresh workspace is sized by these exports alone."""
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    x, c, w = _inputs(grid, BS, K, N, BS + K + N, True)
+    tx, tc, tw = (torch.tensor(a).to(dtype).to(cuda_device) for a in (x, c, w))
+    lib = build.load("kan_sparse_gemm")
+    n_tickets, n_partials = lib.kan_sparse_gemm_tickets(BS, N), lib.kan_sparse_gemm_partials(
+        BS, K, N)
+    guard = 16 * BS * (N + 3)                       # room for 16 more slices
+    tickets = torch.zeros(n_tickets + guard, dtype=torch.int32, device=cuda_device)
+    partials = torch.full((n_partials + guard,), 7.0, device=cuda_device)
+    y = torch.empty((BS, N), dtype=dtype, device=cuda_device)
+    err = lib.kan_sparse_gemm(
+        tx.data_ptr(), tc.data_ptr(), tw.data_ptr(), tickets.data_ptr(), partials.data_ptr(),
+        y.data_ptr(), BS, K, N, grid.n_basis, P, grid.t0, grid.delta,
+        F.DTYPE_CODES[dtype], F.DTYPE_CODES[dtype], torch.cuda.current_stream().cuda_stream)
+    build.check(err, "kan_sparse_gemm")
+    torch.cuda.synchronize()
+    assert torch.equal(partials[n_partials:], torch.full_like(partials[n_partials:], 7.0))
+    assert not tickets.any()
+    want = S.kan_sparse_gemm_reference(tx, tc, grid, tw)
+    atol = 1e-4 if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,K,N", [(5, 512, 1024), (5, 1024, 512), (10, 784, 64)])
+def test_sparse_kernel_rows_do_not_depend_on_their_companions(cuda_device, G, K, N, dtype):
+    """The kanformer FFN's two layers and MNIST-KAN's first: for BS in 1..8
+    each row of a call is bit-equal to the same row served alone, and to it
+    served at another position beside other rows (the continuous engine
+    compares each stream with the request served alone)."""
+    grid = SplineGrid(-1.0, 1.0, G, 3)
+    x, c, w = _inputs(grid, 16, K, N, G + K + N, True)
+    tx, tc, tw = (torch.tensor(a).to(dtype).to(cuda_device) for a in (x, c, w))
+    alone = torch.cat([ops.kan_sparse_gemm(tx[i:i + 1], tc, grid, tw) for i in range(8)])
+    for BS in range(1, 9):
+        assert torch.equal(ops.kan_sparse_gemm(tx[:BS], tc, grid, tw), alone[:BS])
+        mixed = torch.cat([tx[8:16 - BS], tx[:BS].flip(0)])      # 8 rows, ours last
+        got = ops.kan_sparse_gemm(mixed, tc, grid, tw)
+        assert torch.equal(got[8 - BS:], alone[:BS].flip(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,P", [(2, 1), (3, 2), (5, 3), (13, 3)])
+@pytest.mark.parametrize("K", [33, 100, 784, 2810])
+@pytest.mark.parametrize("N", [7, 10, 17, 64, 130, 512, 1024])
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 7, 8])
+def test_sparse_kernel_across_its_tiles_and_slices(cuda_device, rows, N, K, G, P):
+    """Rows on both sides of the touched-rows copy (<= 2 rows), N below,
+    at and across the column tiles (7, 10 and 17 by element copies), K
+    below one slice and over hundreds, M = 3 to 16; odd row counts with
+    the base term, even ones without.  fp32 within 1e-4 of the plain
+    version, bf16 within one bf16 ulp of max|y|, both bit-equal on a
+    repeat."""
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    g = torch.Generator(device=cuda_device).manual_seed(rows * N + K + G)
+    x = torch.tanh(torch.randn(rows, K, generator=g, device=cuda_device))
+    plant = [grid.x_min, grid.x_max, *grid.knots().tolist(), -3.0, 2.5, -1.0001]
+    x.view(-1)[:min(len(plant), x.numel())] = torch.tensor(plant[:x.numel()],
+                                                           device=cuda_device)
+    c = 0.1 * torch.randn(K, grid.n_basis, N, generator=g, device=cuda_device)
+    w = 0.1 * torch.randn(K, N, generator=g, device=cuda_device) if rows % 2 else None
+    for dtype in (torch.float32, torch.bfloat16):
+        tx, tc = x.to(dtype), c.to(dtype)
+        tw = None if w is None else w.to(dtype)
+        got = ops.kan_sparse_gemm(tx, tc, grid, tw)
+        assert torch.equal(got, ops.kan_sparse_gemm(tx, tc, grid, tw))
+        want = S.kan_sparse_gemm_reference(tx, tc, grid, tw)
+        atol = 1e-4 if dtype == torch.float32 else BF16_ULP * want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 # Shapes that cross the dense-band kernels' tile, stage and split-K
@@ -435,6 +522,40 @@ def test_sparse_int8_kernel_interleaves_with_the_dense_band_kernel(cuda_device):
     torch.cuda.synchronize()
     ws = _stream_workspace(xq)
     assert not ws["tickets"].any() and not ws["accumulators"].any()
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_interleaves_with_the_other_split_kernels(cuda_device):
+    """Kernel 2 shares the stream's tickets with the fused (1), sparse int8
+    (3) and dense-band int8 (4) kernels; calls of all four, alternating over
+    growing and shrinking shapes on one stream, each match their plain
+    versions, kernel 2 repeats bit-equal, and after each call the tickets
+    (and the int8 kernels' accumulators) read back zero."""
+    grid = SplineGrid(-1.0, 1.0, 10, 3)
+    lut = torch.tensor(Q.build_lut_u8(3, 256), device=cuda_device)
+
+    def zero_after(t):
+        torch.cuda.synchronize()
+        ws = _stream_workspace(t)
+        assert not ws["tickets"].any()
+        assert "accumulators" not in ws or not ws["accumulators"].any()
+        return t
+
+    for i, (BS, K, N) in enumerate([(8, 784, 64), (4, 1024, 512), (1, 64, 10), (5, 2810, 512),
+                                    (3, 100, 130), (7, 33, 17), (8, 784, 64)]):
+        x, c, w = _inputs(grid, 40, K, N, i, True)
+        tx, tc, tw = (torch.tensor(a).to(cuda_device) for a in (x, c, w))
+        first = zero_after(ops.kan_sparse_gemm(tx[:BS], tc, grid, tw))
+        torch.testing.assert_close(first, S.kan_sparse_gemm_reference(tx[:BS], tc, grid, tw),
+                                   rtol=0, atol=1e-4)
+        fused = zero_after(ops.kan_fused_gemm(tx, tc, grid, tw))
+        torch.testing.assert_close(fused, F.kan_fused_gemm_reference(tx, tc, grid, tw),
+                                   rtol=0, atol=1e-4)
+        xq, cq, _ = (t.to(cuda_device) for t in _int8_case(grid, BS, K, N, i))
+        want = I8.kan_int8_gemm_reference(xq, cq, grid)
+        assert torch.equal(zero_after(ops.kan_sparse_int8_gemm(xq, lut, cq, grid)), want)
+        assert torch.equal(zero_after(ops.kan_int8_gemm(xq, lut, cq, grid)), want)
+        assert torch.equal(zero_after(ops.kan_sparse_gemm(tx[:BS], tc, grid, tw)), first)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the KAN kernels goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_breakdown.py [--only int8,fused,sparse_int8]
+    python3 tools/kernel_breakdown.py [--only int8,fused,sparse_int8,sparse]
+                                      [--variants a,b,...]
+                                      [--sparse-src FILE.cu ...]
                                       [--sparse-int8-src FILE.cu ...]
 
 Measurements at the shapes ``chip_smoke.py`` times:
@@ -10,25 +12,30 @@ Measurements at the shapes ``chip_smoke.py`` times:
    integer tensor-core instructions (``IMMA``) and ``IMAD``s, per
    instantiation (the IMADs are index arithmetic; the contraction is the
    IMMAs).
-2. Phase removal: copies of ``kan_int8_gemm.cu``, ``kan_fused_gemm.cu``
-   and ``kan_sparse_int8_gemm.cu`` with one phase cut out (the band or
-   address build, the transposition, the coefficient loads, the MMAs,
-   FMAs or dp4a contraction, the copies after the prologue, the split-K
-   sums or atomics and epilogue, the split itself), each built with the
-   port's flags and timed like the real kernel.  A variant computes wrong
-   values; only its time is read.  What a phase costs is the base time
-   minus the variant's (phases overlap, so the differences need not add
-   up).
+2. Phase removal: copies of ``kan_int8_gemm.cu``, ``kan_fused_gemm.cu``,
+   ``kan_sparse_int8_gemm.cu`` and ``kan_sparse_gemm.cu`` with one phase
+   cut out (the band, address or entry build, the transposition, the
+   coefficient loads, the MMAs, FMAs or dp4a contraction, the copies after
+   the prologue, the split-K sums, atomics or tail, the split itself), and
+   of the two sparse kernels with another tiling or copy policy, each
+   built with the port's flags and timed like the real kernel.  A phase
+   variant computes wrong values; only its time is read.  What a phase
+   costs is the base time minus the variant's (phases overlap, so the
+   differences need not add up).
 3. Per-block clocks: ``clock64()`` around each phase of ``kan_int8_gemm``'s
-   K loop; ``%globaltimer`` at each block's start and end in both int8
-   kernels, read back from a device array after one call.
+   K loop; ``%globaltimer`` at each block's start, phase boundaries and
+   end in both sparse kernels, read back from a device array after one
+   call.
 4. The time of an empty kernel through the same timer (``time_ms``): the
    least any kernel can show in this harness.
 
-``--sparse-int8-src`` times other versions of ``kan_sparse_int8_gemm.cu``
-beside the repository's (for example an earlier commit's, from ``git
-show``), in one process on one card; each source's phase variants are
-those of its design (``SPARSE_INT8_DESIGNS``, recognised by their text).
+``--sparse-src`` and ``--sparse-int8-src`` time other versions of the two
+sparse kernels' sources beside the repository's (for example an earlier
+commit's, from ``git show``), in one process on one card; each source's
+variants are those of its design (``SPARSE_DESIGNS``,
+``SPARSE_INT8_DESIGNS``, recognised by their text), and a source of no
+known design is timed whole.  ``--variants`` builds only the named
+variants of the sparse kernels (and ``base``).
 
 Needs a CUDA card and ``nvcc``; builds into ``build/kernel_breakdown/``.
 Imports nothing of JAX.
@@ -197,8 +204,6 @@ SPARSE_INT8_TIMES = {
 }
 # "dp4a": stamps after the (row, input) words are built, after the
 # contraction, and after the atomics are issued
-# "dp4a": stamps after the (row, input) words are built, after the
-# contraction, and after the atomics are issued
 SPARSE_INT8_TIMES["dp4a"] = [
     ("  const int npairs = kRows * JS;\n", "  const int npairs = kRows * JS;\n" + START),
     ("  // 3. The contraction, chunk", "  STAMP(0);\n  // 3. The contraction, chunk"),
@@ -210,6 +215,131 @@ SPARSE_INT8_TIMES["dp4a"] = [
 SPARSE_INT8_PHASES = {
     "dp4a": ("loads_and_words", "contraction", "lane_sums_and_atomics", "fence_and_ticket"),
 }
+
+# Phase variants of kan_sparse_gemm.cu (kernel 2), per design.  "band": one
+# block per 8 rows x 128 columns x 32 inputs, a zeroed MAXM-wide fp32 band
+# per (row, input) in shared memory, scalar loads of the touched rows (4
+# inputs' loads in flight), MAXM FMAs per (row, input, column), fp32
+# partials per slice summed by the tile's last block.  Its "no_band"
+# variant reads no x and gives each (row, input) a fixed window spread over
+# the rows, so that about as many rows are loaded.
+SPARSE_DESIGNS = {
+    "band": {
+        "base": [],
+        "no_band": [("      const float xf = kan::to_float(x[(size_t)(r0 + r) * K + j]);\n"
+                     "      float vals[P + 1];\n"
+                     "      const int k = kan::compact_basis<P>(xf, t0, delta, M, vals);\n"
+                     "      kan::band_scatter<P, TC>(vals, k, MAXM, band);\n"
+                     "      xr = kan::round_to<TC>(fmaxf(xf, 0.0f));\n"
+                     "      atomicOr(&mask_s[jj], kan::window_mask<P>(k));",
+                     "      for (int m = 0; m < MAXM; ++m) band[m] = 0.0f;\n"
+                     "      atomicOr(&mask_s[jj], kan::window_mask<P>(P + (r + j) % (M - P)));")],
+        "no_loads": [("        kan::gather_coeff_rows<MAXM>(coeff + j * M * N + n, (size_t)N, M, "
+                      "mask_s[jj],\n                                      cm[u]);\n"
+                      "        wb[u] = (has_base && jj < jn) ? kan::to_float(base_w[j * N + n]) : "
+                      "0.0f;",
+                      "        for (int m = 0; m < MAXM; ++m) cm[u][m] = (float)((mask_s[jj] >> m) "
+                      "& 1u);\n        wb[u] = (float)jj;")],
+        "no_contraction": [("            for (int m = 0; m < MAXM; ++m) s = fmaf(band_s[r][jj][m], "
+                            "cm[u][m], s);", "            s += cm[u][r % MAXM];")],
+        "no_tail": [("  // The last slice of this column tile to finish sums all its slices.\n",
+                     "  return;\n")],
+        "one_slice": [("  const int slices = (K + kJC - 1) / kJC;", "  const int slices = 1;")],
+        # tilings beside the chosen one: 16 or 64 inputs a slice, 256 columns
+        "inputs_16": [("constexpr int kJC = 32; ", "constexpr int kJC = 16; ")],
+        "inputs_64": [("constexpr int kJC = 32; ", "constexpr int kJC = 64; ")],
+        "threads_256": [("constexpr int kCols = 128; ", "constexpr int kCols = 256; ")],
+    },
+}
+SPARSE_TIMES = {
+    "band": [
+        ("  const int nrows = min(kRows, BS - r0);\n",
+         "  const int nrows = min(kRows, BS - r0);\n" + START),
+        ("  float acc[kRows];\n", "  STAMP(0);\n  float acc[kRows];\n"),
+        ("  // The last slice of this column tile", "  STAMP(1);\n  // The last slice of this column tile"),
+        ("  const int tile = blockIdx.z * gridDim.x + blockIdx.x;\n",
+         "  STAMP(2);\n  const int tile = blockIdx.z * gridDim.x + blockIdx.x;\n"),
+        *SPARSE_INT8_TIMES["band"][1:],
+    ],
+}
+# "own": 8 rows x V*TQ columns x JS inputs a block; each lane
+# stages by cp.async, and reads, only its own 16 bytes of its inputs' rows
+# (all M rows, or only the touched ones at <= kSelectRows rows), a group a
+# round, so no barrier stands between its copies and its contraction; a
+# packed entry per (row, input); P+1 16-byte shared loads and P+1 FMAs per
+# (row, input, column); lanes summed in shared memory in groups; fp32
+# partials per slice summed in a fixed order by the tile's last block
+# after a ticket taken with release and acquire semantics.  Its "no_loads"
+# variant copies nothing (the rows hold whatever shared memory held).
+SPARSE_DESIGNS["own"] = {
+    "base": [],
+    "no_band": [("                     ? kan::to_float(x[(size_t)(r0 + r) * K + j0 + jj]) : 0.0f;",
+                 "                     ? (float)jj : 0.0f;"),
+                ("        const int k = kan::compact_basis<P>(xv[q][i], t0, delta, M, vals);",
+                 "        const int k = P + (r + jj) % (M - P);\n"
+                 "        for (int t = 0; t <= P; ++t) vals[t] = xv[q][i];")],
+    "no_loads": [("      if constexpr (U == 2) dst[m * CT + e] = ok ? src[n + e] : "
+                  "kan::from_float<TC>(0.0f);\n"
+                  "      else kan::cp_async<U>(dst + m * CT + e, ok ? src + n + e : coeff, ok ? U : 0);",
+                  "      (void)ok; (void)src; (void)dst;")],
+    "no_contraction": [("#pragma unroll\n        for (int i = 0; i <= P; ++i) {\n"
+                        "          float cv[V];\n          load16(w + i * CT, cv);\n"
+                        "#pragma unroll\n          for (int v = 0; v < V; ++v) "
+                        "acc[r][v] = fmaf(vi[i], cv[v], acc[r][v]);\n        }",
+                        "        acc[r][0] += vi[0] + (float)(w - own);")],
+    "no_tail": [("  // 5. The last slice of this tile to finish sums the tile's slices: each\n",
+                 "  return;\n")],
+    "one_slice": [("  s.slices = max(1, (K + s.JS - 1) / s.JS);", "  s.slices = 1;")],
+    # the ticket as before: a fence by every thread before and after it
+    "fences": [("  if (tid == 0) last_s = kan::atomic_add_acq_rel(&tickets[tile], 1u) == gridDim.y - 1;"
+                "\n  __syncthreads();\n  if (!last_s) return;\n",
+                "  __threadfence();\n  __syncthreads();\n"
+                "  if (tid == 0) last_s = atomicAdd(&tickets[tile], 1u) == gridDim.y - 1;\n"
+                "  __syncthreads();\n  if (!last_s) return;\n  __threadfence();\n")],
+    # tilings and copy policies beside the chosen ones
+    "blocks_per_sm_1": [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 1;")],
+    "blocks_per_sm_4": [("constexpr int kBlocksPerSM = 2;", "constexpr int kBlocksPerSM = 4;")],
+    "tiles_8": [("constexpr int kTilesTarget = 16;", "constexpr int kTilesTarget = 8;")],
+    "tiles_32": [("constexpr int kTilesTarget = 16;", "constexpr int kTilesTarget = 32;")],
+    "rounds_4": [("constexpr int kMaxRounds = 2;", "constexpr int kMaxRounds = 4;")],
+    "copy_all_rows": [("constexpr int kSelectRows = 2;", "constexpr int kSelectRows = 0;")],
+    "copy_touched_at_4": [("constexpr int kSelectRows = 2;", "constexpr int kSelectRows = 4;")],
+}
+SPARSE_TIMES["own"] = [
+    ("  const int nrows = min(kRows, BS - r0);\n",
+     "  const int nrows = min(kRows, BS - r0);\n" + START),
+    ("  // 3. The contraction, round by round", "  STAMP(0);\n  // 3. The contraction, round by round"),
+    ("  // 4. Sum the TJ input lanes", "  STAMP(1);\n  // 4. Sum the TJ input lanes"),
+    ("  // 5. The last slice of this tile", "  STAMP(2);\n  // 5. The last slice of this tile"),
+    ("  if (one_slice) return;\n", "  BLOCK_END(4);\n  if (one_slice) return;\n"),
+    *SPARSE_INT8_TIMES["band"][1:],
+]
+SPARSE_PHASES = {
+    "band": ("band", "loads_and_contraction", "partials_and_fence", "ticket"),
+    "own": ("x_entries_and_asks", "contraction", "lane_sums_and_partials", "fence_and_ticket"),
+}
+# What an earlier design took from kan_common.cuh and the header no longer
+# has, put back after the include in its builds.
+PRELUDES = {("kan_sparse_gemm", "band"): r"""
+namespace kan {
+template <int P, typename T>
+__device__ __forceinline__ void band_scatter(const float* vals, int k, int M, float* band) {
+  for (int m = 0; m < M; ++m) band[m] = 0.0f;
+#pragma unroll
+  for (int i = 0; i <= P; ++i) band[k - P + i] = round_to<T>(vals[i]);
+}
+template <int MAXM, typename T>
+__device__ __forceinline__ void gather_coeff_rows(const T* __restrict__ c_jn, size_t stride,
+                                                  int M, unsigned rows, float* cm) {
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m)
+    cm[m] = (m < M && ((rows >> m) & 1u)) ? to_float(c_jn[m * stride]) : 0.0f;
+}
+}  // namespace kan
+"""}
+# per library: its designs' variants, timers and phase names
+DESIGNS = {"kan_sparse_int8_gemm": (SPARSE_INT8_DESIGNS, SPARSE_INT8_TIMES, SPARSE_INT8_PHASES),
+           "kan_sparse_gemm": (SPARSE_DESIGNS, SPARSE_TIMES, SPARSE_PHASES)}
 BLOCK_END = r"""
 #define STAMP(i) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(GS[i]))
 #define BLOCK_END(slot)                                                              \
@@ -257,23 +387,118 @@ def variant_source(lib: str, subs, text: str | None = None) -> str:
     return text
 
 
-def sparse_int8_design(text: str) -> str:
-    """The design of a ``kan_sparse_int8_gemm.cu`` source: the one whose
-    variants' and timers' text it all holds."""
-    for design, variants in SPARSE_INT8_DESIGNS.items():
-        subs = [o for v in variants.values() for o, _ in v] + \
-            [o for o, _ in SPARSE_INT8_TIMES[design]]
+def design_of(lib: str, text: str) -> str | None:
+    """The design of a source of ``lib``: the one whose variants' and
+    timers' text it all holds (None: an unrecognised design, timed whole)."""
+    designs, times, _ = DESIGNS[lib]
+    for design, variants in designs.items():
+        subs = [o for v in variants.values() for o, _ in v] + [o for o, _ in times[design]]
         if all(text.count(o) == 1 for o in subs):
             return design
-    raise RuntimeError("kan_sparse_int8_gemm.cu: no design's text matches this source")
+    return None
 
 
-def timed_source(text: str, design: str) -> str:
+def timed_source(lib: str, text: str, design: str) -> str:
     """``text`` with ``%globaltimer`` read at each block's start, phase
     boundaries and end."""
-    body = variant_source("kan_sparse_int8_gemm", SPARSE_INT8_TIMES[design], text)
+    body = variant_source(lib, DESIGNS[lib][1][design], text)
     head = '#include "kan_common.cuh"\n'
     return body.replace(head, head + BLOCK_END, 1)
+
+
+def design_variants(lib: str, design: str | None, only: set[str] | None = None) -> dict:
+    """The variants of a design of ``lib`` (``base`` alone for an
+    unrecognised one), those named in ``only`` if given."""
+    variants = DESIGNS[lib][0][design] if design else {"base": []}
+    return {v: subs for v, subs in variants.items() if only is None or v == "base" or v in only}
+
+
+def design_jobs(lib: str, tag: str, texts: dict[str, str], only: set[str] | None = None
+                ) -> tuple[dict, dict]:
+    """Build jobs of every source of ``lib`` (its design's phase variants
+    and timed copy, or the source alone if no design matches) and each
+    source's design."""
+    jobs, sources = {}, {}
+    head = '#include "kan_common.cuh"\n'
+    for src, text in texts.items():
+        design = sources[src] = design_of(lib, text)
+        text = text.replace(head, head + PRELUDES.get((lib, design), ""), 1)
+        for v, subs in design_variants(lib, design, only).items():
+            jobs[f"{tag}_{src}_{v}"] = (lib, variant_source(lib, subs, text))
+        if design:
+            jobs[f"{tag}_{src}_times"] = (lib, timed_source(lib, text, design))
+    return jobs, sources
+
+
+def block_times(np, lib, call) -> dict:
+    """Each block's start, phase stamps and end from one ``call()`` of the
+    timed build ``lib``."""
+    import torch
+
+    lib.copy_times.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+    torch.cuda.synchronize()
+    if lib.clear_times() != 0:
+        raise RuntimeError("clear_times failed")
+    call()
+    torch.cuda.synchronize()
+    buf = np.zeros(65536 * 7, dtype=np.uint64)
+    if lib.copy_times(buf.ctypes.data, buf.size) != 0:
+        raise RuntimeError("copy_times failed")
+    t = buf.reshape(-1, 7)
+    t = t[t[:, 4] > 0].astype(np.float64)
+    if not len(t):
+        raise RuntimeError("no block of the timed build recorded its times")
+    last = t[t[:, 5] > 0]
+    dur = (t[:, 4] - t[:, 0]) / 1e3
+    return {"t": t, "blocks": int(len(t)),
+            "blocks_per_sm": int(np.bincount(t[:, 6].astype(int)).max()),
+            "sms_used": int(np.unique(t[:, 6]).size),
+            "span_us": (np.maximum(t[:, 4], t[:, 5]).max() - t[:, 0].min()) / 1e3,
+            "last_start_us": (t[:, 0].max() - t[:, 0].min()) / 1e3,
+            "block_us_mean": float(dur.mean()), "block_us_max": float(dur.max()),
+            "epilogue_us_mean": float(((last[:, 5] - last[:, 4]) / 1e3).mean())
+            if len(last) else 0.0}
+
+
+def decode_section(torch, np, cs, lib, tag, cases, sources, libs, cycles_per_ms, only=None):
+    """A decode kernel at its shapes, per source: the phase variants'
+    times, and each block's start, phases and end from one call.
+    ``cases`` maps a shape key to ``(sets, call)``: input copies enough to
+    keep the L2 cold and a function of one copy that launches the kernel."""
+    out = {}
+    for key, (sets, call) in cases.items():
+        out[key] = {}
+        for src, design in sources.items():
+            times = {}
+            for v in design_variants(lib, design, only):
+                use_library(lib, libs[f"{tag}_{src}_{v}"])
+                times[v] = cs.time_ms(torch, [lambda s=s: call(*s) for s in sets], cycles_per_ms)
+            entry = {"design": design, "ms": times}
+            log(f"[{tag}] {key} {src} ({design}) ms: " +
+                " ".join(f"{v}={ms:.4f}" for v, ms in times.items()))
+            if design:
+                timed = libs[f"{tag}_{src}_times"]
+                use_library(lib, timed)
+                call(*sets[0])
+                blocks = block_times(np, timed, lambda: call(*sets[0]))
+                t = blocks.pop("t")
+                if (t[:, 1:4] > 0).all():          # the design's phase stamps
+                    edges = [t[:, 0], t[:, 1], t[:, 2], t[:, 3], t[:, 4]]
+                    blocks["phase_us_mean"] = {
+                        name: float(((b - a) / 1e3).mean()) for name, a, b in zip(
+                            DESIGNS[lib][2][design], edges[:-1], edges[1:])}
+                entry["blocks"] = blocks
+                log(f"[{tag}] {key} {src} blocks: {blocks['blocks']} on {blocks['sms_used']} "
+                    f"SMs (at most {blocks['blocks_per_sm']} per SM), span "
+                    f"{blocks['span_us']:.2f} us, last block starts at "
+                    f"{blocks['last_start_us']:.2f} us, a block takes "
+                    f"{blocks['block_us_mean']:.2f} us (max {blocks['block_us_max']:.2f}) to its "
+                    f"ticket, the last of a tile {blocks['epilogue_us_mean']:.2f} us more" +
+                    ("; phases (us, mean): " + " ".join(
+                        f"{n}={v:.2f}" for n, v in blocks["phase_us_mean"].items())
+                     if "phase_us_mean" in blocks else ""))
+            out[key][src] = entry
+    return out
 
 
 def build_variants(build, jobs: dict[str, tuple[str, str]]) -> dict[str, ctypes.CDLL]:
@@ -423,65 +648,46 @@ def fused_section(torch, cs, SplineGrid, ops, libs, cycles_per_ms):
 SPARSE_INT8_SHAPES = [(10, 8, 784, 64), (2, 8, 2810, 512)]    # (G, rows, K, N)
 
 
-def sparse_int8_section(torch, np, cs, Q, SplineGrid, ops, sources, libs, cycles_per_ms):
-    """Kernel 3 at its two decode shapes, per source: the phase variants'
-    times, and each block's start and end from one call."""
-    out = {}
+def sparse_int8_cases(torch, cs, Q, SplineGrid, ops):
+    """Kernel 3 at its two decode shapes, with the dequant epilogue."""
+    cases = {}
     for G, rows, K, N in SPARSE_INT8_SHAPES:
         M = G + 3
         n_sets = max(1, math.ceil(cs.L2_FLUSH_BYTES / (rows * K * 4 + K * M * N)))
         grid, qg, lut8, sets, scale = int8_case(torch, Q, SplineGrid, G, rows, K, N, n_sets)
-        key = f"{rows}x{K}->{N}"
-        out[key] = {}
-        for src, design in sources.items():
-            times = {}
-            for v in SPARSE_INT8_DESIGNS[design]:
-                use_library("kan_sparse_int8_gemm", libs[f"sparse_int8_{src}_{v}"])
-                times[v] = cs.time_ms(torch, [
-                    lambda a=a, c=c: ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale,
-                                                              lut_scale=qg.lut_scale)
-                    for a, c in sets], cycles_per_ms)
-            lib = libs[f"sparse_int8_{src}_times"]
-            lib.copy_times.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
-            use_library("kan_sparse_int8_gemm", lib)
-            a, c = sets[0]
-            ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale, lut_scale=qg.lut_scale)
-            torch.cuda.synchronize()
-            if lib.clear_times() != 0:
-                raise RuntimeError("clear_times failed")
-            ops.kan_sparse_int8_gemm(a, lut8, c, grid, scale=scale, lut_scale=qg.lut_scale)
-            torch.cuda.synchronize()
-            buf = np.zeros(65536 * 7, dtype=np.uint64)
-            if lib.copy_times(buf.ctypes.data, buf.size) != 0:
-                raise RuntimeError("copy_times failed")
-            t = buf.reshape(-1, 7)
-            t = t[t[:, 4] > 0].astype(np.float64)
-            last = t[t[:, 5] > 0]
-            dur = (t[:, 4] - t[:, 0]) / 1e3
-            blocks = {"blocks": int(len(t)),
-                      "blocks_per_sm": int(np.bincount(t[:, 6].astype(int)).max()),
-                      "sms_used": int(np.unique(t[:, 6]).size),
-                      "span_us": (np.maximum(t[:, 4], t[:, 5]).max() - t[:, 0].min()) / 1e3,
-                      "last_start_us": (t[:, 0].max() - t[:, 0].min()) / 1e3,
-                      "block_us_mean": float(dur.mean()), "block_us_max": float(dur.max()),
-                      "epilogue_us_mean": float(((last[:, 5] - last[:, 4]) / 1e3).mean())}
-            if (t[:, 1:4] > 0).all():          # the design's phase stamps
-                edges = [t[:, 0], t[:, 1], t[:, 2], t[:, 3], t[:, 4]]
-                blocks["phase_us_mean"] = {
-                    name: float(((b - a) / 1e3).mean()) for name, a, b in zip(
-                        SPARSE_INT8_PHASES[design], edges[:-1], edges[1:])}
-            out[key][src] = {"design": design, "ms": times, "blocks": blocks}
-            log(f"[sparse_int8] {key} M={M} {src} ({design}) ms: " +
-                " ".join(f"{v}={ms:.4f}" for v, ms in times.items()))
-            log(f"[sparse_int8] {key} {src} blocks: {blocks['blocks']} on {blocks['sms_used']} "
-                f"SMs (at most {blocks['blocks_per_sm']} per SM), span {blocks['span_us']:.2f} "
-                f"us, last block starts at {blocks['last_start_us']:.2f} us, a block takes "
-                f"{blocks['block_us_mean']:.2f} us (max {blocks['block_us_max']:.2f}) to its "
-                f"ticket, the last of a tile {blocks['epilogue_us_mean']:.2f} us more" +
-                ("; phases (us, mean): " + " ".join(
-                    f"{n}={v:.2f}" for n, v in blocks["phase_us_mean"].items())
-                 if "phase_us_mean" in blocks else ""))
-    return out
+        cases[f"{rows}x{K}->{N} M={M}"] = (sets, lambda a, c, grid=grid, lut8=lut8, scale=scale,
+                                           qg=qg: ops.kan_sparse_int8_gemm(
+                                               a, lut8, c, grid, scale=scale,
+                                               lut_scale=qg.lut_scale))
+    return cases
+
+
+# kernel 2 where chip_smoke.py times it: both LM layers (G=5, M=8) at 1, 4
+# and 8 rows in fp32 and at 4 rows in bf16, and the fp32 MNIST-KAN net's
+# two layers at 8 rows (G=10, M=13); and at 2 rows, the most that copy only
+# the touched rows (kSelectRows); (G, rows, K, N, dtype)
+SPARSE_SHAPES = [(5, r, K, N, "float32") for K, N in ((512, 1024), (1024, 512))
+                 for r in (1, 2, 4, 8)]
+SPARSE_SHAPES += [(5, 4, 512, 1024, "bfloat16"), (5, 4, 1024, 512, "bfloat16"),
+                  (10, 8, 784, 64, "float32"), (10, 8, 64, 10, "float32")]
+
+
+def sparse_cases(torch, cs, SplineGrid, ops):
+    """Kernel 2 with the base term, on chip_smoke.py's inputs."""
+    cases = {}
+    for G, rows, K, N, dname in SPARSE_SHAPES:
+        grid = SplineGrid(-1.0, 1.0, G, 3)
+        M, dtype = grid.n_basis, getattr(torch, dname)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        n_sets = max(1, math.ceil(cs.L2_FLUSH_BYTES / ((K * M * N + K * N) * esize)))
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = cs.special_inputs(torch, rows, K, dtype, grid, 99)
+        sets = [((0.02 * torch.randn(K, M, N, generator=g, device="cuda")).to(dtype),
+                 (0.02 * torch.randn(K, N, generator=g, device="cuda")).to(dtype))
+                for _ in range(n_sets)]
+        cases[f"{rows}x{K}->{N} M={M} {dname}"] = (
+            sets, lambda c, w, x=x, grid=grid: ops.kan_sparse_gemm(x, c, grid, w))
+    return cases
 
 
 def main() -> int:
@@ -489,10 +695,15 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="int8,fused,sparse_int8",
-                    help="comma-separated sections: int8, fused, sparse_int8")
+    ap.add_argument("--only", default="int8,fused,sparse_int8,sparse",
+                    help="comma-separated sections: int8, fused, sparse_int8, sparse")
     ap.add_argument("--sparse-int8-src", nargs="*", default=[],
                     help="other kan_sparse_int8_gemm.cu sources timed beside the repository's")
+    ap.add_argument("--sparse-src", nargs="*", default=[],
+                    help="other kan_sparse_gemm.cu sources timed beside the repository's")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated variants of the decode kernels to build and time "
+                         "(default: all of each design's; base always)")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -520,16 +731,16 @@ def main() -> int:
     if "fused" in only:
         jobs |= {f"fused_{v}": ("kan_fused_gemm", variant_source("kan_fused_gemm", subs))
                  for v, subs in FUSED_VARIANTS.items()}
+    variants = set(args.variants.split(",")) if args.variants else None
+    decode = {"sparse_int8": ("kan_sparse_int8_gemm", args.sparse_int8_src),
+              "sparse": ("kan_sparse_gemm", args.sparse_src)}
     sources = {}
-    if "sparse_int8" in only:
-        texts = {"repo": (CSRC / "kan_sparse_int8_gemm.cu").read_text()}
-        texts |= {Path(f).stem: Path(f).read_text() for f in args.sparse_int8_src}
-        for src, text in texts.items():
-            design = sources[src] = sparse_int8_design(text)
-            for v, subs in SPARSE_INT8_DESIGNS[design].items():
-                jobs[f"sparse_int8_{src}_{v}"] = (
-                    "kan_sparse_int8_gemm", variant_source("kan_sparse_int8_gemm", subs, text))
-            jobs[f"sparse_int8_{src}_times"] = ("kan_sparse_int8_gemm", timed_source(text, design))
+    for tag, (lib, extra) in decode.items():
+        if tag in only:
+            texts = {"repo": (CSRC / f"{lib}.cu").read_text()}
+            texts |= {Path(f).stem: Path(f).read_text() for f in extra}
+            more, sources[tag] = design_jobs(lib, tag, texts, variants)
+            jobs |= more
     libs = build_variants(build, jobs)
     cycles_per_ms = cs.spin_cycles_per_ms(torch)
 
@@ -540,9 +751,15 @@ def main() -> int:
                                            cycles_per_ms)
     log(f"[empty] an empty kernel through time_ms: {result['empty_kernel_ms']:.4f} ms")
 
+    if "sparse" in only:
+        result["sparse"] = decode_section(
+            torch, np, cs, "kan_sparse_gemm", "sparse", sparse_cases(torch, cs, SplineGrid, ops),
+            sources["sparse"], libs, cycles_per_ms, variants)
     if "sparse_int8" in only:
-        result["sparse_int8"] = sparse_int8_section(torch, np, cs, Q, SplineGrid, ops, sources,
-                                                    libs, cycles_per_ms)
+        result["sparse_int8"] = decode_section(
+            torch, np, cs, "kan_sparse_int8_gemm", "sparse_int8",
+            sparse_int8_cases(torch, cs, Q, SplineGrid, ops), sources["sparse_int8"], libs,
+            cycles_per_ms, variants)
     if "int8" in only:
         result["int8"] = int8_section(torch, np, cs, Q, SplineGrid, ops, libs, cycles_per_ms)
     if "fused" in only:
