@@ -31,8 +31,10 @@ Phases; any failed check raises and the script exits non-zero:
    ``torch.profiler``: the device's busy share and time by kernel name.
 6. The continuous paged path: the block-table gather kernel against its
    plain version, bitwise, fp32 and bf16, at the shadow view's stacked
-   shape and the step mode's per-layer shape, timed beside its plain
-   version, ``torch.index_select`` (``library_ms``) and its byte bound.
+   shape and the step mode's per-layer shape, timed for one leaf and for
+   both leaves of a cache in one launch (the paths' call) beside its plain
+   version, ``torch.index_select`` per leaf (``library_ms``) and its byte
+   bound.
    Then full-width kanformer-100m serves 16 requests through
    ``Engine.serve_continuous`` four times (dense; paged, shadow reads;
    paged, step reads; paged, shadow, a pool small enough to preempt), each
@@ -42,7 +44,9 @@ Phases; any failed check raises and the script exits non-zero:
    ``LOGIT_ATOL`` on the static path); one admission group is
    teacher-forced through paged prefill and 4 paged decode steps on the
    kernel path and the plain path, logits compared; one warm repeat of
-   the shadow run is profiled.
+   the shadow run and one of the step run are profiled, and the step
+   run's extra time per decode step split into device time by kernel
+   name and host time.
 7. Integer-only KAN inference of full-width MNIST-KAN ([784, 64, 10],
    G=10, P=3, random weights from seed 0): every layer quantised on the
    card and held equal to a CPU quantisation; 2048 inputs (uniform over
@@ -112,7 +116,7 @@ KERNELS = {
     "gather_blocks": {
         "source": "src/repro_torch/kernels/csrc/paged_gather.cu",
         "replaces": "src/repro/kernels/paged_gather.py:45",
-        "main_shape": "shadow",             # the stacked view of one chunk
+        "main_shape": "shadow",             # k and v of one chunk's stacked view
     },
     "kan_int8_gemm": {
         "source": "src/repro_torch/kernels/csrc/kan_int8_gemm.cu",
@@ -332,11 +336,12 @@ CONT = {"n_req": 16, "slots": 8, "chunk_steps": 8, "block_size": 16, "max_seq": 
 CONT_RUNS = [("dense", {}), ("paged_shadow", {"paged": True}),
              ("paged_step", {"paged": True, "paged_read": "step"}),
              ("paged_preempt", {"paged": True, "pool_blocks": 25})]
-# the gather at its two main-path uses: one launch per leaf over the 8
-# stacked layers of the shadow view, and one per layer and leaf in step
-# mode; pool of the default size (8 slots x 12 logical blocks + sentinel)
+# the gather at its two main-path uses, both leaves (k, v) in one launch:
+# the 8 stacked layers of the shadow view, and one layer in step mode; pool
+# of the default size (8 slots x 12 logical blocks + sentinel)
 GATHER_USES = {"shadow": (True, 8), "step": (False, 8)}
 GATHER_POOL = (97, 16, 8, 64)                 # (n_blocks, block_size, KV, D)
+GATHER_LEAVES = ("k", "v")
 
 
 def continuous_requests(np, vocab: int):
@@ -365,81 +370,100 @@ def engine_table(torch, np, slots: int, n_logical: int, n_blocks: int, seed: int
     return torch.tensor(ids.astype(np.int32), device="cuda")
 
 
+def gather_bytes(torch, pools, table, stacked: bool) -> int:
+    """The bytes a gather of ``pools`` (leaves of one table) must move: for
+    each leaf every distinct block the table names, read once per layer,
+    and its view, written once; the table, read once."""
+    total = table.numel() * 4
+    for p in pools:
+        n_blocks = p.shape[1 if stacked else 0]
+        n_distinct = int(torch.unique(table.reshape(-1).long().clamp(0, n_blocks - 1)).numel())
+        block = math.prod(p.shape[2 if stacked else 1:]) * p.element_size()
+        total += (p.shape[0] if stacked else 1) * (n_distinct + table.numel()) * block
+    return total
+
+
 def check_gather(torch, np):
-    """The gather kernel against its plain version, bitwise, and timed."""
+    """The gather kernel against its plain version, bitwise, and timed at
+    both uses: for one leaf, and as the paths call it, both leaves of a
+    cache (``k`` and ``v``) in one launch."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_gather as PG
 
     cycles_per_ms = spin_cycles_per_ms(torch)
-    n_blocks, bs, KV, D = GATHER_POOL
+    n_blocks, bs = GATHER_POOL[:2]
     result = {"max_abs_err": 0.0, "timings": []}
     for use, (stacked, layers) in GATHER_USES.items():
         table = engine_table(torch, np, CONT["slots"], CONT["max_seq"] // bs, n_blocks, 5)
         idx = table.reshape(-1).long().clamp(0, n_blocks - 1)
+        ax = 1 if stacked else 0
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
             shape = ((layers,) if stacked else ()) + GATHER_POOL
             esize = torch.tensor([], dtype=dtype).element_size()
             n_sets = max(1, math.ceil(L2_FLUSH_BYTES / (math.prod(shape) * esize)))
             g = torch.Generator(device="cuda").manual_seed(11)
-            pools = [torch.randn(shape, generator=g, device="cuda").to(dtype)
-                     for _ in range(n_sets)]
-            got = ops.gather_blocks(pools[0], table, stacked)
+            caches = [{name: torch.randn(shape, generator=g, device="cuda").to(dtype)
+                       for name in GATHER_LEAVES} for _ in range(n_sets)]
+            got = ops.gather_views(caches[0], table, stacked)
             torch.cuda.synchronize()
-            want = PG.gather_blocks_reference(pools[0], table, stacked)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.equal(got, want)
-            log(f"[check] gather_blocks {use} pool={list(shape)} table={list(table.shape)} "
-                f"{dname} bitwise_equal={ok} max_abs_err={err:.1e}")
+            want = PG.gather_views_reference(caches[0], table, stacked)
+            err = max((got[n].float() - want[n].float()).abs().max().item() for n in want)
+            ok = list(got) == list(want) and all(torch.equal(got[n], want[n]) for n in want)
+            log(f"[check] gather_views {use} leaves {list(want)} pool={list(shape)} "
+                f"table={list(table.shape)} {dname} bitwise_equal={ok} max_abs_err={err:.1e}")
             if not ok:
-                raise RuntimeError("gather_blocks disagrees with its plain version")
-            ax = 1 if stacked else 0
-            ms = time_ms(torch, [lambda p=p: ops.gather_blocks(p, table, stacked)
-                                 for p in pools], cycles_per_ms)
-            plain_ms = time_ms(torch, [lambda p=p: PG.gather_blocks_reference(p, table, stacked)
-                                       for p in pools], cycles_per_ms)
-            lib_ms = time_ms(torch, [lambda p=p: torch.index_select(p, ax, idx)
-                                     for p in pools], cycles_per_ms)
-            # bytes: each distinct block the table names, read once per
-            # layer, the view written once, the table read once
-            n_distinct = int(torch.unique(idx).numel())
-            nbytes = (layers if stacked else 1) * n_distinct * bs * KV * D * esize \
-                + got.numel() * esize + table.numel() * 4
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
-            entry = {"use": use, "pool": list(shape), "table": list(table.shape),
-                     "dtype": dname, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
-                     "distinct_blocks": n_distinct}
-            result["timings"].append(entry)
-            log(f"[time] gather_blocks {use} {dname}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} (bytes: {nbytes / 1e6:.2f} MB, "
-                f"{n_distinct} distinct blocks)")
+                raise RuntimeError("gather_views disagrees with its plain version")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            for leaves in (1, 2):
+                subs = [{n: c[n] for n in GATHER_LEAVES[:leaves]} for c in caches]
+                ms = time_ms(torch, [lambda c=c: ops.gather_views(c, table, stacked)
+                                     for c in subs], cycles_per_ms)
+                plain_ms = time_ms(torch, [lambda c=c: PG.gather_views_reference(c, table, stacked)
+                                           for c in subs], cycles_per_ms)
+                lib_ms = time_ms(torch, [lambda c=c: [torch.index_select(p, ax, idx)
+                                                      for p in c.values()] for c in subs],
+                                 cycles_per_ms)
+                nbytes = gather_bytes(torch, list(subs[0].values()), table, stacked)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                entry = {"use": use, "leaves": leaves, "pool": list(shape),
+                         "table": list(table.shape), "dtype": dname, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library": f"index_select x{leaves} (one per leaf)", "bound_ms": bound,
+                         "bound_by": "bytes", "bytes": nbytes,
+                         "distinct_blocks": int(torch.unique(idx).numel())}
+                result["timings"].append(entry)
+                log(f"[time] gather_views {use} {leaves} {'leaves' if leaves > 1 else 'leaf'} "
+                    f"(one launch) {dname}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} ({entry['library']}) bound_ms={bound:.4f} "
+                    f"(bytes: {nbytes / 1e6:.2f} MB, {entry['distinct_blocks']} distinct blocks)")
     return result
 
 
 def expected_launches(model, stats: dict, run: dict) -> dict:
     """The launches a continuous run implies, from its own stats: per
     admission prefill two KAN layers per block (fused or sparse, by its row
-    count) and, paged, one gather per layer and leaf; per decode step two
-    KAN layers per block at ``slots`` rows; per chunk, shadow reads, one
-    gather per leaf, or step reads, one per layer and leaf per step."""
+    count) and, paged, one gather per layer (both leaves in one launch);
+    per decode step two KAN layers per block at ``slots`` rows; per chunk,
+    shadow reads, one gather per unit block (its leaves and stacked layers
+    in one launch), or step reads, one per layer per step."""
     from repro_torch.core import kan_layer as KL
 
     kan = 2 * len(model.unit) * model.n_repeats
-    leaves = 2 * len(model.unit)
+    layers = len(model.unit) * model.n_repeats
     from repro_torch.kernels import ops
 
     want = dict.fromkeys(ops.LAUNCHES, 0)
     paged = run.get("paged", False)
     for k, t_pad in stats["prefill_groups"]:
         want["kan_" + KL.resolve_inference_method("cuda", k * t_pad) + "_gemm"] += kan
-        want["gather_blocks"] += leaves * model.n_repeats if paged else 0
+        want["gather_blocks"] += layers if paged else 0
     steps = stats["chunks_run"] * CONT["chunk_steps"]
     want["kan_" + KL.resolve_inference_method("cuda", CONT["slots"]) + "_gemm"] += steps * kan
     if paged:
         step_reads = run.get("paged_read") == "step"
-        want["gather_blocks"] += (steps * leaves * model.n_repeats if step_reads
-                                  else stats["chunks_run"] * leaves)
+        want["gather_blocks"] += (steps * layers if step_reads
+                                  else stats["chunks_run"] * len(model.unit))
     return want
 
 
@@ -569,12 +593,12 @@ def continuous_path(torch, np):
     tbl = torch.as_tensor(tables, device="cuda")
     forced = [torch.as_tensor(np.asarray([solo[i][s] for i in group], np.int64),
                               device="cuda")[:, None] for s in range(4)]
-    kernel_gather = ops.gather_blocks
+    kernel_gather = ops.gather_views
 
     def run(plain: bool):
         if plain:
             os.environ["KAN_SAS_INFERENCE_METHOD"] = "compact"
-            ops.gather_blocks = PG.gather_blocks_reference
+            ops.gather_views = PG.gather_views_reference
         try:
             caches = lm.init_paged_caches(cfg, nxt, bs, torch.float32, "cuda")
             last, caches = lm.prefill_into_pages(params, cfg, toks, glens, tbl, caches, 0,
@@ -589,7 +613,7 @@ def continuous_path(torch, np):
             return torch.stack(got)
         finally:
             os.environ.pop("KAN_SAS_INFERENCE_METHOD", None)
-            ops.gather_blocks = kernel_gather
+            ops.gather_views = kernel_gather
 
     kern, ref = run(False), run(True)
     err = (kern - ref).abs().max().item()
@@ -602,27 +626,67 @@ def continuous_path(torch, np):
     if err > LOGIT_ATOL:
         raise RuntimeError("paged kernel path logits disagree with the plain path")
 
-    # one warm repeat of the shadow run, then the same under the profiler
-    shadow = engines["paged_shadow"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = serve(shadow)
-    torch.cuda.synchronize()
-    warm_wall = time.perf_counter() - t0
-    if any(not np.array_equal(a, o) for a, o in zip(again, runs["paged_shadow"][0])):
-        raise RuntimeError("a second paged_shadow run gave other tokens")
-    st = shadow.last_serve_stats
-    warm = {"tok_s": st["useful_tokens"] / warm_wall, "wall_s": warm_wall,
-            "decode_ms_per_step": st["decode_s"] * 1e3 / (st["chunks_run"] * CONT["chunk_steps"]),
-            "prefill_s": st["prefill_s"]}
-    log(f"[cont] paged_shadow warm: {warm['tok_s']:.1f} tok/s, "
-        f"{warm['decode_ms_per_step']:.3f} ms per decode step, admission prefills "
-        f"{warm['prefill_s'] * 1e3:.1f} ms")
-    prof = profile_call(torch, lambda: serve(shadow),
-                        lambda: f"one paged_shadow run ({st['chunks_run']} chunks)")
+    # one warm repeat of the shadow and the step run, then each under the
+    # profiler
+    warm = {}
+    for name in ("paged_shadow", "paged_step"):
+        eng = engines[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = serve(eng)
+        torch.cuda.synchronize()
+        warm_wall = time.perf_counter() - t0
+        if any(not np.array_equal(a, o) for a, o in zip(again, runs[name][0])):
+            raise RuntimeError(f"a second {name} run gave other tokens")
+        st = eng.last_serve_stats
+        warm[name] = {"tok_s": st["useful_tokens"] / warm_wall, "wall_s": warm_wall,
+                      "decode_steps": st["chunks_run"] * CONT["chunk_steps"],
+                      "decode_ms_per_step": st["decode_s"] * 1e3
+                      / (st["chunks_run"] * CONT["chunk_steps"]),
+                      "prefill_s": st["prefill_s"]}
+        log(f"[cont] {name} warm: {warm[name]['tok_s']:.1f} tok/s, "
+            f"{warm[name]['decode_ms_per_step']:.3f} ms per decode step, admission prefills "
+            f"{warm[name]['prefill_s'] * 1e3:.1f} ms")
+    profs = {name: profile_call(
+        torch, lambda name=name: serve(engines[name]),
+        lambda name=name: f"one {name} run ({warm[name]['decode_steps']} decode steps)",
+        keep_names=True) for name in warm}
+    extra = step_reads_extra(profs, warm)
     return {"runs": {k: m for k, (_, m) in runs.items()}, "divergences": divergences,
-            "logit_max_abs_err": err, "greedy_agreement": agree, "warm_shadow": warm,
-            "profile": prof}
+            "logit_max_abs_err": err, "greedy_agreement": agree,
+            "warm_shadow": warm["paged_shadow"], "warm_step": warm["paged_step"],
+            "profile": profs["paged_shadow"], "profile_step": profs["paged_step"],
+            "step_reads_extra": extra}
+
+
+def step_reads_extra(profs: dict, warm: dict) -> dict:
+    """What a paged decode step with step reads costs beyond one with
+    shadow reads: the warm runs' host-clock decode ms per step, and from
+    the two profiled runs (the same admissions and decode steps) the device
+    busy time and the kernels by name whose count or time grew most, per
+    decode step."""
+    a, b = profs["paged_shadow"], profs["paged_step"]
+    if a.get("busy_share") is None or b.get("busy_share") is None:
+        return {}
+    na, nb = warm["paged_shadow"]["decode_steps"], warm["paged_step"]["decode_steps"]
+    names_a, names_b = a.pop("by_name"), b.pop("by_name")
+    diff = {}
+    for name in set(names_a) | set(names_b):
+        ta, ca = names_a.get(name, (0.0, 0))
+        tb, cb = names_b.get(name, (0.0, 0))
+        diff[name] = ((tb / nb - ta / na) / 1e3, cb / nb - ca / na)
+    out = {"decode_ms": warm["paged_step"]["decode_ms_per_step"]
+           - warm["paged_shadow"]["decode_ms_per_step"],
+           "busy_ms": b["busy_ms"] / nb - a["busy_ms"] / na,
+           "kernels": b["kernels"] / nb - a["kernels"] / na}
+    out["by_name"] = [{"name": n[:200], "ms": t, "count": c} for n, (t, c) in
+                      sorted(diff.items(), key=lambda kv: -abs(kv[1][1]))[:10]]
+    log(f"[cont] step reads beyond shadow reads, per decode step: decode wall "
+        f"{out['decode_ms']:+.3f} ms (warm runs, host clock); device busy "
+        f"{out['busy_ms']:+.3f} ms and kernels {out['kernels']:+.1f} (profiled runs)")
+    for e in out["by_name"]:
+        log(f"[cont]   {e['count']:+7.2f} launches {e['ms'] * 1e3:+8.2f} us  {e['name'][:110]}")
+    return out
 
 
 def main_path(torch, np):
@@ -753,12 +817,13 @@ def profile_generate(torch, eng, prompts, lens):
     return profile_call(torch, lambda: eng.generate(prompts, lengths=lens), what)
 
 
-def profile_call(torch, fn, what):
+def profile_call(torch, fn, what, keep_names: bool = False):
     """``fn`` once unprofiled, then once under ``torch.profiler``: device
     busy time (the union of all kernel intervals) and device time by kernel
     name.  The profiler slows the host, so the busy share is given against
     the wall time of the same call run without it, and against the
-    profiled wall.  ``what()`` names the call in the log."""
+    profiled wall.  ``what()`` names the call in the log; ``keep_names`` keeps
+    every kernel name's (us, count) in the result."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -802,7 +867,8 @@ def profile_call(torch, fn, what):
             "busy_ms": busy / 1e3, "busy_share": busy / plain_wall_us,
             "busy_share_profiled": busy / wall_us, "kernels": len(spans),
             "top": [{"name": n[:200], "ms": t / 1e3, "count": c} for n, (t, c) in top],
-            "port_kernels": {k: {"ms": t / 1e3, "count": n} for k, (t, n) in ours.items()}}
+            "port_kernels": {k: {"ms": t / 1e3, "count": n} for k, (t, n) in ours.items()},
+            **({"by_name": by_name} if keep_names else {})}
 
 
 # Phase 7: integer-only KAN inference of full-width MNIST-KAN (Table II,
@@ -1184,8 +1250,8 @@ def main() -> int:
                **{k: m["launches"] for k, m in gkan["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
-            t = next(e for e in results[name]["timings"]
-                     if e["dtype"] == "float32" and e["use"] == meta["main_shape"])
+            t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"
+                     and e["use"] == meta["main_shape"] and e["leaves"] == 2)
             n = by_path["paged_shadow"][name]
         elif "path" in meta:              # the int8 cell's counted runs
             t = next(e for e in results[name]["timings"] if e["shape"] == meta["main_shape"])

@@ -48,7 +48,7 @@ LIBRARIES = {
     ),
     "paged_gather": (
         "paged_gather.cu",
-        {"paged_gather": ([_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I, _P], _I)},
+        {"paged_gather": ([_P, _I, _P, _I, _I, _P], _I)},
     ),
     "kan_int8_gemm": (
         "kan_int8_gemm.cu",

@@ -325,13 +325,14 @@ int launch(const void* x_q, const void* coeff, const void* scale, const void* ro
                       ((size_t)S * ((P + 2) / 2) + 15) / 16 * 16;
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(coeff) % 16 == 0;
   auto kern = vec ? kan_sparse_int8_kernel<P, true> : kan_sparse_int8_kernel<P, false>;
-  // above 48 KB (a large ROM), the dynamic shared memory granted so far,
-  // per instantiation and device
+  // the dynamic shared memory granted so far, per instantiation and device
+  // (set even below 48 KB: the static last_s counts against the default,
+  // so 49,152 dynamic bytes need the grant)
   static size_t granted[2][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && (dev >= 64 || smem > granted[vec][dev])) {
+  if (dev >= 64 || smem > granted[vec][dev]) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) granted[vec][dev] = smem;

@@ -1,93 +1,193 @@
 // Block-table gather for the paged KV cache, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/paged_gather.py (_gather_kernel,
-// launched by gather_blocks_pallas): the logical contiguous view of a paged
-// cache,
+// launched by gather_blocks_pallas once per leaf): the logical contiguous
+// view of every leaf of a paged cache,
 //
-//     view[layer, b, l*bs + o, ...] = pool[layer, table[b, l], o, ...],
+//     view[layer, b, l*bs + o, ...] = pool[layer, clip(table[b, l]), o, ...],
 //
 // pure data movement with no arithmetic on the values.  On the TPU the block
 // table rides in scalar-prefetch memory and each grid step is one DMA; here
-// each CUDA block loads its own table entry and copies one logical block.
+// each CTA loads its own table entry and copies a part of one logical block.
 //
-// Design, ONE launch for every layer of a stacked pool:
-//   * one CUDA block copies one logical block (layer, b, l): bs*KV*D
-//     contiguous elements of the pool to bs*KV*D contiguous elements of the
-//     view.  The grid is layers x B x L blocks, flattened;
-//   * the copy treats the block as raw bytes in units of 16 bytes (uint4)
-//     when the block's byte size and both base addresses are 16-byte
-//     aligned (every fp32 and bf16 cache with KV*D a multiple of 8), else one
-//     element at a time (4, 2 or 1 bytes), so one kernel serves fp32, bf16
-//     and int8 pools;
-//   * threads stride along the block, so neighbouring threads move
-//     neighbouring 16-byte words: every load and store is coalesced;
+// Bound on an H100 SXM (3.35 TB/s): the bytes of every distinct physical
+// block the table names, read once per layer, plus the views, written once.
+// The continuous cell's step read (one layer, k and v: 2 x 96 blocks of
+// 16 x 8 x 64 fp32, 6.3 MB written) is about 3.3 us; its shadow read (the
+// 8 stacked layers, 50 MB written) about 26 us.  At the step read the copy
+// is shorter than a memory round trip plus the launch, so what a design
+// can win there is latency: every byte asked for at once, in one launch.
+//
+// Design, ONE launch for every leaf that shares a table (k and v, up to
+// kMaxLeaves, each with its own pool, view, block size and dtype) and every
+// layer of a stacked pool:
+//   * the grid is (b * L + l, part of a block, leaf and layer): a CTA finds
+//     its table entry, its leaf (the descriptors ride by value in the
+//     kernel's parameters) and both addresses without a division, so the
+//     table load, which every other load waits on, is issued first;
+//   * a CTA copies one part of a block (kThreads x kUnroll x 16 bytes, 8 KB):
+//     each thread issues its kUnroll 16-byte loads before its first store,
+//     so the grid has every part's bytes in flight at once (3 MB a leaf at
+//     the step read, against one 16-byte load per thread in the previous
+//     design, a CUDA block per logical block, whose threads waited on 8
+//     round trips in a row); 16-byte loads ask the L2 for whole 256-byte
+//     lines;
+//   * blocks whose byte size or base addresses are not 16-byte aligned are
+//     copied one element at a time (4, 2 or 1 bytes), with the same grid and
+//     the same loads-before-stores order, so one kernel serves fp32, bf16,
+//     fp16, int8 and uint8 leaves;
+//   * neighbouring threads move neighbouring words: every load and store is
+//     coalesced;
 //   * table ids are clipped to [0, n_blocks - 1] (jnp.take's mode="clip",
 //     which the JAX package's plain version documents); the serving engine
 //     never emits an id outside the pool (its tables are sentinel-filled).
-// It launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError() after the launch.
-//
-// Bound on an H100 SXM (3.35 TB/s): the bytes of every distinct physical
-// block the table names, read once, plus the view, written once.  The
-// kanformer-100m shadow view of 8 layers x 8 slots x 192 positions x 8 KV
-// heads x 64 fp32 (25.2 MB written, at most 25.4 MB read) is about 15 us.
-// What is not done yet: TMA bulk copies (cp.async.bulk) of whole blocks.
+// tools/kernel_breakdown.py --only gather times it beside 4 and 16 KB parts,
+// plain loads, streaming stores, and a second design that lost at every
+// shape: 1-D bulk copies (cp.async.bulk) of 16 or 32 KB parts through
+// shared memory, issued by one thread of a 32-thread CTA.  Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W: PERF.md §6.  It launches on the caller's
+// stream, allocates nothing and returns cudaGetLastError() after the launch.
 #include <cuda_runtime.h>
 #include <cstdint>
 
+// One leaf as the C entry takes it: pool (layers, n_blocks, block_bytes)
+// and view (layers, B, L, block_bytes), both contiguous; elem_bytes is the
+// element size (1, 2 or 4), the copy unit when 16 bytes do not fit.
+struct PagedLeaf {
+  const void* pool;
+  void* view;
+  long long block_bytes;
+  int n_blocks;
+  int layers;
+  int elem_bytes;
+};
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 4;
+constexpr int kThreads = 128;
+constexpr int kUnroll = 4;              // loads in flight per thread
 
+struct Leaf {
+  const uint8_t* pool;
+  uint8_t* view;
+  long long block_bytes;
+  int first;                            // the leaf's first grid z (layer) index
+  int part_bytes;                       // bytes a CTA copies
+  int parts;                            // CTAs per block
+  int n_blocks;
+  int unit;                             // copy unit: 16, 4, 2 or 1 bytes
+};
+struct Leaves {
+  Leaf leaf[kMaxLeaves];
+  int n;
+};
+
+// A word of a pool, through the read-only path; a 16-byte word with the
+// hint that the L2 fetch its whole 256-byte line (the CTA's neighbouring
+// threads read the rest of it).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_gather_kernel(const T* __restrict__ pool, const int* __restrict__ table,
-                    T* __restrict__ view, int n_blocks, int B, int L,
-                    long long units_per_block) {
-  const long long g = blockIdx.x;              // (layer, b, l) flattened
-  const int l = (int)(g % L);
-  const long long lb = g / L;
-  const int b = (int)(lb % B);
-  const long long layer = lb / B;
-  int id = table[(long long)b * L + l];
-  id = id < 0 ? 0 : (id >= n_blocks ? n_blocks - 1 : id);
-  const T* src = pool + (layer * n_blocks + id) * units_per_block;
-  T* dst = view + g * units_per_block;
-  for (long long i = threadIdx.x; i < units_per_block; i += kThreads) dst[i] = src[i];
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (sizeof(T) == 16) {
+    T v;
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+  } else {
+    return __ldg(p);
+  }
 }
 
+// Copy len bytes (a whole number of T) from src to dst: each thread loads
+// its kUnroll words, then stores them.  len <= blockDim.x * kUnroll * sizeof(T).
 template <typename T>
-int launch(const void* pool, const int* table, void* view, long long n_grid, int n_blocks,
-           int B, int L, long long units, cudaStream_t stream) {
-  paged_gather_kernel<T><<<(unsigned)n_grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(pool), table, static_cast<T*>(view), n_blocks, B, L, units);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ void copy_registers(const uint8_t* src, uint8_t* dst, int len) {
+  const T* s = reinterpret_cast<const T*>(src);
+  T* d = reinterpret_cast<T*>(dst);
+  const int n = len / (int)sizeof(T);
+  T r[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int k = threadIdx.x + u * blockDim.x;
+    if (k < n) r[u] = load(s + k);
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int k = threadIdx.x + u * blockDim.x;
+    if (k < n) d[k] = r[u];
+  }
+}
+
+// Grid (b * L + l, part, leaf and layer): no division on the way to the
+// table entry, which every load of the CTA waits on.
+__global__ void __launch_bounds__(kThreads)
+paged_gather_kernel(const __grid_constant__ Leaves leaves, const int* __restrict__ table) {
+  const int z = blockIdx.z;
+  Leaf f = leaves.leaf[0];              // this CTA's leaf: the last that starts at or before z
+#pragma unroll
+  for (int i = 1; i < kMaxLeaves; ++i)
+    if (i < leaves.n && z >= leaves.leaf[i].first) f = leaves.leaf[i];
+  const int part = blockIdx.y;
+  if (part >= f.parts) return;          // a leaf of fewer parts than the grid's
+  const int bl = blockIdx.x;
+  const long long layer = z - f.first;
+  int id = __ldg(table + bl);
+  id = id < 0 ? 0 : (id >= f.n_blocks ? f.n_blocks - 1 : id);
+  const long long off = (long long)part * f.part_bytes;
+  const int len = (int)min((long long)f.part_bytes, f.block_bytes - off);
+  const uint8_t* src = f.pool + (layer * f.n_blocks + id) * f.block_bytes + off;
+  uint8_t* dst = f.view + (layer * gridDim.x + bl) * f.block_bytes + off;
+  if (f.unit == 16) {
+    copy_registers<uint4>(src, dst, len);
+  } else if (f.unit == 4) {
+    copy_registers<uint32_t>(src, dst, len);
+  } else if (f.unit == 2) {
+    copy_registers<uint16_t>(src, dst, len);
+  } else {
+    copy_registers<uint8_t>(src, dst, len);
+  }
 }
 
 }  // namespace
 
-// pool: (layers, n_blocks, block_bytes) bytes, contiguous; table: (B, L)
-// int32; view: (layers, B, L, block_bytes) bytes.  elem_bytes is the
-// element size (1, 2 or 4), used when 16-byte units do not fit.  Returns a
-// cudaError_t (0 = success); a launch with nothing to copy is a no-op.
-extern "C" int paged_gather(const void* pool, const void* table, void* view, int layers,
-                            int n_blocks, int B, int L, long long block_bytes, int elem_bytes,
-                            void* stream) {
-  if (layers < 0 || n_blocks < 1 || B < 0 || L < 0 || block_bytes < 0 ||
-      (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4) || block_bytes % elem_bytes)
+// n_leaves (1..kMaxLeaves) leaves gathered through one table (B, L) int32,
+// in one launch; a leaf with nothing to copy takes no CTA, and a call with
+// nothing to copy launches nothing.  Returns a cudaError_t (0 = success).
+extern "C" int paged_gather(const PagedLeaf* leaves, int n_leaves, const void* table, int B,
+                            int L, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || B < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_grid = (long long)layers * B * L;
-  if (n_grid == 0 || block_bytes == 0) return 0;
-  if (n_grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* tbl = static_cast<const int*>(table);
-  const bool vec16 = block_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(pool) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(view) % 16 == 0;
-  if (vec16)
-    return launch<uint4>(pool, tbl, view, n_grid, n_blocks, B, L, block_bytes / 16, s);
-  if (elem_bytes == 4)
-    return launch<uint32_t>(pool, tbl, view, n_grid, n_blocks, B, L, block_bytes / 4, s);
-  if (elem_bytes == 2)
-    return launch<uint16_t>(pool, tbl, view, n_grid, n_blocks, B, L, block_bytes / 2, s);
-  return launch<uint8_t>(pool, tbl, view, n_grid, n_blocks, B, L, block_bytes, s);
+  Leaves d = {};
+  long long layers = 0, parts = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    const PagedLeaf& p = leaves[i];
+    const int e = p.elem_bytes;
+    if (p.layers < 0 || p.n_blocks < 1 || p.block_bytes < 0 || (e != 1 && e != 2 && e != 4) ||
+        p.block_bytes % e)
+      return (int)cudaErrorInvalidValue;
+    if (p.layers == 0 || p.block_bytes == 0) continue;
+    Leaf& f = d.leaf[d.n++];
+    f.pool = static_cast<const uint8_t*>(p.pool);
+    f.view = static_cast<uint8_t*>(p.view);
+    f.block_bytes = p.block_bytes;
+    f.n_blocks = p.n_blocks;
+    f.unit = p.block_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(p.pool) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(p.view) % 16 == 0
+                 ? 16 : e;
+    f.part_bytes = kThreads * kUnroll * f.unit;
+    const long long n = (p.block_bytes + f.part_bytes - 1) / f.part_bytes;
+    if (n > 65535 || layers + p.layers > 65535) return (int)cudaErrorInvalidConfiguration;
+    f.parts = (int)n;
+    f.first = (int)layers;
+    layers += p.layers;
+    parts = n > parts ? n : parts;
+  }
+  const long long bl = (long long)B * L;
+  if (d.n == 0 || bl == 0) return 0;
+  if (bl > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)bl, (unsigned)parts, (unsigned)layers);
+  paged_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, static_cast<const int*>(table));
+  return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@ Tiles are the kernels' fixed defaults (see each ``csrc/*.cu``); the JAX
 package's tile autotuner is not ported yet.  ``LAUNCHES`` counts kernel
 launches per kernel, so a run can show that its main path went through the
 kernels: a wrapper adds one exactly where it launches, never on the CPU.
-The block-table gather of the paged KV cache (:func:`gather_blocks`), the
+The block-table gather of the paged KV cache (:func:`gather_views`, one
+launch for every leaf of a cache, and :func:`gather_blocks`), the
 integer KAN GEMMs (:func:`kan_int8_gemm`, :func:`kan_sparse_int8_gemm`) and
 the tabulated B-spline unit (:func:`bspline_lut`) follow the same rule.
 """
@@ -68,17 +69,27 @@ def kan_sparse_gemm(
                   _sparse.kan_sparse_gemm_cuda, x, coeff, grid, base_w)
 
 
+def gather_views(cache: dict, table: torch.Tensor, stacked: bool = False) -> dict:
+    """Block-table gather of every leaf of a paged KV cache
+    (``kernels/paged_gather.py``) in ONE launch: ``cache`` maps names to
+    pools ``(n_blocks, bs, ...)`` or, ``stacked``, ``(layers, n_blocks, bs,
+    ...)`` (at most ``MAX_LEAVES``), ``table (B, L)`` int32 -> the same
+    names mapped to their logical views.  On the CPU, the plain version per
+    leaf."""
+    if all(p.device.type == "cpu" for p in cache.values()):
+        return _gather.gather_views_reference(cache, table, stacked)
+    views = _gather.gather_views_cuda(list(cache.values()), table, stacked)
+    if any(v.numel() for v in views):
+        LAUNCHES["gather_blocks"] += 1
+    return dict(zip(cache, views))
+
+
 def gather_blocks(pool: torch.Tensor, table: torch.Tensor,
                   stacked: bool = False) -> torch.Tensor:
-    """Block-table gather of a paged KV pool (``kernels/paged_gather.py``):
-    ``pool (n_blocks, bs, ...)`` or, ``stacked``, ``(layers, n_blocks, bs,
-    ...)`` in one launch; ``table (B, L)`` int32 -> the logical view."""
-    if pool.device.type == "cpu":
-        return _gather.gather_blocks_reference(pool, table, stacked)
-    view = _gather.gather_blocks_cuda(pool, table, stacked)
-    if view.numel():
-        LAUNCHES["gather_blocks"] += 1
-    return view
+    """:func:`gather_views` of one pool: ``(n_blocks, bs, ...)`` or,
+    ``stacked``, ``(layers, n_blocks, bs, ...)``, ``table (B, L)`` int32 ->
+    the logical view."""
+    return gather_views({"pool": pool}, table, stacked)["pool"]
 
 
 def _apply_int8(name, plain, cuda, x_q, lut_u8, coeff_q, grid, scale, qmax, lut_scale,

@@ -14,15 +14,18 @@ movement: kernel and plain version are bit-equal.  Table ids are clipped to
 ``[0, n_blocks - 1]`` (``jnp.take``'s ``mode="clip"``, as the JAX package's
 plain version documents); the engine never emits one outside the pool.
 
-The CUDA kernel (``csrc/paged_gather.cu``) copies one logical block per
-CUDA block in 16-byte units, all layers of a stacked pool in one launch;
-its source note states its bound.  :func:`gather_blocks_reference` is the
-plain PyTorch version (advanced indexing); ``chip_smoke.py`` holds the
-kernel against it on the card.
+The CUDA kernel (``csrc/paged_gather.cu``) gathers every leaf of a cache
+that shares one table (``k`` and ``v``; at most :data:`MAX_LEAVES`, each
+with its own pool, block size and dtype) and every layer of a stacked
+pool in ONE launch, a part of a block per CTA, in 16-byte units where the
+blocks allow; its source note states its bound.
+:func:`gather_blocks_reference` is the plain PyTorch version (advanced
+indexing); ``chip_smoke.py`` holds the kernel against it on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -30,6 +33,14 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8)
+MAX_LEAVES = 4                 # leaf descriptors one launch takes (csrc kMaxLeaves)
+
+
+class _Leaf(ctypes.Structure):
+    """``PagedLeaf`` of ``csrc/paged_gather.cu``."""
+    _fields_ = [("pool", ctypes.c_void_p), ("view", ctypes.c_void_p),
+                ("block_bytes", ctypes.c_longlong), ("n_blocks", ctypes.c_int),
+                ("layers", ctypes.c_int), ("elem_bytes", ctypes.c_int)]
 
 
 def _view_shape(pool: torch.Tensor, table: torch.Tensor, stacked: bool) -> tuple:
@@ -50,34 +61,42 @@ def gather_blocks_reference(pool: torch.Tensor, table: torch.Tensor,
     return g.reshape(_view_shape(pool, table, stacked))
 
 
-def gather_blocks_cuda(pool: torch.Tensor, table: torch.Tensor,
-                       stacked: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors: one launch for every layer,
-    none when the view is empty."""
+def gather_views_reference(cache: dict, table: torch.Tensor,
+                           stacked: bool = False) -> dict:
+    """:func:`gather_blocks_reference` of every leaf of ``cache``."""
+    return {name: gather_blocks_reference(p, table, stacked) for name, p in cache.items()}
+
+
+def gather_views_cuda(pools: list, table: torch.Tensor,
+                      stacked: bool = False) -> list:
+    """Launch the CUDA kernel on CUDA tensors: the views of ``pools``
+    (leaves of one table) in ONE launch, none when every view is empty."""
     rank = 3 if stacked else 2
-    if pool.dim() < rank or table.dim() != 2:
-        raise ValueError(f"pool must have rank >= {rank} (stacked={stacked}) and table "
-                         f"rank 2; got {tuple(pool.shape)} and {tuple(table.shape)}")
-    if pool.dtype not in DTYPES:
-        raise ValueError(f"pool dtype {pool.dtype} not supported ({DTYPES})")
+    if not 1 <= len(pools) <= MAX_LEAVES:
+        raise ValueError(f"one launch takes 1 to {MAX_LEAVES} leaves; got {len(pools)}")
+    for pool in pools:
+        if pool.dim() < rank or table.dim() != 2:
+            raise ValueError(f"pool must have rank >= {rank} (stacked={stacked}) and table "
+                             f"rank 2; got {tuple(pool.shape)} and {tuple(table.shape)}")
+        if pool.dtype not in DTYPES:
+            raise ValueError(f"pool dtype {pool.dtype} not supported ({DTYPES})")
     if table.dtype != torch.int32:
         raise ValueError(f"table dtype must be int32, got {table.dtype}")
-    if not (pool.is_contiguous() and table.is_contiguous()):
-        raise ValueError("pool and table must be contiguous")
-    if pool.device.type != "cuda" or table.device != pool.device:
-        raise ValueError("pool and table must be on one CUDA device")
-    layers = pool.shape[0] if stacked else 1
-    n_blocks = pool.shape[1 if stacked else 0]
+    if not (table.is_contiguous() and all(p.is_contiguous() for p in pools)):
+        raise ValueError("pools and table must be contiguous")
+    if table.device.type != "cuda" or any(p.device != table.device for p in pools):
+        raise ValueError("pools and table must be on one CUDA device")
     B, L = table.shape
-    view = torch.empty(_view_shape(pool, table, stacked), dtype=pool.dtype,
-                       device=pool.device)
-    if view.numel() == 0:
-        return view                   # nothing to copy: no launch
-    esize = pool.element_size()
-    block_bytes = math.prod(pool.shape[rank - 1:]) * esize
+    views = [torch.empty(_view_shape(p, table, stacked), dtype=p.dtype, device=p.device)
+             for p in pools]
+    if not any(v.numel() for v in views):
+        return views                  # nothing to copy: no launch
+    leaves = (_Leaf * len(pools))(*[
+        _Leaf(p.data_ptr(), v.data_ptr(), math.prod(p.shape[rank - 1:]) * p.element_size(),
+              p.shape[rank - 2], p.shape[0] if stacked else 1, p.element_size())
+        for p, v in zip(pools, views)])
     lib = build.load("paged_gather")
-    err = lib.paged_gather(pool.data_ptr(), table.data_ptr(), view.data_ptr(), layers,
-                           n_blocks, B, L, block_bytes, esize,
-                           torch.cuda.current_stream(pool.device).cuda_stream)
+    err = lib.paged_gather(ctypes.addressof(leaves), len(pools), table.data_ptr(), B, L,
+                           torch.cuda.current_stream(table.device).cuda_stream)
     build.check(err, "paged_gather")
-    return view
+    return views

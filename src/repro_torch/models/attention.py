@@ -15,7 +15,7 @@
   :func:`attn_decode_step_paged` and :func:`attn_prefill_paged`.  Pools
   ``(n_blocks, bs, KV, D)`` are written in place with ``index_put_``; reads
   gather the logical view with the block-table kernel
-  (``kernels.ops.gather_blocks``) and run the unchanged dense math on it.
+  (``kernels.ops.gather_views``) and run the unchanged dense math on it.
 
 Sliding windows, int8 KV caches and MLA are not ported yet (ROADMAP queue
 1); they raise ``NotImplementedError``.
@@ -233,8 +233,8 @@ def _cache_attend(
 def paged_view(cache: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
     """The logical contiguous view of a paged cache tree: pools
     ``(n_blocks, bs, ...)`` and table ``(B, L)`` -> ``(B, L·bs, ...)``
-    leaves, gathered with the block-table kernel."""
-    return {name: ops.gather_blocks(pool, table) for name, pool in cache.items()}
+    leaves, every leaf gathered in one launch of the block-table kernel."""
+    return ops.gather_views(cache, table)
 
 
 def paged_route(

@@ -218,10 +218,9 @@ def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[K
     (batch = table rows, seq = n_logical·block_size): the engine's "shadow"
     read path gathers it once per decode chunk, runs the dense decode on it
     and writes the chunk's span back with :func:`writeback_paged_chunk`.
-    One gather launch per leaf covers every stacked layer (the reference's
-    ``vmap``)."""
-    return {"unit": [{k: ops.gather_blocks(pool, table, stacked=True)
-                      for k, pool in c.items()} for c in caches["unit"]]}
+    One gather launch per unit block covers its leaves and every stacked
+    layer (the reference's ``vmap``)."""
+    return {"unit": [ops.gather_views(c, table, stacked=True) for c in caches["unit"]]}
 
 
 def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)

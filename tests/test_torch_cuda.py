@@ -16,6 +16,9 @@ and read every ROM address as ``build_lut_u8`` holds it; the B-spline LUT
 kernel's values and ``k`` must equal its plain version's exactly.
 """
 
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -371,6 +374,138 @@ def test_gather_kernel_raises_and_never_falls_back(cuda_device):
     assert ops.LAUNCHES["gather_blocks"] == 0
 
 
+GATHER_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8]
+# the leaves of a multi-leaf gather: (dtype or None for the test's, n_blocks,
+# block shape, storage offset in elements).  Blocks of 32 KB in fp32 (four
+# CTAs each), of 14 elements (never a whole number of 16-byte units), of 48
+# elements 4 bytes past an aligned address, and of 64 elements in a pool
+# of 7 blocks (other ids clipped).
+GATHER_LEAVES = [(None, 13, (16, 8, 64), 0), (None, 13, (2, 1, 7), 0),
+                 (torch.float32, 13, (4, 3, 4), 1), (None, 7, (4, 2, 8), 0)]
+
+
+def _random_pool(shape, dtype, g, offset=0):
+    """Random values of ``dtype`` in a contiguous tensor whose data begins
+    ``offset`` elements past the start of its storage."""
+    n = math.prod(shape)
+    if dtype.is_floating_point:
+        flat = torch.randn(n + offset, generator=g).to(dtype)
+    else:
+        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        flat = torch.randint(lo, hi, (n + offset,), generator=g, dtype=dtype)
+    return flat[offset:].view(shape)
+
+
+def _gather_cache(device, dtype, n_leaves, stacked, seed):
+    """``n_leaves`` of :data:`GATHER_LEAVES` on ``device`` and a (3, 5)
+    table with ids below, inside and past every pool."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cache = {}
+    for i, (dt, n_blocks, block, offset) in enumerate(GATHER_LEAVES[:n_leaves]):
+        shape = ((2,) if stacked else ()) + (n_blocks,) + block
+        pool = _random_pool(shape, dt or dtype, g, offset)
+        moved = torch.empty(pool.numel() + offset, dtype=pool.dtype, device=device)
+        cache[f"leaf{i}"] = moved[offset:].view(shape).copy_(pool)
+    table = torch.randint(-4, 18, (3, 5), generator=g, dtype=torch.int32)
+    return cache, table.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("n_leaves", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+def test_gather_views_kernel_equals_plain_version_bitwise(cuda_device, dtype, n_leaves,
+                                                           stacked):
+    """1 to 4 leaves of different block bytes, pool sizes and dtypes in one
+    launch: 16-byte copies (the first leaf) and element copies (the
+    second, and the third, whose pool begins off a 16-byte boundary), each
+    leaf's ids clipped to its own pool."""
+    cache, table = _gather_cache(cuda_device, dtype, n_leaves, stacked, n_leaves + stacked)
+    if n_leaves >= 3:
+        assert cache["leaf2"].data_ptr() % 16 == 4
+    ops.reset_launches()
+    got = ops.gather_views(cache, table, stacked)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_blocks"] == 1 and list(got) == list(cache)
+    for name, pool in cache.items():
+        assert got[name].dtype == pool.dtype
+        assert torch.equal(got[name], G.gather_blocks_reference(pool, table, stacked))
+
+
+@pytest.mark.cuda
+def test_gather_views_kernel_launches_once_and_not_for_empty_views(cuda_device):
+    cache, table = _gather_cache(cuda_device, torch.bfloat16, 4, True, 3)
+    ops.reset_launches()
+    ops.gather_views(cache, table, stacked=True)
+    assert ops.LAUNCHES["gather_blocks"] == 1
+    for empty in (table[:0], table[:, :0]):
+        views = ops.gather_views(cache, empty.contiguous(), stacked=True)
+        assert all(v.numel() == 0 for v in views.values())
+    assert ops.LAUNCHES["gather_blocks"] == 1
+    # a leaf of no layers beside one with layers: one launch, both views right
+    part = {"none": cache["leaf0"][:0], "some": cache["leaf1"]}
+    views = ops.gather_views(part, table, stacked=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_blocks"] == 2 and views["none"].numel() == 0
+    assert torch.equal(views["some"], G.gather_blocks_reference(part["some"], table, True))
+
+
+@pytest.mark.cuda
+def test_gather_views_kernel_raises_and_never_falls_back(cuda_device):
+    cache, table = _gather_cache(cuda_device, torch.float32, 2, False, 4)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="1 to 4 leaves"):
+        ops.gather_views({f"l{i}": cache["leaf0"] for i in range(5)}, table)
+    with pytest.raises(ValueError, match="table rank 2"):
+        ops.gather_views(cache, table[0])
+    with pytest.raises(ValueError, match="int32"):
+        ops.gather_views(cache, table.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.gather_views(cache, table.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.gather_views({"k": cache["leaf0"], "v": cache["leaf1"].cpu()}, table)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.gather_views({"k": cache["leaf0"], "v": cache["leaf1"].double()}, table)
+    assert ops.LAUNCHES["gather_blocks"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_gather_kernel_writes_only_its_views(cuda_device, dtype):
+    """Four views carved out of one buffer of guard bytes (the third, of
+    float32, 4 bytes off a 16-byte boundary): after one launch every view holds the
+    plain version's bytes, every byte around them still holds the guard,
+    and the pools are unchanged."""
+    from repro_torch.kernels import paged_gather as PG
+
+    cache, table = _gather_cache(cuda_device, dtype, 4, True, 5)
+    before = {n: p.clone() for n, p in cache.items()}
+    want = [G.gather_blocks_reference(p, table, True).reshape(-1).view(torch.uint8)
+            for p in cache.values()]
+    starts, end = [], 0
+    for i, w in enumerate(want):
+        start = (end + 64 + 15) // 16 * 16 + (4 if i == 2 else 0)
+        starts.append(start)
+        end = start + w.numel()
+    buf = torch.full((end + 64,), 0xA5, dtype=torch.uint8, device=cuda_device)
+    leaves = (PG._Leaf * 4)(*[
+        PG._Leaf(p.data_ptr(), buf.data_ptr() + s, math.prod(p.shape[2:]) * p.element_size(),
+                 p.shape[1], p.shape[0], p.element_size())
+        for p, s in zip(cache.values(), starts)])
+    err = build.load("paged_gather").paged_gather(
+        ctypes.addressof(leaves), 4, table.data_ptr(), *table.shape,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "paged_gather")
+    torch.cuda.synchronize()
+    guard = torch.ones_like(buf, dtype=torch.bool)
+    for s, w in zip(starts, want):
+        assert torch.equal(buf[s:s + w.numel()], w)
+        guard[s:s + w.numel()] = False
+    assert bool((buf[guard] == 0xA5).all())
+    for n, p in cache.items():
+        assert torch.equal(p, before[n])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [{}, {"paged": True}, {"paged": True, "paged_read": "step"},
                                  {"paged": True, "pool_blocks": 12}])
@@ -477,6 +612,44 @@ def test_sparse_int8_kernel_across_its_tiles(cuda_device, rows, N, G, P):
                                                 out_dtype=out or torch.float32)
         assert torch.equal(got, want)
         assert torch.equal(got, ops.kan_int8_gemm(xq, lut, cq, grid, **kw))
+
+
+def _sparse_int8_smem(N: int, M: int, P: int, S_: int) -> int:
+    """Kernel 3's dynamic shared memory at N <= 16, from its ``split()``
+    and ``area_bytes``: one column tile of CT = 16 (TQ = 4), TJ = 64 input
+    lanes and a slice of JS = 64 inputs whatever K and BS, so the lane sums
+    (64 x 8 rows x 16 columns x 4 bytes) outgrow the M <= 16 coefficient
+    rows; then a packed word per (row, input) and the ROM."""
+    assert N <= 16 and M <= 16
+    area = max(64 * M * 16, 64 * 8 * 16 * 4)
+    return (area + 15) // 16 * 16 + 8 * 64 * 8 + (S_ * ((P + 2) // 2) + 15) // 16 * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [10, 16])
+@pytest.mark.parametrize("P,S_,smem", [(3, 6136, 49136), (3, 6144, 49152), (3, 6152, 49168),
+                                       (1, 12288, 49152)])
+def test_sparse_int8_kernel_grants_shared_memory_at_48_kb(cuda_device, P, S_, smem, N):
+    """ROMs that bring the dynamic shared memory to 16 bytes under, exactly
+    at and 16 bytes over 48 KB.  At exactly 49,152 bytes the kernel's static
+    ``last_s`` takes the block past the 48 KB default, so the launcher must
+    grant the bytes there too.  N = 10 and 16 are the element-copy and
+    16-byte-copy instantiations, each with its own grant."""
+    G = 13 - P                                                 # M = 13
+    assert _sparse_int8_smem(N, G + P, P, S_) == smem
+    grid = SplineGrid(-1.0, 1.0, G, P)
+    xq, cq, sc = (t.to(cuda_device) for t in _int8_case(grid, 8, 300, N, S_ + N))
+    lut = torch.tensor(Q.build_lut_u8(P, S_), device=cuda_device)
+    ops.reset_launches()
+    for out in (None, torch.float32):
+        kw = {} if out is None else dict(scale=sc, out_dtype=out)
+        got = ops.kan_sparse_int8_gemm(xq, lut, cq, grid, **kw)
+        want = S.kan_sparse_int8_gemm_reference(xq, cq, grid, S=S_,
+                                                lut_scale=Q.lut_value_scale(P),
+                                                scale=kw.get("scale"),
+                                                out_dtype=out or torch.float32)
+        assert torch.equal(got, want)
+    assert ops.LAUNCHES["kan_sparse_int8_gemm"] == 2
 
 
 def _stream_workspace(t: torch.Tensor):

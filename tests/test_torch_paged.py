@@ -1,9 +1,10 @@
 """The port's paged KV cache against the JAX reference, on the CPU.
 
-* The block-table gather: the port's plain version against the JAX
-  package's ``gather_blocks_reference`` and its Pallas kernel in interpret
-  mode, BITWISE (pure data movement), for fp32, bf16 and int8 pools,
-  stacked and unstacked, with repeated sentinel ids and ids past the pool.
+* The block-table gather: the port's plain version, one pool and every
+  leaf of a cache (``ops.gather_views``), against the JAX package's
+  ``gather_blocks_reference`` and its Pallas kernel in interpret mode,
+  BITWISE (pure data movement), for fp32, bf16 and int8 pools, stacked and
+  unstacked, with repeated sentinel ids and ids past the pool.
 * The write routing and the data movement of the paged model functions
   (``paged_route``, ``paged_write_span``, ``writeback_paged_chunk``,
   ``paged_views``): integers and pools EQUAL.  Blocks other than the
@@ -129,6 +130,61 @@ def test_gather_clips_ids_outside_the_pool(dtype):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gather_views_equals_reference_and_interpret_kernel_leaf_by_leaf(dtype, stacked):
+    """``ops.gather_views`` over a cache of three leaves (``k`` and ``v`` in
+    ``dtype``, a float32 leaf of other block bytes), one id past the pool
+    and one below it: each leaf equals ``jnp.take(mode="clip")`` on the
+    table, and the JAX package's plain version and its interpret-mode
+    Pallas kernel on the clipped table, bit for bit; on the CPU it counts
+    no launch."""
+    rs = np.random.RandomState(11 + len(dtype) + stacked)
+    lead = (3,) if stacked else ()
+    kv = lead + (N_BLOCKS, BS, 2, 8)
+    shapes = {"k": (kv, dtype), "v": (kv, dtype), "scale": (lead + (N_BLOCKS, BS, 2), "float32")}
+    cache_t, cache_j = {}, {}
+    for name, (shape, dt) in shapes.items():
+        cache_t[name], cache_j[name] = _both(_pool_np(rs, shape, dt), dt)
+    table = _table(rs, 2, 5, N_BLOCKS)
+    table[0, 1], table[1, 2] = N_BLOCKS + 4, -3
+    ops.reset_launches()
+    got = ops.gather_views(cache_t, torch.tensor(table), stacked)
+    assert list(got) == list(shapes) and ops.LAUNCHES["gather_blocks"] == 0
+    clipped = jnp.asarray(np.clip(table, 0, N_BLOCKS - 1))
+    for name, pool_j in cache_j.items():
+        trail = pool_j.shape[len(lead) + 1:]
+        want = jnp.take(pool_j, jnp.asarray(table).reshape(-1), axis=len(lead), mode="clip")
+        np.testing.assert_array_equal(_np(got[name]),
+                                      _jnp(want.reshape(lead + (2, 5 * BS) + trail[1:])))
+        layers = [pool_j[i] for i in range(3)] if stacked else [pool_j]
+        for fn in (JG.gather_blocks_reference,
+                   lambda p, t: JG.gather_blocks_pallas(p, t, interpret=True)):
+            want = np.stack([_jnp(fn(p, clipped)) for p in layers])
+            np.testing.assert_array_equal(_np(got[name]), want if stacked else want[0])
+
+
+def test_gather_views_launcher_rejects_what_the_kernel_does_not_take():
+    """More leaves than one launch takes, a mismatched table and a leaf
+    off the table's device raise before anything is launched."""
+    pool = torch.zeros(N_BLOCKS, BS, 2, 8)
+    table = torch.zeros(2, 5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 4 leaves"):
+        TG.gather_views_cuda([pool] * 5, table)
+    with pytest.raises(ValueError, match="1 to 4 leaves"):
+        TG.gather_views_cuda([], table)
+    with pytest.raises(ValueError, match="table rank 2"):
+        TG.gather_views_cuda([pool, pool], table[0])
+    with pytest.raises(ValueError, match="int32"):
+        TG.gather_views_cuda([pool, pool], table.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        TG.gather_views_cuda([pool.to("meta"), pool], table.to("meta"))
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.gather_views({"k": pool.to("meta"), "v": pool}, table)
+    assert ops.LAUNCHES["gather_blocks"] == 0
+
+
 def test_gather_wrapper_on_the_cpu_takes_the_plain_version_and_counts_nothing():
     pool = torch.randn(3, N_BLOCKS, BS, 2, 8)
     table = torch.tensor(_table(np.random.RandomState(0), 2, 5, N_BLOCKS))
@@ -153,13 +209,13 @@ def test_gather_launcher_rejects_what_the_kernel_does_not_take():
     pool = torch.zeros(N_BLOCKS, BS, 2, 8)
     table = torch.zeros(2, 5, dtype=torch.int32)
     with pytest.raises(ValueError, match="dtype"):
-        TG.gather_blocks_cuda(pool.double(), table)
+        TG.gather_views_cuda([pool.double()], table)
     with pytest.raises(ValueError, match="int32"):
-        TG.gather_blocks_cuda(pool, table.long())
+        TG.gather_views_cuda([pool], table.long())
     with pytest.raises(ValueError, match="contiguous"):
-        TG.gather_blocks_cuda(pool.transpose(2, 3), table)
+        TG.gather_views_cuda([pool.transpose(2, 3)], table)
     with pytest.raises(ValueError, match="rank"):
-        TG.gather_blocks_cuda(torch.zeros(N_BLOCKS, BS), table, stacked=True)
+        TG.gather_views_cuda([torch.zeros(N_BLOCKS, BS)], table, stacked=True)
     assert build.LIBRARIES["paged_gather"][0] == "paged_gather.cu"
 
 

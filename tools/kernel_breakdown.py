@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the KAN kernels goes, on one NVIDIA GPU.
+"""Where the time of the port's kernels goes, on one NVIDIA GPU.
 
-    python3 tools/kernel_breakdown.py [--only int8,fused,sparse_int8,sparse]
+    python3 tools/kernel_breakdown.py [--only int8,fused,sparse_int8,sparse,gather]
                                       [--variants a,b,...]
                                       [--sparse-src FILE.cu ...]
                                       [--sparse-int8-src FILE.cu ...]
+                                      [--gather-src FILE.cu ...]
 
 Measurements at the shapes ``chip_smoke.py`` times:
 
@@ -28,14 +29,20 @@ Measurements at the shapes ``chip_smoke.py`` times:
    call.
 4. The time of an empty kernel through the same timer (``time_ms``): the
    least any kernel can show in this harness.
+5. The block-table gather (kernel 5, ``--only gather``) at the paged
+   continuous cell's two reads, fp32 and bf16: the step read (one layer's
+   pool (97, 16, 8, 64), table (8, 12)) and the shadow read (the 8
+   stacked layers), each for one leaf and for both (``k`` and ``v``), with
+   its byte bound; per design its phase variants or copy policies.
 
-``--sparse-src`` and ``--sparse-int8-src`` time other versions of the two
-sparse kernels' sources beside the repository's (for example an earlier
-commit's, from ``git show``), in one process on one card; each source's
-variants are those of its design (``SPARSE_DESIGNS``,
-``SPARSE_INT8_DESIGNS``, recognised by their text), and a source of no
-known design is timed whole.  ``--variants`` builds only the named
-variants of the sparse kernels (and ``base``).
+``--sparse-src``, ``--sparse-int8-src`` and ``--gather-src`` time other
+versions of the two sparse kernels' and the gather's sources beside the
+repository's (for example an earlier commit's, from ``git show``), in
+one process on one card; each source's variants are those of its design
+(``SPARSE_DESIGNS``, ``SPARSE_INT8_DESIGNS``, ``GATHER_DESIGNS``,
+recognised by their text), and a source of no known design is timed
+whole.  ``--variants`` builds only the named variants of those three
+kernels (and ``base``).
 
 Needs a CUDA card and ``nvcc``; builds into ``build/kernel_breakdown/``.
 Imports nothing of JAX.
@@ -392,7 +399,8 @@ def design_of(lib: str, text: str) -> str | None:
     timers' text it all holds (None: an unrecognised design, timed whole)."""
     designs, times, _ = DESIGNS[lib]
     for design, variants in designs.items():
-        subs = [o for v in variants.values() for o, _ in v] + [o for o, _ in times[design]]
+        subs = [o for v in variants.values() for o, _ in v]
+        subs += [o for o, _ in times.get(design, [])]
         if all(text.count(o) == 1 for o in subs):
             return design
     return None
@@ -416,8 +424,8 @@ def design_variants(lib: str, design: str | None, only: set[str] | None = None) 
 def design_jobs(lib: str, tag: str, texts: dict[str, str], only: set[str] | None = None
                 ) -> tuple[dict, dict]:
     """Build jobs of every source of ``lib`` (its design's phase variants
-    and timed copy, or the source alone if no design matches) and each
-    source's design."""
+    and, where it has timers, its timed copy, or the source alone if no
+    design matches) and each source's design."""
     jobs, sources = {}, {}
     head = '#include "kan_common.cuh"\n'
     for src, text in texts.items():
@@ -425,7 +433,7 @@ def design_jobs(lib: str, tag: str, texts: dict[str, str], only: set[str] | None
         text = text.replace(head, head + PRELUDES.get((lib, design), ""), 1)
         for v, subs in design_variants(lib, design, only).items():
             jobs[f"{tag}_{src}_{v}"] = (lib, variant_source(lib, subs, text))
-        if design:
+        if design and DESIGNS[lib][1].get(design):
             jobs[f"{tag}_{src}_times"] = (lib, timed_source(lib, text, design))
     return jobs, sources
 
@@ -690,17 +698,210 @@ def sparse_cases(torch, cs, SplineGrid, ops):
     return cases
 
 
+# Kernel 5 (paged_gather.cu), per design (recognised by its variants' text).
+# "block" (the first design): one CUDA block of 256 threads per logical block (layer,
+# b, l), its threads striding along the block one 16-byte word at a time
+# (one load in flight before each store), one launch per leaf.  Variants:
+# no copy (the launch, the table entry and the index arithmetic) and
+# stores only (zeros written, nothing read).
+GATHER_BLOCK_LOOP = ("  for (long long i = threadIdx.x; i < units_per_block; i += kThreads) "
+                     "dst[i] = src[i];\n")
+GATHER_DISPATCH = """  if (f.unit == 16) {
+    copy_registers<uint4>(src, dst, len);
+  } else if (f.unit == 4) {
+    copy_registers<uint32_t>(src, dst, len);
+  } else if (f.unit == 2) {
+    copy_registers<uint16_t>(src, dst, len);
+  } else {
+    copy_registers<uint8_t>(src, dst, len);
+  }
+"""
+# design (a): thread 0 of a 32-thread CTA copies a part of kBulkPart bytes
+# by 1-D bulk copies through shared memory, every 8 KB stage asked for
+# first, each sent out as its mbarrier completes
+GATHER_COPY_BULK = r"""__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy_bulk(const uint8_t* src, uint8_t* dst, int len) {
+  constexpr int kStages = kBulkPart / kStageBytes;
+  __shared__ __align__(128) uint8_t buf[kBulkPart];
+  __shared__ __align__(8) uint64_t bar[kStages];
+  if (threadIdx.x != 0) return;
+  const int stages = (len + kStageBytes - 1) / kStageBytes;
+  for (int s = 0; s < stages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar[s])) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  for (int s = 0; s < stages; ++s) {
+    const int bytes = min(kStageBytes, len - s * kStageBytes);
+    const uint32_t b = smem_addr(&bar[s]);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"(smem_addr(buf + s * kStageBytes)), "l"(src + s * kStageBytes), "r"(bytes), "r"(b)
+        : "memory");
+  }
+  for (int s = 0; s < stages; ++s) {
+    const int bytes = min(kStageBytes, len - s * kStageBytes);
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
+        "@!done bra WAIT;\n"
+        "}\n" ::"r"(smem_addr(&bar[s]))
+        : "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 ::"l"(dst + s * kStageBytes), "r"(smem_addr(buf + s * kStageBytes)), "r"(bytes)
+                 : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+"""
+GATHER_GRID = "// Grid (b * L + l, part, leaf and layer)"
+
+
+def gather_bulk(part_bytes: int) -> list:
+    """The substitutions that make the kept source design (a), with parts
+    of ``part_bytes``."""
+    return [("constexpr int kThreads = 128;",
+             f"constexpr int kThreads = 32;\nconstexpr int kBulkPart = {part_bytes};\n"
+             "constexpr int kStageBytes = 8192;"),
+            (GATHER_GRID, GATHER_COPY_BULK + GATHER_GRID),
+            ("    copy_registers<uint4>(src, dst, len);", "    copy_bulk(src, dst, len);"),
+            ("    f.part_bytes = kThreads * kUnroll * f.unit;",
+             "    f.part_bytes = f.unit == 16 ? kBulkPart : kThreads * kUnroll * f.unit;")]
+
+
+GATHER_DESIGNS = {
+    "block": {
+        "base": [],
+        "no_copy": [(GATHER_BLOCK_LOOP,
+                     "  if (threadIdx.x == 0 && id == 0x7fffffff) dst[0] = src[0];\n")],
+        "stores_only": [(GATHER_BLOCK_LOOP, GATHER_BLOCK_LOOP.replace("src[i]", "T{}"))],
+    },
+    # "leaves" (the design that replaced it): one launch for every leaf, a
+    # CTA per part of a block on a (b * L + l, part, leaf and layer) grid,
+    # every load of a CTA issued before its first store.  Base: (b) 128
+    # threads x 4 registers of 16 bytes (8 KB parts), loads asking the L2
+    # for 256-byte lines.  Phases: no copy, stores only.  Beside it: (b)
+    # with plain loads, with 2 and 8 registers (4 and 16 KB parts), with
+    # streaming stores; (a) 1-D bulk copies of 16 and 32 KB parts.
+    "leaves": {
+        "base": [],
+        "no_copy": [(GATHER_DISPATCH,
+                     "  if (threadIdx.x == 0 && id == 0x7fffffff) dst[0] = src[0];\n")],
+        "stores_only": [("    if (k < n) r[u] = load(s + k);", "    if (k < n) r[u] = T{};")],
+        "loads_plain": [("  if constexpr (sizeof(T) == 16) {", "  if constexpr (false) {")],
+        "registers_4k": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 2;")],
+        "registers_16k": [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")],
+        "stores_streaming": [("    if (k < n) d[k] = r[u];",
+                              "    if (k < n) __stcs(d + k, r[u]);")],
+        "bulk_16k": gather_bulk(16384),
+        "bulk_32k": gather_bulk(32768),
+    },
+}
+DESIGNS["paged_gather"] = (GATHER_DESIGNS, {}, {})
+# the gather at the continuous cell's two reads: (use, stacked, dtype)
+GATHER_CASES = [("step", False, "float32"), ("step", False, "bfloat16"),
+                ("shadow", True, "float32")]
+
+
+def gather_call(torch, design: str | None, handle):
+    """A function ``(pools, table, stacked) -> views`` that launches
+    ``handle``, a build of ``design``, as that design's wrapper does."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import paged_gather as PG
+
+    if design != "block":                 # the repository's entry: one launch for all leaves
+        def call(pools, table, stacked):
+            return list(ops.gather_views(dict(zip("kv", pools)), table, stacked).values())
+        return call
+    f = handle.paged_gather               # the first design's entry: one launch per leaf
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
+                                                                  ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def call(pools, table, stacked):
+        views = []
+        for p in pools:
+            v = torch.empty(PG._view_shape(p, table, stacked), dtype=p.dtype, device=p.device)
+            esize = p.element_size()
+            err = f(p.data_ptr(), table.data_ptr(), v.data_ptr(), p.shape[0] if stacked else 1,
+                    p.shape[1 if stacked else 0], table.shape[0], table.shape[1],
+                    math.prod(p.shape[2 if stacked else 1:]) * esize, esize,
+                    torch.cuda.current_stream().cuda_stream)
+            build.check(err, "paged_gather")
+            views.append(v)
+        return views
+    return call
+
+
+def gather_section(torch, np, cs, sources, libs, cycles_per_ms, only=None):
+    """Kernel 5 at the step and shadow reads, one leaf and both, per source
+    and variant, beside the byte bound and ``index_select`` per leaf."""
+    from repro_torch.kernels import paged_gather as PG
+
+    n_blocks, bs = cs.GATHER_POOL[:2]
+    table = cs.engine_table(torch, np, cs.CONT["slots"], cs.CONT["max_seq"] // bs, n_blocks, 5)
+    idx = table.reshape(-1).long().clamp(0, n_blocks - 1)
+    out = {}
+    for use, stacked, dname in GATHER_CASES:
+        dtype = getattr(torch, dname)
+        shape = ((cs.GATHER_USES[use][1],) if stacked else ()) + cs.GATHER_POOL
+        nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+        n_sets = max(1, math.ceil(cs.L2_FLUSH_BYTES / nbytes))     # as chip_smoke.py's
+        g = torch.Generator(device="cuda").manual_seed(11)
+        sets = [[torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(2)]
+                for _ in range(n_sets)]
+        for leaves in (1, 2):
+            key = f"{use} {dname} {leaves} " + ("leaves" if leaves > 1 else "leaf")
+            bound = cs.gather_bytes(torch, sets[0][:leaves], table, stacked) \
+                / cs.HBM_BYTES_PER_S * 1e3
+            lib_ms = cs.time_ms(torch, [lambda s=s: [torch.index_select(p, int(stacked), idx)
+                                                     for p in s[:leaves]] for s in sets],
+                                cycles_per_ms)
+            entry = {"bound_ms": bound, "index_select_ms": lib_ms}
+            for src, design in sources.items():
+                times = {}
+                for v in design_variants("paged_gather", design, only):
+                    handle = libs[f"gather_{src}_{v}"]
+                    use_library("paged_gather", handle)
+                    call = gather_call(torch, design, handle)
+                    if v == "base":
+                        want = [PG.gather_blocks_reference(p, table, stacked)
+                                for p in sets[0][:leaves]]
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(call(sets[0][:leaves], table, stacked), want)):
+                            raise RuntimeError(f"gather {src} disagrees with its plain version")
+                    times[v] = cs.time_ms(torch, [lambda s=s: call(s[:leaves], table, stacked)
+                                                  for s in sets], cycles_per_ms)
+                entry[src] = {"design": design, "ms": times}
+                log(f"[gather] {key} {src} ({design}) ms: " +
+                    " ".join(f"{v}={ms:.4f}" for v, ms in times.items()) +
+                    f"; bound {bound:.4f}, index_select x{leaves} {lib_ms:.4f}")
+            out[key] = entry
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", default="int8,fused,sparse_int8,sparse",
-                    help="comma-separated sections: int8, fused, sparse_int8, sparse")
+    ap.add_argument("--only", default="int8,fused,sparse_int8,sparse,gather",
+                    help="comma-separated sections: int8, fused, sparse_int8, sparse, gather")
     ap.add_argument("--sparse-int8-src", nargs="*", default=[],
                     help="other kan_sparse_int8_gemm.cu sources timed beside the repository's")
     ap.add_argument("--sparse-src", nargs="*", default=[],
                     help="other kan_sparse_gemm.cu sources timed beside the repository's")
+    ap.add_argument("--gather-src", nargs="*", default=[],
+                    help="other paged_gather.cu sources timed beside the repository's")
     ap.add_argument("--variants", default="",
                     help="comma-separated variants of the decode kernels to build and time "
                          "(default: all of each design's; base always)")
@@ -733,7 +934,8 @@ def main() -> int:
                  for v, subs in FUSED_VARIANTS.items()}
     variants = set(args.variants.split(",")) if args.variants else None
     decode = {"sparse_int8": ("kan_sparse_int8_gemm", args.sparse_int8_src),
-              "sparse": ("kan_sparse_gemm", args.sparse_src)}
+              "sparse": ("kan_sparse_gemm", args.sparse_src),
+              "gather": ("paged_gather", args.gather_src)}
     sources = {}
     for tag, (lib, extra) in decode.items():
         if tag in only:
@@ -760,6 +962,9 @@ def main() -> int:
             torch, np, cs, "kan_sparse_int8_gemm", "sparse_int8",
             sparse_int8_cases(torch, cs, Q, SplineGrid, ops), sources["sparse_int8"], libs,
             cycles_per_ms, variants)
+    if "gather" in only:
+        result["gather"] = gather_section(torch, np, cs, sources["gather"], libs, cycles_per_ms,
+                                          variants)
     if "int8" in only:
         result["int8"] = int8_section(torch, np, cs, Q, SplineGrid, ops, libs, cycles_per_ms)
     if "fused" in only:
