@@ -47,6 +47,22 @@ Phases; any failed check raises and the script exits non-zero:
    the shadow run and one of the step run are profiled, and the step
    run's extra time per decode step split into device time by kernel
    name and host time.
+6b. Greedy speculative decoding (``spec_k = 4``) of the same 16 requests
+   through ``serve_continuous``, five runs: dense with a 1-layer drafter,
+   paged with shadow reads, paged with step reads, paged with a 25-block
+   pool (it must preempt), and dense with a full-depth drafter (it must
+   accept at least 0.9 of its drafts, and reject no more than ``spec_k``
+   drafts per near-tie of its streams).  Each run with the launch counts
+   reset just before and checked exactly just after (the verify window's
+   40 rows through the fused kernel, the drafter's 8 through the sparse
+   one, the paged verify through the gather), every stream equal to
+   phase 6's dense stream unless the first divergence is a near-tie, the
+   pool balanced after the drain.  One admission group of 8 requests is
+   teacher-forced through ``lm.verify_window`` and through W sequential
+   decode steps, dense and paged, on the kernel path and the plain path:
+   all four logits within ``LOGIT_ATOL`` of each other.  Each run is
+   repeated warm, and the warm paged shadow run profiled.  Phase 3 checks
+   and times both KAN kernels at the verify window's 40 rows.
 7. Integer-only KAN inference of full-width MNIST-KAN ([784, 64, 10],
    G=10, P=3, random weights from seed 0): every layer quantised on the
    card and held equal to a CPU quantisation; 2048 inputs (uniform over
@@ -228,9 +244,12 @@ def check_kernels(torch, grid):
     # (kernel, rows, K, N): the main path's layer shapes (c1: 512 -> 1024,
     # c2: 1024 -> 512; prefill at 4 x 128 rows, decode at 1, 4, 8 rows)
     # and one ragged shape for each kernel
-    cases = [("kan_fused_gemm", 512, 512, 1024), ("kan_fused_gemm", 512, 1024, 512),
-             ("kan_fused_gemm", 13, 100, 200)]
-    cases += [("kan_sparse_gemm", r, K, N) for r in (1, 4, 8)
+    # The verify window of phase 6b (8 slots x W = 5) gives both layers 40
+    # rows: the fused kernel's shape there, and a yardstick for the sparse one
+    cases = [("kan_fused_gemm", r, K, N) for r in (512, SPEC_ROWS)
+             for K, N in ((512, 1024), (1024, 512))]
+    cases += [("kan_fused_gemm", 13, 100, 200)]
+    cases += [("kan_sparse_gemm", r, K, N) for r in (1, 4, 8, SPEC_ROWS)
               for K, N in ((512, 1024), (1024, 512))]
     cases += [("kan_sparse_gemm", 13, 100, 200)]
     results = {name: {"max_abs_err": 0.0, "timed": []} for name in plain}
@@ -342,6 +361,14 @@ CONT_RUNS = [("dense", {}), ("paged_shadow", {"paged": True}),
 GATHER_USES = {"shadow": (True, 8), "step": (False, 8)}
 GATHER_POOL = (97, 16, 8, 64)                 # (n_blocks, block_size, KV, D)
 GATHER_LEAVES = ("k", "v")
+# Phase 6b: the same cell served speculatively; "full" is the target's depth
+SPEC_K = 4
+SPEC_ROWS = CONT["slots"] * (SPEC_K + 1)       # the verify window's rows
+SPEC_RUNS = [("spec_dense", {"draft_layers": 1}),
+             ("spec_paged_shadow", {"paged": True}),
+             ("spec_paged_step", {"paged": True, "paged_read": "step"}),
+             ("spec_paged_preempt", {"paged": True, "pool_blocks": 25}),
+             ("spec_full_drafter", {"draft_layers": "full"})]
 
 
 def continuous_requests(np, vocab: int):
@@ -446,25 +473,55 @@ def expected_launches(model, stats: dict, run: dict) -> dict:
     count) and, paged, one gather per layer (both leaves in one launch);
     per decode step two KAN layers per block at ``slots`` rows; per chunk,
     shadow reads, one gather per unit block (its leaves and stacked layers
-    in one launch), or step reads, one per layer per step."""
-    from repro_torch.core import kan_layer as KL
+    in one launch), or step reads, one per layer per step.
 
-    kan = 2 * len(model.unit) * model.n_repeats
-    layers = len(model.unit) * model.n_repeats
+    A speculative run (``stats["spec"]``) decodes in windows instead: per
+    drafter admission prefill two KAN layers per drafter block; per window
+    ``spec_k`` drafter steps at ``slots`` rows and one verify pass of the
+    whole target at ``slots·W`` rows; paged, per window one gather per
+    unit block (shadow) or one per layer (step)."""
+    from repro_torch.core import kan_layer as KL
     from repro_torch.kernels import ops
 
+    def kernel(rows: int) -> str:
+        return "kan_" + KL.resolve_inference_method("cuda", rows) + "_gemm"
+
+    per_layer = 2 * len(model.unit)
+    kan, layers = per_layer * model.n_repeats, len(model.unit) * model.n_repeats
     want = dict.fromkeys(ops.LAUNCHES, 0)
     paged = run.get("paged", False)
+    reads = (layers if run.get("paged_read") == "step" else len(model.unit)) if paged else 0
     for k, t_pad in stats["prefill_groups"]:
-        want["kan_" + KL.resolve_inference_method("cuda", k * t_pad) + "_gemm"] += kan
+        want[kernel(k * t_pad)] += kan
         want["gather_blocks"] += layers if paged else 0
+    slots = CONT["slots"]
+    if "spec" in stats:
+        sp = stats["spec"]
+        draft = per_layer * sp["draft_layers"]
+        for k, t_pad in stats["draft_prefill_groups"]:
+            want[kernel(k * t_pad)] += draft
+        want[kernel(slots)] += sp["windows"] * sp["spec_k"] * draft
+        want[kernel(slots * (sp["spec_k"] + 1))] += sp["windows"] * kan
+        want["gather_blocks"] += sp["windows"] * reads
+        return want
     steps = stats["chunks_run"] * CONT["chunk_steps"]
-    want["kan_" + KL.resolve_inference_method("cuda", CONT["slots"]) + "_gemm"] += steps * kan
+    want[kernel(slots)] += steps * kan
     if paged:
         step_reads = run.get("paged_read") == "step"
-        want["gather_blocks"] += (steps * layers if step_reads
-                                  else stats["chunks_run"] * len(model.unit))
+        want["gather_blocks"] += steps * layers if step_reads else stats["chunks_run"] * reads
     return want
+
+
+def stream_gaps(torch, np, params, cfg, prompt, stream, device="cuda"):
+    """The top-2 logit gap (static path, one prefill) of every token of
+    ``stream``: entry ``j`` is the gap of the logits that predict
+    ``stream[j]`` from ``prompt`` and ``stream[:j]``."""
+    from repro_torch.models import lm
+
+    seq = np.concatenate([prompt, stream[:-1]]).astype(np.int64)
+    logits, _ = lm.prefill(params, cfg, torch.as_tensor(seq[None], device=device), len(seq))
+    top = torch.topk(logits[0, len(prompt) - 1:], 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
 
 
 def continuous_path(torch, np):
@@ -551,13 +608,9 @@ def continuous_path(torch, np):
     gaps = {}
 
     def top2_gap(i: int, j: int) -> float:
-        if (i, j) not in gaps:
-            seq = np.concatenate([reqs[i], solo[i][:j]]).astype(np.int64)
-            logits, _ = lm.prefill(params, cfg, torch.as_tensor(seq[None], device="cuda"),
-                                   len(seq))
-            top = torch.topk(logits[0, -1], 2).values
-            gaps[(i, j)] = (top[0] - top[1]).item()
-        return gaps[(i, j)]
+        if i not in gaps:
+            gaps[i] = stream_gaps(torch, np, params, cfg, reqs[i], solo[i])
+        return float(gaps[i][j])
 
     divergences = []
     for name, (outs, _) in runs.items():
@@ -656,7 +709,7 @@ def continuous_path(torch, np):
             "logit_max_abs_err": err, "greedy_agreement": agree,
             "warm_shadow": warm["paged_shadow"], "warm_step": warm["paged_step"],
             "profile": profs["paged_shadow"], "profile_step": profs["paged_step"],
-            "step_reads_extra": extra}
+            "step_reads_extra": extra}, runs["dense"][0]
 
 
 def step_reads_extra(profs: dict, warm: dict) -> dict:
@@ -687,6 +740,216 @@ def step_reads_extra(profs: dict, warm: dict) -> dict:
     for e in out["by_name"]:
         log(f"[cont]   {e['count']:+7.2f} launches {e['ms'] * 1e3:+8.2f} us  {e['name'][:110]}")
     return out
+
+
+def speculative_path(torch, np, dense=None, device="cuda", cfg=None):
+    """Phase 6b (any miss raises): the continuous cell served with greedy
+    speculative windows, five runs, each held to its exact launch counts
+    and every stream to ``dense`` (phase 6's dense streams; computed here
+    when None); then one admission group teacher-forced through the verify
+    window and through sequential decode steps.  ``device="cpu"`` with a
+    reduced ``cfg`` rehearses it on the kernels' plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import kanformer_100m
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as PG
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.kv_pool import blocks_for
+
+    cfg = cfg or kanformer_100m.config().model
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    reqs, budgets = continuous_requests(np, cfg.vocab)
+    lens = [len(r) for r in reqs]
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"], spec_k=SPEC_K)
+
+    def serve(eng):
+        return eng.serve_continuous(reqs, slots=CONT["slots"],
+                                    chunk_steps=CONT["chunk_steps"], max_new=budgets)
+
+    if dense is None:
+        dense = serve(Engine(params, cfg, dataclasses.replace(base, spec_k=0), device=device))
+    gaps = {}
+
+    def gap(i: int, j: int) -> float:
+        if i not in gaps:
+            gaps[i] = stream_gaps(torch, np, params, cfg, reqs[i], dense[i], device)
+        return float(gaps[i][j])
+
+    log(f"[spec] the continuous cell's {CONT['n_req']} requests, spec_k {SPEC_K} "
+        f"(verify windows of {SPEC_ROWS} rows), {CONT['slots']} slots, eos off")
+    runs, divergences, engines, streams = {}, [], {}, {}
+    for name, extra in SPEC_RUNS:
+        if extra.get("draft_layers") == "full":
+            extra = dict(extra, draft_layers=cfg.n_repeats)
+        eng = engines[name] = Engine(params, cfg, dataclasses.replace(base, **extra),
+                                     device=device)
+        sync()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = serve(eng)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        st = eng.last_serve_stats
+        sp = st["spec"]
+        want = (expected_launches(cfg, st, extra) if device == "cuda"
+                else dict.fromkeys(ops.LAUNCHES, 0))
+        log(f"[spec] {name}: launches {launches}, expected {want}")
+        if launches != want:
+            raise RuntimeError(f"{name}: launch counts {launches} != expected {want}")
+        pg = st.get("paged", {})
+        if pg and pg["blocks_in_use"] != pg["blocks_cache_held"]:
+            raise RuntimeError(f"{name}: the pool is not balanced after the drain: {pg}")
+        m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
+             "useful_tokens": st["useful_tokens"], "draft_layers": sp["draft_layers"],
+             "windows": sp["windows"], "ms_per_window": st["decode_s"] * 1e3 / sp["windows"],
+             "proposed_drafts": sp["proposed_drafts"], "accepted_drafts": sp["accepted_drafts"],
+             "acceptance_rate": sp["acceptance_rate"],
+             "emitted_per_window": sp["emitted_tokens"] / sp["windows"],
+             "mean_slot_utilization": st["mean_slot_utilization"],
+             "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
+             "n_preemptions": st["n_preemptions"], "blocks_watermark": pg.get(
+                 "blocks_in_use_watermark"),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+             "launches": launches}
+        log(f"[spec] {name}: {m['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.1f} tok/s; "
+            f"windows {m['windows']} ({m['ms_per_window']:.3f} ms host per window); drafts "
+            f"proposed {m['proposed_drafts']} accepted {m['accepted_drafts']} (rate "
+            f"{m['acceptance_rate']:.4f}); {m['emitted_per_window']:.2f} tokens per window; "
+            f"admission prefills {m['prefill_s'] * 1e3:.1f} ms; preemptions "
+            f"{m['n_preemptions']}; block watermark {m['blocks_watermark']}; peak_mem_GB="
+            f"{(m['peak_mem_bytes'] or 0) / 1e9:.3f}")
+        for i, (o, b) in enumerate(zip(outs, budgets)):
+            if o.shape != (b,) or o.min() < 0 or o.max() >= cfg.vocab:
+                raise RuntimeError(f"{name}: bad output {o}")
+            diff = np.nonzero(o != dense[i])[0]
+            if diff.size:
+                j = int(diff[0])
+                g = gap(i, j)
+                divergences.append({"run": name, "request": i, "step": j, "top2_gap": g})
+                log(f"[spec] {name}: request {i} diverges from the dense stream at step {j}; "
+                    f"top-2 logit gap {g:.3e} (tol {LOGIT_ATOL:.1e})")
+                if g >= LOGIT_ATOL:
+                    raise RuntimeError(f"{name}: request {i} diverges at step {j}, not a near-tie")
+        if name == "spec_paged_preempt" and m["n_preemptions"] < 1:
+            raise RuntimeError(f"{name}: the tight pool preempted nothing")
+        if name == "spec_full_drafter":
+            # a draft is rejected only where the drafter (sparse kernel, 8
+            # rows) and the verify pass (fused kernel, 40 rows) order a
+            # near-tie differently; each such token rejects <= spec_k drafts
+            for i in range(len(reqs)):
+                gap(i, 0)
+            ties = int(sum((gaps[i][1:] < LOGIT_ATOL).sum() for i in range(len(reqs))))
+            rejected = m["proposed_drafts"] - m["accepted_drafts"]
+            m["near_ties"] = ties
+            log(f"[spec] {name}: {rejected} drafts rejected; {ties} near-ties in its streams")
+            if m["acceptance_rate"] < 0.9 or rejected > SPEC_K * ties:
+                raise RuntimeError(f"{name}: acceptance {m['acceptance_rate']:.4f} with "
+                                   f"{rejected} rejections and {ties} near-ties")
+        runs[name], streams[name] = m, outs
+    log(f"[spec] near-tie divergences from the dense streams: {len(divergences)}")
+
+    # each run again, warm (the counted runs paid the first calls' set-up),
+    # then one warm spec_paged_shadow run under the profiler, beside phase
+    # 6's profiled paged_shadow run of the same requests
+    for name, eng in engines.items():
+        sync()
+        t0 = time.perf_counter()
+        again = serve(eng)
+        sync()
+        wall = time.perf_counter() - t0
+        if any(not np.array_equal(a, o) for a, o in zip(again, streams[name])):
+            raise RuntimeError(f"a second {name} run gave other tokens")
+        st = eng.last_serve_stats
+        runs[name]["warm"] = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
+                              "ms_per_window": st["decode_s"] * 1e3 / st["spec"]["windows"],
+                              "prefill_s": st["prefill_s"]}
+        log(f"[spec] {name} warm: {runs[name]['warm']['tok_s']:.1f} tok/s, "
+            f"{runs[name]['warm']['ms_per_window']:.3f} ms host per window, admission "
+            f"prefills {st['prefill_s'] * 1e3:.1f} ms")
+    profile = (profile_call(
+        torch, lambda: serve(engines["spec_paged_shadow"]),
+        lambda: f"one spec_paged_shadow run ({runs['spec_paged_shadow']['windows']} windows)")
+        if device == "cuda" else None)
+
+    # one admission group (8 requests, 40 verify rows) teacher-forced
+    # through the verify window and through W sequential decode steps,
+    # dense and paged, on the kernel path and on the plain path
+    group = list(range(CONT["slots"]))
+    W = SPEC_K + 1
+    bs = CONT["block_size"]
+    n_logical = CONT["max_seq"] // bs
+    t_pad = -(-max(lens[i] for i in group) // 8) * 8
+    toks = torch.as_tensor(np.stack([np.pad(reqs[i], (0, t_pad - lens[i])) for i in group])
+                           .astype(np.int64), device=device)
+    glens = torch.as_tensor(np.asarray([lens[i] for i in group], np.int64), device=device)
+    window = torch.as_tensor(np.stack([dense[i][:W] for i in group]).astype(np.int64),
+                             device=device)
+    tables = np.zeros((len(group), n_logical), np.int32)
+    for r, i in enumerate(group):
+        n = blocks_for(lens[i] + W, bs)
+        tables[r, :n] = 1 + r * n_logical + np.arange(n)
+    tbl = torch.as_tensor(tables, device=device)
+    kernel_gather = ops.gather_views
+
+    def forced(plain: bool, paged: bool):
+        if plain:
+            os.environ["KAN_SAS_INFERENCE_METHOD"] = "compact"
+            ops.gather_views = PG.gather_views_reference
+        try:
+            out = []
+            for verify in (True, False):
+                if paged:
+                    caches = lm.init_paged_caches(cfg, 1 + len(group) * n_logical, bs,
+                                                  torch.float32, device)
+                    lm.prefill_into_pages(params, cfg, toks, glens, tbl, caches, 0,
+                                          torch.float32, blocks_for(t_pad, bs))
+                else:
+                    _, caches = lm.prefill(params, cfg, toks, CONT["max_seq"])
+                table = tbl if paged else None
+                if verify:
+                    lg, _ = lm.verify_window(params, cfg, window, caches, glens,
+                                             torch.float32, table)
+                else:
+                    pos, steps = glens.clone(), []
+                    for j in range(W):
+                        lg, caches = lm.decode_step(params, cfg, window[:, j:j + 1], caches,
+                                                    pos, torch.float32, table)
+                        steps.append(lg)
+                        pos = pos + 1
+                    lg = torch.stack(steps, dim=1)
+                out.append(lg)
+            return out
+        finally:
+            os.environ.pop("KAN_SAS_INFERENCE_METHOD", None)
+            ops.gather_views = kernel_gather
+
+    errs = {}
+    for paged in (False, True):
+        kv, ks = forced(False, paged)
+        pv, ps = forced(True, paged)
+        for lg in (kv, ks, pv, ps):
+            if lg.shape != (len(group), W, cfg.vocab) or not torch.isfinite(lg).all():
+                raise RuntimeError("verify-window logits not finite or of the wrong shape")
+        mode = "paged" if paged else "dense"
+        errs[mode] = {"verify_vs_sequential": (kv - ks).abs().max().item(),
+                      "kernel_vs_plain_verify": (kv - pv).abs().max().item(),
+                      "kernel_vs_plain_sequential": (ks - ps).abs().max().item(),
+                      "plain_verify_vs_sequential": (pv - ps).abs().max().item()}
+        log(f"[spec] teacher-forced {len(group)} rows x W={W} ({mode}): max_abs_err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs[mode].items())
+            + f" (tol {LOGIT_ATOL:.1e}); greedy agreement verify vs sequential "
+            f"{(kv.argmax(-1) == ks.argmax(-1)).float().mean().item():.3f}")
+        if max(errs[mode].values()) > LOGIT_ATOL:
+            raise RuntimeError(f"verify-window logits ({mode}) disagree beyond LOGIT_ATOL")
+    return {"runs": runs, "divergences": divergences, "teacher_forced": errs,
+            "profile": profile}
 
 
 def main_path(torch, np):
@@ -1231,8 +1494,10 @@ def main() -> int:
     t1 = time.perf_counter()
     launches, e2e = main_path(torch, np)
     t2 = time.perf_counter()
-    cont = continuous_path(torch, np)
+    cont, dense = continuous_path(torch, np)
     t3 = time.perf_counter()
+    spec = speculative_path(torch, np, dense)
+    t3s = time.perf_counter()
     int8 = int8_path(torch, np)
     int8["profile"] = profile_call(torch, int8.pop("int8_net"),
                                    lambda: "one warm int8 MNIST-KAN run (2048 inputs)")
@@ -1240,12 +1505,13 @@ def main() -> int:
     t4 = time.perf_counter()
     gkan = gkan_path(torch)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
-        f"continuous path {t3 - t2:.1f} s, int8 path {t4 - t3:.1f} s, "
-        f"GKAN {time.perf_counter() - t4:.1f} s")
+        f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
+        f"int8 path {t4 - t3s:.1f} s, GKAN {time.perf_counter() - t4:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
-            "int8_path": int8, "gkan_path": gkan, "build_s": built}
+            "speculative_path": spec, "int8_path": int8, "gkan_path": gkan, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
+               **{k: m["launches"] for k, m in spec["runs"].items()},
                **{k: m["launches"] for k, m in int8["runs"].items()},
                **{k: m["launches"] for k, m in gkan["runs"].items()}}
     for name, meta in KERNELS.items():

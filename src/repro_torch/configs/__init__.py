@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 Only kanformer-100m is ported; the other architectures of ``repro.configs``
-wait for their block kinds (ROADMAP queue 1, item 13)."""
+wait for their block kinds (ROADMAP queue 1, item 8)."""
 
 import importlib
 

@@ -5,11 +5,12 @@ length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
 continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
 ``--batch`` slots, ``--chunk-steps`` per chunk) and reports its slot
 utilization; ``--paged`` (continuous only) serves from the paged block pool
-with prefix caching and preemption (``--block-size``, ``--pool-blocks``).
-``--spec-k > 0``, ``--mesh`` and ``--temperature > 0`` exit with rc=2 and
-say they are not ported yet.  Reduced shapes are the default; ``--full``
-selects the full config.  Runs on ``cuda`` unless ``--device cpu`` is
-given.
+with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
+``--spec-k K`` (continuous only) serves greedy speculative windows of a
+``--draft-layers``-deep drafter (``--draft-quant``: int8 fake-quantised).
+``--mesh`` and ``--temperature > 0`` exit with rc=2 and say they are not
+ported yet.  Reduced shapes are the default; ``--full`` selects the full
+config.  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,9 +50,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged: physical blocks incl. the sentinel "
                          "(default: dense-equivalent capacity)")
     ap.add_argument("--mesh", type=str, default=None, metavar="DxM")
-    ap.add_argument("--spec-k", type=int, default=0)
-    ap.add_argument("--draft-layers", type=int, default=1)
-    ap.add_argument("--draft-quant", action="store_true")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="continuous: speculative decoding, drafts per verify "
+                         "window (0 disables)")
+    ap.add_argument("--draft-layers", type=int, default=1,
+                    help="speculative: leading unit repeats kept in the derived "
+                         "drafter (1..n_repeats)")
+    ap.add_argument("--draft-quant", action="store_true",
+                    help="speculative: int8 fake-quantise the drafter's weights")
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -61,28 +67,34 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refusal(args) -> str | None:
+def _refusal(args, model) -> str | None:
     """Why these flags cannot be served (rc=2), or None."""
-    if args.spec_k < 0:
-        return f"--spec-k must be >= 0, got {args.spec_k}"
     if args.paged and args.engine != "continuous":
         return "--paged requires --engine continuous"
-    if args.spec_k != 0:
-        return "--spec-k is not ported yet (ROADMAP queue 1, item 9)"
+    if args.spec_k < 0:
+        return f"--spec-k must be >= 0, got {args.spec_k}"
+    if args.spec_k > 0 and args.engine != "continuous":
+        return "--spec-k requires --engine continuous"
+    if not (1 <= args.draft_layers <= model.n_repeats):
+        return (f"--draft-layers must be in [1, {model.n_repeats}] for {args.arch}, "
+                f"got {args.draft_layers}")
+    if args.spec_k > 0 and not lm.model_supports_speculative(model):
+        return (f"{args.arch} does not support speculative decoding "
+                "(needs token-input full-attention GQA blocks)")
     if args.mesh is not None:
-        return "--mesh is not ported yet (ROADMAP queue 1, item 14)"
+        return "--mesh is not ported yet (ROADMAP queue 1, item 9)"
     if args.temperature > 0.0:
-        return "--temperature > 0 is not ported yet (ROADMAP queue 1, item 11)"
+        return "--temperature > 0 is not ported yet (ROADMAP queue 1, item 4)"
     return None
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    why = _refusal(args)
+    model = pick_config(args.arch, args.full).model
+    why = _refusal(args, model)
     if why:
         print(f"[serve] {why}", file=sys.stderr)
         return 2
-    model = pick_config(args.arch, args.full).model
     params = lm.init_params(model, seed=args.seed, device=args.device)
     max_seq = args.prompt_len + args.max_new + 8
     if args.paged:                    # the paged pool addresses whole blocks
@@ -90,7 +102,9 @@ def main(argv=None) -> int:
     eng = Engine(params, model,
                  ServeConfig(max_seq=max_seq, max_new_tokens=args.max_new,
                              eos_id=args.eos_id, paged=args.paged,
-                             block_size=args.block_size, pool_blocks=args.pool_blocks),
+                             block_size=args.block_size, pool_blocks=args.pool_blocks,
+                             spec_k=args.spec_k, draft_layers=args.draft_layers,
+                             draft_quant=args.draft_quant),
                  device=args.device)
     rs = np.random.RandomState(args.seed)
     reqs = [rs.randint(0, model.vocab, rs.randint(4, args.prompt_len + 1)).astype(np.int32)
@@ -116,6 +130,11 @@ def main(argv=None) -> int:
                   f"prefix_hit_blocks={p.get('prefix_hit_blocks', 0)} "
                   f"prefill_tokens_saved={p['prefill_tokens_saved']} "
                   f"preemptions={s['n_preemptions']}")
+        if args.spec_k > 0:
+            sp = s["spec"]
+            print(f"[serve:spec] k={sp['spec_k']} draft_layers={sp['draft_layers']} "
+                  f"windows={sp['windows']} acceptance_rate={sp['acceptance_rate']:.3f} "
+                  f"emitted={sp['emitted_tokens']}")
     print("sample output ids:", outs[0][:10].tolist())
     return 0
 

@@ -10,6 +10,9 @@
   a scalar ``pos`` writes one slot for every row, a per-row ``(B,)`` ``pos``
   writes each row at its own slot, and a row whose slot is past the cache
   writes nothing (the reference's scatter drops it);
+* :func:`attn_verify_window` and :func:`attn_verify_window_paged` — a
+  speculative verify window of W tokens per row in one pass, each query
+  masked at its own position as the sequential decode step masks it;
 * the paged KV cache (DESIGN.md §3b): :func:`paged_view`,
   :func:`paged_route`, :func:`paged_write_span`,
   :func:`attn_decode_step_paged` and :func:`attn_prefill_paged`.  Pools
@@ -62,7 +65,7 @@ def check_supported(cfg: AttnConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"attention: {', '.join(missing)} not ported yet (ROADMAP queue 1, "
-            "items 4 and 13)")
+            "items 6 and 8)")
 
 
 def flash_attention(
@@ -114,7 +117,7 @@ def _project_qkv(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """QKV projection + bias + rotary at absolute ``positions``."""
     if cfg.qk_norm:
-        raise NotImplementedError("attention: qk_norm not ported yet (ROADMAP queue 1, item 4)")
+        raise NotImplementedError("attention: qk_norm not ported yet (ROADMAP queue 1, item 6)")
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(x.dtype))
     v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(x.dtype))
@@ -172,7 +175,7 @@ def _write_cache(cache: dict, name: str, val: torch.Tensor,
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
 # package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 14.
+# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
 def attn_decode_step(  # kanlint: ignore[KL105]
     params: dict,
     cfg: AttnConfig,
@@ -215,6 +218,85 @@ def _cache_attend(
     o = torch.einsum("bgrs,bsgd->bgrd", p.to(cv.dtype), cv)
     o = o.reshape(B, 1, H, D).to(x.dtype)
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+
+
+def _write_cache_span(cache: dict, name: str, val: torch.Tensor,
+                      positions: torch.Tensor) -> None:
+    """Write a ``(B, W)`` span of K or V (``val (B, W, KV, D)``) into a dense
+    ``(B, S, ...)`` cache in place, at per-row absolute ``positions (B, W)``:
+    the W-token generalisation of :func:`_write_cache`'s per-row branch.
+
+    Positions ``>= S`` are dropped, as the reference's scatter drops them
+    (a fixed-shape window overruns ``max_seq`` on a row that retires in
+    it).  Without a host sync they cannot be filtered out, so they are
+    aimed at slot ``S-1`` carrying the value slot ``S-1`` ends with
+    anyway: the window's own value where the window writes ``S-1``, else
+    the value it holds.  Every duplicate write of ``S-1`` then carries the
+    same value, and no slot takes a dropped position's value."""
+    buf = cache[name]
+    v = val.to(buf.dtype)
+    B, W = positions.shape
+    S = buf.shape[1]
+    rows = torch.arange(B, device=buf.device)
+    keep = positions < S
+    j_last = (S - 1) - positions[:, 0]                        # window index of slot S-1
+    owns_last = (j_last >= 0) & (j_last < W)
+    src = torch.where(keep, torch.arange(W, device=buf.device)[None, :],
+                      torch.clamp(j_last, 0, W - 1)[:, None])
+    vals = v[rows[:, None], src]                              # (B, W, KV, D)
+    held = buf[rows, S - 1][:, None]                          # (B, 1, KV, D)
+    use_win = (keep | owns_last[:, None]).reshape(B, W, *((1,) * (v.dim() - 2)))
+    buf[rows[:, None], torch.clamp_max(positions, S - 1)] = torch.where(use_win, vals, held)
+
+
+def _cache_attend_window(
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, W, d_model)
+    cache: dict,                      # (B, S, KV, D) leaves: dense or a paged view
+    q: torch.Tensor,                  # (B, W, H, D) post-rotary queries
+    pos_b: torch.Tensor,              # (B,) window start positions
+) -> torch.Tensor:
+    """The verify-window attention read: :func:`_cache_attend` with the
+    window axis carried along as a batch axis.  Query ``j`` (absolute
+    position ``pos_b + j``) masks ``kv_slot <= pos_b + j``, its own freshly
+    written slot included, as the sequential step does."""
+    B, W = q.shape[:2]
+    S = cache["k"].shape[1]
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = H // KV
+    qh = q.reshape(B, W, KV, rep, D)
+    q_pos = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]   # (B, W)
+    ck = cache["k"].to(x.dtype)
+    cv = cache["v"].to(x.dtype)
+    s = torch.einsum("btgrd,bsgd->btgrs", qh, ck) / math.sqrt(D)
+    mask = torch.arange(S, device=x.device)[None, None, :] <= q_pos[:, :, None]  # (B, W, S)
+    s = torch.where(mask[:, :, None, None, :], s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("btgrs,bsgd->btgrd", p.to(cv.dtype), cv)
+    o = o.reshape(B, W, H, D).to(x.dtype)
+    return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+
+
+def attn_verify_window(  # kanlint: ignore[KL105] (see attn_decode_step)
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, W, d_model): last token + k drafts
+    cache: dict,                      # dense (B, S, KV, D) leaves, updated in place
+    pos: torch.Tensor,                # (B,) window start (= next write slot)
+) -> tuple[torch.Tensor, dict]:
+    """W-token verify against the dense cache: write all W post-rotary K/V,
+    then attend with per-query causal masks.  Rejected positions leave
+    stale K/V at slots ``>= pos + m``; the next window rewrites each such
+    slot before any query can reach it, so no rollback is needed."""
+    check_supported(cfg)
+    B, W, _ = x.shape
+    pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    positions = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]   # (B, W)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    _write_cache_span(cache, "k", k, positions)
+    _write_cache_span(cache, "v", v, positions)
+    return _cache_attend_window(params, cfg, x, cache, q, pos_b), cache
 
 
 # ---------------------------------------------------------------------------
@@ -340,3 +422,27 @@ def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     o = flash_attention(q, ck, cv, causal=True, q_offset=int(start), chunk=chunk)
     y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
     return y, cache
+
+
+def attn_verify_window_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, W, d_model)
+    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    table: torch.Tensor,              # (B, n_logical) int32 block table
+    pos: torch.Tensor,                # (B,) window start positions
+) -> tuple[torch.Tensor, dict]:
+    """W-token verify against the paged pool: the span writes go through the
+    block table (lengths ``pos + W`` mask nothing; positions past the table
+    go to the sentinel), then the window attention of
+    :func:`attn_verify_window` on the gathered logical view.  Admission caps
+    prefix reuse below ``blocks_for(pos)``, so a window never writes a
+    shared block; the engine trims rejected coverage afterwards."""
+    check_supported(cfg)
+    B, W, _ = x.shape
+    pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    positions = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    paged_write_span(cache, "k", k, table, pos_b, pos_b + W)
+    paged_write_span(cache, "v", v, table, pos_b, pos_b + W)
+    return _cache_attend_window(params, cfg, x, paged_view(cache, table), q, pos_b), cache

@@ -31,7 +31,7 @@ def check_supported(blk: BlockCfg) -> None:
     if blk.kind != "attn_kan" or blk.shared_id is not None:
         raise NotImplementedError(
             f"block kind {blk.kind!r} (shared_id={blk.shared_id}) is not ported "
-            "yet: only attn_kan (ROADMAP queue 1, items 5 and 13)")
+            "yet: only attn_kan (ROADMAP queue 1, items 6 and 8)")
     A.check_supported(blk.attn)
 
 
@@ -87,7 +87,7 @@ def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
 # package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 14.
+# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
 def block_prefill(  # kanlint: ignore[KL105]
     params: dict,
     blk: BlockCfg,
@@ -161,4 +161,33 @@ def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     x = x + y
     h2 = L.rmsnorm(params["ln2"], x)
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA
+    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+
+
+def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
+    params: dict,
+    blk: BlockCfg,
+    x: torch.Tensor,                  # (B, W, d): last accepted token + k drafts
+    cache: dict,                      # updated in place
+    pos: torch.Tensor,                # (B,) window start positions
+    table: torch.Tensor | None = None,  # (B, n_logical): paged block table
+) -> tuple[torch.Tensor, dict]:
+    """Speculative verify: :func:`block_decode_step` for a W-token window in
+    one pass.  Full-attention GQA blocks only (ring buffers and recurrent
+    states are sequential in the window)."""
+    if not block_supports_paging(blk):
+        raise NotImplementedError(
+            f"speculative verify: unsupported kind {blk.kind!r} "
+            "(full-attention GQA layers only)")
+    check_supported(blk)
+    h = L.rmsnorm(params["ln1"], x)
+    if table is not None:
+        y, cache = A.attn_verify_window_paged(params["attn"], blk.attn, h, cache,
+                                              table, pos)
+    else:
+        y, cache = A.attn_verify_window(params["attn"], blk.attn, h, cache, pos)
+    x = x + y
+    h2 = L.rmsnorm(params["ln2"], x)
+    # the FFN sees B·W rows: "auto" resolves to the fused kernel on CUDA
+    # when B·W > $KAN_SAS_SPARSE_MAX_ROWS (8)
     return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache

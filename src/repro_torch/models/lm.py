@@ -50,7 +50,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.prologue or cfg.epilogue or cfg.shared or cfg.input_kind != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: prologue/epilogue/shared blocks and non-token inputs "
-            "are not ported yet (ROADMAP queue 1, item 13)")
+            "are not ported yet (ROADMAP queue 1, item 8)")
     for blk in cfg.unit:
         B.check_supported(blk)
 
@@ -190,6 +190,13 @@ def model_supports_paging(cfg: ModelConfig) -> bool:
     return all(B.block_supports_paging(b) for b in blks)
 
 
+def model_supports_speculative(cfg: ModelConfig) -> bool:
+    """Speculative verify takes a W-token window in one pass: the
+    full-attention GQA condition of paging, plus token inputs (the drafter
+    re-embeds accepted tokens)."""
+    return model_supports_paging(cfg) and cfg.input_kind == "tokens"
+
+
 def model_kv_quant(cfg: ModelConfig) -> bool:
     """True if any attention block stores an int8-quantized KV cache."""
     blks = cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared
@@ -245,6 +252,28 @@ def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
             vals = v[:, rows, torch.clamp_max(positions, v.shape[2] - 1)]
             pool[:, phys, off] = vals.to(pool.dtype)             # (R, B, steps, ...)
     return caches
+
+
+def copy_paged_blocks(  # kanlint: ignore[KL105] (see decode_step)
+    caches: dict, srcs, dsts,
+) -> dict:
+    """Copy physical blocks ``srcs[i] -> dsts[i]`` in every pool leaf, in
+    place: the data half of copy-on-write (``kv_pool.BlockPool.copy_on_write``
+    rebinds the table).  One gather and one scatter per leaf for the whole
+    batch of copies.  ``dsts`` must be pairwise distinct (the pool's fresh
+    blocks are)."""
+    dev = caches["unit"][0]["k"].device
+    idx = torch.as_tensor(srcs, device=dev).reshape(-1).long()
+    dst = torch.as_tensor(dsts, device=dev).reshape(-1).long()
+    for pools in caches["unit"]:
+        for pool in pools.values():
+            pool[:, dst] = pool[:, idx]           # pools: (n_repeats, n_blocks, ...)
+    return caches
+
+
+def copy_paged_block(caches: dict, src, dst) -> dict:  # kanlint: ignore[KL105]
+    """Single-pair :func:`copy_paged_blocks`."""
+    return copy_paged_blocks(caches, [int(src)], [int(dst)])
 
 
 def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ignore[KL105]
@@ -366,7 +395,7 @@ def prefill(
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
 # package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 14.
+# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
 @torch.no_grad()
 def decode_step(  # kanlint: ignore[KL105]
     params: dict,
@@ -388,3 +417,35 @@ def decode_step(  # kanlint: ignore[KL105]
             h, _ = B.block_decode_step(rep[i], blk, h,
                                        _layer(caches["unit"][i], r), pos, table)
     return _logits(params, cfg, h)[:, 0], caches
+
+
+@torch.no_grad()
+def verify_window(  # kanlint: ignore[KL105] (see decode_step)
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,             # (B, W) int: last accepted token + k drafts
+    caches: dict,                     # updated in place
+    pos: torch.Tensor,                # (B,) window start positions
+    compute_dtype=torch.float32,
+    table: torch.Tensor | None = None,  # (B, n_logical) int32: paged block tables
+) -> tuple[torch.Tensor, dict]:
+    """Speculative verification: score all ``W = k + 1`` window positions of
+    every row in ONE pass -> ``(logits (B, W, vocab), caches)``.
+
+    ``logits[:, j]`` is the next-token distribution after the token at
+    position ``pos + j``, what :func:`decode_step` gives at step ``j`` of a
+    sequential chunk whose earlier tokens were the window's.  The model
+    writes all W positions; the engine's rollback-free invariants keep
+    rejected writes unobservable (DESIGN.md §9)."""
+    if not model_supports_speculative(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: speculative verify needs token-input full-attention "
+            "GQA blocks throughout")
+    check_supported(cfg)
+    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    for r in range(cfg.n_repeats):
+        rep = _layer(params["unit"], r)
+        for i, blk in enumerate(cfg.unit):
+            h, _ = B.block_verify_window(rep[i], blk, h, _layer(caches["unit"][i], r),
+                                         pos, table)
+    return _logits(params, cfg, h), caches

@@ -16,7 +16,9 @@ CUDA graphs come later):
   prefix caching (``serve/prefix_cache.py``) and preemption with recompute
   (DESIGN.md §3b); the decode chunk then reads the pool through the
   block-table gather kernel, once per chunk (``paged_read="shadow"``) or
-  every step (``"step"``).
+  every step (``"step"``).  With ``ServeConfig.spec_k >= 1`` each decode
+  chunk becomes a greedy speculative window (``serve/speculative.py``): a
+  drafter proposes ``spec_k`` tokens, one target pass verifies them.
 
 Padding is right-padding with per-row ``lengths``: real tokens sit at
 positions ``0..len-1``, each row takes its first token from the logits at
@@ -30,8 +32,8 @@ later step of that row emits ``pad_id`` and its position freezes.  A
 request's output is the same whether it is served alone by ``generate``,
 in a static bucket or by either continuous engine.
 
-Speculative decoding, meshes and sampling at ``temperature > 0`` are not
-ported yet (ROADMAP queue 1, items 9, 14 and 11).
+Meshes and sampling at ``temperature > 0`` are not ported yet (ROADMAP
+queue 1, items 9 and 4).
 """
 
 from __future__ import annotations
@@ -73,6 +75,15 @@ class ServeConfig:
     # the chunk's span back; "step": read and write through the block
     # table every token (no transient view, one gather per layer per step)
     paged_read: str = "shadow"
+    # Speculative decoding (DESIGN.md §9, serve/speculative.py),
+    # serve_continuous only: a shrunken KAN drafter proposes spec_k tokens
+    # per window and ONE target pass verifies all spec_k + 1 positions.
+    # Greedy streams equal spec_k = 0's up to the kernels' summation order.
+    spec_k: int = 0              # drafts per window; 0 disables speculation
+    draft: object | None = None  # a speculative.DraftModel; None derives one
+                                 # from the target's parameters at init
+    draft_layers: int = 1        # derived drafter: leading unit repeats kept
+    draft_quant: bool = False    # derived drafter: int8 fake-quant weights
 
 
 def _to_device(tree, device):
@@ -98,6 +109,17 @@ class Engine:
         self.params = _to_device(params, self.device)
         self.last_serve_stats: dict | None = None
         self.last_generate_stats: dict | None = None
+        if serve_cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {serve_cfg.spec_k}")
+        self.draft = None
+        if serve_cfg.spec_k >= 1:
+            if serve_cfg.draft is not None:
+                self.draft = dataclasses.replace(
+                    serve_cfg.draft, params=_to_device(serve_cfg.draft.params, self.device))
+            else:                      # views of self.params: no weight copy
+                self.draft = speculative.DraftModel.from_target(
+                    self.params, model_cfg, n_layers=serve_cfg.draft_layers,
+                    quant=serve_cfg.draft_quant)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -279,6 +301,16 @@ class Engine:
         each ending in a read of its tokens) and ``prefill_groups`` (``[rows,
         padded length]`` of each admission prefill), from which a caller
         can count the kernel launches a run implies.
+
+        With ``cfg.spec_k >= 1`` every decode chunk is one speculative
+        window: the drafter proposes ``spec_k`` tokens by greedy decode steps
+        on its own dense per-slot cache, ONE ``lm.verify_window`` pass
+        scores the ``W = spec_k + 1`` positions, ``accept_window`` keeps the
+        longest matching prefix plus the bonus token, and (paged) the rows'
+        block coverage is trimmed back to what the accepted prefix holds.
+        The stats then carry the reference's ``"spec"`` sub-dict, and the
+        port adds ``draft_prefill_groups`` (the drafter's admission prefills,
+        as ``prefill_groups``).
         """
         n = len(requests)
         if max_new is None:
@@ -295,6 +327,15 @@ class Engine:
         if chunk_steps < 1 or slots < 1:
             raise ValueError(f"chunk_steps ({chunk_steps}) and slots ({slots}) must be >= 1")
         dev, max_seq = self.device, self.cfg.max_seq
+        spec_k = self.cfg.spec_k
+        spec = spec_k >= 1
+        if spec and self.draft is None:
+            raise ValueError("spec_k >= 1 needs the drafter an Engine built with spec_k >= 1 "
+                             "makes at init")
+        W = spec_k + 1                 # verify window: the last token + drafts
+        # positions one decode round writes: a window pos..pos+W-1, a chunk
+        # pos..pos+chunk_steps-1
+        steps_cov = W if spec else chunk_steps
         sched = ContinuousScheduler(slots, range(n))
         paged = self.cfg.paged
         prefix = None
@@ -317,7 +358,8 @@ class Engine:
             # any single request must fit an otherwise empty pool, so that
             # preemption can always make progress
             for rid, (r, m) in enumerate(zip(requests, budgets)):
-                need = worst_case_blocks(int(r.shape[0]), m, chunk_steps, bs_blk, max_seq)
+                need = worst_case_blocks(int(r.shape[0]), m, chunk_steps, bs_blk, max_seq,
+                                         spec_k=spec_k)
                 if need > pool.usable:
                     raise ValueError(
                         f"request {rid}: worst-case footprint {need} blocks (prompt "
@@ -335,6 +377,12 @@ class Engine:
             key_chains: dict[int, list] = {}   # rid -> its prompt's hash chain
         else:
             caches = lm.init_caches(self.model, slots, max_seq, self._dt, dev)
+        # the drafter's KV: dense per-slot rows, draft_layers deep, in the
+        # paged mode too (draft_layers / n_repeats of one dense target cache)
+        draft_caches = (lm.init_caches(self.draft.cfg, slots, max_seq, self._dt, dev)
+                        if spec else None)
+        spec_stats = {"windows": 0, "proposed": 0, "accepted": 0, "emitted": 0}
+        draft_prefill_groups: list[list[int]] = []
         # host mirrors of the per-slot device state fed to each chunk
         tok = np.zeros((slots, 1), np.int32)
         pos = np.zeros((slots,), np.int64)
@@ -355,6 +403,14 @@ class Engine:
             out[: len(got)] = got
             outputs[rid] = out
             latency[rid] = time.perf_counter() - t0
+
+        def draft_prefill(tokens, lens, slots_a) -> None:
+            """Admission enters a slot's drafter row into lockstep: the full
+            prompt overwrites the whole row, so a recycled or preempted slot
+            never leaks its last occupant's drafter KV."""
+            lm.prefill_into_slots(self.draft.params, self.draft.cfg, tokens, lens,
+                                  slots_a, draft_caches, max_seq, self._dt)
+            draft_prefill_groups.append(list(tokens.shape))
 
         def activate_group(pairs, lens, last) -> None:
             """Shared admission tail (dense and paged): each request's first
@@ -392,10 +448,13 @@ class Engine:
                     lens = np.asarray([requests[rid].shape[0] for _, rid in grp], np.int64)
                     padded = np.stack([np.pad(requests[rid], (0, t_pad - requests[rid].shape[0]))
                                        for _, rid in grp])
+                    toks_d, lens_d = dev_int(padded), dev_int(lens)
                     last, _ = lm.prefill_into_slots(
-                        self.params, self.model, dev_int(padded), dev_int(lens),
+                        self.params, self.model, toks_d, lens_d,
                         [b for b, _ in grp], caches, max_seq, self._dt)
                     prefill_groups.append([len(grp), t_pad])
+                    if spec:
+                        draft_prefill(toks_d, lens_d, [b for b, _ in grp])
                     activate_group(grp, lens, last)
                     timing["prefill_s"] += time.perf_counter() - t1
 
@@ -480,10 +539,18 @@ class Engine:
                     suffix = np.stack([np.pad(requests[rid][start:], (0, t_pad - (L - start)))
                                        for _, rid, L, _ in grp])
                     tbls = torch.as_tensor(tables[[b for b, *_ in grp]], device=dev)
+                    lens_d = dev_int(lens)
                     last, _ = lm.prefill_into_pages(
-                        self.params, self.model, dev_int(suffix), dev_int(lens), tbls,
+                        self.params, self.model, dev_int(suffix), lens_d, tbls,
                         caches, start, self._dt, blocks_for(start + t_pad, bs_blk))
                     prefill_groups.append([len(grp), t_pad])
+                    if spec:
+                        # the drafter has no pool and no prefix cache: its
+                        # dense row takes the FULL prompt, padded to the
+                        # group's common start + t_pad
+                        full = np.stack([np.pad(requests[rid], (0, start + t_pad - L))
+                                         for _, rid, L, _ in grp])
+                        draft_prefill(dev_int(full), lens_d, [b for b, *_ in grp])
                     # register the fresh full prompt blocks for later
                     # admissions (first writer wins)
                     if prefix is not None:
@@ -501,14 +568,15 @@ class Engine:
 
         def ensure_chunk_coverage() -> None:
             """Before a chunk, every live row's table must cover its
-            ``chunk_steps`` writes (the chunk advances positions whatever the
-            budget left; writes past ``max_seq`` go to the sentinel).  Pool
+            ``chunk_steps`` writes, or a window's ``W`` (the chunk advances
+            positions whatever the budget left; writes past ``max_seq`` go to
+            the sentinel).  Pool
             exhaustion here evicts prefix entries, then preempts."""
             for b in list(sched.table.live_slots()):
                 s = sched.table.slots[b]
                 if not s.occupied or s.eos_hit:
                     continue                  # preempted or retired meanwhile
-                want = blocks_for(min(int(pos[b]) + chunk_steps, max_seq), bs_blk)
+                want = blocks_for(min(int(pos[b]) + steps_cov, max_seq), bs_blk)
                 need = int(want - covered[b])
                 if need <= 0:
                     continue
@@ -518,6 +586,62 @@ class Engine:
                 tables[b, int(covered[b]): int(covered[b]) + need] = fresh
                 table_dev["dirty"] = True
                 covered[b] += need
+
+        def run_window(tok_d, pos_d, eos_d) -> None:
+            """One speculative window over every slot: ``spec_k`` drafter
+            steps, ONE verify pass, the acceptance, one device-to-host read,
+            then the scheduler's accounting and (paged) the trim of rejected
+            coverage."""
+            nonlocal tok, pos, eos_hit
+            table = table_dev["arr"] if paged else None
+            draft, _ = speculative.draft_propose(
+                self.draft.params, self.draft.cfg, spec_k, tok_d, draft_caches, pos_d,
+                eos_d, self._dt)
+            x = torch.cat([tok_d, draft], dim=1)                   # (slots, W)
+            if paged and self.cfg.paged_read == "shadow":
+                view = lm.paged_views(caches, table)
+                logits, _ = lm.verify_window(self.params, self.model, x, view, pos_d,
+                                             self._dt)
+                lm.writeback_paged_chunk(caches, view, table, pos_d, W)
+            else:
+                logits, _ = lm.verify_window(self.params, self.model, x, caches, pos_d,
+                                             self._dt, table)
+            target = speculative.sample_tokens(logits.reshape(slots * W, -1)).reshape(slots, W)
+            emitted, m, eos_l = speculative.accept_window(draft, target, eos_d, eos, pad)
+            last = torch.gather(emitted, 1, torch.clamp_min(m - 1, 0)[:, None].long())
+            tok_l = torch.where((m > 0)[:, None], last, tok_d)
+            # one read: emitted (W), m, tok, pos and the EOS latch per slot
+            host = torch.cat([emitted.long(), m[:, None].long(), tok_l.long(),
+                              (pos_d + m)[:, None], eos_l[:, None].long()], dim=1).cpu().numpy()
+            emitted_h, m_h = host[:, :W], host[:, W]
+            tok = host[:, W + 1:W + 2].astype(np.int32)
+            pos = host[:, W + 2].copy()
+            eos_hit = host[:, W + 3].astype(bool)
+            # accept_window cuts m at an EOS, so no pad inside m: no eos_steps
+            spec_stats["windows"] += 1
+            for b, rid, n_keep, finished in sched.complete_spec_window(W, m_h, eos_hit):
+                spec_stats["proposed"] += spec_k
+                spec_stats["accepted"] += max(0, min(int(m_h[b]) - 1, spec_k))
+                spec_stats["emitted"] += n_keep
+                bufs[rid].extend(int(t) for t in emitted_h[b, :n_keep])
+                if finished:
+                    finalize(rid)
+                    sched.retire(b)
+                    if paged:
+                        release_slot_blocks(b)
+                    eos_hit[b] = True
+            if paged:
+                # roll back rejected coverage: blocks past the accepted
+                # frontier are the request's own fresh blocks (admission
+                # caps prefix reuse below blocks_for(pos')), so the trim
+                # frees them outright, with no copy
+                for b in sched.table.live_slots():
+                    keep = blocks_for(int(pos[b]), bs_blk)
+                    if keep < covered[b]:
+                        pool.trim_request(int(slot_rid[b]), keep)
+                        tables[b, keep:] = 0
+                        table_dev["dirty"] = True
+                        covered[b] = keep
 
         while True:
             admit_all_paged() if paged else admit_all()
@@ -535,6 +659,10 @@ class Engine:
             tok_d = torch.tensor(tok, device=dev)
             pos_d = dev_int(pos)
             eos_d = torch.tensor(eos_hit, device=dev)
+            if spec:
+                run_window(tok_d, pos_d, eos_d)
+                timing["decode_s"] += time.perf_counter() - t1
+                continue
             if paged and self.cfg.paged_read == "shadow":
                 # gather once per chunk, decode on the dense view, write the
                 # chunk's span back to the pools
@@ -575,6 +703,18 @@ class Engine:
             **timing,
             "prefill_groups": prefill_groups,
         }
+        if spec:
+            self.last_serve_stats["draft_prefill_groups"] = draft_prefill_groups
+            self.last_serve_stats["spec"] = {
+                "spec_k": spec_k,
+                "draft_layers": self.draft.n_layers,
+                "draft_quant": self.draft.quant,
+                "windows": spec_stats["windows"],
+                "proposed_drafts": spec_stats["proposed"],
+                "accepted_drafts": spec_stats["accepted"],
+                "acceptance_rate": spec_stats["accepted"] / max(spec_stats["proposed"], 1),
+                "emitted_tokens": spec_stats["emitted"],
+            }
         if paged:
             # after the drain every block is free or held by the prefix
             # cache alone: a leaked block or a wrong refcount fails here

@@ -3,9 +3,8 @@
 The port's own copy of ``repro/serve/scheduler.py`` (the port imports
 nothing of the JAX package): the same classes, decisions and counters, so
 the two engines schedule a workload identically
-(``tests/test_torch_paged.py`` drives both through the same operation
-sequences).  ``complete_spec_window`` waits for speculative decoding
-(ROADMAP queue 1, item 9).
+(``tests/test_torch_paged.py`` and ``tests/test_torch_speculative.py``
+drive both through the same operation sequences).
 
 The software analogue of the paper's idle-PE problem: a static batch keeps
 decoding into dead rows until the whole bucket drains, exactly like a
@@ -243,6 +242,42 @@ class ContinuousScheduler:
             hit = bool(eos_hits[b])
             s.remaining -= n_keep
             s.pos += n_keep          # host mirror; device froze latched rows
+            s.eos_hit = s.eos_hit or hit
+            useful = n_keep
+            if eos_steps is not None:
+                useful = min(useful, int(eos_steps[b]) + 1)
+            self.useful_token_steps += useful
+            s.useful_steps += useful
+            finished = hit or s.remaining == 0
+            out.append((b, s.request_id, n_keep, finished))
+        return out
+
+    def complete_spec_window(
+        self, window_steps: int, emitted_counts, eos_hits, eos_steps=None
+    ) -> list[tuple[int, int, int, bool]]:
+        """Account for one finished speculative window (DESIGN.md §9).
+
+        Unlike :meth:`complete_chunk`, where every live slot advances by
+        exactly ``chunk_steps``, a verify window emits a variable number of
+        tokens per row: ``emitted_counts[b]`` is the device's accepted count
+        ``m`` (matched drafts + the bonus token, cut at an in-window EOS; 0
+        for latched rows).  A row keeps ``min(m, remaining)`` of them: the
+        window can overshoot the budget on its last emission, and the host
+        clamp retires the row.  ``total_token_steps`` charges the full
+        ``window_steps = k + 1`` per slot, so rejected drafts count as waste
+        in ``mean_slot_utilization``, comparable across spec and non-spec
+        runs.  ``eos_steps`` as in :meth:`complete_chunk`.  Returns
+        ``(slot, request_id, n_keep, finished)`` per occupied slot.
+        """
+        out: list[tuple[int, int, int, bool]] = []
+        self.chunks_run += 1
+        self.total_token_steps += window_steps * len(self.table)
+        for b in self.table.occupied_slots():
+            s = self.table.slots[b]
+            n_keep = min(int(emitted_counts[b]), s.remaining)
+            hit = bool(eos_hits[b])
+            s.remaining -= n_keep
+            s.pos += n_keep
             s.eos_hit = s.eos_hit or hit
             useful = n_keep
             if eos_steps is not None:

@@ -25,7 +25,6 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_jax
-from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -148,9 +147,3 @@ def test_cli_continuous_paged_runs_on_cpu():
     assert r.returncode == 0, r.stderr
     assert "[serve:continuous] 5 requests, 20 tokens" in r.stdout
     assert "served=5/5" in r.stdout and "[serve:paged] block_size=4" in r.stdout
-
-
-def test_cli_refuses_speculative_decoding(capsys):
-    argv = ["--arch", ARCH, "--device", "cpu", "--engine", "continuous", "--spec-k", "1"]
-    assert tserve.main(argv) == 2
-    assert "--spec-k is not ported yet" in capsys.readouterr().err

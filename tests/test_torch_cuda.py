@@ -508,10 +508,12 @@ def test_gather_kernel_writes_only_its_views(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cfg", [{}, {"paged": True}, {"paged": True, "paged_read": "step"},
-                                 {"paged": True, "pool_blocks": 12}])
+                                 {"paged": True, "pool_blocks": 12}, {"spec_k": 3},
+                                 {"paged": True, "paged_read": "step", "spec_k": 2}])
 def test_reduced_continuous_engine_on_card_matches_cpu(cuda_device, cfg):
-    """The continuous engine, dense and paged, on the card (KAN kernels and
-    the gather kernel) gives the CPU's streams and counters."""
+    """The continuous engine, dense and paged, speculative or not, on the
+    card (KAN kernels and the gather kernel) gives the CPU's streams and
+    counters."""
     model = configs.get_reduced("kanformer-100m").model
     params = lm.init_params(model, seed=0, device="cpu")
     rs = np.random.RandomState(0)
@@ -529,10 +531,109 @@ def test_reduced_continuous_engine_on_card_matches_cpu(cuda_device, cfg):
     (cs, cst, _), (gs, gst, launches) = out["cpu"], out["cuda"]
     for a, b in zip(cs, gs):
         np.testing.assert_array_equal(a, b)
-    for key in ("chunks_run", "useful_token_steps", "n_preemptions", "paged"):
+    for key in ("chunks_run", "useful_token_steps", "n_preemptions", "paged", "spec"):
         assert cst.get(key) == gst.get(key)
-    assert (launches["gather_blocks"] > 0) == bool(cfg)
+    assert (launches["gather_blocks"] > 0) == bool(cfg.get("paged"))
     assert launches["kan_sparse_gemm"] > 0
+
+
+def _reduced_on(device, params):
+    return {"embed": {k: v.to(device) for k, v in params["embed"].items()},
+            "final_ln": {k: v.to(device) for k, v in params["final_ln"].items()},
+            "unit": [{s: {k: v.to(device) for k, v in sub.items()}
+                      for s, sub in params["unit"][0].items()}]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_window_kernel_path_matches_plain_path(cuda_device, paged):
+    """8 rows x W = 5 (40 rows: the fused kernel) through ``lm.verify_window``
+    on the card against the plain path on the CPU, logits atol 1e-4, and
+    against 5 sequential decode steps (the sparse kernel) on the card."""
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    rs = np.random.RandomState(7)
+    B, W, bs, S = 8, 5, 4, 32
+    toks = torch.as_tensor(rs.randint(0, model.vocab, (B, 9)))
+    window = torch.as_tensor(rs.randint(0, model.vocab, (B, W)))
+    lens = torch.as_tensor(rs.randint(3, 10, B))
+    table = torch.as_tensor((1 + np.arange(B * S // bs)).reshape(B, S // bs).astype(np.int32))
+
+    def run(device, verify):
+        p = params if device == "cpu" else _reduced_on(device, params)
+        t, ln = toks.to(device), lens.to(device)
+        tb = table.to(device) if paged else None
+        if paged:
+            caches = lm.init_paged_caches(model, 1 + B * S // bs, bs, torch.float32, device)
+            lm.prefill_into_pages(p, model, t, ln, tb, caches, 0, torch.float32)
+        else:
+            _, caches = lm.prefill(p, model, t, S)
+        if verify:
+            lg, _ = lm.verify_window(p, model, window.to(device), caches, ln, torch.float32, tb)
+            return lg
+        pos, out = ln.clone(), []
+        for j in range(W):
+            lg, caches = lm.decode_step(p, model, window[:, j:j + 1].to(device), caches, pos,
+                                        torch.float32, tb)
+            out.append(lg)
+            pos = pos + 1
+        return torch.stack(out, dim=1)
+
+    ops.reset_launches()
+    got = run(cuda_device, True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kan_fused_gemm"] == 2 * 2 * model.n_repeats     # prefill + verify
+    assert ops.LAUNCHES["kan_sparse_gemm"] == 0
+    assert (ops.LAUNCHES["gather_blocks"] > 0) == paged
+    torch.testing.assert_close(got.cpu(), run("cpu", True), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), run(cuda_device, False).cpu(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dense_span_write_drops_positions_past_the_cache(cuda_device):
+    """Row 0 overruns the cache by 2 of its 4 positions, row 1 starts past
+    it, row 2 fits: slots outside each row's in-range positions keep their
+    values, and the in-range ones take the window's, on the card."""
+    from repro_torch.models import attention as A
+
+    S, W = 16, 4
+    g = torch.Generator(device="cpu").manual_seed(3)
+    buf = torch.randn(3, S, 2, 8, generator=g)
+    val = torch.randn(3, W, 2, 8, generator=g)
+    pos = torch.tensor([S - 2, S + 1, 5])
+    positions = pos[:, None] + torch.arange(W)[None, :]
+    want = buf.clone()
+    for b in range(3):
+        for j in range(W):
+            if positions[b, j] < S:
+                want[b, positions[b, j]] = val[b, j]
+    cache = {"k": buf.to(cuda_device)}
+    A._write_cache_span(cache, "k", val.to(cuda_device), positions.to(cuda_device))
+    assert torch.equal(cache["k"].cpu(), want)
+
+
+@pytest.mark.cuda
+def test_drafter_is_views_of_the_target_on_the_card(cuda_device):
+    """``Engine(spec_k=...)`` derives its drafter from views of the weights
+    it placed on the card: no tensor of the unit is copied, and the device
+    memory does not grow, unless ``draft_quant`` asks for new weights."""
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device=cuda_device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = Engine(params, model, ServeConfig(max_seq=32, spec_k=2, draft_layers=1),
+                 device=cuda_device)
+    assert torch.cuda.memory_allocated() == before
+    for blk_t, blk_d in zip(eng.params["unit"], eng.draft.params["unit"]):
+        for sub in blk_t:
+            for k, a in blk_t[sub].items():
+                d = blk_d[sub][k]
+                assert d._base is a and d.data_ptr() == a.data_ptr() and d.shape[0] == 1
+    assert eng.draft.params["embed"] is eng.params["embed"]
+    quant = Engine(params, model, ServeConfig(max_seq=32, spec_k=2, draft_quant=True),
+                   device=cuda_device)
+    assert torch.cuda.memory_allocated() > before
+    assert quant.draft.params["unit"][0]["kan"]["c1"].data_ptr() != params["unit"][0]["kan"]["c1"].data_ptr()
 
 
 INT8 = {"kan_int8_gemm": ops.kan_int8_gemm, "kan_sparse_int8_gemm": ops.kan_sparse_int8_gemm}
