@@ -63,6 +63,26 @@ Phases; any failed check raises and the script exits non-zero:
    all four logits within ``LOGIT_ATOL`` of each other.  Each run is
    repeated warm, and the warm paged shadow run profiled.  Phase 3 checks
    and times both KAN kernels at the verify window's 40 rows.
+6c. Sampling at ``SAMPLE_T`` = 100 (a temperature where the Gumbel noise
+   beats the input token's ~500 logit lead on random weights): the threefry
+   port's Random123 known answers and golden ``jax.random`` values bit-equal
+   on the card, one ``(8, 32000)`` draw of bits equal to the CPU's and its
+   Gumbel noise within ``GUMBEL_ATOL``; phase 4's requests through
+   ``serve_requests``; the continuous cell through ``serve_continuous``
+   (dense, paged shadow, paged step, the 25-block pool, which must preempt)
+   and speculative windows (``spec_k = 4``, a 1-layer drafter: dense, paged
+   shadow, and paged with 4-token blocks, where ``trim_request`` must free
+   blocks), each with the launch counts reset just before and checked
+   exactly just after and the pool balanced after the drain.  The dense
+   streams equal each request served alone by ``generate``, and every other
+   run's streams the dense run's, unless the first divergence is a near-tie
+   of the perturbed scores (top-2 gap of ``logits / T + g`` below
+   ``LOGIT_ATOL / T``; counted and printed); at least
+   ``MIN_SAMPLED_SHARE`` of the dense run's tokens differ from the argmax
+   of their own logits; every speculative run accepts some drafts and
+   rejects some.  Warm paged shadow runs, greedy and sampled in turn, give
+   ms per decode step; one sampled run is profiled beside phase 6's greedy
+   one: kernels and device-busy ms per decode step, and the busy share.
 7. Integer-only KAN inference of full-width MNIST-KAN ([784, 64, 10],
    G=10, P=3, random weights from seed 0): every layer quantised on the
    card and held equal to a CPU quantisation; 2048 inputs (uniform over
@@ -952,6 +972,316 @@ def speculative_path(torch, np, dense=None, device="cuda", cfg=None):
             "profile": profile}
 
 
+# Phase 6c: sampling at temperature > 0.  On random weights the full-width
+# logits favour the input token by ~500 (phase 4's max|logit| ~530), so at
+# T <= 10 every draw is the argmax; at SAMPLE_T the largest of 32000 Gumbel
+# draws (~11) beats the ~5 the input token gets from its logit.
+SAMPLE_T = 100.0
+SAMPLE_SEED = 7
+MIN_SAMPLED_SHARE = 0.5             # sampled tokens off the argmax of their logits
+GUMBEL_ATOL = 1e-5                  # 4 float32 ulps at 16, the noise's top
+WARM_PAIRS = 3                      # warm greedy and sampled runs in turn
+# A rejected draft frees a 16-token block only where its window crossed
+# into a block the accepted prefix does not reach; with 4-token blocks a
+# window of W = 5 always crosses one, so that run is where rejected
+# coverage is seen to be rolled back by trim_request
+SAMPLE_SPEC_RUNS = [("spec_dense", {"spec_k": SPEC_K}),
+                    ("spec_paged_shadow", {"spec_k": SPEC_K, "paged": True}),
+                    ("spec_paged_blocks4", {"spec_k": SPEC_K, "paged": True, "block_size": 4})]
+# Random123's known answers for threefry2x32_20: key, counter, output
+THREEFRY_KAT = [((0x00000000, 0x00000000), (0x00000000, 0x00000000), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF), (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))]
+# jax.random of jax 0.9.0 (jax_threefry_partitionable=True) for f =
+# fold_in(PRNGKey(42), 7), uniforms as their float32 bits; the CPU tests hold
+# these constants to jax (tests/test_torch_sampling.py)
+THREEFRY_GOLDEN = {
+    "prng_key": [[0, 0], [0, 42], [0, 5]],            # seeds 0, 42, 2**32 + 5
+    "fold_in": [2547012911, 1371500959],
+    "split": [[1029767004, 2691955506], [3913626572, 2520847663], [675592481, 2815174185]],
+    "bits": [2635269230, 2130978531, 2408095496, 2660435744, 2228758927, 2222243316],
+    "uniform": [1058870020, 1056835660, 1057982622, 1058968326],
+    "uniform_ab": [1069889056, 1066934226, 1068557958, 1070036514],   # [-0.3, 2.7)
+}
+THREEFRY_GOLDEN_GUMBEL = [0.7165005207061768, 0.35544317960739136, 0.5471303462982178,
+                          0.7361504435539246]
+
+
+def check_threefry(torch, np, device="cuda"):
+    """The threefry port on ``device`` (any miss raises): Random123's known
+    answers and the golden ``jax.random`` values bit for bit (Gumbel noise
+    within ``GUMBEL_ATOL``), and one ``(8, 32000)`` draw of bits, and its
+    noise, against the same draw on the CPU."""
+    from repro_torch.serve import threefry as tf
+    from repro_torch.serve.engine import Engine
+
+    for key, ctr, want in THREEFRY_KAT:
+        got = tf.threefry2x32(*(torch.full((), v, dtype=torch.int64, device=device)
+                                for v in key + ctr))
+        if tuple(int(g) for g in got) != want:
+            raise RuntimeError(f"threefry2x32{key + ctr} = {got}, not {want}")
+    f = tf.fold_in(tf.prng_key(42, device), 7)
+    got = {"prng_key": [tf.prng_key(s, device).tolist() for s in (0, 42, 2 ** 32 + 5)],
+           "fold_in": f.tolist(), "split": tf.split(f, 3).tolist(),
+           "bits": tf.random_bits_u32(f, (6,)).tolist(),
+           "uniform": tf.uniform(f, (4,)).view(torch.int32).tolist(),
+           "uniform_ab": tf.uniform(f, (4,), -0.3, 2.7).view(torch.int32).tolist()}
+    for name, want in THREEFRY_GOLDEN.items():
+        if got[name] != want:
+            raise RuntimeError(f"threefry {name} on {device}: {got[name]} != jax's {want}")
+    g_err = max(abs(a - b) for a, b in zip(tf.gumbel(f, (4,)).tolist(), THREEFRY_GOLDEN_GUMBEL))
+    host = Engine._row_key_pairs(tf.prng_key(SAMPLE_SEED).numpy(), np.arange(8))[:, 1]
+    keys = {d: torch.as_tensor(host, device=d) for d in (device, "cpu")}
+    bits = {d: tf.random_bits_u32(k, (8, 32000)) for d, k in keys.items()}
+    noise = {d: tf.gumbel(k, (8, 32000)) for d, k in keys.items()}
+    equal = torch.equal(bits[device].cpu(), bits["cpu"])
+    n_err = (noise[device].cpu() - noise["cpu"]).abs().max().item()
+    log(f"[sample] threefry known answers {len(THREEFRY_KAT)}/{len(THREEFRY_KAT)} and golden "
+        f"values {len(THREEFRY_GOLDEN)}/{len(THREEFRY_GOLDEN)} bit-equal on {device}; golden "
+        f"Gumbel max_abs_err={g_err:.1e}; (8, 32000) bits on {device} equal to the CPU's: "
+        f"{equal}; noise max_abs_err={n_err:.1e} (tol {GUMBEL_ATOL:.0e})")
+    if not equal or max(g_err, n_err) > GUMBEL_ATOL:
+        raise RuntimeError("the threefry draw on the device disagrees with the CPU's")
+    return {"known_answers": len(THREEFRY_KAT), "golden": len(THREEFRY_GOLDEN),
+            "bits_equal_cpu": equal, "gumbel_golden_err": g_err, "noise_max_abs_err": n_err}
+
+
+def sampled_gaps(torch, np, params, cfg, prompt, stream, rid, seed, temperature, device):
+    """For each token of a sampled ``stream`` (request ``rid``), its logits
+    teacher-forced through one prefill: the top-2 gap of its perturbed
+    scores ``logits / T + g`` with that token's key
+    (``speculative.perturbed_top2_gap``), and whether it differs from the
+    argmax of its own logits."""
+    from repro_torch.models import lm
+    from repro_torch.serve import speculative as sp
+    from repro_torch.serve import threefry as tf
+    from repro_torch.serve.engine import Engine
+
+    seq = np.concatenate([prompt, stream[:-1]]).astype(np.int64)
+    logits, _ = lm.prefill(params, cfg, torch.as_tensor(seq[None], device=device), len(seq))
+    lg = logits[0, len(prompt) - 1:]
+    pair = Engine._row_key_pairs(tf.prng_key(seed).numpy(), [rid])[0]
+    kts = np.concatenate([pair[None, 1], sp.split_chain(pair[None, 0], len(stream) - 1)[0][0]])
+    noise = tf.gumbel(torch.as_tensor(kts, device=device), (cfg.vocab,))
+    gaps = sp.perturbed_top2_gap(lg, noise, temperature).cpu().numpy()
+    off = lg.argmax(-1).cpu().numpy() != stream
+    return gaps, off
+
+
+def sampling_path(torch, np, greedy=None, device="cuda", cfg=None, temperature=SAMPLE_T):
+    """Phase 6c (any miss raises): the threefry port's known answers on the
+    card, then phase 4's requests through ``serve_requests`` and the
+    continuous cell through ``serve_continuous`` (dense, paged shadow, paged
+    step, the 25-block pool) and speculative windows (a 1-layer drafter:
+    dense, paged shadow, paged shadow with 4-token blocks), all sampled at
+    ``temperature``, each run with the launch counts reset just before and
+    checked exactly just after and the pool balanced after the drain.
+    ``greedy``: phase 6's result, for the profiled comparison.
+    ``device="cpu"`` with a reduced ``cfg`` rehearses it on the kernels'
+    plain versions (every count 0)."""
+    import dataclasses
+
+    from repro_torch.configs import kanformer_100m
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_pool
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = cfg or kanformer_100m.config().model
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    out = {"temperature": temperature, "seed": SAMPLE_SEED,
+           "threefry": check_threefry(torch, np, device)}
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+
+    def counted(name, fn, want_fn):
+        sync()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = want_fn() if device == "cuda" else dict.fromkeys(ops.LAUNCHES, 0)
+        log(f"[sample] {name}: launches {launches}, expected {want}")
+        if launches != want:
+            raise RuntimeError(f"{name}: launch counts {launches} != expected {want}")
+        for o in outs:
+            if o.min() < 0 or o.max() >= cfg.vocab:
+                raise RuntimeError(f"{name}: bad output {o}")
+        return outs, wall, launches
+
+    # phase 4's requests through the static engine
+    batch, max_new = 4, 32
+    rs = np.random.RandomState(0)
+    lens4 = rs.randint(32, 129, 8)
+    reqs4 = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in lens4]
+    static = Engine(params, cfg, ServeConfig(max_seq=int(lens4.max()) + max_new + 8,
+                                             max_new_tokens=max_new, temperature=temperature),
+                    device=device)
+    per_pass = 2 * len(cfg.unit) * cfg.n_repeats
+    _, wall, launches = counted(
+        "static", lambda: static.serve_requests(reqs4, batch_size=batch, seed=SAMPLE_SEED),
+        lambda: dict(dict.fromkeys(ops.LAUNCHES, 0),
+                     kan_fused_gemm=len(static.last_serve_stats["buckets"]) * per_pass,
+                     kan_sparse_gemm=len(static.last_serve_stats["buckets"]) * (max_new - 1)
+                     * per_pass))
+    def per_step(buckets) -> float:
+        return (sum(b["decode_s"] for b in buckets) * 1e3
+                / sum(b["decode_steps"] for b in buckets))
+
+    cold = per_step(static.last_serve_stats["buckets"])
+    t0 = time.perf_counter()                       # warm, beside phase 4's warm run
+    static.serve_requests(reqs4, batch_size=batch, seed=SAMPLE_SEED)
+    sync()
+    warm_wall = time.perf_counter() - t0
+    out["static"] = {"tok_s": 8 * max_new / wall, "wall_s": wall, "launches": launches,
+                     "decode_ms_per_step": cold, "warm_tok_s": 8 * max_new / warm_wall,
+                     "warm_decode_ms_per_step": per_step(static.last_serve_stats["buckets"])}
+    log(f"[sample] static: {8 * max_new} tokens in {wall:.3f} s: {out['static']['tok_s']:.1f} "
+        f"tok/s, {cold:.3f} ms per decode step; warm {out['static']['warm_tok_s']:.1f} tok/s, "
+        f"{out['static']['warm_decode_ms_per_step']:.3f} ms per decode step")
+
+    # the continuous cell, four ways, then three speculative runs
+    reqs, budgets = continuous_requests(np, cfg.vocab)
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"], temperature=temperature)
+
+    def serve(eng):
+        return eng.serve_continuous(reqs, slots=CONT["slots"], chunk_steps=CONT["chunk_steps"],
+                                    max_new=budgets, seed=SAMPLE_SEED)
+
+    runs, streams, engines = {}, {}, {}
+    trims = []
+    trim = kv_pool.BlockPool.trim_request
+
+    def counting_trim(pool, rid, keep):            # blocks each trim frees
+        freed = trim(pool, rid, keep)
+        trims.append(len(freed))
+        return freed
+
+    for name, extra in CONT_RUNS + SAMPLE_SPEC_RUNS:
+        eng = engines[name] = Engine(params, cfg, dataclasses.replace(base, **extra),
+                                     device=device)
+        del trims[:]
+        kv_pool.BlockPool.trim_request = counting_trim
+        try:
+            outs, wall, launches = counted(name, lambda: serve(eng),
+                                           lambda: expected_launches(cfg, eng.last_serve_stats,
+                                                                     extra))
+        finally:
+            kv_pool.BlockPool.trim_request = trim
+        st = eng.last_serve_stats
+        pg, sp = st.get("paged", {}), st.get("spec")
+        steps = sp["windows"] if sp else st["chunks_run"] * CONT["chunk_steps"]
+        m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall, "launches": launches,
+             "decode_s": st["decode_s"], "prefill_s": st["prefill_s"],
+             ("windows" if sp else "decode_steps"): steps,
+             ("ms_per_window" if sp else "decode_ms_per_step"): st["decode_s"] * 1e3 / steps,
+             "n_preemptions": st["n_preemptions"], "blocks_freed_by_trims": sum(trims),
+             "trims_freeing": sum(1 for t in trims if t)}
+        if sp:
+            m.update(acceptance_rate=sp["acceptance_rate"], proposed_drafts=sp["proposed_drafts"],
+                     accepted_drafts=sp["accepted_drafts"],
+                     emitted_per_window=sp["emitted_tokens"] / sp["windows"])
+        log(f"[sample] {name}: {st['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.1f} "
+            f"tok/s; " + (f"windows {steps} ({m['ms_per_window']:.3f} ms host per window), "
+                          f"acceptance {sp['acceptance_rate']:.4f} ({sp['accepted_drafts']} of "
+                          f"{sp['proposed_drafts']} drafts), {m['emitted_per_window']:.2f} tokens "
+                          f"per window" if sp else
+                          f"{steps} decode steps ({m['decode_ms_per_step']:.3f} ms each)")
+            + f"; preemptions {st['n_preemptions']}; blocks freed by trims {sum(trims)}")
+        if pg and pg["blocks_in_use"] != pg["blocks_cache_held"]:
+            raise RuntimeError(f"{name}: the pool is not balanced after the drain: {pg}")
+        if name.endswith("preempt") and st["n_preemptions"] < 1:
+            raise RuntimeError(f"{name}: the tight pool preempted nothing")
+        if sp and not 0.0 < sp["acceptance_rate"] < 1.0:
+            raise RuntimeError(f"{name}: acceptance {sp['acceptance_rate']} is not in (0, 1)")
+        if name == "spec_paged_blocks4" and sum(trims) < 1:
+            raise RuntimeError(f"{name}: no rejection was rolled back by trim_request")
+        runs[name], streams[name] = m, outs
+
+    # the dense run against each request served alone by generate, every
+    # other run against the dense run; a divergence must start at a near-tie
+    # of the perturbed scores, a top-2 gap of logits / T + g below
+    # LOGIT_ATOL / T
+    alone = Engine(params, cfg, base, device=device)
+    solo = [alone.generate(r[None], request_ids=np.array([i]), max_new=b, seed=SAMPLE_SEED)[0]
+            for i, (r, b) in enumerate(zip(reqs, budgets))]
+    tie_tol = LOGIT_ATOL / temperature
+    divergences = []
+    for name, outs in [("dense_vs_solo", streams["dense"])] + [
+            (n, o) for n, o in streams.items() if n != "dense"]:
+        want = solo if name == "dense_vs_solo" else streams["dense"]
+        for i, (o, w) in enumerate(zip(outs, want)):
+            diff = np.nonzero(o != w)[0]
+            if diff.size:
+                j = int(diff[0])
+                g = float(sampled_gaps(torch, np, params, cfg, reqs[i], w, i, SAMPLE_SEED,
+                                       temperature, device)[0][j])
+                divergences.append({"run": name, "request": i, "step": j, "gap": g})
+                log(f"[sample] {name}: request {i} diverges at step {j}; perturbed top-2 gap "
+                    f"{g:.3e} (near-tie below {tie_tol:.1e})")
+                if g >= tie_tol:
+                    raise RuntimeError(f"{name}: request {i} diverges at step {j}, not a near-tie")
+    # the dense run's tokens against the argmax of their own logits
+    gaps, off = zip(*(sampled_gaps(torch, np, params, cfg, r, o, i, SAMPLE_SEED, temperature,
+                                   device) for i, (r, o) in enumerate(zip(reqs, streams["dense"]))))
+    share = float(np.concatenate(off).mean())
+    near = int(sum((g < tie_tol).sum() for g in gaps))
+    n_tok = sum(len(g) for g in gaps)
+    log(f"[sample] T={temperature}: {share:.4f} of {n_tok} sampled tokens differ from the "
+        f"argmax of their own logits (floor {MIN_SAMPLED_SHARE}); near-ties among them {near}; "
+        f"near-tie divergences {len(divergences)} over {len(streams)} runs")
+    if share < MIN_SAMPLED_SHARE:
+        raise RuntimeError(f"only {share:.4f} of the sampled tokens differ from the argmax")
+    out.update(runs=runs, sampled_share=share, near_ties=near, sampled_tokens=n_tok,
+               divergences=divergences)
+
+    # warm paged shadow runs, greedy and sampled in turn (WARM_PAIRS each,
+    # the same admissions and decode steps: the host's drift between calls
+    # falls on both), then one sampled run under the profiler beside phase
+    # 6's profiled greedy one
+    eng = engines["paged_shadow"]
+    twin = Engine(params, cfg, dataclasses.replace(base, paged=True, temperature=0.0),
+                  device=device)
+    per_step = {"greedy": [], "sampled": []}
+    for _ in range(WARM_PAIRS):
+        for kind, e in (("greedy", twin), ("sampled", eng)):
+            again = serve(e)
+            if kind == "sampled" and any(not np.array_equal(a, o) for a, o in
+                                         zip(again, streams["paged_shadow"])):
+                raise RuntimeError("a second sampled paged_shadow run gave other tokens")
+            st = e.last_serve_stats
+            steps = st["chunks_run"] * CONT["chunk_steps"]
+            per_step[kind].append(st["decode_s"] * 1e3 / steps)
+    mean = {k: sum(v) / len(v) for k, v in per_step.items()}
+    out["warm_shadow"] = {"decode_steps": steps, "decode_ms_per_step": per_step,
+                          "ratio_of_means": mean["sampled"] / mean["greedy"]}
+    log(f"[sample] warm paged_shadow runs in turn, ms per decode step: greedy "
+        f"{[round(x, 3) for x in per_step['greedy']]}, sampled "
+        f"{[round(x, 3) for x in per_step['sampled']]}; sampled over greedy "
+        f"{mean['sampled'] / mean['greedy']:.3f}")
+    if device == "cuda":
+        prof = profile_call(torch, lambda: serve(eng),
+                            lambda: f"one sampled paged_shadow run ({steps} decode steps)")
+        out["profile"] = prof
+        g = (greedy or {}).get("profile", {})
+        if prof.get("busy_share") is not None and g.get("kernels"):
+            out["vs_greedy"] = {
+                "kernels_per_step": prof["kernels"] / steps,
+                "greedy_kernels_per_step": g["kernels"] / steps,
+                "busy_ms_per_step": prof["busy_ms"] / steps,
+                "greedy_busy_ms_per_step": g["busy_ms"] / steps,
+                "busy_share": prof["busy_share"], "greedy_busy_share": g["busy_share"]}
+            v = out["vs_greedy"]
+            log(f"[sample] profiled sampled paged_shadow run vs phase 6's greedy one: "
+                f"{v['kernels_per_step']:.1f} vs {v['greedy_kernels_per_step']:.1f} kernels and "
+                f"{v['busy_ms_per_step']:.3f} vs {v['greedy_busy_ms_per_step']:.3f} ms of device "
+                f"busy time per decode step (admissions included); busy "
+                f"{v['busy_share']:.3f} vs {v['greedy_busy_share']:.3f} of the wall")
+    return out
+
+
 def main_path(torch, np):
     from repro_torch.configs import kanformer_100m
     from repro_torch.kernels import ops
@@ -1498,6 +1828,8 @@ def main() -> int:
     t3 = time.perf_counter()
     spec = speculative_path(torch, np, dense)
     t3s = time.perf_counter()
+    samp = sampling_path(torch, np, greedy=cont)
+    t3c = time.perf_counter()
     int8 = int8_path(torch, np)
     int8["profile"] = profile_call(torch, int8.pop("int8_net"),
                                    lambda: "one warm int8 MNIST-KAN run (2048 inputs)")
@@ -1506,12 +1838,16 @@ def main() -> int:
     gkan = gkan_path(torch)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
-        f"int8 path {t4 - t3s:.1f} s, GKAN {time.perf_counter() - t4:.1f} s")
+        f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
+        f"GKAN {time.perf_counter() - t4:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
-            "speculative_path": spec, "int8_path": int8, "gkan_path": gkan, "build_s": built}
+            "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
+            "gkan_path": gkan, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
+               "sampled_static": samp["static"]["launches"],
+               **{"sampled_" + k: m["launches"] for k, m in samp["runs"].items()},
                **{k: m["launches"] for k, m in int8["runs"].items()},
                **{k: m["launches"] for k, m in gkan["runs"].items()}}
     for name, meta in KERNELS.items():

@@ -6,10 +6,11 @@ continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
 ``--batch`` slots, ``--chunk-steps`` per chunk) and reports its slot
 utilization; ``--paged`` (continuous only) serves from the paged block pool
 with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
-``--spec-k K`` (continuous only) serves greedy speculative windows of a
+``--spec-k K`` (continuous only) serves speculative windows of a
 ``--draft-layers``-deep drafter (``--draft-quant``: int8 fake-quantised).
-``--mesh`` and ``--temperature > 0`` exit with rc=2 and say they are not
-ported yet.  Reduced shapes are the default; ``--full`` selects the full
+``--temperature T > 0`` samples in every engine mode, each request's key
+chain keyed by ``--seed`` and its index, as the reference's CLI does;
+``--mesh`` exits with rc=2 and says it is not ported yet.  Reduced shapes are the default; ``--full`` selects the full
 config.  Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -83,8 +84,6 @@ def _refusal(args, model) -> str | None:
                 "(needs token-input full-attention GQA blocks)")
     if args.mesh is not None:
         return "--mesh is not ported yet (ROADMAP queue 1, item 9)"
-    if args.temperature > 0.0:
-        return "--temperature > 0 is not ported yet (ROADMAP queue 1, item 4)"
     return None
 
 
@@ -101,7 +100,7 @@ def main(argv=None) -> int:
         max_seq = -(-max_seq // args.block_size) * args.block_size
     eng = Engine(params, model,
                  ServeConfig(max_seq=max_seq, max_new_tokens=args.max_new,
-                             eos_id=args.eos_id, paged=args.paged,
+                             temperature=args.temperature, eos_id=args.eos_id, paged=args.paged,
                              block_size=args.block_size, pool_blocks=args.pool_blocks,
                              spec_k=args.spec_k, draft_layers=args.draft_layers,
                              draft_quant=args.draft_quant),

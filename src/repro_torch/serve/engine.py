@@ -1,4 +1,4 @@
-"""Greedy serving engines (counterpart of ``repro/serve/engine.py``).
+"""Serving engines (counterpart of ``repro/serve/engine.py``).
 
 Two serving entry points share one decode loop
 (:meth:`Engine._decode_chunk`, a Python loop of ``lm.decode_step`` calls;
@@ -17,8 +17,8 @@ CUDA graphs come later):
   (DESIGN.md §3b); the decode chunk then reads the pool through the
   block-table gather kernel, once per chunk (``paged_read="shadow"``) or
   every step (``"step"``).  With ``ServeConfig.spec_k >= 1`` each decode
-  chunk becomes a greedy speculative window (``serve/speculative.py``): a
-  drafter proposes ``spec_k`` tokens, one target pass verifies them.
+  chunk becomes a speculative window (``serve/speculative.py``): a drafter
+  proposes ``spec_k`` tokens, one target pass verifies them.
 
 Padding is right-padding with per-row ``lengths``: real tokens sit at
 positions ``0..len-1``, each row takes its first token from the logits at
@@ -27,13 +27,25 @@ overwriting the pad K/V in the cache before the mask ``kv_slot <= pos_b``
 can expose it.  Without ``lengths`` and with EOS off, ``generate`` uses one
 scalar position for every row.
 
+Sampling is per row, as the reference's: at ``temperature > 0`` each row's
+threefry key chain is ``fold_in(PRNGKey(seed), request_id)`` split once per
+emitted token (``serve/threefry.py``), never its batch position, and each
+token is that row's ``categorical`` draw (``speculative.sample_tokens``).
+The chains are integer hashes that never depend on a token, so the engine
+keeps them on the host: a chunk's step keys are split before its first step
+and uploaded in the same transfer as its other per-slot state, and the
+Gumbel noise of its steps is drawn on the device in one pass per
+``NOISE_STEPS`` steps; a speculative window resumes each chain after its
+``m`` emissions.  A request recomputed after a preemption re-derives its
+chain from its id and draws the same stream.  At ``temperature <= 0``
+decoding is greedy (argmax) and no chain is split.
+
 EOS (``eos_id >= 0``) latches per row: the EOS token is emitted, every
 later step of that row emits ``pad_id`` and its position freezes.  A
-request's output is the same whether it is served alone by ``generate``,
-in a static bucket or by either continuous engine.
+request's output, greedy or sampled, is the same whether it is served alone
+by ``generate``, in a static bucket or by either continuous engine.
 
-Meshes and sampling at ``temperature > 0`` are not ported yet (ROADMAP
-queue 1, items 9 and 4).
+Meshes are not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -46,12 +58,14 @@ import torch
 
 from repro_torch import set_ieee_fp32
 from repro_torch.models import lm
-from repro_torch.serve import speculative
+from repro_torch.serve import speculative, threefry
 from repro_torch.serve.kv_pool import BlockPool, blocks_for, worst_case_blocks
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import ContinuousScheduler
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# decode steps whose Gumbel noise one batched draw makes
+NOISE_STEPS = 8
 
 
 @dataclasses.dataclass
@@ -78,7 +92,8 @@ class ServeConfig:
     # Speculative decoding (DESIGN.md §9, serve/speculative.py),
     # serve_continuous only: a shrunken KAN drafter proposes spec_k tokens
     # per window and ONE target pass verifies all spec_k + 1 positions.
-    # Greedy streams equal spec_k = 0's up to the kernels' summation order.
+    # Streams, greedy or sampled, equal spec_k = 0's up to the kernels'
+    # summation order.
     spec_k: int = 0              # drafts per window; 0 disables speculation
     draft: object | None = None  # a speculative.DraftModel; None derives one
                                  # from the target's parameters at init
@@ -97,8 +112,6 @@ def _to_device(tree, device):
 class Engine:
     def __init__(self, params, model_cfg: lm.ModelConfig, serve_cfg: ServeConfig,
                  device="cuda"):
-        if serve_cfg.temperature > 0.0:
-            raise NotImplementedError(speculative.SAMPLING_NOT_PORTED)
         lm.check_supported(model_cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -135,18 +148,61 @@ class Engine:
                 f"request {rid}: prompt_len {prompt_len} + max_new {max_new} "
                 f"= {prompt_len + max_new} exceeds max_seq {self.cfg.max_seq}")
 
-    def _decode_chunk(self, steps: int, tok, caches, pos, eos_hit, eos: int, table=None):
-        """``steps`` greedy decode steps from ``tok (B, 1)`` at ``pos``
-        (scalar, or ``(B,)`` per row); the counterpart of the reference's
-        ``_scan_impl``.  A row whose EOS latch is set emits ``pad_id`` and
-        its per-row position freezes.  Returns ``(toks (steps, B), tok,
-        caches, pos, eos_hit)``, the carry the next chunk resumes from."""
+    # ------------------------------------------------------------------
+    # per-row PRNG: key chain = fold_in(base, request_id), split per token
+    # ------------------------------------------------------------------
+
+    @property
+    def _sampled(self) -> bool:
+        return self.cfg.temperature > 0.0
+
+    @staticmethod
+    def _row_key_pairs(base_key: np.ndarray, request_ids) -> np.ndarray:
+        """``(B,)`` request ids -> ``(B, 2, 2)`` int64 host keys: ``[:, 0]``
+        the carried chain key, ``[:, 1]`` the first sampling key.  Row by
+        row, so a solo call and any batched call agree bit for bit."""
+        return threefry.split(threefry.fold_in(base_key, np.asarray(request_ids, np.int64)))
+
+    def _keys_first(self, base_key: np.ndarray, request_ids, last_logits):
+        """-> ``(carry keys (B, 2) on the host, first token (B,) int32 on the
+        device)``: each row's key chain and its first token, from the logits
+        at its last real prompt position.  One definition serves
+        ``generate`` and continuous admission.  Greedy: no chain, argmax."""
+        if not self._sampled:
+            return None, self._sample(last_logits, None)
+        pairs = self._row_key_pairs(base_key, request_ids)
+        first = torch.as_tensor(pairs[:, 1], device=last_logits.device)
+        return pairs[:, 0], self._sample(last_logits, first)
+
+    def _sample(self, logits: torch.Tensor, step_keys) -> torch.Tensor:
+        """``logits (B, vocab)``, ``step_keys (B, 2)``: the one sampling
+        definition (``speculative.sample_tokens``) shared with the drafter
+        and the verifier."""
+        return speculative.sample_tokens(logits, step_keys, self.cfg.temperature)
+
+    def _decode_chunk(self, steps: int, tok, caches, pos, eos_hit, eos: int, table=None,
+                      step_keys=None):
+        """``steps`` decode steps from ``tok (B, 1)`` at ``pos`` (scalar, or
+        ``(B,)`` per row); the counterpart of the reference's
+        ``_scan_impl``.  ``step_keys (B, steps, 2)`` on the device: each
+        step's sampling key per row (every row splits at every step, latched
+        rows too), ``None`` when greedy; the Gumbel noise of ``NOISE_STEPS``
+        steps is drawn at a time.  A row whose EOS latch is set emits
+        ``pad_id`` and its per-row position freezes.  Returns ``(toks
+        (steps, B), tok, caches, pos, eos_hit)``, the carry the next chunk
+        resumes from."""
         pad = torch.full((), self.cfg.pad_id, dtype=torch.int32, device=tok.device)
         toks = []
-        for _ in range(steps):
+        noise = None
+        for s in range(steps):
             lg, caches = lm.decode_step(self.params, self.model, tok, caches, pos,
                                         self._dt, table)
-            nxt = speculative.sample_tokens(lg, self.cfg.temperature)
+            if self._sampled and s % NOISE_STEPS == 0:
+                noise = threefry.gumbel(step_keys[:, s:s + NOISE_STEPS],
+                                        (self.model.vocab,))
+            nxt = speculative.sample_with_noise(
+                lg, None if noise is None else noise[:, s % NOISE_STEPS],
+                self.cfg.temperature)
             emitted = torch.where(eos_hit, pad, nxt)
             if pos.dim() == 0:                # one shared position
                 pos = pos + 1
@@ -172,8 +228,12 @@ class Engine:
         """prompts: (B, T_prompt) int32 -> (B, max_new) int32.
 
         ``lengths`` (optional, (B,)): true prompt lengths of right-padded
-        prompts.  ``request_ids`` and ``seed`` key the per-row sampling
-        chains of the reference; greedy decoding does not read them.
+        prompts; each row samples from the logits at its own last real token
+        and decodes from its own start offset.  ``request_ids`` (optional,
+        (B,), default ``arange(B)``) and ``seed`` key each row's sampling
+        chain, ``fold_in(PRNGKey(seed), request_id)``: rows with the same id
+        draw the same noise in any batch.  Greedy decoding does not read
+        them.  ``max_new``/``eos_id`` override the config per call.
         """
         B, T = prompts.shape
         max_new = self.cfg.max_new_tokens if max_new is None else int(max_new)
@@ -205,11 +265,16 @@ class Engine:
                 raise ValueError(f"lengths {lens} must be (B,) within [1, {T}]")
             pos = torch.as_tensor(lens, device=dev)
             last = logits[rows, pos - 1]
-        tok = speculative.sample_tokens(last, self.cfg.temperature)
+        keys, tok = self._keys_first(threefry.prng_key(seed).numpy(), rids, last)
+        step_keys = None
+        if self._sampled:                     # every step's key, in one upload
+            kts, _ = speculative.split_chain(keys, max_new - 1)
+            step_keys = torch.as_tensor(kts, device=dev)
         self._sync()
         t1 = time.perf_counter()
         eos_hit = tok == eos                  # eos = -1 never matches
-        toks, *_ = self._decode_chunk(max_new - 1, tok[:, None], caches, pos, eos_hit, eos)
+        toks, *_ = self._decode_chunk(max_new - 1, tok[:, None], caches, pos, eos_hit, eos,
+                                      step_keys=step_keys)
         out = torch.cat([tok[None], toks]).T.cpu().numpy()
         t2 = time.perf_counter()
         self.last_generate_stats = {
@@ -222,7 +287,10 @@ class Engine:
         self, requests: list[np.ndarray], batch_size: int = 8, seed: int = 0
     ) -> list[np.ndarray]:
         """Bucket requests by length into fixed batches (padded with copies)
-        and drain bucket by bucket; outputs in request order."""
+        and drain bucket by bucket; outputs in request order.  Each row's
+        sampling chain is keyed by its request's index in ``requests`` (a
+        padding copy by the index of the request it copies), so outputs,
+        greedy or sampled, never depend on batch mates or padding."""
         order = sorted(range(len(requests)), key=lambda i: requests[i].shape[0])
         results: list[np.ndarray | None] = [None] * len(requests)
         t0 = time.perf_counter()
@@ -303,11 +371,14 @@ class Engine:
         can count the kernel launches a run implies.
 
         With ``cfg.spec_k >= 1`` every decode chunk is one speculative
-        window: the drafter proposes ``spec_k`` tokens by greedy decode steps
-        on its own dense per-slot cache, ONE ``lm.verify_window`` pass
-        scores the ``W = spec_k + 1`` positions, ``accept_window`` keeps the
-        longest matching prefix plus the bonus token, and (paged) the rows'
-        block coverage is trimmed back to what the accepted prefix holds.
+        window: the drafter proposes ``spec_k`` tokens by decode steps on
+        its own dense per-slot cache, sampling with the first ``spec_k``
+        step keys of each row's chain, ONE ``lm.verify_window`` pass scores
+        the ``W = spec_k + 1`` positions and samples the target there with
+        the chain's ``W`` step keys, ``accept_window`` keeps the longest
+        matching prefix plus the bonus token, each chain resumes after its
+        ``m`` emissions, and (paged) the rows' block coverage is trimmed
+        back to what the accepted prefix holds.
         The stats then carry the reference's ``"spec"`` sub-dict, and the
         port adds ``draft_prefill_groups`` (the drafter's admission prefills,
         as ``prefill_groups``).
@@ -383,10 +454,13 @@ class Engine:
                         if spec else None)
         spec_stats = {"windows": 0, "proposed": 0, "accepted": 0, "emitted": 0}
         draft_prefill_groups: list[list[int]] = []
-        # host mirrors of the per-slot device state fed to each chunk
+        # host mirrors of the per-slot device state fed to each chunk; the
+        # key chains live only here (they never depend on a token)
         tok = np.zeros((slots, 1), np.int32)
         pos = np.zeros((slots,), np.int64)
+        keys = np.zeros((slots, 2), np.int64)
         eos_hit = np.ones((slots,), bool)      # empty slots stay latched
+        base = threefry.prng_key(seed).numpy()
         bufs: list[list[int]] = [[] for _ in range(n)]
         outputs: list[np.ndarray | None] = [None] * n
         latency = [0.0] * n
@@ -413,11 +487,13 @@ class Engine:
             draft_prefill_groups.append(list(tokens.shape))
 
         def activate_group(pairs, lens, last) -> None:
-            """Shared admission tail (dense and paged): each request's first
-            token from its prefill logits, then activate its slot, or retire
-            it at once (a budget of one token, or a first token that is
-            EOS)."""
-            firsts = speculative.sample_tokens(last, self.cfg.temperature).cpu().numpy()
+            """Shared admission tail (dense and paged): each request's key
+            chain, derived from its id (so a request recomputed after a
+            preemption draws the same stream), and its first token from its
+            prefill logits; then activate its slot, or retire it at once (a
+            budget of one token, or a first token that is EOS)."""
+            kcs, firsts = self._keys_first(base, [rid for _, rid in pairs], last)
+            firsts = firsts.cpu().numpy()
             for j, (b, rid) in enumerate(pairs):
                 first = int(firsts[j])
                 bufs[rid].append(first)
@@ -431,6 +507,8 @@ class Engine:
                 else:
                     tok[b, 0] = first
                     pos[b] = int(lens[j])
+                    if kcs is not None:
+                        keys[b] = kcs[j]
                     eos_hit[b] = False
 
         def admit_all() -> None:
@@ -587,16 +665,23 @@ class Engine:
                 table_dev["dirty"] = True
                 covered[b] += need
 
-        def run_window(tok_d, pos_d, eos_d) -> None:
+        def run_window(tok_d, pos_d, eos_d, kts_d, chains) -> None:
             """One speculative window over every slot: ``spec_k`` drafter
             steps, ONE verify pass, the acceptance, one device-to-host read,
             then the scheduler's accounting and (paged) the trim of rejected
-            coverage."""
-            nonlocal tok, pos, eos_hit
+            coverage.  Sampled, the window's ``W`` steps of noise are drawn
+            once from the step keys ``kts_d (slots, W, 2)``: the drafter takes
+            the first ``spec_k``, the verifier all ``W``, and each chain
+            resumes from ``chains[b, m_b]``."""
+            nonlocal tok, pos, keys, eos_hit
             table = table_dev["arr"] if paged else None
+            T = self.cfg.temperature
+            noise = None
+            if self._sampled:
+                noise = threefry.gumbel(kts_d, (self.model.vocab,))   # (slots, W, V)
             draft, _ = speculative.draft_propose(
                 self.draft.params, self.draft.cfg, spec_k, tok_d, draft_caches, pos_d,
-                eos_d, self._dt)
+                None, eos_d, T, self._dt, None if noise is None else noise[:, :spec_k])
             x = torch.cat([tok_d, draft], dim=1)                   # (slots, W)
             if paged and self.cfg.paged_read == "shadow":
                 view = lm.paged_views(caches, table)
@@ -606,7 +691,9 @@ class Engine:
             else:
                 logits, _ = lm.verify_window(self.params, self.model, x, caches, pos_d,
                                              self._dt, table)
-            target = speculative.sample_tokens(logits.reshape(slots * W, -1)).reshape(slots, W)
+            target = speculative.sample_with_noise(
+                logits.reshape(slots * W, -1),
+                None if noise is None else noise.reshape(slots * W, -1), T).reshape(slots, W)
             emitted, m, eos_l = speculative.accept_window(draft, target, eos_d, eos, pad)
             last = torch.gather(emitted, 1, torch.clamp_min(m - 1, 0)[:, None].long())
             tok_l = torch.where((m > 0)[:, None], last, tok_d)
@@ -617,6 +704,8 @@ class Engine:
             tok = host[:, W + 1:W + 2].astype(np.int32)
             pos = host[:, W + 2].copy()
             eos_hit = host[:, W + 3].astype(bool)
+            if chains is not None:           # resume after exactly m splits
+                keys = chains[np.arange(slots), m_h]
             # accept_window cuts m at an EOS, so no pad inside m: no eos_steps
             spec_stats["windows"] += 1
             for b, rid, n_keep, finished in sched.complete_spec_window(W, m_h, eos_hit):
@@ -656,11 +745,21 @@ class Engine:
             if paged and table_dev["dirty"]:
                 table_dev["arr"] = torch.tensor(tables, device=dev)
                 table_dev["dirty"] = False
-            tok_d = torch.tensor(tok, device=dev)
-            pos_d = dev_int(pos)
-            eos_d = torch.tensor(eos_hit, device=dev)
+            # one upload of the per-slot state: token, position, EOS latch
+            # and, sampled, the step keys of every row's chain
+            steps = W if spec else chunk_steps
+            state = [tok, pos[:, None], eos_hit[:, None]]
+            kts = chains = None
+            if self._sampled:
+                kts, chains = speculative.split_chain(keys, steps)
+                state.append(kts.reshape(slots, 2 * steps))
+            up = dev_int(np.concatenate([np.asarray(a, np.int64) for a in state], axis=1))
+            tok_d = up[:, :1].to(torch.int32)
+            pos_d = up[:, 1].contiguous()
+            eos_d = up[:, 2].bool()
+            kts_d = up[:, 3:].reshape(slots, steps, 2) if self._sampled else None
             if spec:
-                run_window(tok_d, pos_d, eos_d)
+                run_window(tok_d, pos_d, eos_d, kts_d, chains)
                 timing["decode_s"] += time.perf_counter() - t1
                 continue
             if paged and self.cfg.paged_read == "shadow":
@@ -668,13 +767,15 @@ class Engine:
                 # chunk's span back to the pools
                 view = lm.paged_views(caches, table_dev["arr"])
                 toks, tok_l, view, pos_l, eos_l = self._decode_chunk(
-                    chunk_steps, tok_d, view, pos_d, eos_d, eos)
+                    chunk_steps, tok_d, view, pos_d, eos_d, eos, step_keys=kts_d)
                 lm.writeback_paged_chunk(caches, view, table_dev["arr"], pos_d, chunk_steps)
             else:
                 toks, tok_l, caches, pos_l, eos_l = self._decode_chunk(
                     chunk_steps, tok_d, caches, pos_d, eos_d, eos,
-                    table_dev["arr"] if paged else None)
+                    table_dev["arr"] if paged else None, kts_d)
             toks, tok, pos, eos_hit = (a.cpu().numpy().copy() for a in (toks, tok_l, pos_l, eos_l))
+            if chains is not None:           # every row split chunk_steps times
+                keys = chains[:, chunk_steps]
             timing["decode_s"] += time.perf_counter() - t1
             if eos >= 0:
                 # first in-chunk EOS per slot (chunk_steps if none): pads

@@ -1,4 +1,4 @@
-"""Greedy speculative decoding (counterpart of ``repro/serve/speculative.py``).
+"""Speculative decoding (counterpart of ``repro/serve/speculative.py``).
 
 A cheap drafter proposes ``k`` tokens per row by ``k`` decode steps, and ONE
 verification pass of the target (``lm.verify_window``) scores all ``W = k +
@@ -10,12 +10,22 @@ unit (views of its parameters, no second checkpoint), optionally int8
 fake-quantised.
 
 Acceptance (:func:`accept_window`): window position ``j`` emits the
-target's greedy token ``t_j``, and the drafter's ``d_j`` is accepted iff
-``d_j == t_j``.  So the emitted stream is always the target's own greedy
-stream; the drafter moves only the acceptance rate.  The target's tokens
-come from a forward at ``B·W`` rows instead of ``B``, so on the card they
-equal the sequential engine's up to the kernels' summation order: a stream
-can differ only where two logits are within that rounding (a near-tie).
+target's token ``t_j``, sampled from the target's logits with the request's
+own chain key for that emission (greedy: the argmax), and the drafter's
+``d_j``, sampled with the same key, is accepted iff ``d_j == t_j``.  So the
+emitted stream is always the target chain's own stream; the drafter moves
+only the acceptance rate.  The target's tokens come from a forward at
+``B·W`` rows instead of ``B``, so on the card they equal the sequential
+engine's up to the kernels' summation order: a stream can differ only where
+two perturbed scores are within that rounding (a near-tie).
+
+Sampling (:func:`sample_tokens`) is the reference's ``categorical`` draw
+per row, ``argmax(logits / T + gumbel(key))``, on the threefry port
+(``serve/threefry.py``).  The Gumbel noise depends only on the key, not on
+the logits, so a caller that knows a chunk's keys up front (every decode
+chunk and verify window does: :func:`split_chain`) draws the noise of all
+its steps in one batched call and samples each step with
+:func:`sample_with_noise`; the tokens are the same.
 
 Cache lockstep (DESIGN.md §9): the drafter keeps its own dense cache
 ``(slots, max_seq)`` over ``draft_layers`` layers.  The draft loop writes
@@ -23,35 +33,80 @@ Cache lockstep (DESIGN.md §9): the drafter keeps its own dense cache
 hold the emitted stream's KV, and what lies beyond is rewritten by the next
 window before any causal mask can expose it, the same argument that lets
 the target cache skip rollback.
-
-Only greedy decoding is ported.  Sampling at ``temperature > 0`` and the
-reference's ``split_chain`` (each row's threefry key chain, advanced ``n``
-splits up front) need the threefry port (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.models import lm
-
-SAMPLING_NOT_PORTED = (
-    "temperature > 0 sampling needs the threefry PRNG port (ROADMAP queue 1, "
-    "item 4); only greedy decoding is ported")
+from repro_torch.serve import threefry
 
 
-def sample_tokens(logits: torch.Tensor, temperature: float = 0.0) -> torch.Tensor:
-    """``logits (R, vocab)`` -> ``(R,)`` int32 tokens.
+def sample_with_noise(logits: torch.Tensor, noise: torch.Tensor | None,
+                      temperature: float) -> torch.Tensor:
+    """``logits (R, vocab)`` and their rows' Gumbel noise ``(R, vocab)``
+    (``threefry.gumbel(step_keys, (vocab,))``) -> ``(R,)`` int32:
+    ``argmax(logits / T + noise)``, the division in float32 by a tensor on
+    the logits' device (a CPU scalar divisor would let the card multiply by
+    its reciprocal), first index on ties.  At ``temperature <= 0`` the
+    argmax of the logits; ``noise`` is not read."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if logits.dtype != torch.float32:
+        raise TypeError(f"sampling takes float32 logits, got {logits.dtype}")
+    t = torch.full((), temperature, dtype=torch.float32, device=logits.device)
+    return torch.argmax(logits / t + noise, dim=-1).to(torch.int32)
 
-    Greedy only: argmax, first index on ties (as ``jnp.argmax``).  Sampling
-    at ``temperature > 0`` needs the reference's threefry key chains ported
-    (ROADMAP queue 1, item 4) to give the same draws, so it raises.
-    """
+
+def sample_tokens(logits: torch.Tensor, step_keys: torch.Tensor | None,
+                  temperature: float) -> torch.Tensor:
+    """Per-row sampling: ``logits (R, vocab)``, ``step_keys (R, 2)``, one
+    key per row -> ``(R,)`` int32.  The reference's ``vmap(categorical(k,
+    lg / temperature))``: each row's draw is a function of its key and its
+    logits alone, so a row samples the same token at any batch shape.  At
+    ``temperature <= 0`` the argmax (``step_keys`` may be None)."""
+    noise = None
     if temperature > 0.0:
-        raise NotImplementedError(SAMPLING_NOT_PORTED)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        noise = threefry.gumbel(step_keys, logits.shape[-1:])
+    return sample_with_noise(logits, noise, temperature)
+
+
+def perturbed_top2_gap(logits: torch.Tensor, noise: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """``(R,)`` float32: the gap between the two highest perturbed scores
+    ``logits / T + noise`` of each row.  Two samplers whose logits differ
+    by ``e`` (and noise by ``g``) can draw different tokens only where it
+    is below ``2 * (e / T + g)``: a near-tie."""
+    t = torch.full((), temperature, dtype=torch.float32, device=logits.device)
+    top = torch.topk(logits.float() / t + noise, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def split_chain(keys, n: int):
+    """Advance every row's key chain ``n`` splits up front.
+
+    ``keys (B, 2)`` -> ``(kts (B, n, 2), chains (B, n + 1, 2))``:
+    ``kts[:, j]`` is the sampling key of the chain's ``j``-th split and
+    ``chains[:, j]`` the carry after ``j`` splits (``chains[:, 0] ==
+    keys``), split for split the sequential decode loop's ``pairs =
+    split(keys); keys, kt = pairs[:, 0], pairs[:, 1]``.  A window that emits
+    ``m`` tokens resumes from ``chains[:, m]``.  Takes torch or numpy keys
+    (``threefry.split``) and returns the same kind."""
+    carry, kts, chains = keys, [], [keys]
+    for _ in range(n):
+        pairs = threefry.split(carry)
+        carry = pairs[..., 0, :]
+        kts.append(pairs[..., 1, :])
+        chains.append(carry)
+    if isinstance(keys, torch.Tensor):
+        empty = keys.new_empty((keys.shape[0], 0, 2))
+        return (torch.stack(kts, dim=1) if kts else empty), torch.stack(chains, dim=1)
+    empty = np.empty((keys.shape[0], 0, 2), keys.dtype)
+    return (np.stack(kts, axis=1) if kts else empty), np.stack(chains, axis=1)
 
 
 def accept_window(
@@ -91,16 +146,26 @@ def draft_propose(
     tok: torch.Tensor,                # (B, 1) last emitted token
     caches: dict,                     # drafter dense caches, updated in place
     pos: torch.Tensor,                # (B,) window start positions
+    keys,                             # (B, 2) the request chains (not consumed)
     eos_hit: torch.Tensor,            # (B,) latched rows freeze their position
+    temperature: float = 0.0,
     compute_dtype=torch.float32,
+    noise: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Propose ``k`` greedy tokens per row by ``k`` drafter decode steps.
+    """Propose ``k`` tokens per row by ``k`` drafter decode steps, sampling
+    step ``j`` with the chain key ``split_chain(keys, k)[0][:, j]``, the key
+    the verifier replays for the target at window position ``j``.  The
+    chain itself is not consumed.  ``noise (B, k, vocab)``, when the caller
+    has drawn it (``threefry.gumbel`` of those keys), replaces ``keys``.
     Latched rows keep their position frozen (they rewrite only their own
     dead slot).  Returns ``(draft (B, k) int32, caches)``."""
+    if temperature > 0.0 and noise is None:
+        kts, _ = split_chain(keys, k)
+        noise = threefry.gumbel(torch.as_tensor(kts, device=tok.device), (dcfg.vocab,))
     drafts = []
-    for _ in range(k):
+    for j in range(k):
         lg, caches = lm.decode_step(dparams, dcfg, tok, caches, pos, compute_dtype)
-        nxt = sample_tokens(lg)
+        nxt = sample_with_noise(lg, None if noise is None else noise[:, j], temperature)
         pos = torch.where(eos_hit, pos, pos + 1)
         tok = nxt[:, None]
         drafts.append(nxt)

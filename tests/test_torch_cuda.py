@@ -6,7 +6,10 @@ This file imports no JAX, so it runs on the GPU machine:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs, and the reduced kanformer's kernel path against the plain path on
-the CPU.  Tolerances: fp32 atol 1e-4 (|y| ~ 2, sums in another order);
+the CPU.  The threefry port's integers and uniforms on the card equal the
+CPU's; its Gumbel noise is held within 1e-5, and sampled tokens and streams
+equal the CPU's unless the first divergence is a near-tie of the perturbed
+scores.  Tolerances: fp32 atol 1e-4 (|y| ~ 2, sums in another order);
 bf16 one bf16 ulp of max|y| (same products, fp32 sums in another order,
 one final rounding); logits atol 1e-4.  The block-table gather moves data
 only and must be bit-equal to its plain version.  The integer kernels
@@ -17,6 +20,7 @@ kernel's values and ``k`` must equal its plain version's exactly.
 """
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -535,6 +539,142 @@ def test_reduced_continuous_engine_on_card_matches_cpu(cuda_device, cfg):
         assert cst.get(key) == gst.get(key)
     assert (launches["gather_blocks"] > 0) == bool(cfg.get("paged"))
     assert launches["kan_sparse_gemm"] > 0
+
+
+SAMPLE_T, EMBED_SCALE = 1.0, 0.07     # logit gaps of the noise's scale (test_torch_sampling)
+GUMBEL_ATOL, SAMPLE_LOGIT_ATOL = 1e-5, 1e-4
+
+
+def _tie_tol(T: float) -> float:
+    """Two samplers whose logits differ by at most ``SAMPLE_LOGIT_ATOL`` and
+    noise by ``GUMBEL_ATOL`` can draw different tokens only where the top-2
+    gap of the perturbed scores ``logits / T + g`` is below this."""
+    return 2 * (SAMPLE_LOGIT_ATOL / T + GUMBEL_ATOL)
+
+
+def _near_tie(params, model, prompt, stream, rid, j, seed=0) -> bool:
+    """Whether token ``j`` of ``stream`` (request ``rid``) was a near-tie:
+    its perturbed top-2 gap, from the CPU's teacher-forced logits."""
+    from repro_torch.serve import speculative as sp
+    from repro_torch.serve import threefry
+
+    seq = np.concatenate([prompt, stream[:j]]).astype(np.int64)
+    logits, _ = lm.prefill(params, model, torch.as_tensor(seq[None]), len(seq))
+    pair = Engine._row_key_pairs(threefry.prng_key(seed).numpy(), [rid])[0]
+    key = pair[1] if j == 0 else sp.split_chain(pair[None, 0], j)[0][0, j - 1]
+    lg = logits[0, -1:]
+    noise = threefry.gumbel(torch.as_tensor(key)[None], lg.shape[-1:])
+    return float(sp.perturbed_top2_gap(lg, noise, SAMPLE_T)[0]) < _tie_tol(SAMPLE_T)
+
+
+@pytest.mark.cuda
+def test_threefry_bits_and_noise_on_card_match_cpu(cuda_device):
+    """Keys, bits and uniforms of a large draw on the card equal the CPU's
+    bit for bit; Gumbel noise within ``GUMBEL_ATOL``."""
+    from repro_torch.serve import threefry
+
+    host = Engine._row_key_pairs(threefry.prng_key(2 ** 32 + 9).numpy(), np.arange(8))[:, 1]
+    keys = {d: torch.as_tensor(host, device=d) for d in ("cpu", "cuda")}
+    again = threefry.split(threefry.fold_in(threefry.prng_key(2 ** 32 + 9, "cuda"),
+                                            torch.arange(8, device="cuda")))[:, 1]
+    np.testing.assert_array_equal(again.cpu().numpy(), host)
+    for fn in (lambda k: threefry.random_bits_u32(k, (8, 32000)),
+               lambda k: threefry.random_bits_u32(k, (3, 5, 70001)),
+               lambda k: threefry.uniform(k, (8, 32000)).view(torch.int32),
+               lambda k: threefry.uniform(k, (3, 1000), -0.3, 2.7).view(torch.int32)):
+        assert torch.equal(fn(keys["cuda"]).cpu(), fn(keys["cpu"]))
+    g = {d: threefry.gumbel(keys[d], (8, 32000)) for d in keys}
+    assert torch.isfinite(g["cuda"]).all()
+    assert (g["cuda"].cpu() - g["cpu"]).abs().max().item() <= GUMBEL_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [0.7, 1.0, 100.0])
+def test_sample_tokens_on_card_match_cpu(cuda_device, T):
+    """``sample_tokens`` on the card draws the CPU's tokens on the same
+    logits and keys, every row with no near-tie (the logits are the same
+    array, so only the noise differs, within ``GUMBEL_ATOL``); each row
+    alone draws what it draws in the batch."""
+    from repro_torch.serve import speculative as sp
+    from repro_torch.serve import threefry
+
+    host = Engine._row_key_pairs(threefry.prng_key(11).numpy(), np.arange(64))[:, 1]
+    lg = torch.randn(64, 32000, generator=torch.Generator().manual_seed(0)) * 3
+    tok = {d: sp.sample_tokens(lg.to(d), torch.as_tensor(host, device=d), T).cpu()
+           for d in ("cpu", "cuda")}
+    gap = sp.perturbed_top2_gap(lg, threefry.gumbel(torch.as_tensor(host), (32000,)), T)
+    tie = gap < 2 * GUMBEL_ATOL
+    assert not tie.any()
+    assert torch.equal(tok["cuda"], tok["cpu"])
+    assert (tok["cpu"] != lg.argmax(-1)).any()
+    for r in (0, 63):
+        one = sp.sample_tokens(lg[r:r + 1].cuda(), torch.as_tensor(host[r:r + 1], device="cuda"), T)
+        assert one.item() == tok["cpu"][r].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, {"paged": True}, {"paged": True, "paged_read": "step"},
+                                 {"paged": True, "pool_blocks": 12}, {"spec_k": 3},
+                                 {"paged": True, "paged_read": "step", "spec_k": 2}])
+def test_reduced_sampled_engine_on_card_matches_cpu(cuda_device, cfg):
+    """Sampling at T = 1 (embedding scaled so the noise competes with the
+    logit gaps): the continuous engine on the card, dense and paged,
+    speculative or not, gives the CPU's streams and counters, unless a
+    stream's first divergence is a near-tie."""
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    params["embed"] = {"table": params["embed"]["table"] * EMBED_SCALE}
+    rs = np.random.RandomState(0)
+    common = rs.randint(1, model.vocab, 8).astype(np.int32)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(8)]
+    reqs = [np.concatenate([common, r]) if i % 2 else r for i, r in enumerate(reqs)]
+    scfg = ServeConfig(max_seq=32, max_new_tokens=8, block_size=4, temperature=SAMPLE_T, **cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(params, model, scfg, device=dev)
+        ops.reset_launches()
+        streams = eng.serve_continuous(reqs, slots=3, chunk_steps=3)
+        out[dev] = (streams, eng.last_serve_stats, dict(ops.LAUNCHES))
+    (cs, cst, _), (gs, gst, launches) = out["cpu"], out["cuda"]
+    ties = 0
+    for rid, (p, a, b) in enumerate(zip(reqs, cs, gs)):
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            assert _near_tie(params, model, p, a, rid, int(diff[0]))
+            ties += 1
+    if not ties:
+        for key in ("chunks_run", "useful_token_steps", "n_preemptions", "paged", "spec"):
+            assert cst.get(key) == gst.get(key)
+    greedy = Engine(params, model, dataclasses.replace(scfg, temperature=0.0), device="cpu")
+    assert any(not np.array_equal(a, b) for a, b in
+               zip(greedy.serve_continuous(reqs, slots=3, chunk_steps=3), cs))
+    assert (launches["gather_blocks"] > 0) == bool(cfg.get("paged"))
+    assert launches["kan_sparse_gemm"] > 0
+
+
+@pytest.mark.cuda
+def test_sampled_preempting_run_on_card_equals_its_dense_run(cuda_device):
+    """On the card, a sampled paged run whose pool preempts re-derives each
+    preempted request's key chain from its id: its streams equal the dense
+    sampled run's on the card, unless a first divergence is a near-tie."""
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    params["embed"] = {"table": params["embed"]["table"] * EMBED_SCALE}
+    rs = np.random.RandomState(3)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(10)]
+    base = ServeConfig(max_seq=32, max_new_tokens=8, block_size=4, temperature=SAMPLE_T)
+    dense = Engine(params, model, base, device="cuda")
+    want = dense.serve_continuous(reqs, slots=3, chunk_steps=3, seed=5)
+    tight = Engine(params, model, dataclasses.replace(base, paged=True, pool_blocks=12),
+                   device="cuda")
+    got = tight.serve_continuous(reqs, slots=3, chunk_steps=3, seed=5)
+    assert tight.last_serve_stats["n_preemptions"] >= 1
+    for rid, (p, a, b) in enumerate(zip(reqs, want, got)):
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            assert _near_tie(params, model, p, a, rid, int(diff[0]), seed=5)
 
 
 def _reduced_on(device, params):

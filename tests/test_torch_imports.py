@@ -78,6 +78,33 @@ def test_int8_slice_modules_import_neither_jax_nor_repro(module):
     assert not _imported_roots(PORT / module) & set(FORBIDDEN)
 
 
+# the module the sampling slice added: torch and numpy integer ops only
+@pytest.mark.parametrize("module", ["serve/threefry.py", "serve/speculative.py"])
+def test_sampling_slice_modules_import_neither_jax_nor_repro(module):
+    roots = _imported_roots(PORT / module)
+    assert not roots & set(FORBIDDEN)
+    assert roots <= {"__future__", "dataclasses", "numpy", "torch", "repro_torch"}
+
+
+def test_chip_smoke_sampling_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 6c's checks at the reduced width on the kernels' plain versions
+    (every launch count 0): the threefry answers, seven sampled runs, a
+    preemption, a trim that frees blocks, streams equal across runs."""
+    import numpy as np
+    import torch
+
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+    from repro_torch import configs
+
+    cfg = configs.get_reduced("kanformer-100m").model
+    out = chip_smoke.sampling_path(torch, np, device="cpu", cfg=cfg)
+    assert out["threefry"]["bits_equal_cpu"] and out["divergences"] == []
+    assert out["runs"]["paged_preempt"]["n_preemptions"] >= 1
+    assert out["runs"]["spec_paged_blocks4"]["blocks_freed_by_trims"] >= 1
+    assert out["sampled_share"] >= chip_smoke.MIN_SAMPLED_SHARE
+
+
 def test_every_csrc_source_is_built_by_one_library():
     from repro_torch.kernels import build
 

@@ -274,9 +274,9 @@ def test_engine_validates_spec_k(setup):
     s = setup
     with pytest.raises(ValueError, match="spec_k must be >= 0, got -1"):
         Engine(s["tparams"], s["tmodel"], ServeConfig(max_seq=MAX_SEQ, spec_k=-1), device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature > 0"):
-        Engine(s["tparams"], s["tmodel"], ServeConfig(max_seq=MAX_SEQ, spec_k=2, temperature=0.7),
-               device="cpu")
+    sampled = Engine(s["tparams"], s["tmodel"],
+                     ServeConfig(max_seq=MAX_SEQ, spec_k=2, temperature=0.7), device="cpu")
+    assert sampled.draft is not None and sampled.draft.n_layers == 1
     eng = Engine(s["tparams"], s["tmodel"], ServeConfig(max_seq=MAX_SEQ), device="cpu")
     assert eng.draft is None
     eng.cfg = dataclasses.replace(eng.cfg, spec_k=2)
