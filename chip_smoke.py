@@ -111,7 +111,23 @@ Phases; any failed check raises and the script exits non-zero:
    P = 1, M = 3) and 2048 rows (the fused kernel), each with the launch
    counts reset just before and checked exactly just after, and each
    within ``FP32_ATOL`` of ``method="compact"`` on the card.
-9. A JSON line with every ported kernel's numbers, the card's line, and as
+9. The paper's KAN applications.  (a) MNIST-KAN trained on the card at
+   ``benchmarks/quant_accuracy.train_mnist_kan()``'s defaults (250 Adam
+   steps of batch 256 through the ``dense`` path, from the reference's own
+   threefry draws), then its 2048 test inputs through ``dense``, ``auto``
+   (the fused kernel), ``lut`` (the LUT kernel) and the int8 path quantised
+   on the card (the dense-band int8 kernel), each run counted: ``auto``
+   within ``FP32_ATOL`` of ``dense``, the int8 logits equal to the plain
+   integer path's, the fp32 accuracy within ``ACC_TOL`` of the reference's
+   ``REF_ACC``, the int8 drop printed beside the reference's and the
+   paper's.  (b) ConvKAN at ResKAN18's 20 layer shapes
+   (``sa_model.resnet18_convkan_gemms``, a batch of 32 CIFAR-size images),
+   one ``conv_kan_apply(method="auto")`` each, 20 fused-kernel launches in
+   one counted run, each layer within ``CONV_REL`` of max|y| of the plain
+   version, ``im2col`` on the card equal to the CPU's; the fused kernel
+   timed at every distinct shape beside its plain version, a matmul over
+   the band and its bound.
+10. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -1509,6 +1525,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
     from repro_torch.core import kan_layer as KL
     from repro_torch.core import quantization as Q
     from repro_torch.core.bspline import SplineGrid, build_lut
+    from repro_torch.examples import mnist_kan as MK
     from repro_torch.kernels import bspline_lut as L
     from repro_torch.kernels import kan_int8_gemm as I8
     from repro_torch.kernels import kan_sparse_gemm as S
@@ -1521,7 +1538,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
     n_params = sum(t.numel() for p in params for t in p.values())
     sync()
     t0 = time.perf_counter()
-    qlayers = [Q.quantize_kan_layer(p, grid) for p in params]
+    qlayers = MK.quantize_net(cfg, params)
     sync()
     quant_ms = (time.perf_counter() - t0) * 1e3
     for i, (p, ql) in enumerate(zip(params, qlayers)):
@@ -1537,18 +1554,12 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
     lut = torch.as_tensor(build_lut(grid.P), device=device)
     dr, nl = MNIST["decode_rows"], len(qlayers)
 
-    def int8_net(xin):                   # benchmarks/quant_accuracy.py's loop
-        h = xin
-        for i, ql in enumerate(qlayers):
-            if i:
-                h = torch.tanh(h)
-            h = Q.quantized_kan_forward_fused(ql, h)
-        return h
-
     runs = {}
-    y8, runs["int8_2048"] = counted(torch, f"int8 net, {rows} rows", lambda: int8_net(x),
+    y8, runs["int8_2048"] = counted(torch, f"int8 net, {rows} rows",
+                                    lambda: MK.int8_net_apply(qlayers, x),
                                     {"kan_int8_gemm": nl}, device)
-    y8s, runs["int8_8"] = counted(torch, f"int8 net, {dr} rows", lambda: int8_net(x[:dr]),
+    y8s, runs["int8_8"] = counted(torch, f"int8 net, {dr} rows",
+                                  lambda: MK.int8_net_apply(qlayers, x[:dr]),
                                   {"kan_sparse_int8_gemm": nl}, device)
     yf, runs["fp32_auto_2048"] = counted(
         torch, f"fp32 net auto, {rows} rows", lambda: KL.kan_net_apply(params, x, cfg, "auto"),
@@ -1652,7 +1663,7 @@ def int8_path(torch, np, device="cuda", layers=MNIST["layers"], rows=MNIST["rows
             "max_abs_dlogit": d_int8, "lut_top1_agreement": agree_lut,
             "lut_max_abs_dlogit": d_lut, "fp32_kernel_vs_plain_err": max(err_f, err_fs),
             "rom_tables_checked": n_rom, "sparse_int8_cases": checked,
-            "int8_net": lambda: int8_net(x)}
+            "int8_net": lambda: MK.int8_net_apply(qlayers, x)}
 
 
 def time_int8_kernels(torch, np):
@@ -1779,6 +1790,258 @@ def gkan_path(torch, device="cuda", rows=GKAN["rows"]):
     return {"runs": runs, "max_abs_err": max(errs.values())}
 
 
+# Phase 9(a): MNIST-KAN trained at benchmarks/quant_accuracy.train_mnist_kan()'s
+# defaults, then the §V int8 gap.  The reference's figures come from the JAX
+# package on the CPU (jax 0.9.0, default threefry):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "from benchmarks import
+#   quant_accuracy as qa; cfg, p, (X, Y) = qa.train_mnist_kan();
+#   print(qa.accuracy_fp(cfg, p, X, Y), qa.accuracy_int8(cfg, p, X, Y))"
+# which prints 0.93212890625 (1909 of 2048) and 0.931640625 (1908).
+MNIST_TRAIN = {"steps": 250, "bs": 256, "lr": 3e-3, "seed": 0}
+REF_ACC = {"fp32": 1909 / 2048, "int8": 1908 / 2048}
+ACC_TOL = 0.01                     # the card's fp32 accuracy within 1.0 pt of REF_ACC
+PAPER_DROP = 0.01                  # paper §V: int8 accuracy under 1 pt below fp32
+
+
+def mnist_train_path(torch, np, device="cuda", layers=MNIST["layers"],
+                     steps=MNIST_TRAIN["steps"], card=""):
+    """Phase 9(a) (any miss raises): ``train_mnist_kan`` on ``device``
+    through the ``dense`` path, then the 2048 test inputs through
+    ``dense``, ``auto`` (the fused kernel), ``lut`` (the LUT kernel) and the
+    int8 path quantised on ``device`` (the dense-band int8 kernel), each run
+    counted.  ``auto`` within ``FP32_ATOL`` of ``dense``, the int8 logits
+    equal to the plain integer path's, and at the reference's width and
+    steps the fp32 accuracy within ``ACC_TOL`` of ``REF_ACC``.
+    ``device="cpu"`` with a narrow ``layers`` and few ``steps`` rehearses
+    the checks on the kernels' plain versions."""
+    from repro_torch.core import kan_layer as KL
+    from repro_torch.data import pipeline as dp
+    from repro_torch.examples import mnist_kan as MK
+
+    full = tuple(layers) == MNIST["layers"] and steps == MNIST_TRAIN["steps"]
+    nl = len(layers) - 1
+
+    def train_fn():
+        return MK.train_mnist_kan(steps=steps, bs=MNIST_TRAIN["bs"], lr=MNIST_TRAIN["lr"],
+                                  seed=MNIST_TRAIN["seed"], G=MNIST["G"], P=MNIST["P"],
+                                  layers=layers, device=device)
+
+    (cfg, params, (Xte, Yte)), train = counted(
+        torch, f"train_mnist_kan {list(layers)}, {steps} steps (dense, autograd)", train_fn,
+        {}, device, tag="mnist")
+    t0 = time.perf_counter()                 # the host's share: the data sets and the start
+    dp.mnist_like(8192, seed=1, noise=2.4, dim=layers[0])
+    dp.mnist_like(2048, seed=2, noise=2.4, dim=layers[0])
+    MK.init_kan_net_threefry(cfg, seed=MNIST_TRAIN["seed"], device="cpu")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ms_step = (train["wall_ms"] - host_ms) / max(steps, 1)
+    log(f"[mnist] trained {steps} steps in {train['wall_ms'] / 1e3:.3f} s of wall, of which "
+        f"{host_ms / 1e3:.3f} s draw 8192 + 2048 synthetic inputs and the threefry start on "
+        f"the host: {ms_step:.3f} ms per step on {device} {card}")
+    x = torch.as_tensor(Xte, device=device)
+    runs = {"train": train}
+    with torch.no_grad():
+        yd, runs["dense"] = counted(torch, "trained net dense, 2048 rows",
+                                    lambda: KL.kan_net_apply(params, x, cfg, "dense"), {},
+                                    device, tag="mnist")
+        ya, runs["auto"] = counted(torch, "trained net auto, 2048 rows",
+                                   lambda: KL.kan_net_apply(params, x, cfg, "auto"),
+                                   {"kan_fused_gemm": nl}, device, tag="mnist")
+        yl, runs["lut"] = counted(torch, "trained net lut, 2048 rows",
+                                  lambda: KL.kan_net_apply(params, x, cfg, "lut"),
+                                  {"bspline_lut": nl}, device, tag="mnist")
+        qlayers = MK.quantize_net(cfg, params)
+        y8, runs["int8"] = counted(torch, "trained net int8, 2048 rows",
+                                   lambda: MK.int8_net_apply(qlayers, x),
+                                   {"kan_int8_gemm": nl}, device, tag="mnist")
+        y8_plain = MK.int8_net_apply(qlayers, x, fused=False)
+    for name, y in (("dense", yd), ("auto", ya), ("lut", yl), ("int8", y8)):
+        if y.shape != (len(Xte), layers[-1]) or not torch.isfinite(y).all():
+            raise RuntimeError(f"trained MNIST-KAN {name} logits not finite or of the wrong shape")
+    err_auto = (ya - yd).abs().max().item()
+    log(f"[mnist] auto vs dense: max_abs_err={err_auto:.3e} tol={FP32_ATOL:.1e} "
+        f"(max |logit| {yd.abs().max().item():.4f})")
+    if err_auto > FP32_ATOL:
+        raise RuntimeError("trained MNIST-KAN: auto disagrees with dense")
+    if not torch.equal(y8, y8_plain):
+        raise RuntimeError("trained MNIST-KAN: int8 logits != the plain integer path's")
+    acc = {name: MK.accuracy(y, Yte) for name, y in
+           (("fp32", yd), ("auto", ya), ("lut", yl), ("int8", y8))}
+    drop = acc["fp32"] - acc["int8"]
+    ref_drop = REF_ACC["fp32"] - REF_ACC["int8"]
+    log(f"[mnist] accuracy on 2048 test inputs: fp32 (dense) {acc['fp32'] * 100:.4f} %, auto "
+        f"{acc['auto'] * 100:.4f} %, lut {acc['lut'] * 100:.4f} %, int8 {acc['int8'] * 100:.4f} %; "
+        f"the reference (JAX, CPU) fp32 {REF_ACC['fp32'] * 100:.4f} %, int8 "
+        f"{REF_ACC['int8'] * 100:.4f} %")
+    log(f"[mnist] int8 drop {drop * 100:.4f} pt against the reference's {ref_drop * 100:.4f} pt "
+        f"and the paper's claim < {PAPER_DROP * 100:.0f} pt "
+        f"({'met' if drop < PAPER_DROP else 'MISSED'}); int8 logits equal the plain integer "
+        f"path's on {device}")
+    if full:
+        miss = abs(acc["fp32"] - REF_ACC["fp32"])
+        log(f"[mnist] fp32 accuracy {miss * 100:.4f} pt from the reference's "
+            f"(tol {ACC_TOL * 100:.1f} pt)")
+        if miss > ACC_TOL:
+            raise RuntimeError("trained MNIST-KAN: fp32 accuracy misses the reference's")
+    out = {"runs": runs, "accuracy": acc, "int8_drop": drop, "reference_accuracy": REF_ACC,
+           "auto_vs_dense_err": err_auto, "train_s": train["wall_ms"] / 1e3,
+           "train_host_data_s": host_ms / 1e3, "train_ms_per_step": ms_step, "steps": steps}
+    if device == "cuda":                     # the whole training again, then under the profiler
+        out["profile_train"] = profile_call(
+            torch, train_fn, lambda: f"train_mnist_kan, {steps} steps (warm)")
+    return out
+
+
+# Phase 9(b): ConvKAN at ResKAN18's 20 layer shapes (Table II; CIFAR-size
+# images, a batch of 32: 512 to 32,768 rows per layer).
+RESKAN = {"G": 3, "P": 3, "img": 32, "batch": 32}
+# K reaches 4608: an output sums 5 x 4608 fp32 products in the kernel's
+# order, against the plain version's; on the CPU two such orders (compact
+# and the plain band) differ by 2.1e-7 of max|y| at K = 4608, and this is
+# 70 x that
+CONV_REL = 2.0 ** -16
+
+
+def reskan_layers(img: int = RESKAN["img"]) -> list[dict]:
+    """The 20 conv layers of ``sa_model.resnet18_convkan_gemms``: the first
+    conv of each later stage and the three 1 x 1 downsample convs take their
+    input at twice the output size with stride 2; pad 1 for 3 x 3, 0 for
+    1 x 1."""
+    from repro_torch.core import sa_model as SM
+
+    out = []
+    for w in SM.resnet18_convkan_gemms(G=RESKAN["G"], P=RESKAN["P"], img=img):
+        name = w.name.split(".")[-1]
+        k = 1 if name.startswith("down") else 3
+        cin, s = w.K // (k * k), math.isqrt(w.BS)
+        stride = 1 if name == "conv1" or cin == w.N_out else 2
+        out.append({"name": name, "cin": cin, "cout": w.N_out, "k": k, "stride": stride,
+                    "pad": k // 2, "s_in": s * stride, "s": s, "K": w.K})
+    return out
+
+
+def reskan_path(torch, device="cuda", batch=RESKAN["batch"], img=RESKAN["img"]):
+    """Phase 9(b) (any miss raises): each ResKAN18 layer once through
+    ``conv_kan_apply(method="auto")`` on its own random input in [-1, 1] with
+    random weights (seeded), the 20 layers in one counted run; each layer
+    within ``CONV_REL`` of max|y| of the fused kernel's plain version on the
+    same patches; ``im2col`` on ``device`` equal to the CPU's for one layer
+    of each kind.  On the card, the fused kernel timed at every distinct
+    shape.  ``device="cpu"`` with a small ``batch`` and ``img`` rehearses
+    the checks."""
+    from repro_torch.core import kan_layer as KL
+    from repro_torch.core.bspline import SplineGrid
+    from repro_torch.kernels import kan_fused_gemm as F
+
+    grid = SplineGrid(-1.0, 1.0, RESKAN["G"], RESKAN["P"])
+    layers = reskan_layers(img)
+    gen = torch.Generator(device=device).manual_seed(17)
+    xs, ps = [], []
+    for ly in layers:
+        xs.append(torch.rand(batch, ly["s_in"], ly["s_in"], ly["cin"], generator=gen,
+                             device=device) * 2 - 1)
+        ps.append(KL.init_kan_layer(KL.KANLayerConfig(ly["K"], ly["cout"], grid), gen))
+
+    def conv(i, method="auto"):
+        ly = layers[i]
+        return KL.conv_kan_apply(ps[i], xs[i], grid, kh=ly["k"], kw=ly["k"],
+                                 stride=ly["stride"], pad=ly["pad"], method=method)
+
+    ys, run = counted(torch, f"ResKAN18 20 ConvKAN layers, batch {batch} of {img} x {img}",
+                      lambda: [conv(i) for i in range(len(layers))],
+                      {"kan_fused_gemm": len(layers)}, device, tag="reskan")
+    errs, kinds = [], {}
+    for i, (ly, y) in enumerate(zip(layers, ys)):
+        patches = KL.im2col(xs[i], ly["k"], ly["k"], ly["stride"], ly["pad"])
+        want = F.kan_fused_gemm_reference(patches.reshape(-1, ly["K"]), ps[i]["coeff"], grid,
+                                          ps[i]["base_w"]).reshape(y.shape)
+        if y.shape != (batch, ly["s"], ly["s"], ly["cout"]) or not torch.isfinite(y).all():
+            raise RuntimeError(f"ResKAN18 {ly['name']}: output not finite or of the wrong shape")
+        scale = want.abs().max().item()
+        err = (y - want).abs().max().item() / scale
+        errs.append(err)
+        log(f"[reskan] {ly['name']:<6} {ly['cin']:>3} -> {ly['cout']:>3} k={ly['k']} "
+            f"s={ly['stride']} {ly['s_in']:>2} -> {ly['s']:>2}: rows={batch * ly['s'] ** 2} "
+            f"K={ly['K']} max|y|={scale:.4f} max_abs_err/max|y|={err:.3e} tol={CONV_REL:.2e}")
+        if err > CONV_REL:
+            raise RuntimeError(f"ResKAN18 {ly['name']}: the kernel path disagrees with the "
+                               "plain version")
+        kind = (ly["name"] == "conv1", ly["k"], ly["stride"])
+        if kind not in kinds:
+            kinds[kind] = torch.equal(patches.cpu(), KL.im2col(
+                xs[i].cpu(), ly["k"], ly["k"], ly["stride"], ly["pad"]))
+            if not kinds[kind]:
+                raise RuntimeError(f"ResKAN18 {ly['name']}: im2col on {device} != on the CPU")
+    log(f"[reskan] im2col on {device} equal to the CPU's for {len(kinds)} kinds of layer "
+        f"(conv1, 3 x 3 stride 1, 3 x 3 stride 2, 1 x 1 stride 2)")
+    out = {"runs": {"reskan18": run}, "max_rel_err": max(errs), "im2col_kinds_equal": len(kinds),
+           "layers": [dict(ly, rows=batch * ly["s"] ** 2, rel_err=e)
+                      for ly, e in zip(layers, errs)]}
+    if device == "cuda":
+        out["profile"] = profile_call(torch, lambda: [conv(i) for i in range(len(layers))],
+                                      lambda: "the 20 ResKAN18 layers (warm)")
+        out.update(time_reskan(torch, layers, xs, batch, grid))
+    return out
+
+
+def time_reskan(torch, layers, xs, batch, grid):
+    """The fused kernel at every distinct ResKAN18 shape, fp32: kernel, plain
+    version, one matmul over the materialised band (``library_ms``) and the
+    bound, rotating (x, C, Wb) sets past the L2, the first set the patches
+    of a layer of that shape; then the 20 layers' kernel ms summed."""
+    from repro_torch.core import kan_layer as KL
+    from repro_torch.kernels import kan_fused_gemm as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import band_scatter, compact_basis_inblock
+
+    cycles_per_ms = spin_cycles_per_ms(torch)
+    M, P = grid.n_basis, grid.P
+    shape_of = [(batch * ly["s"] ** 2, ly["K"], ly["cout"]) for ly in layers]
+    timings, by_shape = [], {}
+    for (rows, K, N), i in sorted({sh: i for i, sh in enumerate(shape_of)}.items()):
+        ly = layers[i]
+        g = torch.Generator(device="cuda").manual_seed(rows + K + N)
+        set_bytes = (rows * K + K * M * N + K * N) * 4
+        n_sets = min(30, max(1, math.ceil(L2_FLUSH_BYTES / set_bytes)))
+        first = KL.im2col(xs[i], ly["k"], ly["k"], ly["stride"], ly["pad"]).reshape(rows, K)
+        sets = [(first if j == 0 else torch.rand(rows, K, generator=g, device="cuda") * 2 - 1,
+                 0.02 * torch.randn(K, M, N, generator=g, device="cuda"),
+                 0.02 * torch.randn(K, N, generator=g, device="cuda")) for j in range(n_sets)]
+        ms = time_ms(torch, [lambda s=s: ops.kan_fused_gemm(s[0], s[1], grid, s[2])
+                             for s in sets], cycles_per_ms)
+        plain_ms = time_ms(torch, [lambda s=s: F.kan_fused_gemm_reference(s[0], s[1], grid, s[2])
+                                   for s in sets], cycles_per_ms, reps=10)
+        x0 = sets[0][0]
+        vals, k = compact_basis_inblock(x0, grid)
+        a_lib = torch.cat([band_scatter(vals, k, M).reshape(rows, K * M),
+                           torch.clamp_min(x0, 0)], dim=1)
+        del vals, k
+        w_lib = [torch.cat([c.reshape(K * M, N), w], dim=0) for _, c, w in sets]
+        lib_ms = time_ms(torch, [lambda wl=wl: torch.matmul(a_lib, wl) for wl in w_lib],
+                         cycles_per_ms)
+        del a_lib, w_lib, sets
+        flops = 2.0 * rows * K * (P + 2) * N
+        nbytes = (rows * K + K * M * N + K * N + rows * N) * 4
+        t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        n_layers = shape_of.count((rows, K, N))
+        entry = {"shape": [rows, K, N], "M": M, "dtype": "float32", "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+                 "bytes": nbytes, "path": "reskan18", "layers": n_layers}
+        timings.append(entry)
+        by_shape[(rows, K, N)] = ms
+        log(f"[time] kan_fused_gemm ResKAN18 rows={rows} K={K} N={N} M={M} x{n_layers}: "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={entry['bound_ms']:.4f} ({entry['bound_by']}: {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        torch.cuda.empty_cache()
+    total = sum(by_shape[sh] for sh in shape_of)
+    log(f"[time] kan_fused_gemm over the 20 ResKAN18 layers: {total:.4f} ms of kernel time "
+        f"(sum of each layer's shape's kernel_ms)")
+    return {"timings": timings, "kernel_ms_total": total}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1836,20 +2099,27 @@ def main() -> int:
     results.update(time_int8_kernels(torch, np))
     t4 = time.perf_counter()
     gkan = gkan_path(torch)
+    t5 = time.perf_counter()
+    mnist = mnist_train_path(torch, np, card=card)
+    reskan = reskan_path(torch)
+    results["kan_fused_gemm"]["timings"] += reskan.pop("timings")
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
-        f"GKAN {time.perf_counter() - t4:.1f} s")
+        f"GKAN {t5 - t4:.1f} s, KAN applications {time.perf_counter() - t5:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
-            "gkan_path": gkan, "build_s": built}
+            "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
+            "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
                **{"sampled_" + k: m["launches"] for k, m in samp["runs"].items()},
                **{k: m["launches"] for k, m in int8["runs"].items()},
-               **{k: m["launches"] for k, m in gkan["runs"].items()}}
+               **{k: m["launches"] for k, m in gkan["runs"].items()},
+               **{"mnist_trained_" + k: m["launches"] for k, m in mnist["runs"].items()},
+               **{k: m["launches"] for k, m in reskan["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

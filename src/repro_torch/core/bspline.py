@@ -94,7 +94,10 @@ def cox_de_boor_dense(x: torch.Tensor, grid: SplineGrid) -> torch.Tensor:
     and ``x == x_max`` belongs to the last in-domain interval.
     """
     knots = torch.as_tensor(grid.knots(), dtype=x.dtype, device=x.device)
-    xx = torch.clamp(x, knots[grid.P], knots[grid.n_basis])[..., None]
+    # maximum then minimum, as ``jnp.clip`` does: at an input exactly on a
+    # bound the gradient is split 0.5 / 0.5 between x and the bound, where
+    # ``torch.clamp`` would pass all of it to x
+    xx = torch.minimum(torch.maximum(x, knots[grid.P]), knots[grid.n_basis])[..., None]
     inside = (xx >= knots[:-1]) & (xx < knots[1:])
     iota = torch.arange(knots.shape[0] - 1, device=x.device)
     on_edge = xx == knots[grid.n_basis]

@@ -17,8 +17,9 @@ Forward paths (``kan_layer_apply(method=...)``):
 * ``auto``    — :func:`resolve_inference_method`.
 
 KAN stacks (MNIST-KAN and the other Table II networks) are
-:func:`kan_net_apply`.  ConvKAN (``im2col``, ``conv_kan_apply``) is not
-ported yet.
+:func:`kan_net_apply`.  ConvKAN (ResKAN18's building block) is
+:func:`im2col` then one KAN layer over the patches, :func:`conv_kan_apply`;
+:func:`kan_layer_flops` counts a layer's useful and dense MACs.
 """
 
 from __future__ import annotations
@@ -221,3 +222,44 @@ def kan_net_apply(
             h = _tanh_norm(h)
         h = kan_layer_apply(p, h, g, method=method, lut=lut)
     return h
+
+
+# ---------------------------------------------------------------------------
+# ConvKAN (ResKAN18 building block): scalar conv filter weights replaced by
+# splines, realised as im2col + KANLayer (paper §V-C).
+# ---------------------------------------------------------------------------
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """``(B, H, W, C)`` -> ``(B, Ho, Wo, C*kh*kw)`` patches, channels varying
+    slowest, zero padding (the reference's ``conv_general_dilated_patches``
+    order).  A library op, as in the reference: no kernel of the repo
+    builds patches."""
+    B = x.shape[0]
+    cols = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), (kh, kw), padding=pad,
+                                      stride=stride)            # (B, C*kh*kw, Ho*Wo)
+    Ho = (x.shape[1] + 2 * pad - kh) // stride + 1
+    Wo = (x.shape[2] + 2 * pad - kw) // stride + 1
+    return cols.transpose(1, 2).reshape(B, Ho, Wo, cols.shape[1]).contiguous()
+
+
+def conv_kan_apply(
+    params: Params, x: torch.Tensor, grid: SplineGrid, kh: int = 3, kw: int = 3,
+    stride: int = 1, pad: int = 1, method: str = "dense",
+) -> torch.Tensor:
+    """ConvKAN layer, each filter tap a learnable spline: ``x (B, H, W, C)``,
+    ``params["coeff"] (C*kh*kw, M, N)`` -> ``(B, Ho, Wo, N)``."""
+    patches = im2col(x, kh, kw, stride, pad)                   # (B, Ho, Wo, kh*kw*C)
+    B, Ho, Wo, Kin = patches.shape
+    y = kan_layer_apply(params, patches.reshape(-1, Kin), grid, method=method)
+    return y.reshape(B, Ho, Wo, -1)
+
+
+def kan_layer_flops(BS: int, K: int, N: int, grid: SplineGrid) -> dict[str, float]:
+    """Useful vs dense MAC accounting (paper §IV-A utilisation argument)."""
+    M, Nnz = grid.n_basis, grid.n_nonzero
+    return {
+        "dense_macs": float(BS * K * M * N),
+        "useful_macs": float(BS * K * Nnz * N),
+        "density": Nnz / M,
+    }

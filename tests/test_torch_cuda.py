@@ -16,12 +16,16 @@ only and must be bit-equal to its plain version.  The integer kernels
 (``kan_int8_gemm``, ``kan_sparse_int8_gemm``) must be bit-equal to their
 plain versions and to each other, with and without the dequant epilogue,
 and read every ROM address as ``build_lut_u8`` holds it; the B-spline LUT
-kernel's values and ``k`` must equal its plain version's exactly.
+kernel's values and ``k`` must equal its plain version's exactly.  ConvKAN
+through the fused kernel is held within 2^-16 of max|y| of its plain version
+(K up to 4608); training steps on the card against the CPU's within 1e-5
+of each Adam moment's max and 1e-2 lr on parameters.
 """
 
 import ctypes
 import dataclasses
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1081,3 +1085,90 @@ def test_mnist_kan_int8_and_lut_paths_on_card_match_cpu(cuda_device):
     got = KL.kan_net_apply(gpu, x.to(cuda_device), cfg, method="lut")
     want = KL.kan_net_apply(params, x, cfg, method="lut")
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+# ConvKAN at ResKAN18's depths (K = 27, 576, 4608), row counts that are not
+# a multiple of the fused kernel's 128-row tile; the tolerance is
+# chip_smoke.py's CONV_REL of max|y| (K = 4608: 5 x 4608 fp32 products per
+# output in another order)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,k,stride,N", [(3, 11, 9, 3, 3, 1, 64),
+                                                (2, 13, 13, 64, 3, 2, 128),
+                                                (1, 5, 7, 512, 3, 1, 512),
+                                                (3, 9, 9, 512, 3, 1, 512),
+                                                (2, 9, 9, 256, 1, 2, 512)])
+def test_conv_kan_auto_matches_plain_version(cuda_device, monkeypatch, B, H, W, C, k, stride,
+                                             N):
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import CONV_REL
+
+    grid = SplineGrid(-1.0, 1.0, 3, 3)
+    g = torch.Generator(device="cuda").manual_seed(C + N)
+    params = KL.init_kan_layer(KL.KANLayerConfig(C * k * k, N, grid), g)
+    x = torch.rand(B, H, W, C, generator=g, device=cuda_device) * 2.2 - 1.1
+    ops.reset_launches()
+    y = KL.conv_kan_apply(params, x, grid, kh=k, kw=k, stride=stride, pad=k // 2, method="auto")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["kan_fused_gemm"] == 1 and sum(ops.LAUNCHES.values()) == 1
+    patches = KL.im2col(x, k, k, stride, k // 2)
+    rows = patches.shape[0] * patches.shape[1] * patches.shape[2]
+    assert rows % 128 and y.shape == patches.shape[:3] + (N,)
+    assert torch.equal(patches.cpu(), KL.im2col(x.cpu(), k, k, stride, k // 2))
+    want = F.kan_fused_gemm_reference(patches.reshape(rows, -1), params["coeff"], grid,
+                                      params["base_w"]).reshape(y.shape)
+    scale = want.abs().max().item()
+    assert (y - want).abs().max().item() <= CONV_REL * scale
+
+
+@pytest.mark.cuda
+def test_training_steps_on_card_match_the_cpu(cuda_device):
+    """Three steps of ``examples/mnist_kan.adam_step`` at (64, 16, 10) on the
+    card against the same steps on the CPU, from the same start and
+    batches: Adam moments within 1e-5 of each leaf's max, parameters within
+    1e-2 lr (a step near eps carries its gradient's rounding error, as
+    tests/test_torch_apps.py sets out)."""
+    from repro_torch.data import pipeline as dp
+    from repro_torch.examples import mnist_kan as MK
+
+    cfg, lr = KL.KANNetConfig(layers=(64, 16, 10), G=10, P=3), 3e-3
+    X, Y = dp.mnist_like(1024, seed=1, noise=2.4, dim=64)
+    idx = MK.batch_indices(3, 256, len(X))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = MK.init_kan_net_threefry(cfg, seed=0, device=dev)
+        m = [{k: torch.zeros_like(a) for k, a in q.items()} for q in p]
+        v = [{k: torch.zeros_like(a) for k, a in q.items()} for q in p]
+        xt = torch.tensor(X, device=dev)
+        yt = torch.tensor(Y, dtype=torch.int64, device=dev)
+        for t, b in enumerate(idx):
+            bt = torch.tensor(b, device=dev)
+            p, m, v = MK.adam_step(p, m, v, t, xt[bt], yt[bt], cfg, lr)
+        out[dev] = (p, m, v)
+    for name, got, want in zip(("params", "m", "v"), out["cuda"], out["cpu"]):
+        for gl, wl in zip(got, want):
+            for k in wl:
+                atol = 1e-2 * lr if name == "params" else 1e-5 * wl[k].abs().max().item()
+                torch.testing.assert_close(gl[k].cpu(), wl[k], rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_trained_int8_path_equals_plain_integer_path(cuda_device):
+    """MNIST-KAN trained 30 steps on the card, quantised on the card: the
+    int8 net through the kernels (2048 rows: the dense-band kernel; 8 rows:
+    the sparse one) equals the plain integer path bit for bit, and the
+    quantisation equals a CPU quantisation of the same weights."""
+    from repro_torch.examples import mnist_kan as MK
+
+    cfg, params, (Xte, _) = MK.train_mnist_kan(steps=30, device="cuda")
+    q = MK.quantize_net(cfg, params)
+    for ql, p in zip(q, params):
+        cpu = Q.quantize_kan_layer({k: v.cpu() for k, v in p.items()}, cfg.grid())
+        assert torch.equal(cpu.coeff_q, ql.coeff_q.cpu())
+        assert torch.equal(cpu.base_w_q, ql.base_w_q.cpu())
+    x = torch.as_tensor(Xte, device=cuda_device)
+    for rows, kernel in ((2048, "kan_int8_gemm"), (8, "kan_sparse_int8_gemm")):
+        ops.reset_launches()
+        got = MK.int8_net_apply(q, x[:rows])
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
+        assert torch.equal(got, MK.int8_net_apply(q, x[:rows], fused=False))
