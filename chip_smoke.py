@@ -127,7 +127,30 @@ Phases; any failed check raises and the script exits non-zero:
    version, ``im2col`` on the card equal to the CPU's; the fused kernel
    timed at every distinct shape beside its plain version, a matmul over
    the band and its bound.
-10. A JSON line with every ported kernel's numbers, the card's line, and as
+10. The dense models.  Phase 6's gather check also holds the kernel, bit
+   for bit, at qwen1.5-0.5b's pools (24 layers, 97 blocks of 16 tokens, 16
+   KV heads, head_dim 64): fp32 k and v, and an int8 cache's four leaves
+   (int8 k, v and fp32 k_scale, v_scale) in one launch, stacked and one
+   layer, each timed.  (a) Full-width qwen1.5-0.5b (random weights from
+   seed 0, fp32) serves phase 4's requests statically: every stream equal
+   to the request served alone, teacher-forced decode logits within
+   ``DENSE_REL`` of max|logit| of ``lm.forward``, two requests' first 8
+   tokens equal to the same weights' run on the host's CPU (streams may
+   part only at a near-tie, a top-2 gap below ``DENSE_TIE`` of max|logit|).
+   (b) Phase 6's continuous cell four ways (dense, paged shadow, paged step,
+   the 25-block pool), (c) with an int8 KV cache dense and paged step (the
+   paged streams equal to the dense ones, every gather four leaves in one
+   launch, no prefix reuse; int8 against fp32 KV teacher-forced within the
+   reference's ``QUANT_REL`` and ``QUANT_AGREE``; KV bytes), (d) speculative
+   (``spec_k = 4``, 1-layer drafter, dense and paged shadow), each run with
+   exact launch counts, the paged and speculative streams equal to (b)'s
+   dense ones; warm runs of (a), (b) and (c) profiled.  (e) Full-width,
+   full-depth gemma3-12b (48 layers, 40 of them windowed at 1024) serves 4
+   prompts of 1100 tokens statically; its teacher-forced decode logits past
+   the window within ``DENSE_REL`` of ``lm.forward``'s windowed mask, and a
+   32-token history decoded through the rings equal within ``DENSE_REL`` to
+   full caches and ``lm.forward``.
+11. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -136,6 +159,7 @@ checkout of the repository.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -500,7 +524,71 @@ def check_gather(torch, np):
                     f"(one launch) {dname}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                     f"library_ms={lib_ms:.4f} ({entry['library']}) bound_ms={bound:.4f} "
                     f"(bytes: {nbytes / 1e6:.2f} MB, {entry['distinct_blocks']} distinct blocks)")
+    check_gather_dense(torch, np, result, cycles_per_ms)
     return result
+
+
+# Phase 10's pools: qwen1.5-0.5b's k/v at the continuous cell's pool (24
+# layers, 97 blocks of 16 tokens, 16 KV heads, head_dim 64), fp32 (k, v)
+# and int8 (k, v int8 with their fp32 k_scale, v_scale: four leaves, two
+# element sizes, in one launch)
+QWEN_POOL = (24, 97, 16, 16, 64)
+
+
+def check_gather_dense(torch, np, result: dict, cycles_per_ms: float) -> None:
+    """The gather at qwen's pool shapes, shadow (stacked, 24 layers) and
+    step (one layer) reads: fp32 k and v, and the four leaves of an int8
+    cache, each bit-equal to the plain version and timed (kernel, plain
+    version, ``index_select`` per leaf, byte bound)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as PG
+
+    layers, n_blocks, bs, kv, hd = QWEN_POOL
+    table = engine_table(torch, np, CONT["slots"], CONT["max_seq"] // bs, n_blocks, 5)
+    idx = table.reshape(-1).long().clamp(0, n_blocks - 1)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    full = {"k": torch.randn(QWEN_POOL, generator=g, device="cuda"),
+            "v": torch.randn(QWEN_POOL, generator=g, device="cuda")}
+    quant = {n: torch.randint(-127, 128, QWEN_POOL, generator=g, device="cuda",
+                              dtype=torch.int8) for n in ("k", "v")}
+    for n in ("k", "v"):
+        quant[n + "_scale"] = torch.rand(QWEN_POOL[:-1], generator=g, device="cuda") / 127
+    for use, stacked in (("qwen_shadow", True), ("qwen_step", False)):
+        ax = 1 if stacked else 0
+        for dname, cache in (("float32", full), ("int8+float32", quant)):
+            # a step read's copies: the 24 layers in turn (L2 stays cold)
+            subs = [cache] if stacked else [{n: a[i] for n, a in cache.items()}
+                                            for i in range(layers)]
+            c = subs[0]
+            got = ops.gather_views(c, table, stacked)
+            torch.cuda.synchronize()
+            want = PG.gather_views_reference(c, table, stacked)
+            ok = list(got) == list(want) and all(torch.equal(got[n], want[n]) for n in want)
+            err = max((got[n].float() - want[n].float()).abs().max().item() for n in want)
+            log(f"[check] gather_views {use} leaves {[f'{n}:{str(a.dtype)[6:]}' for n, a in c.items()]} "
+                f"pool={list(c['k'].shape)} table={list(table.shape)} bitwise_equal={ok} "
+                f"max_abs_err={err:.1e}")
+            if not ok:
+                raise RuntimeError(f"gather_views ({use}, {dname}) disagrees with its plain version")
+            result["max_abs_err"] = max(result["max_abs_err"], err)
+            ms = time_ms(torch, [lambda c=c: ops.gather_views(c, table, stacked) for c in subs],
+                         cycles_per_ms)
+            plain_ms = time_ms(torch, [lambda c=c: PG.gather_views_reference(c, table, stacked)
+                                       for c in subs], cycles_per_ms)
+            lib_ms = time_ms(torch, [lambda c=c: [torch.index_select(p, ax, idx)
+                                                  for p in c.values()] for c in subs],
+                             cycles_per_ms)
+            nbytes = gather_bytes(torch, list(c.values()), table, stacked)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            entry = {"use": use, "leaves": len(c), "pool": list(c["k"].shape),
+                     "table": list(table.shape), "dtype": dname, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library": f"index_select x{len(c)} (one per leaf)",
+                     "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+                     "distinct_blocks": int(torch.unique(idx).numel())}
+            result["timings"].append(entry)
+            log(f"[time] gather_views {use} {len(c)} leaves (one launch) {dname}: "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"({entry['library']}) bound_ms={bound:.4f} (bytes: {nbytes / 1e6:.2f} MB)")
 
 
 def expected_launches(model, stats: dict, run: dict) -> dict:
@@ -522,7 +610,7 @@ def expected_launches(model, stats: dict, run: dict) -> dict:
     def kernel(rows: int) -> str:
         return "kan_" + KL.resolve_inference_method("cuda", rows) + "_gemm"
 
-    per_layer = 2 * len(model.unit)
+    per_layer = 2 * sum(b.kind == "attn_kan" for b in model.unit)   # MLP FFNs: none
     kan, layers = per_layer * model.n_repeats, len(model.unit) * model.n_repeats
     want = dict.fromkeys(ops.LAUNCHES, 0)
     paged = run.get("paged", False)
@@ -1499,7 +1587,8 @@ def net_inputs(torch, grid, rows, K, device, seed=13):
 
 def counted(torch, name, fn, want, device, tag="int8"):
     """``fn()`` with the launch counts reset just before and checked
-    exactly just after (on the CPU the wrappers launch nothing)."""
+    exactly just after (on the CPU the wrappers launch nothing); ``want``
+    may be a function, called after ``fn`` (counts read from its stats)."""
     from repro_torch.kernels import ops
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -1510,6 +1599,8 @@ def counted(torch, name, fn, want, device, tag="int8"):
     sync()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    if callable(want):
+        want = want()
     expected = dict(dict.fromkeys(ops.LAUNCHES, 0), **(want if device == "cuda" else {}))
     log(f"[{tag}] {name}: {wall * 1e3:.2f} ms, launches "
         f"{ {k: v for k, v in launches.items() if v} }, expected "
@@ -2042,6 +2133,406 @@ def time_reskan(torch, layers, xs, batch, grid):
     return {"timings": timings, "kernel_ms_total": total}
 
 
+# Phase 10: the dense models of ROADMAP item 6.  qwen1.5-0.5b (the
+# conventional-DNN control: a SwiGLU MLP where kanformer has a KAN FFN) at
+# full width through every serving path, int8 KV caches on two of them,
+# and gemma3-12b at full width and depth on the static path, past its
+# window.  Tolerances are relative to max|logit| of the logits compared
+# (fp32 sums in another order; derived on the CPU, PERF.md §6):
+DENSE_REL = 1e-4                   # teacher-forced decode vs lm.forward
+DENSE_TIE = 1e-4                   # streams may part only at a top-2 gap below this
+QUANT_REL, QUANT_AGREE = 0.1, 0.9  # int8 KV vs fp32 KV (the reference's bounds)
+GEMMA = {"extra": 76, "batch": 4, "new": 32, "hist": 32}   # prompts: window + 76 tokens
+QUANT_TOKENS = 48                  # int8 vs fp32 KV: tokens teacher-forced from position 0
+# the profiled warm runs of (b) and (c): the cell's first wave of requests
+# (one per slot), each cut to one chunk of tokens: the profiler's own cost
+# grows with the kernels it records (~0.5 ms each), ~2000 per decode step
+PROFILE_WAVE = {"requests": CONT["slots"], "tokens": CONT["chunk_steps"]}
+DENSE_QUANT_RUNS = [("int8_dense", {}), ("int8_paged_step", {"paged": True, "paged_read": "step"})]
+DENSE_SPEC_RUNS = [("spec_dense", {"spec_k": SPEC_K, "draft_layers": 1}),
+                   ("spec_paged_shadow", {"spec_k": SPEC_K, "draft_layers": 1, "paged": True})]
+
+
+def rel_gaps(torch, np, params, cfg, prompt, stream, device):
+    """Entry ``j``: the top-2 gap of the logits (``lm.forward`` of the
+    prompt and ``stream[:j]``) that predict ``stream[j]``, over max|logit|."""
+    from repro_torch.models import lm
+
+    seq = np.concatenate([prompt, stream[:-1]]).astype(np.int64)
+    logits, _ = lm.forward(params, cfg, torch.as_tensor(seq[None], device=device))
+    lg = logits[0, len(prompt) - 1:]
+    top = torch.topk(lg, 2, dim=-1).values
+    return ((top[:, 0] - top[:, 1]) / lg.abs().amax()).cpu().numpy()
+
+
+def held_streams(torch, np, tag, outs, ref, params, cfg, reqs, device, gaps, exact=False):
+    """Each of ``outs`` equal to ``ref``, unless (``exact`` False) the first
+    divergence is a near-tie of ``ref``'s logits; returns the divergences."""
+    divs = []
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        diff = np.nonzero(o != r)[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        if exact:
+            raise RuntimeError(f"{tag}: request {i} diverges at step {j}")
+        if i not in gaps:
+            gaps[i] = rel_gaps(torch, np, params, cfg, reqs[i], r, device)
+        g = float(gaps[i][j])
+        divs.append({"run": tag, "request": i, "step": j, "top2_gap_rel": g})
+        log(f"[dense] {tag}: request {i} diverges at step {j}; top-2 gap {g:.3e} of "
+            f"max|logit| (tol {DENSE_TIE:.0e})")
+        if g >= DENSE_TIE:
+            raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
+    return divs
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.convert import flatten_with_paths
+
+    return sum(t.numel() * t.element_size() for t in flatten_with_paths(tree).values())
+
+
+def teacher_forced(torch, params, cfg, t, max_seq, start=None):
+    """Logits that predict each next token of ``t (B, T)``: with ``start``
+    None, decode steps fed every token from position 0 (``(B, T, vocab)``,
+    as ``lm.forward(t)``); else a prefill of ``t[:, :start]`` then decode
+    steps fed the rest (``(B, T - start, vocab)``, as ``lm.forward(t)[:,
+    start - 1:T - 1]``)."""
+    from repro_torch.models import lm
+
+    B, T = t.shape
+    if start is None:
+        caches, got, s0, end = lm.init_caches(cfg, B, max_seq, torch.float32, t.device), [], 0, T
+    else:
+        logits, caches = lm.prefill(params, cfg, t[:, :start], max_seq)
+        got, s0, end = [logits[:, start - 1]], start, T - 1
+        del logits
+    pos = torch.tensor(s0, device=t.device)
+    for s in range(s0, end):
+        lg, caches = lm.decode_step(params, cfg, t[:, s:s + 1], caches, pos)
+        got.append(lg)
+        pos = pos + 1
+    return torch.stack(got, 1)
+
+
+def rel_err(a, b) -> float:
+    return ((a - b).abs().amax() / b.abs().amax()).item()
+
+
+def qwen_path(torch, np, device="cuda", cfg=None):
+    """Phase 10 (a)-(d), any miss raises: qwen1.5-0.5b (random weights from
+    seed 0, fp32) served statically, continuously (dense, paged shadow,
+    paged step, a 25-block pool), with int8 KV caches (dense, paged step)
+    and speculatively (a 1-layer drafter, dense and paged shadow), each run
+    counted exactly.  ``device="cpu"`` with a reduced ``cfg`` rehearses it
+    on the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import qwen1_5_0_5b
+    from repro_torch.configs.common import ArchConfig, enable_kv_quant
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig, _to_device
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_start = time.perf_counter()
+
+    def stamp() -> str:
+        return f"(at {time.perf_counter() - t_start:.1f} s)"
+
+    cfg = cfg or qwen1_5_0_5b.config().model
+    qcfg = enable_kv_quant(ArchConfig(model=cfg, family="dense")).model
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    out = {"params": sum(t.numel() for t in flatten_with_paths(params).values())}
+
+    def counted_run(tag, fn, want):
+        """:func:`counted` with the peak device memory of the run."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res, m = counted(torch, tag, fn, want, device, tag="dense")
+        return (res, m["wall_ms"] / 1e3, m["launches"],
+                torch.cuda.max_memory_allocated() if cuda else None)
+
+    # (a) the static cell: phase 4's requests
+    batch, max_new, n_req = 4, 32, 8
+    rs = np.random.RandomState(0)
+    lens = rs.randint(32, 129, n_req)
+    reqs = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in lens]
+    max_seq = int(lens.max()) + max_new + 8
+    eng = Engine(params, cfg, ServeConfig(max_seq=max_seq, max_new_tokens=max_new), device=device)
+    log(f"[dense] qwen1.5-0.5b full width: d={cfg.d_model} layers={cfg.n_repeats} "
+        f"d_ff={cfg.unit[0].d_ff} heads={cfg.unit[0].attn.n_heads} vocab={cfg.vocab} "
+        f"params={out['params'] / 1e6:.1f}M fp32; {n_req} requests, prompt lengths "
+        f"{sorted(lens.tolist())}, batch {batch}, max_new {max_new}")
+    outs, wall, launches, peak = counted_run(
+        "static", lambda: eng.serve_requests(reqs, batch_size=batch, seed=0), {})
+    for o in outs:
+        if o.shape != (max_new,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise RuntimeError(f"static: bad output {o}")
+    bk = eng.last_serve_stats["buckets"]
+    total = sum(len(o) for o in outs)
+    a = {"tok_s": total / wall, "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
+         "prefill_ms": sum(b["prefill_s"] for b in bk) * 1e3 / len(bk),
+         "decode_ms_per_step": sum(b["decode_s"] for b in bk) * 1e3
+         / sum(b["decode_steps"] for b in bk)}
+    gaps = {}
+    solo = [eng.generate(r[None], max_new=max_new)[0] for r in reqs]
+    a["divergences"] = held_streams(torch, np, "static vs solo", outs, solo, params, cfg, reqs,
+                                    device, gaps)
+    # teacher-forced decode of the first bucket's rows against lm.forward
+    errs = []
+    for i in sorted(range(n_req), key=lambda i: lens[i])[:batch]:
+        t = torch.as_tensor(np.concatenate([reqs[i], outs[i]]).astype(np.int64)[None],
+                            device=device)
+        dec = teacher_forced(torch, params, cfg, t, max_seq, start=int(lens[i]))
+        fwd, _ = lm.forward(params, cfg, t)
+        errs.append(rel_err(dec, fwd[:, int(lens[i]) - 1:-1]))
+    a["decode_vs_forward_rel"] = max(errs)
+    log(f"[dense] static: teacher-forced decode vs lm.forward, {batch} requests x {max_new} "
+        f"tokens: max err {a['decode_vs_forward_rel']:.3e} of max|logit| (tol {DENSE_REL:.0e}) "
+        f"{stamp()}")
+    if not a["decode_vs_forward_rel"] <= DENSE_REL:
+        raise RuntimeError("qwen decode logits disagree with lm.forward")
+    # two requests x 8 tokens on the host's CPU, the same weights
+    cpu = Engine(_to_device(params, "cpu"), cfg, ServeConfig(max_seq=max_seq, max_new_tokens=8),
+                 device="cpu")
+    cpu_outs = [cpu.generate(reqs[i][None], max_new=8)[0] for i in (0, 1)]
+    a["cpu_divergences"] = held_streams(torch, np, "card vs CPU", [outs[0][:8], outs[1][:8]],
+                                        cpu_outs, params, cfg, reqs[:2], device, {})
+    del cpu
+    log(f"[dense] static: the first 8 tokens of 2 requests on the host's CPU: "
+        f"{len(a['cpu_divergences'])} near-tie divergences {stamp()}")
+    if cuda:
+        t0 = time.perf_counter()
+        eng.serve_requests(reqs, batch_size=batch, seed=0)
+        sync()
+        a["warm_tok_s"] = total / (time.perf_counter() - t0)
+        wb = eng.last_serve_stats["buckets"]
+        a["warm_decode_ms_per_step"] = (sum(b["decode_s"] for b in wb) * 1e3
+                                        / sum(b["decode_steps"] for b in wb))
+        order = sorted(range(n_req), key=lambda i: lens[i])[:batch]
+        T = int(max(lens[i] for i in order))
+        prompts = np.stack([np.pad(reqs[i], (0, T - lens[i])) for i in order]).astype(np.int32)
+        a["profile"] = profile_generate(torch, eng, prompts, lens[order].astype(np.int32))
+    log(f"[dense] static: {total} tokens in {wall:.3f} s: {a['tok_s']:.1f} tok/s cold, "
+        f"{a.get('warm_tok_s')} warm; prefill_ms (mean per bucket) {a['prefill_ms']:.2f}; "
+        f"decode_ms_per_step {a['decode_ms_per_step']:.3f} cold, "
+        f"{a.get('warm_decode_ms_per_step')} warm; busy share "
+        f"{a.get('profile', {}).get('busy_share')}; peak_mem_GB={(peak or 0) / 1e9:.3f} "
+        f"{stamp()}")
+    out["static"] = a
+    del eng
+
+    # (b)-(d) the continuous cell of phase 6
+    creqs, budgets = continuous_requests(np, cfg.vocab)
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"])
+    runs, streams, engines, divs = {}, {}, {}, []
+
+    def serve(eng):
+        return eng.serve_continuous(creqs, slots=CONT["slots"],
+                                    chunk_steps=CONT["chunk_steps"], max_new=budgets)
+
+    def run(name, model, extra):
+        eng = engines[name] = Engine(params, model, dataclasses.replace(base, **extra),
+                                     device=device)
+        outs, wall, launches, peak = counted_run(
+            name, lambda: serve(eng),
+            lambda: expected_launches(model, eng.last_serve_stats, extra))
+        st = eng.last_serve_stats
+        pg = st.get("paged", {})
+        if pg and pg["blocks_in_use"] != pg["blocks_cache_held"]:
+            raise RuntimeError(f"{name}: the pool is not balanced after the drain: {pg}")
+        for o, b in zip(outs, budgets):
+            if o.shape != (b,) or o.min() < 0 or o.max() >= model.vocab:
+                raise RuntimeError(f"{name}: bad output {o}")
+        steps = (st["spec"]["windows"] if "spec" in st
+                 else st["chunks_run"] * CONT["chunk_steps"])
+        m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
+             "useful_tokens": st["useful_tokens"], "chunks": st["chunks_run"],
+             "decode_ms_per_step": st["decode_s"] * 1e3 / steps, "prefill_s": st["prefill_s"],
+             "n_preemptions": st["n_preemptions"],
+             "prefill_tokens_saved": pg.get("prefill_tokens_saved", 0),
+             "prefix_caching": "prefix_hit_blocks" in pg,
+             "blocks_watermark": pg.get("blocks_in_use_watermark"), "peak_mem_bytes": peak,
+             "launches": launches}
+        if "spec" in st:
+            m.update({k: st["spec"][k] for k in ("windows", "proposed_drafts",
+                                                 "accepted_drafts", "acceptance_rate")})
+        log(f"[dense] {name}: {m['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.1f} "
+            f"tok/s; {m['decode_ms_per_step']:.3f} ms per decode "
+            f"{'window' if 'spec' in st else 'step'}; admission prefills "
+            f"{m['prefill_s'] * 1e3:.1f} ms; preemptions {m['n_preemptions']}; prefill tokens "
+            f"saved {m['prefill_tokens_saved']}; block watermark {m['blocks_watermark']}"
+            f"{'; acceptance %.4f' % m['acceptance_rate'] if 'spec' in st else ''}; "
+            f"peak_mem_GB={(peak or 0) / 1e9:.3f} {stamp()}")
+        runs[name], streams[name] = m, outs
+        return m
+
+    gaps = {}
+    for name, extra in CONT_RUNS:                                  # (b)
+        m = run(name, cfg, extra)
+        if extra.get("paged") and m["prefill_tokens_saved"] <= 0:
+            raise RuntimeError(f"{name}: no prefix hit")
+        if name == "paged_preempt" and m["n_preemptions"] < 1:
+            raise RuntimeError(f"{name}: the tight pool preempted nothing")
+        if name != "dense":
+            divs += held_streams(torch, np, name, streams[name], streams["dense"], params, cfg,
+                                 creqs, device, gaps)
+    real_gather, leaf_counts = ops.gather_views, []
+
+    def spy(cache, table, stacked=False):                       # leaves per launch
+        leaf_counts.append(len(cache))
+        return real_gather(cache, table, stacked)
+
+    ops.gather_views = spy
+    try:
+        for name, extra in DENSE_QUANT_RUNS:                       # (c)
+            m = run(name, qcfg, extra)
+            if m["prefill_tokens_saved"] != 0 or (extra.get("paged") and m["prefix_caching"]):
+                raise RuntimeError(f"{name}: prefix caching under an int8 KV cache")
+    finally:
+        ops.gather_views = real_gather
+    n_gather = runs["int8_paged_step"]["launches"]["gather_blocks"] if cuda else len(leaf_counts)
+    log(f"[dense] int8_paged_step: {len(leaf_counts)} gathers, leaves per launch "
+        f"{sorted(set(leaf_counts))}, {n_gather} counted launches")
+    if set(leaf_counts) != {4} or len(leaf_counts) != n_gather:
+        raise RuntimeError("the int8 paged path did not gather its four leaves in one launch")
+    held_streams(torch, np, "int8_paged_step vs int8_dense", streams["int8_paged_step"],
+                 streams["int8_dense"], params, qcfg, creqs, device, {}, exact=True)
+    for name, extra in DENSE_SPEC_RUNS:                            # (d)
+        run(name, cfg, extra)
+        divs += held_streams(torch, np, name, streams[name], streams["dense"], params, cfg,
+                             creqs, device, gaps)
+    log(f"[dense] near-tie divergences from the dense streams: {len(divs)}")
+
+    # int8 against fp32 KV, teacher-forced through decode steps from 0
+    t = torch.as_tensor(creqs[0][:QUANT_TOKENS].astype(np.int64)[None], device=device)
+    fp = teacher_forced(torch, params, cfg, t, t.shape[1])
+    q8 = teacher_forced(torch, params, qcfg, t, t.shape[1])
+    quant = {"tokens": int(t.shape[1]), "rel": rel_err(q8, fp),
+             "agree": (fp.argmax(-1) == q8.argmax(-1)).float().mean().item()}
+    for name, model in (("fp32", cfg), ("int8", qcfg)):      # shapes only: no memory
+        quant[f"dense_kv_bytes_{name}"] = tree_bytes(lm.init_caches(
+            model, CONT["slots"], CONT["max_seq"], torch.float32, "meta"))
+        quant[f"pool_kv_bytes_{name}"] = tree_bytes(lm.init_paged_caches(
+            model, CONT["slots"] * CONT["max_seq"] // CONT["block_size"] + 1,
+            CONT["block_size"], torch.float32, "meta"))
+    log(f"[dense] int8 vs fp32 KV, {quant['tokens']} tokens teacher-forced: max err "
+        f"{quant['rel']:.3e} of max|logit| (< {QUANT_REL}), top-1 agreement "
+        f"{quant['agree']:.4f} (> {QUANT_AGREE}); KV bytes dense {quant['dense_kv_bytes_fp32']} "
+        f"fp32 / {quant['dense_kv_bytes_int8']} int8, pool {quant['pool_kv_bytes_fp32']} fp32 / "
+        f"{quant['pool_kv_bytes_int8']} int8 {stamp()}")
+    if not (quant["rel"] < QUANT_REL and quant["agree"] > QUANT_AGREE):
+        raise RuntimeError("int8 KV logits too far from fp32 KV")
+
+    if cuda:      # one warm run of (b) and of (c), each profiled
+        wave = creqs[:PROFILE_WAVE["requests"]]
+        for key, name in (("profile_cont", "paged_shadow"), ("profile_int8", "int8_paged_step")):
+            eng, stats = engines[name], []
+
+            def serve_wave(eng=eng, stats=stats):
+                eng.serve_continuous(wave, slots=CONT["slots"], chunk_steps=CONT["chunk_steps"],
+                                     max_new=PROFILE_WAVE["tokens"])
+                stats.append(eng.last_serve_stats)
+
+            prof = profile_call(torch, serve_wave, lambda name=name: (
+                f"one warm qwen {name} run of the cell's first {len(wave)} requests, "
+                f"{PROFILE_WAVE['tokens']} tokens each"))
+            st = stats[0]                       # the unprofiled call's
+            steps = st["chunks_run"] * CONT["chunk_steps"]
+            prof.update({"warm_tok_s": st["useful_tokens"] / (prof["wall_ms"] / 1e3),
+                         "warm_decode_ms_per_step": st["decode_s"] * 1e3 / steps,
+                         "warm_prefill_ms": st["prefill_s"] * 1e3, "decode_steps": steps})
+            log(f"[dense] {name} warm wave: {prof['warm_tok_s']:.1f} tok/s, "
+                f"{prof['warm_decode_ms_per_step']:.3f} ms per decode step, admission prefill "
+                f"{prof['warm_prefill_ms']:.1f} ms (unprofiled), busy share "
+                f"{prof['busy_share']} {stamp()}")
+            out[key] = prof
+    out.update({"runs": runs, "divergences": divs, "int8_vs_fp32": quant})
+    return out
+
+
+def gemma_path(torch, np, device="cuda", cfg=None):
+    """Phase 10 (e), any miss raises: gemma3-12b at full width and depth
+    (random weights from seed 0, fp32): 4 prompts of ``window + 76`` tokens
+    served statically (prefill places the rings, decode wraps them), the
+    teacher-forced decode logits against ``lm.forward``'s windowed flash
+    mask; then a history inside the window decoded through the rings and
+    through full caches, both against ``lm.forward``."""
+    import dataclasses
+
+    from repro_torch.configs import gemma3_12b
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cuda = device == "cuda"
+    cfg = cfg or gemma3_12b.config().model
+    window = cfg.unit[0].attn.window
+    B, new = GEMMA["batch"], GEMMA["new"]
+    T = window + GEMMA["extra"]
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    n_params = sum(t.numel() for t in flatten_with_paths(params).values())
+    rs = np.random.RandomState(3)
+    prompts = rs.randint(0, cfg.vocab, (B, T)).astype(np.int32)
+    max_seq = T + new
+    log(f"[gemma] gemma3-12b full width: d={cfg.d_model} layers={cfg.n_layers} "
+        f"({len(cfg.unit) - 1} local, window {window} : 1 global) d_ff={cfg.unit[0].d_ff} "
+        f"vocab={cfg.vocab} params={n_params / 1e9:.2f}B fp32; {B} prompts of {T} tokens, "
+        f"{new} new")
+    eng = Engine(params, cfg, ServeConfig(max_seq=max_seq, max_new_tokens=new), device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    outs, m = counted(torch, "static", lambda: eng.serve_requests(list(prompts), batch_size=B),
+                      {}, device, tag="gemma")
+    wall, launches = m["wall_ms"] / 1e3, m["launches"]
+    gs = eng.last_generate_stats
+    res = {"params": n_params, "tok_s": B * new / wall, "wall_s": wall,
+           "prefill_ms": gs["prefill_s"] * 1e3,
+           "decode_ms_per_step": gs["decode_s"] * 1e3 / gs["decode_steps"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "launches": launches}
+    stream = np.stack(outs)
+    if stream.shape != (B, new) or stream.min() < 0 or stream.max() >= cfg.vocab:
+        raise RuntimeError(f"gemma: bad output {stream}")
+    del eng
+    t = torch.as_tensor(np.concatenate([prompts, stream], 1).astype(np.int64), device=device)
+    dec = teacher_forced(torch, params, cfg, t, max_seq, start=T)
+    if not torch.equal(dec.argmax(-1).cpu(), torch.as_tensor(stream.astype(np.int64))):
+        raise RuntimeError("gemma: the served streams are not the decode logits' argmax")
+    fwd, _ = lm.forward(params, cfg, t[:, :-1])
+    res["decode_vs_forward_rel"] = rel_err(dec, fwd[:, T - 1:])
+    res["agree"] = (dec.argmax(-1) == fwd[:, T - 1:].argmax(-1)).float().mean().item()
+    del fwd, dec
+    log(f"[gemma] static: {B * new} tokens in {wall:.3f} s: {res['tok_s']:.2f} tok/s; prefill "
+        f"{res['prefill_ms']:.1f} ms; {res['decode_ms_per_step']:.3f} ms per decode step; "
+        f"peak_mem_GB={(res['peak_mem_bytes'] or 0) / 1e9:.3f}; teacher-forced decode past the "
+        f"window vs lm.forward: max err {res['decode_vs_forward_rel']:.3e} of max|logit| (tol "
+        f"{DENSE_REL:.0e}), top-1 agreement {res['agree']:.4f}")
+    if not res["decode_vs_forward_rel"] <= DENSE_REL:
+        raise RuntimeError("gemma: ring decode logits disagree with the windowed lm.forward")
+    # a history inside the window: rings (window slots of 2 x window) vs
+    # full caches (no window: 2 x window slots) vs lm.forward
+    h = min(GEMMA["hist"], window)
+    full_cfg = dataclasses.replace(cfg, unit=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, window=None)) for b in cfg.unit))
+    t = torch.as_tensor(rs.randint(0, cfg.vocab, (1, h)).astype(np.int64), device=device)
+    ring = teacher_forced(torch, params, cfg, t, 2 * window)
+    full = teacher_forced(torch, params, full_cfg, t, 2 * window)
+    fwd, _ = lm.forward(params, cfg, t)
+    res["ring_vs_full_rel"], res["ring_vs_forward_rel"] = rel_err(ring, full), rel_err(ring, fwd)
+    log(f"[gemma] {h} tokens inside the window, decoded from 0: rings vs full caches max err "
+        f"{res['ring_vs_full_rel']:.3e}, rings vs lm.forward {res['ring_vs_forward_rel']:.3e} "
+        f"of max|logit| (tol {DENSE_REL:.0e})")
+    if not max(res["ring_vs_full_rel"], res["ring_vs_forward_rel"]) <= DENSE_REL:
+        raise RuntimeError("gemma: ring decode disagrees with a full cache")
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2103,15 +2594,21 @@ def main() -> int:
     mnist = mnist_train_path(torch, np, card=card)
     reskan = reskan_path(torch)
     results["kan_fused_gemm"]["timings"] += reskan.pop("timings")
+    t6 = time.perf_counter()
+    qwen = qwen_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma = gemma_path(torch, np)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
-        f"GKAN {t5 - t4:.1f} s, KAN applications {time.perf_counter() - t5:.1f} s")
+        f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
+        f"{time.perf_counter() - t6:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
-            "build_s": built}
+            "qwen_path": qwen, "gemma_path": gemma, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -2119,7 +2616,10 @@ def main() -> int:
                **{k: m["launches"] for k, m in int8["runs"].items()},
                **{k: m["launches"] for k, m in gkan["runs"].items()},
                **{"mnist_trained_" + k: m["launches"] for k, m in mnist["runs"].items()},
-               **{k: m["launches"] for k, m in reskan["runs"].items()}}
+               **{k: m["launches"] for k, m in reskan["runs"].items()},
+               "qwen_static": qwen["static"]["launches"],
+               **{"qwen_" + k: m["launches"] for k, m in qwen["runs"].items()},
+               "gemma_static": gemma["launches"]}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

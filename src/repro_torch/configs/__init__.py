@@ -1,11 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only kanformer-100m is ported; the other architectures of ``repro.configs``
-wait for their block kinds (ROADMAP queue 1, item 8)."""
+kanformer-100m and the dense models (qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b,
+gemma3-12b) are ported; the other architectures of ``repro.configs`` wait
+for their block kinds or input kinds (ROADMAP queue 1, item 8)."""
 
 import importlib
 
-ARCHS = {"kanformer-100m": "kanformer_100m"}
+ARCHS = {
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "kanformer-100m": "kanformer_100m",
+}
 
 
 def _module(name: str):

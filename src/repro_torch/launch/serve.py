@@ -1,6 +1,8 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --arch kanformer-100m``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Takes the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
+``--arch`` takes the port's registry (``repro_torch.configs``):
+kanformer-100m, qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b, gemma3-12b.  Takes
+the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
 length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
 continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
 ``--batch`` slots, ``--chunk-steps`` per chunk) and reports its slot
@@ -10,8 +12,11 @@ with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
 ``--draft-layers``-deep drafter (``--draft-quant``: int8 fake-quantised).
 ``--temperature T > 0`` samples in every engine mode, each request's key
 chain keyed by ``--seed`` and its index, as the reference's CLI does;
-``--mesh`` exits with rc=2 and says it is not ported yet.  Reduced shapes are the default; ``--full`` selects the full
-config.  Runs on ``cuda`` unless ``--device cpu`` is given.
+``--mesh`` exits with rc=2 and says it is not ported yet.  A windowed model
+(gemma3) is refused as the reference refuses it: ``--spec-k`` with rc=2,
+``--paged`` by the ``NotImplementedError`` of its paged caches.  Reduced
+shapes are the default; ``--full`` selects the full config.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations

@@ -2,14 +2,16 @@
 ``repro/models/attention.py``).
 
 * :func:`flash_attention` — online softmax over KV chunks, written in plain
-  torch ops (the reference is plain jnp too; no attention kernel is owed);
+  torch ops (the reference is plain jnp too; no attention kernel is owed),
+  with an optional sliding ``window``;
 * :func:`attn_forward` — prefill attention that also returns the post-rotary
   K/V the decode cache stores;
 * :func:`attn_decode_step` — one token against the cache.  The cache is
   written IN PLACE (the torch analogue of the reference's buffer donation):
   a scalar ``pos`` writes one slot for every row, a per-row ``(B,)`` ``pos``
   writes each row at its own slot, and a row whose slot is past the cache
-  writes nothing (the reference's scatter drops it);
+  writes nothing (the reference's scatter drops it).  A windowed layer's
+  cache is a ring of ``window`` slots, written at ``pos % window``;
 * :func:`attn_verify_window` and :func:`attn_verify_window_paged` — a
   speculative verify window of W tokens per row in one pass, each query
   masked at its own position as the sequential decode step masks it;
@@ -20,8 +22,13 @@
   gather the logical view with the block-table kernel
   (``kernels.ops.gather_views``) and run the unchanged dense math on it.
 
-Sliding windows, int8 KV caches and MLA are not ported yet (ROADMAP queue
-1); they raise ``NotImplementedError``.
+With ``AttnConfig.kv_quant`` a cache holds int8 ``k``/``v`` leaves and fp32
+per-(token, KV head) ``k_scale``/``v_scale`` leaves (:func:`_kv_quantize`),
+and the decode reads dequantise chunk by chunk inside an online softmax, as
+the reference does.  ``AttnConfig.qk_norm`` RMS-normalises q and k per head
+before rotary (gemma3).  MLA (``kv_lora_rank``) is not ported yet (ROADMAP
+queue 1, item 8) and raises ``NotImplementedError``; the paged and
+verify-window entry points refuse windowed layers, as the reference does.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+# the int8 KV cache's flash-decode chunk (the reference's min(8192, S))
+QUANT_CHUNK = 8192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,16 +65,24 @@ class AttnConfig:
 
 
 def check_supported(cfg: AttnConfig) -> None:
-    """Raise for the attention variants this slice of the port lacks."""
-    missing = [name for name, on in (
-        ("sliding window", cfg.window is not None),
-        ("int8 KV cache (kv_quant)", cfg.kv_quant),
-        ("MLA (kv_lora_rank)", cfg.kv_lora_rank is not None),
-    ) if on]
-    if missing:
+    """Raise for the attention variant the port lacks: MLA."""
+    if cfg.kv_lora_rank is not None:
         raise NotImplementedError(
-            f"attention: {', '.join(missing)} not ported yet (ROADMAP queue 1, "
-            "items 6 and 8)")
+            "attention: MLA (kv_lora_rank) not ported yet (ROADMAP queue 1, item 8)")
+
+
+def _check_full_attention(cfg: AttnConfig, what: str) -> None:
+    """The paged and verify-window paths take full-attention GQA layers
+    only, as the reference asserts."""
+    check_supported(cfg)
+    if cfg.window is not None:
+        raise NotImplementedError(f"{what} supports full-attention GQA layers only")
+
+
+def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
 
 
 def flash_attention(
@@ -74,10 +91,12 @@ def flash_attention(
     v: torch.Tensor,                  # (B, Tk, KV, Dv)
     *,
     causal: bool = True,
+    window: int | None = None,
     q_offset: int = 0,
     chunk: int = 1024,
 ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks; O(Tq·chunk) live memory."""
+    """Online-softmax attention over KV chunks; O(Tq·chunk) live memory.
+    With ``window``, query position ``t`` sees key positions ``> t - window``."""
     B, Tq, H, D = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -96,11 +115,11 @@ def flash_attention(
         vb = v[:, ci * chunk:(ci + 1) * chunk]
         kv_pos = ci * chunk + torch.arange(kb.shape[1], device=dev)
         s = torch.einsum("btgrd,bsgd->bgrts", qh, kb) * scale
-        if causal:
-            mask = kv_pos[None, :] <= q_pos[:, None]
-            s = torch.where(mask, s.float(), NEG_INF)
-        else:
-            s = s.float()
+        mask = kv_pos[None, :] <= q_pos[:, None] if causal else None
+        if window is not None:
+            inside = kv_pos[None, :] > q_pos[:, None] - window
+            mask = inside if mask is None else mask & inside
+        s = s.float() if mask is None else torch.where(mask, s.float(), NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -115,9 +134,7 @@ def flash_attention(
 def _project_qkv(
     params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """QKV projection + bias + rotary at absolute ``positions``."""
-    if cfg.qk_norm:
-        raise NotImplementedError("attention: qk_norm not ported yet (ROADMAP queue 1, item 6)")
+    """QKV projection + bias + q/k norm + rotary at absolute ``positions``."""
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(x.dtype))
     v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(x.dtype))
@@ -125,6 +142,9 @@ def _project_qkv(
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = _qk_rmsnorm(q, params["q_norm"])
+        k = _qk_rmsnorm(k, params["k_norm"])
     cos, sin = L.rotary_embedding(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
     return L.apply_rotary(q, cos, sin), L.apply_rotary(k, cos, sin), v
 
@@ -144,33 +164,62 @@ def attn_forward(
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=True, chunk=chunk)
+    o = flash_attention(q, k, v, causal=True, window=cfg.window, chunk=chunk)
     y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
     if return_cache:
         return y, {"k": k, "v": v}
     return y
 
 
+def _kv_quantize(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(..., KV, D)`` -> int8 values and a per-``(..., KV)`` fp32 scale,
+    op for op the reference's (``torch.round`` rounds half to even, as
+    ``jnp.round`` does)."""
+    kf = k.float()
+    scale = torch.clamp_min(kf.abs().amax(-1), 1e-6) / 127.0
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _read_cache(cache: dict, name: str, quant: bool, dtype) -> torch.Tensor:
+    """A cache leaf in ``dtype``, dequantised under an int8 cache."""
+    if quant:
+        return (cache[name].float() * cache[name + "_scale"][..., None]).to(dtype)
+    return cache[name].to(dtype)
+
+
+def _put_rows(buf: torch.Tensor, v: torch.Tensor, slot: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = v[b]`` in place, for rows whose slot is inside
+    the cache: a row whose slot is ``>= S`` rewrites slot ``S-1`` with the
+    value it already holds, so nothing changes and nothing syncs with the
+    host."""
+    rows = torch.arange(v.shape[0], device=buf.device)
+    S = buf.shape[1]
+    keep = (slot < S).reshape((-1,) + (1,) * (v.dim() - 1))
+    slot_in = torch.clamp_max(slot, S - 1)
+    buf[rows, slot_in] = torch.where(keep, v, buf[rows, slot_in])
+
+
 def _write_cache(cache: dict, name: str, val: torch.Tensor,
-                 slot: torch.Tensor) -> None:
+                 slot: torch.Tensor, quant: bool = False) -> None:
     """Write one token's K or V (``val (B, 1, KV, D)``) into ``cache[name]``
     in place: at one shared slot (scalar ``slot``) or per row (``(B,)``).
+    Under ``quant`` the int8 values go to ``cache[name]`` and their scales
+    to ``cache[name + "_scale"]``.
 
-    Per row, a slot ``>= S`` writes nothing, as the reference's scatter
-    drops it: continuous batching's fixed-length chunks decode a finished
-    row past ``max_seq``.  Such a row rewrites slot ``S-1`` with the value
-    it already holds, so no live slot changes and nothing syncs with the
-    host."""
-    buf = cache[name]
-    v = val[:, 0].to(buf.dtype)
-    if slot.dim() == 0:
-        buf[:, slot] = v
+    Per row, a slot ``>= S`` writes nothing to either leaf, as the
+    reference's scatter drops it: continuous batching's fixed-length chunks
+    decode a finished row past ``max_seq``."""
+    if quant:
+        qv, sc = _kv_quantize(val)
+        leaves = ((cache[name], qv[:, 0]), (cache[name + "_scale"], sc[:, 0]))
     else:
-        rows = torch.arange(v.shape[0], device=buf.device)
-        S = buf.shape[1]
-        keep = (slot < S).reshape((-1,) + (1,) * (v.dim() - 1))
-        slot_in = torch.clamp_max(slot, S - 1)
-        buf[rows, slot_in] = torch.where(keep, v, buf[rows, slot_in])
+        leaves = ((cache[name], val[:, 0].to(cache[name].dtype)),)
+    for buf, v in leaves:
+        if slot.dim() == 0:
+            buf[:, slot] = v
+        else:
+            _put_rows(buf, v, slot)
 
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
@@ -180,101 +229,176 @@ def attn_decode_step(  # kanlint: ignore[KL105]
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
-    cache: dict,                      # {"k", "v"}: (B, S, KV, D), updated in place
+    cache: dict,                      # {"k", "v"[, "k_scale", "v_scale"]}: (B, S, ...)
     pos: torch.Tensor,                # scalar or (B,) absolute position
 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode against a pre-filled KV cache."""
+    """One-token decode against a pre-filled KV cache.  A windowed layer
+    writes its ring slot ``pos % S``; rotary is applied before caching, so
+    the read needs no slot positions."""
     check_supported(cfg)
     B = x.shape[0]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
-    _write_cache(cache, "k", k, pos)
-    _write_cache(cache, "v", v, pos)
+    slot = torch.remainder(pos, cache["k"].shape[1]) if cfg.window else pos
+    _write_cache(cache, "k", k, slot, cfg.kv_quant)
+    _write_cache(cache, "v", v, slot, cfg.kv_quant)
     return _cache_attend(params, cfg, x, cache, q, pos_b), cache
+
+
+def _slot_mask(cfg: AttnConfig, kv_slot: torch.Tensor, pos_b: torch.Tensor,
+               S: int) -> torch.Tensor:
+    """``(B, n)`` readable slots: those written so far; a ring once it has
+    wrapped (``pos >= S``) holds the window in every slot."""
+    mask = kv_slot[None, :] <= pos_b[:, None]
+    if cfg.window:
+        mask = mask | (pos_b[:, None] >= S)
+    return mask
 
 
 def _cache_attend(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
-    cache: dict,                      # (B, S, KV, D) leaves
+    cache: dict,                      # (B, S, ...) leaves: dense or a paged view
     q: torch.Tensor,                  # (B, 1, H, D) post-rotary query
     pos_b: torch.Tensor,              # (B,)
 ) -> torch.Tensor:
-    """The decode attention read: one-shot softmax over the fp cache.  The
-    mask ``kv_slot <= pos_b`` includes the slot just written."""
+    """The decode attention read: one-shot softmax over an fp cache, or the
+    chunked flash-decode with the dequantisation inside each chunk over an
+    int8 cache (``QUANT_CHUNK`` slots per chunk, online-softmax order as
+    the reference).  The mask includes the slot just written."""
     B = x.shape[0]
     S = cache["k"].shape[1]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = H // KV
     qh = q.reshape(B, KV, rep, D)
-    ck = cache["k"].to(x.dtype)
-    cv = cache["v"].to(x.dtype)
-    s = torch.einsum("bgrd,bsgd->bgrs", qh, ck) / math.sqrt(D)
-    kv_slot = torch.arange(S, device=x.device)[None, :]
-    mask = kv_slot <= pos_b[:, None]
-    s = torch.where(mask[:, None, None], s.float(), NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrs,bsgd->bgrd", p.to(cv.dtype), cv)
-    o = o.reshape(B, 1, H, D).to(x.dtype)
+    dev = x.device
+    if not cfg.kv_quant:
+        ck = cache["k"].to(x.dtype)
+        cv = cache["v"].to(x.dtype)
+        s = torch.einsum("bgrd,bsgd->bgrs", qh, ck) / math.sqrt(D)
+        mask = _slot_mask(cfg, torch.arange(S, device=dev), pos_b, S)
+        s = torch.where(mask[:, None, None], s.float(), NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bgrs,bsgd->bgrd", p.to(cv.dtype), cv)
+        o = o.reshape(B, 1, H, D).to(x.dtype)
+        return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    chunk = min(QUANT_CHUNK, S)
+    n_chunks = -(-S // chunk)
+    if S % chunk and n_chunks != 1:
+        raise ValueError(f"int8 cache length {S} is not a multiple of {chunk}")
+    m = torch.full((B, KV, rep), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, rep), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, rep, D), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        part = {n: a[:, ci * chunk:(ci + 1) * chunk] for n, a in cache.items()}
+        kb = _read_cache(part, "k", True, x.dtype)
+        vb = _read_cache(part, "v", True, x.dtype)
+        s = torch.einsum("bgrd,bsgd->bgrs", qh, kb) / math.sqrt(D)
+        mask = _slot_mask(cfg, ci * chunk + torch.arange(chunk, device=dev), pos_b, S)
+        s = torch.where(mask[:, None, None], s.float(), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrs,bsgd->bgrd", p.to(vb.dtype), vb).float()
+        m = m_new
+    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype).reshape(B, 1, H, D)
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
 
 
-def _write_cache_span(cache: dict, name: str, val: torch.Tensor,
-                      positions: torch.Tensor) -> None:
-    """Write a ``(B, W)`` span of K or V (``val (B, W, KV, D)``) into a dense
-    ``(B, S, ...)`` cache in place, at per-row absolute ``positions (B, W)``:
-    the W-token generalisation of :func:`_write_cache`'s per-row branch.
-
-    Positions ``>= S`` are dropped, as the reference's scatter drops them
-    (a fixed-shape window overruns ``max_seq`` on a row that retires in
-    it).  Without a host sync they cannot be filtered out, so they are
-    aimed at slot ``S-1`` carrying the value slot ``S-1`` ends with
-    anyway: the window's own value where the window writes ``S-1``, else
-    the value it holds.  Every duplicate write of ``S-1`` then carries the
-    same value, and no slot takes a dropped position's value."""
-    buf = cache[name]
-    v = val.to(buf.dtype)
+def _put_span(buf: torch.Tensor, v: torch.Tensor, positions: torch.Tensor) -> None:
+    """``buf[b, positions[b, j]] = v[b, j]`` in place for positions inside
+    the cache (``S`` slots); positions ``>= S`` are dropped, as the
+    reference's scatter drops them.  Without a host sync they cannot be
+    filtered out, so they are aimed at slot ``S-1`` carrying the value
+    slot ``S-1`` ends with anyway: the span's own value where the span
+    writes ``S-1``, else the value it holds.  Every duplicate write of
+    ``S-1`` then carries the same value."""
     B, W = positions.shape
     S = buf.shape[1]
     rows = torch.arange(B, device=buf.device)
     keep = positions < S
-    j_last = (S - 1) - positions[:, 0]                        # window index of slot S-1
+    j_last = (S - 1) - positions[:, 0]                        # span index of slot S-1
     owns_last = (j_last >= 0) & (j_last < W)
     src = torch.where(keep, torch.arange(W, device=buf.device)[None, :],
                       torch.clamp(j_last, 0, W - 1)[:, None])
-    vals = v[rows[:, None], src]                              # (B, W, KV, D)
-    held = buf[rows, S - 1][:, None]                          # (B, 1, KV, D)
+    vals = v[rows[:, None], src]                              # (B, W, ...)
+    held = buf[rows, S - 1][:, None]                          # (B, 1, ...)
     use_win = (keep | owns_last[:, None]).reshape(B, W, *((1,) * (v.dim() - 2)))
     buf[rows[:, None], torch.clamp_max(positions, S - 1)] = torch.where(use_win, vals, held)
+
+
+def _write_cache_span(cache: dict, name: str, val: torch.Tensor,
+                      positions: torch.Tensor, quant: bool = False) -> None:
+    """Write a ``(B, W)`` span of K or V (``val (B, W, KV, D)``) into a dense
+    ``(B, S, ...)`` cache in place, at per-row absolute ``positions (B, W)``:
+    the W-token generalisation of :func:`_write_cache`'s per-row branch,
+    with positions ``>= S`` dropped from every leaf it writes
+    (:func:`_put_span`); a fixed-shape window overruns ``max_seq`` on a
+    row that retires in it."""
+    if quant:
+        qv, sc = _kv_quantize(val)
+        _put_span(cache[name], qv, positions)
+        _put_span(cache[name + "_scale"], sc, positions)
+    else:
+        _put_span(cache[name], val.to(cache[name].dtype), positions)
 
 
 def _cache_attend_window(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, W, d_model)
-    cache: dict,                      # (B, S, KV, D) leaves: dense or a paged view
+    cache: dict,                      # (B, S, ...) leaves: dense or a paged view
     q: torch.Tensor,                  # (B, W, H, D) post-rotary queries
     pos_b: torch.Tensor,              # (B,) window start positions
 ) -> torch.Tensor:
     """The verify-window attention read: :func:`_cache_attend` with the
     window axis carried along as a batch axis.  Query ``j`` (absolute
     position ``pos_b + j``) masks ``kv_slot <= pos_b + j``, its own freshly
-    written slot included, as the sequential step does."""
+    written slot included, as the sequential step does; an int8 cache is
+    swept in the same dequantising chunks."""
     B, W = q.shape[:2]
     S = cache["k"].shape[1]
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = H // KV
+    dev = x.device
     qh = q.reshape(B, W, KV, rep, D)
-    q_pos = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]   # (B, W)
-    ck = cache["k"].to(x.dtype)
-    cv = cache["v"].to(x.dtype)
-    s = torch.einsum("btgrd,bsgd->btgrs", qh, ck) / math.sqrt(D)
-    mask = torch.arange(S, device=x.device)[None, None, :] <= q_pos[:, :, None]  # (B, W, S)
-    s = torch.where(mask[:, :, None, None, :], s.float(), NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("btgrs,bsgd->btgrd", p.to(cv.dtype), cv)
-    o = o.reshape(B, W, H, D).to(x.dtype)
+    q_pos = pos_b[:, None] + torch.arange(W, device=dev)[None, :]   # (B, W)
+    if not cfg.kv_quant:
+        ck = cache["k"].to(x.dtype)
+        cv = cache["v"].to(x.dtype)
+        s = torch.einsum("btgrd,bsgd->btgrs", qh, ck) / math.sqrt(D)
+        mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[:, :, None]  # (B, W, S)
+        s = torch.where(mask[:, :, None, None, :], s.float(), NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("btgrs,bsgd->btgrd", p.to(cv.dtype), cv)
+        o = o.reshape(B, W, H, D).to(x.dtype)
+        return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    chunk = min(QUANT_CHUNK, S)
+    n_chunks = -(-S // chunk)
+    if S % chunk and n_chunks != 1:
+        raise ValueError(f"int8 cache length {S} is not a multiple of {chunk}")
+    m = torch.full((B, W, KV, rep), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, W, KV, rep), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, W, KV, rep, D), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        part = {n: a[:, ci * chunk:(ci + 1) * chunk] for n, a in cache.items()}
+        kb = _read_cache(part, "k", True, x.dtype)
+        vb = _read_cache(part, "v", True, x.dtype)
+        s = torch.einsum("btgrd,bsgd->btgrs", qh, kb) / math.sqrt(D)
+        kv_slot = ci * chunk + torch.arange(chunk, device=dev)
+        mask = kv_slot[None, None, :] <= q_pos[:, :, None]
+        s = torch.where(mask[:, :, None, None, :], s.float(), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "btgrs,bsgd->btgrd", p.to(vb.dtype), vb).float()
+        m = m_new
+    o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(x.dtype).reshape(B, W, H, D)
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
 
 
@@ -282,33 +406,36 @@ def attn_verify_window(  # kanlint: ignore[KL105] (see attn_decode_step)
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, W, d_model): last token + k drafts
-    cache: dict,                      # dense (B, S, KV, D) leaves, updated in place
+    cache: dict,                      # dense (B, S, ...) leaves, updated in place
     pos: torch.Tensor,                # (B,) window start (= next write slot)
 ) -> tuple[torch.Tensor, dict]:
-    """W-token verify against the dense cache: write all W post-rotary K/V,
-    then attend with per-query causal masks.  Rejected positions leave
-    stale K/V at slots ``>= pos + m``; the next window rewrites each such
-    slot before any query can reach it, so no rollback is needed."""
-    check_supported(cfg)
+    """W-token verify against the dense cache: write all W post-rotary K/V
+    (quantised under an int8 cache, as the sequential step attends its own
+    quantised write), then attend with per-query causal masks.  Rejected
+    positions leave stale K/V at slots ``>= pos + m``; the next window
+    rewrites each such slot before any query can reach it, so no rollback
+    is needed."""
+    _check_full_attention(cfg, "speculative verify")
     B, W, _ = x.shape
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     positions = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]   # (B, W)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    _write_cache_span(cache, "k", k, positions)
-    _write_cache_span(cache, "v", v, positions)
+    _write_cache_span(cache, "k", k, positions, cfg.kv_quant)
+    _write_cache_span(cache, "v", v, positions, cfg.kv_quant)
     return _cache_attend_window(params, cfg, x, cache, q, pos_b), cache
 
 
 # ---------------------------------------------------------------------------
 # Paged KV cache (DESIGN.md §3b): pool + block-table addressing.
 #
-# Each cache leaf is a POOL ``(n_blocks, block_size, KV, D)`` shared by all
+# Each cache leaf is a POOL ``(n_blocks, block_size, ...)`` shared by all
 # batch rows; a per-row block table ``(B, n_logical)`` maps logical block l
 # of row b to a physical block (``n_logical * block_size == max_seq``).
 # Physical block 0 is the reserved sentinel: unassigned table entries point
 # at it and out-of-coverage writes land in it; the causal mask hides its
-# contents.  Reads gather the logical ``(B, max_seq, KV, D)`` view and run
-# the unchanged dense math (:func:`_cache_attend` / :func:`flash_attention`).
+# contents.  Reads gather the logical ``(B, max_seq, ...)`` view (every leaf
+# of a cache, int8 values and fp32 scales alike, in one launch) and run the
+# unchanged dense math (:func:`_cache_attend` / :func:`flash_attention`).
 # ---------------------------------------------------------------------------
 
 
@@ -340,9 +467,11 @@ def paged_route(
 
 def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
     cache: dict, name: str, val: torch.Tensor, table: torch.Tensor,
-    start, lengths: torch.Tensor,
+    start, lengths: torch.Tensor, quant: bool = False,
 ) -> None:
-    """Scatter a span of K or V into pool blocks, in place.
+    """Scatter a span of K or V into pool blocks, in place (under ``quant``
+    the int8 values into ``cache[name]`` and their scales into
+    ``cache[name + "_scale"]``).
 
     ``val (B, T, KV, D)`` holds positions ``start + t`` (``start`` a scalar
     (grouped admission prefill) or per row ``(B,)`` (decode steps)); rows
@@ -360,28 +489,34 @@ def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
     positions = positions.expand(B, T)
     phys, off = paged_route(table, positions, bs,
                             valid=positions < lengths.reshape(-1, 1))
-    pool.index_put_((phys.long(), off.long()), val.to(pool.dtype))
+    at = (phys.long(), off.long())
+    if quant:
+        qv, sc = _kv_quantize(val)
+        pool.index_put_(at, qv)
+        cache[name + "_scale"].index_put_(at, sc)
+    else:
+        pool.index_put_(at, val.to(pool.dtype))
 
 
 def attn_decode_step_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
-    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    cache: dict,                      # POOL leaves (n_blocks, bs, ...), in place
     table: torch.Tensor,              # (B, n_logical) int32 block table
     pos: torch.Tensor,                # (B,) absolute positions
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged pool: the QKV math of
     :func:`attn_decode_step`, writes routed through the block table, then
     :func:`_cache_attend` on the gathered logical view."""
-    check_supported(cfg)
+    _check_full_attention(cfg, "paged KV")
     B = x.shape[0]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
     # the T=1 span at per-row starts; lengths pos_b + 1 mask nothing, and
     # positions past the table still go to the sentinel
-    paged_write_span(cache, "k", k, table, pos_b, pos_b + 1)
-    paged_write_span(cache, "v", v, table, pos_b, pos_b + 1)
+    paged_write_span(cache, "k", k, table, pos_b, pos_b + 1, cfg.kv_quant)
+    paged_write_span(cache, "v", v, table, pos_b, pos_b + 1, cfg.kv_quant)
     return _cache_attend(params, cfg, x, paged_view(cache, table), q, pos_b), cache
 
 
@@ -390,7 +525,7 @@ def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, Ts, d_model): the UNCACHED suffix
     positions: torch.Tensor,          # (B or 1, Ts) absolute positions (start + t)
-    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    cache: dict,                      # POOL leaves (n_blocks, bs, ...), in place
     table: torch.Tensor,              # (B, n_logical)
     lengths: torch.Tensor,            # (B,) true total prompt lengths
     start: int,                       # first uncached position
@@ -401,21 +536,22 @@ def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     """Suffix prefill into pool blocks: a prefix-cache hit makes ``start >
     0`` and computes only positions ``start..len-1``.
 
-    Attention runs over the logical view with the fresh span overlaid RAW
-    at ``start`` (the reference's ``dynamic_update_slice``, which clamps
-    the offset so the span fits): positions ``< start`` come from reused
-    blocks, the suffix attends its own raw K/V as a full prefill would.
-    The view is cut to ``view_blocks`` table columns; KV chunks past the
-    last query are empty in the causal online softmax."""
-    check_supported(cfg)
+    Attention runs over the logical view (dequantised under an int8 cache)
+    with the fresh span overlaid RAW at ``start`` (the reference's
+    ``dynamic_update_slice``, which clamps the offset so the span fits):
+    positions ``< start`` come from reused blocks, the suffix attends its
+    own raw K/V as a full prefill would, int8 cache or not.  The view is
+    cut to ``view_blocks`` table columns; KV chunks past the last query are
+    empty in the causal online softmax."""
+    _check_full_attention(cfg, "paged KV")
     T = x.shape[1]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    paged_write_span(cache, "k", k, table, start, lengths)
-    paged_write_span(cache, "v", v, table, start, lengths)
+    paged_write_span(cache, "k", k, table, start, lengths, cfg.kv_quant)
+    paged_write_span(cache, "v", v, table, start, lengths, cfg.kv_quant)
     view = paged_view(cache, table if view_blocks is None
                       else table[:, :view_blocks].contiguous())
-    ck = view["k"].to(x.dtype)
-    cv = view["v"].to(x.dtype)
+    ck = _read_cache(view, "k", cfg.kv_quant, x.dtype)
+    cv = _read_cache(view, "v", cfg.kv_quant, x.dtype)
     at = max(0, min(int(start), ck.shape[1] - T))
     ck[:, at:at + T] = k.to(ck.dtype)
     cv[:, at:at + T] = v.to(cv.dtype)
@@ -428,7 +564,7 @@ def attn_verify_window_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, W, d_model)
-    cache: dict,                      # POOL leaves (n_blocks, bs, KV, D), in place
+    cache: dict,                      # POOL leaves (n_blocks, bs, ...), in place
     table: torch.Tensor,              # (B, n_logical) int32 block table
     pos: torch.Tensor,                # (B,) window start positions
 ) -> tuple[torch.Tensor, dict]:
@@ -438,11 +574,11 @@ def attn_verify_window_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     :func:`attn_verify_window` on the gathered logical view.  Admission caps
     prefix reuse below ``blocks_for(pos)``, so a window never writes a
     shared block; the engine trims rejected coverage afterwards."""
-    check_supported(cfg)
+    _check_full_attention(cfg, "paged KV")
     B, W, _ = x.shape
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     positions = pos_b[:, None] + torch.arange(W, device=x.device)[None, :]
     q, k, v = _project_qkv(params, cfg, x, positions)
-    paged_write_span(cache, "k", k, table, pos_b, pos_b + W)
-    paged_write_span(cache, "v", v, table, pos_b, pos_b + W)
+    paged_write_span(cache, "k", k, table, pos_b, pos_b + W, cfg.kv_quant)
+    paged_write_span(cache, "v", v, table, pos_b, pos_b + W, cfg.kv_quant)
     return _cache_attend_window(params, cfg, x, paged_view(cache, table), q, pos_b), cache

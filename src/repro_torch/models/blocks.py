@@ -1,8 +1,12 @@
 """Decoder blocks in PyTorch (counterpart of ``repro/models/blocks.py``).
 
-Only the ``attn_kan`` kind is ported: pre-norm GQA attention followed by the
-KAN FFN, two spline layers ``d -> kan_ff -> d`` (the paper's technique as
-an FFN replacement).  Other block kinds raise ``NotImplementedError``.
+Two kinds are ported, both pre-norm GQA attention followed by an FFN:
+``attn_mlp``, the SwiGLU MLP of the dense models (qwen, gemma3), and
+``attn_kan``, the KAN FFN of two spline layers ``d -> kan_ff -> d`` (the
+paper's technique as an FFN replacement).  Windowed attention (a ring
+cache of ``window`` slots), q/k norm and int8 KV caches come with the
+attention config.  ``attn_moe``, ``mamba2``, ``mlstm``, ``slstm`` and shared
+blocks raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -10,29 +14,39 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import kan_layer as KL
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
+KINDS = ("attn_mlp", "attn_kan")
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
     kind: str
     attn: A.AttnConfig | None = None
-    d_ff: int = 0
+    d_ff: int = 0                         # attn_mlp: SwiGLU hidden size
     kan_grid: SplineGrid | None = None    # attn_kan
     kan_ff: int = 0
     shared_id: int | None = None
 
 
 def check_supported(blk: BlockCfg) -> None:
-    if blk.kind != "attn_kan" or blk.shared_id is not None:
+    if blk.kind not in KINDS or blk.shared_id is not None:
         raise NotImplementedError(
             f"block kind {blk.kind!r} (shared_id={blk.shared_id}) is not ported "
-            "yet: only attn_kan (ROADMAP queue 1, items 6 and 8)")
+            f"yet: only {', '.join(KINDS)} (ROADMAP queue 1, item 8)")
     A.check_supported(blk.attn)
+
+
+def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x Wg) * x Wi) Wo``."""
+    h = x @ params["wi"].to(x.dtype)
+    g = x @ params["wg"].to(x.dtype)
+    return (F.silu(g) * h) @ params["wo"].to(x.dtype)
 
 
 def _kan_ffn(
@@ -51,6 +65,33 @@ def _kan_ffn(
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
 
 
+def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """The block's FFN on the post-attention norm.  Inference passes
+    ``method="auto"``: the KAN FFN then resolves to the fused kernel at
+    prefill and verify-window row counts and the sparse one at decode row
+    counts on CUDA (``KL.resolve_inference_method``)."""
+    if blk.kind == "attn_mlp":
+        return _mlp(params["mlp"], h)
+    return _kan_ffn(params["kan"], h, blk.kan_grid, method=method)
+
+
+def block_apply(
+    params: dict,
+    blk: BlockCfg,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor | None = None,
+    chunk: int = 1024,
+) -> tuple[torch.Tensor, dict]:
+    """Pre-norm residual application (training/forward path: the KAN FFN
+    runs ``method="dense"``, as the reference's); returns ``(x, {})``, the
+    ported kinds having no auxiliary losses."""
+    check_supported(blk)
+    h = L.rmsnorm(params["ln1"], x)
+    x = x + A.attn_forward(params["attn"], blk.attn, h, positions=positions, chunk=chunk)
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x), method="dense"), {}
+
+
 def block_supports_paging(blk: BlockCfg) -> bool:
     """Paged KV (DESIGN.md §3b) covers full-attention GQA layers (windowed
     rings and MLA latents do not strand per-token memory as a dense
@@ -59,30 +100,40 @@ def block_supports_paging(blk: BlockCfg) -> bool:
             and blk.attn.kv_lora_rank is None and blk.attn.window is None)
 
 
+def _kv_leaves(c: A.AttnConfig, lead: tuple, dtype, device) -> dict:
+    """Zeroed K/V leaves of shape ``lead + (KV, D)``: ``dtype`` values, or
+    int8 values with fp32 ``lead + (KV,)`` scales under ``kv_quant``."""
+    kv_dtype = torch.int8 if c.kv_quant else dtype
+    shape = lead + (c.n_kv_heads, c.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if c.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(lead + (c.n_kv_heads,), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
 def block_init_paged_cache(blk: BlockCfg, n_blocks: int, block_size: int,
                            dtype, device) -> dict:
-    """Pool-shaped decode cache: ``(n_blocks, block_size, KV, D)`` leaves in
-    place of :func:`block_init_cache`'s ``(batch, max_seq, KV, D)`` rows.
+    """Pool-shaped decode cache: ``(n_blocks, block_size, ...)`` leaves in
+    place of :func:`block_init_cache`'s ``(batch, max_seq, ...)`` rows.
     Physical block 0 is the engine's sentinel (``serve/kv_pool.py``)."""
     if not block_supports_paging(blk):
         raise NotImplementedError(
             f"paged KV cache: unsupported block kind {blk.kind!r} "
             "(full-attention GQA layers only)")
     check_supported(blk)
-    c = blk.attn
-    shape = (n_blocks, block_size, c.n_kv_heads, c.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _kv_leaves(blk.attn, (n_blocks, block_size), dtype, device)
 
 
 def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
                      device) -> dict:
-    """Per-block decode state: the ``(batch, max_seq, KV, D)`` K/V rows."""
+    """Per-block decode state: the ``(batch, S, KV, D)`` K/V rows, ``S`` =
+    ``window`` slots for a windowed layer's ring, else ``max_seq``."""
     check_supported(blk)
     c = blk.attn
-    shape = (batch, c.cache_len(max_seq), c.n_kv_heads, c.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _kv_leaves(c, (batch, c.cache_len(max_seq)), dtype, device)
 
 
 # kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
@@ -94,23 +145,42 @@ def block_prefill(  # kanlint: ignore[KL105]
     x: torch.Tensor,                  # (B, T, d)
     *,
     positions: torch.Tensor | None = None,
-    cache: dict,                      # (B, max_seq, KV, D) rows, filled in place
+    cache: dict,                      # (B, S, ...) rows, filled in place
     chunk: int = 1024,
 ) -> tuple[torch.Tensor, dict]:
-    """Forward that also writes its K/V into ``cache[:, :T]`` in place
-    (slots past T stay as they are: zeros in a fresh cache, as the
-    reference pads its prefill cache to ``max_seq``)."""
+    """Forward that also stores its K/V in ``cache`` in place: slots
+    ``0..T-1``, or, for a ring shorter than the prompt (``S < T``), slot
+    ``s`` holds the latest position ``p < T`` with ``p % S == s`` (decode
+    then writes ``pos % S``).  Slots past T hold what the reference's
+    zero-padded prefill cache holds: zeros, quantised like any other slot
+    under ``kv_quant``."""
     check_supported(blk)
+    c = blk.attn
     T = x.shape[1]
+    S = cache["k"].shape[1]
     h = L.rmsnorm(params["ln1"], x)
-    y, kv = A.attn_forward(params["attn"], blk.attn, h, positions=positions,
+    y, kv = A.attn_forward(params["attn"], c, h, positions=positions,
                            chunk=chunk, return_cache=True)
-    cache["k"][:, :T] = kv["k"].to(cache["k"].dtype)
-    cache["v"][:, :T] = kv["v"].to(cache["v"].dtype)
+    if c.window and S < T:
+        s_idx = torch.arange(S, device=x.device)
+        p_s = (T - 1) - torch.remainder(T - 1 - s_idx, S)
+        kv = {n: a[:, p_s] for n, a in kv.items()}
+    n = min(S, T)
+    if c.kv_quant:
+        for name in ("k", "v"):
+            qv, sc = A._kv_quantize(kv[name])
+            cache[name][:, :n] = qv
+            cache[name + "_scale"][:, :n] = sc
+            if S > n:                 # the quantised zero pad
+                pad_q, pad_sc = A._kv_quantize(kv[name].new_zeros((1, 1) + kv[name].shape[2:]))
+                cache[name][:, n:] = pad_q
+                cache[name + "_scale"][:, n:] = pad_sc
+    else:
+        cache["k"][:, :n] = kv["k"].to(cache["k"].dtype)
+        cache["v"][:, :n] = kv["v"].to(cache["v"].dtype)
     x = x + y
-    h2 = L.rmsnorm(params["ln2"], x)
     # prefill sees B·T rows: "auto" resolves to the fused kernel on CUDA
-    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
 
 
 def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
@@ -119,7 +189,7 @@ def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
     x: torch.Tensor,                  # (B, Ts, d): uncached suffix tokens only
     *,
     positions: torch.Tensor,          # (B or 1, Ts) absolute positions
-    cache: dict,                      # pool leaves (n_blocks, bs, KV, D), in place
+    cache: dict,                      # pool leaves (n_blocks, bs, ...), in place
     table: torch.Tensor,              # (B, n_logical)
     lengths: torch.Tensor,            # (B,) true total prompt lengths
     start: int,                       # first uncached position
@@ -137,8 +207,7 @@ def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
                                     table, lengths, start, chunk=chunk,
                                     view_blocks=view_blocks)
     x = x + y
-    h2 = L.rmsnorm(params["ln2"], x)
-    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
 
 
 def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
@@ -152,6 +221,8 @@ def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     """One decode step; with ``table``, ``cache`` holds pools and the step
     reads and writes through the block table."""
     check_supported(blk)
+    if table is not None and not block_supports_paging(blk):
+        raise NotImplementedError(f"paged decode: unsupported kind {blk.kind!r}")
     h = L.rmsnorm(params["ln1"], x)
     if table is not None:
         y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
@@ -159,9 +230,8 @@ def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     else:
         y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos)
     x = x + y
-    h2 = L.rmsnorm(params["ln2"], x)
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA
-    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
 
 
 def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
@@ -187,7 +257,6 @@ def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
     else:
         y, cache = A.attn_verify_window(params["attn"], blk.attn, h, cache, pos)
     x = x + y
-    h2 = L.rmsnorm(params["ln2"], x)
     # the FFN sees B·W rows: "auto" resolves to the fused kernel on CUDA
     # when B·W > $KAN_SAS_SPARSE_MAX_ROWS (8)
-    return x + _kan_ffn(params["kan"], h2, blk.kan_grid, method="auto"), cache
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache

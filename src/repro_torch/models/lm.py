@@ -6,10 +6,14 @@ along a leading layers axis; here a Python loop walks that axis, and the
 caches are updated in place through views of the stacked buffers.  Dense
 caches have one layout, ``(n_repeats, B, S, KV, D)``, so the batch axis is
 axis 1 (the reference finds it by name through ``cache_axes``); paged pools
-are ``(n_repeats, n_blocks, block_size, KV, D)``.
+are ``(n_repeats, n_blocks, block_size, KV, D)``.  Each unit block has its
+own cache entry, so the blocks of one unit may differ in cache length
+(gemma3: five ``window``-slot rings and one ``max_seq`` cache) and an int8
+KV cache adds ``k_scale``/``v_scale`` leaves beside ``k``/``v``.
 
 Prologue, epilogue and shared blocks, and inputs other than tokens, are not
-ported yet; a config that uses them raises ``NotImplementedError``.
+ported yet (ROADMAP queue 1, item 8); a config that uses them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -71,11 +75,11 @@ class ParamSpec:
 
 
 def _block_shapes(d: int, blk: BlockCfg) -> dict:
-    """``ParamSpec`` tree of one attn_kan block, as ``blocks.block_init`` /
-    ``attention.attn_init`` / ``blocks._kan_ffn_init`` build it."""
+    """``ParamSpec`` tree of one attn_mlp or attn_kan block, as
+    ``blocks.block_init`` / ``attention.attn_init`` / ``blocks._mlp_init``
+    / ``blocks._kan_ffn_init`` build it."""
     a = blk.attn
     h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    M_ = blk.kan_grid.n_basis
     attn = {
         "wq": ParamSpec((d, h, hd), "normal", None),
         "wk": ParamSpec((d, kv, hd), "normal", None),
@@ -86,18 +90,27 @@ def _block_shapes(d: int, blk: BlockCfg) -> dict:
         attn["bq"] = ParamSpec((h, hd), "zeros", None)
         attn["bk"] = ParamSpec((kv, hd), "zeros", None)
         attn["bv"] = ParamSpec((kv, hd), "zeros", None)
-    ff = blk.kan_ff
-    return {
+    if a.qk_norm:
+        attn["q_norm"] = ParamSpec((hd,), "ones", None)
+        attn["k_norm"] = ParamSpec((hd,), "ones", None)
+    tree = {
         "ln1": {"scale": ParamSpec((d,), "ones", None)},
         "attn": attn,
         "ln2": {"scale": ParamSpec((d,), "ones", None)},
-        "kan": {
+    }
+    if blk.kind == "attn_mlp":
+        ff = blk.d_ff
+        tree["mlp"] = {"wi": ParamSpec((d, ff)), "wg": ParamSpec((d, ff)),
+                       "wo": ParamSpec((ff, d))}
+    else:
+        ff, M_ = blk.kan_ff, blk.kan_grid.n_basis
+        tree["kan"] = {
             "c1": ParamSpec((d, M_, ff), "normal", 0.02),
             "b1": ParamSpec((d, ff), "normal", 0.02),
             "c2": ParamSpec((ff, M_, d), "normal", 0.02),
             "b2": ParamSpec((ff, d), "normal", 0.02),
-        },
-    }
+        }
+    return tree
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -167,14 +180,37 @@ def _layer(tree, r: int):
 
 
 # ---------------------------------------------------------------------------
+# Forward (the whole sequence, no cache).
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            compute_dtype=torch.float32) -> tuple[torch.Tensor, dict]:
+    """``tokens (B, T)`` -> ``(logits (B, T, vocab) fp32, {})``: the
+    reference's ``lm.forward`` on token inputs (no remat; the ported block
+    kinds have no auxiliary losses).  Windowed layers use the sliding
+    flash mask."""
+    check_supported(cfg)
+    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    for r in range(cfg.n_repeats):
+        rep = _layer(params["unit"], r)
+        for i, blk in enumerate(cfg.unit):
+            h, _ = B.block_apply(rep[i], blk, h, positions=positions, chunk=cfg.attn_chunk)
+    return _logits(params, cfg, h), {}
+
+
+# ---------------------------------------------------------------------------
 # Decode (serving).
 # ---------------------------------------------------------------------------
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device="cuda") -> dict:
-    """Zeroed KV caches: ``{"unit": [{"k", "v"}: (n_repeats, batch, max_seq,
-    KV, D)]}``, the reference's stacked layout."""
+    """Zeroed KV caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}:
+    (n_repeats, batch, S, ...)]}``, the reference's stacked layout, ``S``
+    each block's own cache length (``window`` for a ring)."""
     check_supported(cfg)
     unit = []
     for blk in cfg.unit:
@@ -205,9 +241,10 @@ def model_kv_quant(cfg: ModelConfig) -> bool:
 
 def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
                       dtype=torch.float32, device="cuda") -> dict:
-    """Zeroed pools ``{"unit": [{"k", "v"}: (n_repeats, n_blocks,
-    block_size, KV, D)]}``: one physical block id addresses every layer's
-    pool, so one allocation covers a token's KV through the whole depth."""
+    """Zeroed pools ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}:
+    (n_repeats, n_blocks, block_size, ...)]}``: one physical block id
+    addresses every layer's pool, so one allocation covers a token's KV
+    through the whole depth."""
     check_supported(cfg)
     if not model_supports_paging(cfg):
         raise NotImplementedError(
@@ -225,8 +262,8 @@ def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[K
     (batch = table rows, seq = n_logical·block_size): the engine's "shadow"
     read path gathers it once per decode chunk, runs the dense decode on it
     and writes the chunk's span back with :func:`writeback_paged_chunk`.
-    One gather launch per unit block covers its leaves and every stacked
-    layer (the reference's ``vmap``)."""
+    One gather launch per unit block covers its leaves (the four of an int8
+    cache too) and every stacked layer (the reference's ``vmap``)."""
     return {"unit": [ops.gather_views(c, table, stacked=True) for c in caches["unit"]]}
 
 
@@ -378,7 +415,8 @@ def prefill(
     """Full-sequence forward that fills fresh decode caches.
 
     Returns ``(logits (B, T, vocab) fp32, caches)``; each cache row holds the
-    prompt's K/V at slots ``0..T-1`` and zeros beyond."""
+    prompt's K/V at slots ``0..T-1`` and zeros beyond, or a ring's latest
+    ``window`` positions (``blocks.block_prefill``)."""
     Bsz, T = tokens.shape
     dev = tokens.device
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)

@@ -45,6 +45,12 @@ later step of that row emits ``pad_id`` and its position freezes.  A
 request's output, greedy or sampled, is the same whether it is served alone
 by ``generate``, in a static bucket or by either continuous engine.
 
+Caveat, as the reference's: ragged decode into windowed (ring-buffer)
+layers can attend stale pad slots once a row's position wraps the window
+(a right-padded prompt longer than the window leaves pad K/V in the ring);
+full-attention models are exactly pad-invariant.  Equal-length buckets
+avoid padding.
+
 Meshes are not ported yet (ROADMAP queue 1, item 9).
 """
 
@@ -84,7 +90,9 @@ class ServeConfig:
     block_size: int = 16         # must divide max_seq
     pool_blocks: int | None = None   # physical blocks incl. the sentinel;
                                      # None -> slots·(max_seq/block_size)+1
-    prefix_caching: bool = True  # off under an int8 KV cache (not ported)
+    prefix_caching: bool = True  # off under an int8 KV cache: reused blocks
+                                 # could give prefill only dequantised K/V,
+                                 # and paged prefill then starts at 0
     # "shadow": gather the dense view once per chunk, decode on it, write
     # the chunk's span back; "step": read and write through the block
     # table every token (no transient view, one gather per layer per step)

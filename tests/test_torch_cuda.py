@@ -1172,3 +1172,77 @@ def test_trained_int8_path_equals_plain_integer_path(cuda_device):
         torch.cuda.synchronize()
         assert ops.LAUNCHES[kernel] == 2 and sum(ops.LAUNCHES.values()) == 2
         assert torch.equal(got, MK.int8_net_apply(q, x[:rows], fused=False))
+
+
+# qwen1.5-0.5b's pools at the continuous cell (97 blocks of 16 tokens, 16 KV
+# heads, head_dim 64), 24 stacked layers
+QWEN_POOL = (24, 97, 16, 16, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+def test_gather_views_at_qwen_pools_bitwise(cuda_device, quant, stacked):
+    """fp32 k and v, or an int8 cache's four leaves (int8 k, v; fp32
+    k_scale, v_scale: two element sizes) in ONE launch, at qwen's pool
+    shapes, stacked (the shadow read) and one layer (the step read): each
+    view bit-equal to the plain version, sentinel and live ids mixed."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    shape = QWEN_POOL if stacked else QWEN_POOL[1:]
+    if quant:
+        cache = {n: torch.randint(-127, 128, shape, generator=g, device=cuda_device,
+                                  dtype=torch.int8) for n in ("k", "v")}
+        cache.update({n: torch.rand(shape[:-1], generator=g, device=cuda_device)
+                      for n in ("k_scale", "v_scale")})
+    else:
+        cache = {n: torch.randn(shape, generator=g, device=cuda_device) for n in ("k", "v")}
+    rs = np.random.RandomState(5)
+    ids = rs.permutation(np.arange(1, 97))[:96].reshape(8, 12)
+    ids[np.arange(12)[None, :] >= rs.randint(3, 13, 8)[:, None]] = 0   # sentinel tails
+    table = torch.as_tensor(ids.astype(np.int32), device=cuda_device)
+    ops.reset_launches()
+    got = ops.gather_views(cache, table, stacked)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_blocks"] == 1
+    want = G.gather_views_reference(cache, table, stacked)
+    assert list(got) == list(want)
+    for n in want:
+        assert got[n].dtype == cache[n].dtype and torch.equal(got[n], want[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_reduced_qwen_decode_on_card_matches_cpu(cuda_device, quant):
+    """qwen1.5-0.5b ``reduced()`` (attn_mlp, QKV bias), fp32 or int8 KV:
+    prefill and 4 per-row decode steps on the card against the CPU, logits
+    atol 1e-4 (fp32 sums in another order); then the continuous engine on
+    the paged step path gives the CPU's streams."""
+    from repro_torch.configs.common import enable_kv_quant
+
+    arch = configs.get_reduced("qwen1.5-0.5b")
+    model = (enable_kv_quant(arch) if quant else arch).model
+    params = lm.init_params(model, seed=0, device="cpu")
+    gpu = {"embed": {k: v.to(cuda_device) for k, v in params["embed"].items()},
+           "final_ln": {k: v.to(cuda_device) for k, v in params["final_ln"].items()},
+           "unit": [{s: {k: v.to(cuda_device) for k, v in sub.items()}
+                     for s, sub in params["unit"][0].items()}]}
+    toks = torch.as_tensor(np.random.RandomState(0).randint(0, model.vocab, (2, 9)))
+    got, gc = lm.prefill(gpu, model, toks.to(cuda_device), 16)
+    want, wc = lm.prefill(params, model, toks, 16)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    pos = torch.tensor([9, 6])
+    for s in range(4):
+        tok = toks[:, s:s + 1]
+        got, gc = lm.decode_step(gpu, model, tok.to(cuda_device), gc, pos.to(cuda_device))
+        want, wc = lm.decode_step(params, model, tok, wc, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        pos = pos + 1
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    scfg = ServeConfig(max_seq=32, max_new_tokens=6, block_size=4, paged=True,
+                       paged_read="step")
+    streams = {dev: Engine(params, model, scfg, device=dev).serve_continuous(
+        reqs, slots=3, chunk_steps=3) for dev in ("cpu", "cuda")}
+    for a, b in zip(streams["cpu"], streams["cuda"]):
+        np.testing.assert_array_equal(a, b)

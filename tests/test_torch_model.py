@@ -178,17 +178,26 @@ def test_decode_steps_match_reference(models, ragged):
 
 
 def test_unported_variants_raise():
+    """What the port still refuses: MLA attention and the block kinds of
+    ROADMAP queue 1, item 8 (MoE, SSM, xLSTM, shared blocks).  Windows,
+    int8 KV caches, q/k norm and attn_mlp blocks are ported."""
     from repro_torch.models.attention import AttnConfig, check_supported
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(AttnConfig(64, 4, 4, 16, window=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(AttnConfig(64, 4, 4, 16, kv_quant=True))
+    with pytest.raises(NotImplementedError, match="MLA"):
+        check_supported(AttnConfig(64, 4, 4, 16, kv_lora_rank=32))
+    for ok in (AttnConfig(64, 4, 4, 16, window=8), AttnConfig(64, 4, 4, 16, kv_quant=True),
+               AttnConfig(64, 4, 4, 16, qk_norm=True)):
+        check_supported(ok)
     from repro_torch.models.blocks import BlockCfg
     from repro_torch.models.blocks import check_supported as blk_check
 
-    with pytest.raises(NotImplementedError, match="attn_mlp"):
-        blk_check(BlockCfg("attn_mlp", attn=AttnConfig(64, 4, 4, 16), d_ff=8))
+    attn = AttnConfig(64, 4, 4, 16)
+    for kind in ("attn_moe", "mamba2", "mlstm", "slstm"):
+        with pytest.raises(NotImplementedError, match=kind):
+            blk_check(BlockCfg(kind, attn=attn, d_ff=8))
+    with pytest.raises(NotImplementedError, match="shared_id=0"):
+        blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8, shared_id=0))
+    blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8))
 
 
 def test_per_row_cache_write_past_max_seq_is_dropped(models):
