@@ -150,7 +150,29 @@ Phases; any failed check raises and the script exits non-zero:
    the window within ``DENSE_REL`` of ``lm.forward``'s windowed mask, and a
    32-token history decoded through the rings equal within ``DENSE_REL`` to
    full caches and ``lm.forward``.
-11. A JSON line with every ported kernel's numbers, the card's line, and as
+11. The MoE models (see the note above ``MOE_CELL``).  Phase 6's gather
+   check also holds the kernel, bit for bit, at olmoe-1b-7b's pools (16
+   layers, 97 blocks of 16 tokens, 16 KV heads, head_dim 128), stacked and
+   one layer, each timed.  (a) Full-width, full-depth olmoe-1b-7b (64
+   experts top-8 in all 16 layers; random weights from seed 0, fp32, 27.3
+   GB) serves phase 4's requests statically, held to its buckets
+   recomputed step by step, its teacher-forced decode logits within
+   ``DENSE_REL`` of ``lm.forward``'s at ``capacity_factor = E / top_k``;
+   then phase 6's continuous cell dense, paged shadow, paged step, the
+   25-block pool, speculative (``spec_k = 4``, 1-layer drafter) dense and
+   paged shadow, and sampled at ``SAMPLE_T`` twice (repeatable), each run
+   with exact launch counts and every gather of a paged run bit-equal to
+   its plain version, each run's drop fraction printed and its streams'
+   partings from the dense run counted; the dense, paged shadow and both
+   speculative runs again at no drop, the paged and speculative streams
+   equal to the dense ones and the dense ones to ``lm.forward``, up to
+   near-ties; a warm bucket and a warm wave profiled.  (b) Full-width,
+   full-depth deepseek-v2-lite (MLA, a dense prologue, 2 shared and 64
+   routed experts top-6; 62.0 GB) serves 4 prompts statically (held as
+   (a)'s) and 8 requests through 4 dense continuous slots, at the
+   published capacity and at no drop (held to ``lm.forward``); peak memory
+   and the latent cache's bytes beside the GQA cache's.
+12. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -525,6 +547,8 @@ def check_gather(torch, np):
                     f"library_ms={lib_ms:.4f} ({entry['library']}) bound_ms={bound:.4f} "
                     f"(bytes: {nbytes / 1e6:.2f} MB, {entry['distinct_blocks']} distinct blocks)")
     check_gather_dense(torch, np, result, cycles_per_ms)
+    check_gather_dense(torch, np, result, cycles_per_ms, pool=OLMOE_POOL, tag="olmoe",
+                       quant=False)
     return result
 
 
@@ -533,29 +557,36 @@ def check_gather(torch, np):
 # and int8 (k, v int8 with their fp32 k_scale, v_scale: four leaves, two
 # element sizes, in one launch)
 QWEN_POOL = (24, 97, 16, 16, 64)
+# Phase 11's: olmoe-1b-7b's k/v at the same cell (16 layers, 16 KV heads,
+# head_dim 128), fp32
+OLMOE_POOL = (16, 97, 16, 16, 128)
 
 
-def check_gather_dense(torch, np, result: dict, cycles_per_ms: float) -> None:
-    """The gather at qwen's pool shapes, shadow (stacked, 24 layers) and
-    step (one layer) reads: fp32 k and v, and the four leaves of an int8
-    cache, each bit-equal to the plain version and timed (kernel, plain
-    version, ``index_select`` per leaf, byte bound)."""
+def check_gather_dense(torch, np, result: dict, cycles_per_ms: float, pool=QWEN_POOL,
+                       tag="qwen", quant=True) -> None:
+    """The gather at a model's pool shapes (qwen's by default), shadow
+    (stacked, every layer) and step (one layer) reads: fp32 k and v, and
+    (``quant``) the four leaves of an int8 cache, each bit-equal to the
+    plain version and timed (kernel, plain version, ``index_select`` per
+    leaf, byte bound)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_gather as PG
 
-    layers, n_blocks, bs, kv, hd = QWEN_POOL
+    layers, n_blocks, bs, kv, hd = pool
     table = engine_table(torch, np, CONT["slots"], CONT["max_seq"] // bs, n_blocks, 5)
     idx = table.reshape(-1).long().clamp(0, n_blocks - 1)
     g = torch.Generator(device="cuda").manual_seed(23)
-    full = {"k": torch.randn(QWEN_POOL, generator=g, device="cuda"),
-            "v": torch.randn(QWEN_POOL, generator=g, device="cuda")}
-    quant = {n: torch.randint(-127, 128, QWEN_POOL, generator=g, device="cuda",
-                              dtype=torch.int8) for n in ("k", "v")}
-    for n in ("k", "v"):
-        quant[n + "_scale"] = torch.rand(QWEN_POOL[:-1], generator=g, device="cuda") / 127
-    for use, stacked in (("qwen_shadow", True), ("qwen_step", False)):
+    kinds = [("float32", {"k": torch.randn(pool, generator=g, device="cuda"),
+                          "v": torch.randn(pool, generator=g, device="cuda")})]
+    if quant:
+        q8 = {n: torch.randint(-127, 128, pool, generator=g, device="cuda",
+                               dtype=torch.int8) for n in ("k", "v")}
+        for n in ("k", "v"):
+            q8[n + "_scale"] = torch.rand(pool[:-1], generator=g, device="cuda") / 127
+        kinds.append(("int8+float32", q8))
+    for use, stacked in ((f"{tag}_shadow", True), (f"{tag}_step", False)):
         ax = 1 if stacked else 0
-        for dname, cache in (("float32", full), ("int8+float32", quant)):
+        for dname, cache in kinds:
             # a step read's copies: the 24 layers in turn (L2 stays cold)
             subs = [cache] if stacked else [{n: a[i] for n, a in cache.items()}
                                             for i in range(layers)]
@@ -591,13 +622,15 @@ def check_gather_dense(torch, np, result: dict, cycles_per_ms: float) -> None:
                 f"({entry['library']}) bound_ms={bound:.4f} (bytes: {nbytes / 1e6:.2f} MB)")
 
 
-def expected_launches(model, stats: dict, run: dict) -> dict:
+def expected_launches(model, stats: dict, run: dict, slots: int = CONT["slots"],
+                      chunk_steps: int = CONT["chunk_steps"]) -> dict:
     """The launches a continuous run implies, from its own stats: per
     admission prefill two KAN layers per block (fused or sparse, by its row
     count) and, paged, one gather per layer (both leaves in one launch);
     per decode step two KAN layers per block at ``slots`` rows; per chunk,
     shadow reads, one gather per unit block (its leaves and stacked layers
-    in one launch), or step reads, one per layer per step.
+    in one launch) and per prologue or epilogue block, or step reads, one
+    per layer per step.
 
     A speculative run (``stats["spec"]``) decodes in windows instead: per
     drafter admission prefill two KAN layers per drafter block; per window
@@ -610,15 +643,17 @@ def expected_launches(model, stats: dict, run: dict) -> dict:
     def kernel(rows: int) -> str:
         return "kan_" + KL.resolve_inference_method("cuda", rows) + "_gemm"
 
+    blocks = model.prologue + model.unit * model.n_repeats + model.epilogue
     per_layer = 2 * sum(b.kind == "attn_kan" for b in model.unit)   # MLP FFNs: none
-    kan, layers = per_layer * model.n_repeats, len(model.unit) * model.n_repeats
+    kan, layers = 2 * sum(b.kind == "attn_kan" for b in blocks), len(blocks)
     want = dict.fromkeys(ops.LAUNCHES, 0)
     paged = run.get("paged", False)
-    reads = (layers if run.get("paged_read") == "step" else len(model.unit)) if paged else 0
+    # a shadow read gathers each prologue and epilogue block on its own
+    shadow = len(model.prologue) + len(model.unit) + len(model.epilogue)
+    reads = (layers if run.get("paged_read") == "step" else shadow) if paged else 0
     for k, t_pad in stats["prefill_groups"]:
         want[kernel(k * t_pad)] += kan
         want["gather_blocks"] += layers if paged else 0
-    slots = CONT["slots"]
     if "spec" in stats:
         sp = stats["spec"]
         draft = per_layer * sp["draft_layers"]
@@ -628,7 +663,7 @@ def expected_launches(model, stats: dict, run: dict) -> dict:
         want[kernel(slots * (sp["spec_k"] + 1))] += sp["windows"] * kan
         want["gather_blocks"] += sp["windows"] * reads
         return want
-    steps = stats["chunks_run"] * CONT["chunk_steps"]
+    steps = stats["chunks_run"] * chunk_steps
     want[kernel(slots)] += steps * kan
     if paged:
         step_reads = run.get("paged_read") == "step"
@@ -1154,8 +1189,9 @@ def sampled_gaps(torch, np, params, cfg, prompt, stream, rid, seed, temperature,
     """For each token of a sampled ``stream`` (request ``rid``), its logits
     teacher-forced through one prefill: the top-2 gap of its perturbed
     scores ``logits / T + g`` with that token's key
-    (``speculative.perturbed_top2_gap``), and whether it differs from the
-    argmax of its own logits."""
+    (``speculative.perturbed_top2_gap``), whether it differs from the
+    argmax of its own logits, and the token those scores draw; then
+    max|logit| of the stream."""
     from repro_torch.models import lm
     from repro_torch.serve import speculative as sp
     from repro_torch.serve import threefry as tf
@@ -1169,7 +1205,8 @@ def sampled_gaps(torch, np, params, cfg, prompt, stream, rid, seed, temperature,
     noise = tf.gumbel(torch.as_tensor(kts, device=device), (cfg.vocab,))
     gaps = sp.perturbed_top2_gap(lg, noise, temperature).cpu().numpy()
     off = lg.argmax(-1).cpu().numpy() != stream
-    return gaps, off
+    drawn = sp.sample_with_noise(lg, noise, temperature).cpu().numpy()
+    return gaps, off, drawn, lg.abs().amax().item()
 
 
 def sampling_path(torch, np, greedy=None, device="cuda", cfg=None, temperature=SAMPLE_T):
@@ -1328,8 +1365,9 @@ def sampling_path(torch, np, greedy=None, device="cuda", cfg=None, temperature=S
                 if g >= tie_tol:
                     raise RuntimeError(f"{name}: request {i} diverges at step {j}, not a near-tie")
     # the dense run's tokens against the argmax of their own logits
-    gaps, off = zip(*(sampled_gaps(torch, np, params, cfg, r, o, i, SAMPLE_SEED, temperature,
-                                   device) for i, (r, o) in enumerate(zip(reqs, streams["dense"]))))
+    gaps, off, _, _ = zip(*(sampled_gaps(torch, np, params, cfg, r, o, i, SAMPLE_SEED,
+                                         temperature, device)
+                            for i, (r, o) in enumerate(zip(reqs, streams["dense"]))))
     share = float(np.concatenate(off).mean())
     near = int(sum((g < tie_tol).sum() for g in gaps))
     n_tok = sum(len(g) for g in gaps)
@@ -2187,6 +2225,98 @@ def held_streams(torch, np, tag, outs, ref, params, cfg, reqs, device, gaps, exa
     return divs
 
 
+def continuous_run(torch, np, params, model, base, extra, cell, label, device, tag,
+                   hold_gathers=False, stamp=lambda: ""):
+    """One ``serve_continuous`` run of ``cell = (requests, budgets, slots)``
+    on a new engine (``base`` with ``extra`` applied), any miss raises: the
+    launch counts reset just before and checked exactly just after (from
+    the run's own stats), the pool balanced after the drain, every output
+    in range, a prefix hit wherever a paged run caches prefixes, and a
+    preemption wherever ``extra`` sets a pool size.  MoE drops are metered;
+    with ``hold_gathers`` every gather of a paged run is held bit for bit
+    against its plain version, and on the card their count against kernel
+    5's launches.  Returns ``(engine, outputs, metrics)``."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_gather as PG
+    from repro_torch.serve.engine import Engine
+
+    cuda = device == "cuda"
+    reqs, budgets, slots = cell
+    paged = extra.get("paged", False)
+    eng = Engine(params, model, dataclasses.replace(base, **extra), device=device)
+    real_gather, held = ops.gather_views, [0]
+
+    def spy(cache, table, stacked=False):
+        got = real_gather(cache, table, stacked)
+        want = PG.gather_views_reference(cache, table, stacked)
+        if list(got) != list(want) or not all(torch.equal(got[n], want[n]) for n in want):
+            raise RuntimeError(f"{label}: a gather of the run disagrees with its plain version")
+        held[0] += 1
+        return got
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    if hold_gathers and paged:
+        ops.gather_views = spy
+    try:
+        with DropMeter() as meter:
+            outs, c = counted(
+                torch, label, lambda: eng.serve_continuous(
+                    reqs, slots=slots, chunk_steps=CONT["chunk_steps"], max_new=budgets),
+                lambda: expected_launches(model, eng.last_serve_stats, extra, slots), device,
+                tag=tag)
+    finally:
+        ops.gather_views = real_gather
+    st = eng.last_serve_stats
+    pg = st.get("paged", {})
+    if pg and pg["blocks_in_use"] != pg["blocks_cache_held"]:
+        raise RuntimeError(f"{label}: the pool is not balanced after the drain: {pg}")
+    for o, b in zip(outs, budgets):
+        if o.shape != (b,) or o.min() < 0 or o.max() >= model.vocab:
+            raise RuntimeError(f"{label}: bad output {o}")
+    wall = c["wall_ms"] / 1e3
+    steps = st["spec"]["windows"] if "spec" in st else st["chunks_run"] * CONT["chunk_steps"]
+    m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
+         "useful_tokens": st["useful_tokens"], "chunks": st["chunks_run"],
+         "decode_ms_per_step": st["decode_s"] * 1e3 / steps, "prefill_s": st["prefill_s"],
+         "n_preemptions": st["n_preemptions"],
+         "prefill_tokens_saved": pg.get("prefill_tokens_saved", 0),
+         "prefix_caching": "prefix_hit_blocks" in pg,
+         "prefill_groups": [list(g) for g in st["prefill_groups"]],
+         "blocks_watermark": pg.get("blocks_in_use_watermark"),
+         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+         "launches": c["launches"]}
+    if "spec" in st:
+        m.update({k: st["spec"][k] for k in ("windows", "proposed_drafts",
+                                             "accepted_drafts", "acceptance_rate")})
+    drops = ""
+    if meter.calls:
+        m.update(meter.summary())
+        drops = (f"; moe_drop_frac {m['moe_drop_frac']:.4f} ({m['dropped_choices']} of "
+                 f"{m['routed_choices']} choices, {m['calls_with_drops']} of {m['calls']} moe "
+                 f"calls)")
+    if hold_gathers and paged:
+        m["gathers_held_bitwise"] = held[0]
+        drops += f"; gathers held bit-equal {held[0]}"
+    log(f"[{tag}] {label}: {m['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.2f} "
+        f"tok/s; {m['decode_ms_per_step']:.3f} ms per decode "
+        f"{'window' if 'spec' in st else 'step'}; admission prefills "
+        f"{m['prefill_s'] * 1e3:.1f} ms; preemptions {m['n_preemptions']}; prefill tokens "
+        f"saved {m['prefill_tokens_saved']}; block watermark {m['blocks_watermark']}"
+        f"{'; acceptance %.4f' % m['acceptance_rate'] if 'spec' in st else ''}{drops}; "
+        f"peak_mem_GB={(m['peak_mem_bytes'] or 0) / 1e9:.3f} {stamp()}")
+    if paged and m["prefix_caching"] and m["prefill_tokens_saved"] <= 0:
+        raise RuntimeError(f"{label}: no prefix hit")
+    if extra.get("pool_blocks") and m["n_preemptions"] < 1:
+        raise RuntimeError(f"{label}: the tight pool preempted nothing")
+    if cuda and hold_gathers and paged and held[0] != c["launches"]["gather_blocks"]:
+        raise RuntimeError(f"{label}: {held[0]} gathers held, "
+                           f"{c['launches']['gather_blocks']} launched")
+    return eng, outs, m
+
+
 def tree_bytes(tree) -> int:
     from repro_torch.convert import flatten_with_paths
 
@@ -2227,8 +2357,6 @@ def qwen_path(torch, np, device="cuda", cfg=None):
     and speculatively (a 1-layer drafter, dense and paged shadow), each run
     counted exactly.  ``device="cpu"`` with a reduced ``cfg`` rehearses it
     on the plain versions."""
-    import dataclasses
-
     from repro_torch.configs import qwen1_5_0_5b
     from repro_torch.configs.common import ArchConfig, enable_kv_quant
     from repro_torch.convert import flatten_with_paths
@@ -2332,53 +2460,15 @@ def qwen_path(torch, np, device="cuda", cfg=None):
                        block_size=CONT["block_size"])
     runs, streams, engines, divs = {}, {}, {}, []
 
-    def serve(eng):
-        return eng.serve_continuous(creqs, slots=CONT["slots"],
-                                    chunk_steps=CONT["chunk_steps"], max_new=budgets)
-
     def run(name, model, extra):
-        eng = engines[name] = Engine(params, model, dataclasses.replace(base, **extra),
-                                     device=device)
-        outs, wall, launches, peak = counted_run(
-            name, lambda: serve(eng),
-            lambda: expected_launches(model, eng.last_serve_stats, extra))
-        st = eng.last_serve_stats
-        pg = st.get("paged", {})
-        if pg and pg["blocks_in_use"] != pg["blocks_cache_held"]:
-            raise RuntimeError(f"{name}: the pool is not balanced after the drain: {pg}")
-        for o, b in zip(outs, budgets):
-            if o.shape != (b,) or o.min() < 0 or o.max() >= model.vocab:
-                raise RuntimeError(f"{name}: bad output {o}")
-        steps = (st["spec"]["windows"] if "spec" in st
-                 else st["chunks_run"] * CONT["chunk_steps"])
-        m = {"tok_s": st["useful_tokens"] / wall, "wall_s": wall,
-             "useful_tokens": st["useful_tokens"], "chunks": st["chunks_run"],
-             "decode_ms_per_step": st["decode_s"] * 1e3 / steps, "prefill_s": st["prefill_s"],
-             "n_preemptions": st["n_preemptions"],
-             "prefill_tokens_saved": pg.get("prefill_tokens_saved", 0),
-             "prefix_caching": "prefix_hit_blocks" in pg,
-             "blocks_watermark": pg.get("blocks_in_use_watermark"), "peak_mem_bytes": peak,
-             "launches": launches}
-        if "spec" in st:
-            m.update({k: st["spec"][k] for k in ("windows", "proposed_drafts",
-                                                 "accepted_drafts", "acceptance_rate")})
-        log(f"[dense] {name}: {m['useful_tokens']} tokens in {wall:.3f} s: {m['tok_s']:.1f} "
-            f"tok/s; {m['decode_ms_per_step']:.3f} ms per decode "
-            f"{'window' if 'spec' in st else 'step'}; admission prefills "
-            f"{m['prefill_s'] * 1e3:.1f} ms; preemptions {m['n_preemptions']}; prefill tokens "
-            f"saved {m['prefill_tokens_saved']}; block watermark {m['blocks_watermark']}"
-            f"{'; acceptance %.4f' % m['acceptance_rate'] if 'spec' in st else ''}; "
-            f"peak_mem_GB={(peak or 0) / 1e9:.3f} {stamp()}")
-        runs[name], streams[name] = m, outs
-        return m
+        engines[name], streams[name], runs[name] = continuous_run(
+            torch, np, params, model, base, extra, (creqs, budgets, CONT["slots"]), name,
+            device, "dense", stamp=stamp)
+        return runs[name]
 
     gaps = {}
     for name, extra in CONT_RUNS:                                  # (b)
-        m = run(name, cfg, extra)
-        if extra.get("paged") and m["prefill_tokens_saved"] <= 0:
-            raise RuntimeError(f"{name}: no prefix hit")
-        if name == "paged_preempt" and m["n_preemptions"] < 1:
-            raise RuntimeError(f"{name}: the tight pool preempted nothing")
+        run(name, cfg, extra)
         if name != "dense":
             divs += held_streams(torch, np, name, streams[name], streams["dense"], params, cfg,
                                  creqs, device, gaps)
@@ -2533,6 +2623,499 @@ def gemma_path(torch, np, device="cuda", cfg=None):
     return res
 
 
+# Phase 11: the MoE models of ROADMAP item 8.  Routing makes a token's
+# result depend on its companions: ``cap`` grows with the rows routed
+# together, and the queue positions run over them in order, so a token
+# dropped in one batch is kept in another.  So every run serves at the
+# published capacity factor (1.25) and is held to a recomputation that
+# routes the same rows together (the static buckets, teacher-forced) or,
+# where the scheduler forms other groups (a prefix hit's suffix prefill, a
+# preempted request's re-prefill, a verify window's B·W rows), its
+# divergences from the dense run are counted and printed.  A second set of
+# runs at ``capacity_factor = E / top_k`` (``cap >= S``: no token drops and
+# no token sees its companions) holds the paged (shadow, step, the tight
+# pool) and speculative paths to the dense one, every stream to
+# ``lm.forward``, and a sampled run token by token to the perturbed scores
+# of its recomputed logits, at near-ties only.
+MOE_CELL = {"static_batch": 4, "static_new": 32, "static_requests": 8,
+            "ds_static_requests": 4, "ds_requests": 8, "ds_slots": 4}
+OLMOE_RUNS = CONT_RUNS + [("spec_dense", {"spec_k": SPEC_K, "draft_layers": 1}),
+                          ("spec_paged_shadow", {"spec_k": SPEC_K, "draft_layers": 1,
+                                                 "paged": True})]
+OLMOE_NODROP_RUNS = [("nodrop_dense", {}), ("nodrop_paged_shadow", {"paged": True}),
+                     ("nodrop_paged_step", {"paged": True, "paged_read": "step"}),
+                     ("nodrop_paged_preempt", {"paged": True, "pool_blocks": 25}),
+                     ("nodrop_spec_dense", {"spec_k": SPEC_K, "draft_layers": 1}),
+                     ("nodrop_spec_paged_shadow", {"spec_k": SPEC_K, "draft_layers": 1,
+                                                   "paged": True})]
+
+# the hot sampled run: the first T whose expected share of tokens off the
+# argmax (request 0's greedy logits) reaches OLMOE_HOT_SHARE
+OLMOE_HOT_TS = (500.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0)
+OLMOE_HOT_SHARE = 0.75
+
+
+def no_drop(cfg):
+    """``cfg`` with every MoE block at ``capacity_factor = E / top_k``."""
+    import dataclasses
+
+    def fix(b):
+        if b.moe is None:
+            return b
+        m = b.moe
+        return dataclasses.replace(b, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+
+    return dataclasses.replace(cfg, prologue=tuple(map(fix, cfg.prologue)),
+                               unit=tuple(map(fix, cfg.unit)))
+
+
+class DropMeter:
+    """Counts the routed choices and the dropped ones of every
+    ``moe_forward`` call while active (device scalars, summed once at the
+    end: no host sync per call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real, self.calls = moe, moe.moe_forward, []
+
+    def __enter__(self):
+        def metered(params, cfg, x):
+            y, aux = self.real(params, cfg, x)
+            self.calls.append((x.shape[0] * x.shape[1] * cfg.top_k, aux["moe_drop_frac"]))
+            return y, aux
+
+        self.calls = []
+        self.moe.moe_forward = metered
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_forward = self.real
+
+    def summary(self) -> dict:
+        routed = sum(n for n, _ in self.calls)
+        dropped = [round(float(f) * n) for n, f in self.calls]
+        return {"calls": len(self.calls), "routed_choices": routed,
+                "dropped_choices": sum(dropped), "calls_with_drops": sum(d > 0 for d in dropped),
+                "moe_drop_frac": sum(dropped) / max(1, routed)}
+
+
+def bucket_recompute(torch, np, params, cfg, reqs, outs, batch, max_seq):
+    """The static engine's streams recomputed outside the engine: each
+    bucket of ``serve_requests`` (length-sorted, right-padded with zeros,
+    short buckets padded with copies of their last row) prefilled and
+    decoded step by step on the served tokens, per-row positions.  Returns
+    the logits that predict each served token, ``{request: (new, vocab)}``."""
+    from repro_torch.models import lm
+
+    order = sorted(range(len(reqs)), key=lambda i: reqs[i].shape[0])
+    dev = params["embed"]["table"].device
+    got = {}
+    for start in range(0, len(order), batch):
+        idxs = order[start:start + batch]
+        T = max(reqs[i].shape[0] for i in idxs)
+        rows = idxs + [idxs[-1]] * (batch - len(idxs))
+        toks = torch.as_tensor(np.stack([np.pad(reqs[i], (0, T - len(reqs[i])))
+                                         for i in rows]).astype(np.int64), device=dev)
+        lens = torch.as_tensor([len(reqs[i]) for i in rows], device=dev)
+        logits, caches = lm.prefill(params, cfg, toks, max_seq)
+        steps = [logits[torch.arange(len(rows), device=dev), lens - 1]]
+        del logits
+        pos = lens if bool((lens < T).any()) else torch.tensor(T, device=dev)
+        served = torch.as_tensor(np.stack([outs[i] for i in rows]).astype(np.int64),
+                                 device=dev)
+        for j in range(served.shape[1] - 1):
+            lg, caches = lm.decode_step(params, cfg, served[:, j:j + 1], caches, pos)
+            steps.append(lg)
+            pos = pos + 1
+        lg = torch.stack(steps, 1)
+        for r, i in enumerate(idxs):
+            got[i] = lg[r]
+        del caches
+    return got
+
+
+def held_to_logits(torch, np, tag, outs, logits_of, ref_logits=None):
+    """Each stream ``outs[i]`` equal to the argmax of ``logits_of[i]``
+    (``(len, vocab)``) unless the first divergence is a near-tie (a top-2
+    gap below ``DENSE_TIE`` of max|logit|); returns the divergences."""
+    divs = []
+    for i, o in enumerate(outs):
+        lg = logits_of[i]
+        want = lg.argmax(-1).cpu().numpy()
+        diff = np.nonzero(o != want)[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        top = torch.topk(lg[j], 2).values
+        g = ((top[0] - top[1]) / lg.abs().amax()).item()
+        divs.append({"run": tag, "request": i, "step": j, "top2_gap_rel": g})
+        log(f"[moe] {tag}: request {i} parts from its recomputation at step {j}; top-2 gap "
+            f"{g:.3e} of max|logit| (tol {DENSE_TIE:.0e})")
+        if g >= DENSE_TIE:
+            raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
+    return divs
+
+
+def forward_logits(torch, np, params, cfg, reqs, outs, device):
+    """``lm.forward`` of each prompt and its stream: the logits that
+    predict each token of the stream (``cfg`` must not drop: then a row's
+    routing does not depend on its companions)."""
+    from repro_torch.models import lm
+
+    got = []
+    for r, o in zip(reqs, outs):
+        seq = np.concatenate([r, o[:-1]]).astype(np.int64)
+        lg, _ = lm.forward(params, cfg, torch.as_tensor(seq[None], device=device))
+        got.append(lg[0, len(r) - 1:])
+    return got
+
+
+def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
+    """The static cell of a MoE model: served at the published capacity,
+    timed, held to :func:`bucket_recompute`; then the first bucket's rows
+    teacher-forced through decode steps against ``lm.forward``, both at the
+    no-drop capacity (check 1)."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cuda = device == "cuda"
+    t_start = time.perf_counter()
+
+    def stamp() -> str:
+        return f"(at {time.perf_counter() - t_start:.1f} s)"
+
+    lens = np.array([len(r) for r in reqs])
+    max_seq = int(lens.max()) + new + 8
+    eng = Engine(params, cfg, ServeConfig(max_seq=max_seq, max_new_tokens=new), device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with DropMeter() as meter:
+        outs, m = counted(torch, f"{tag} static", lambda: eng.serve_requests(
+            reqs, batch_size=batch, seed=0), {}, device, tag="moe")
+    wall = m["wall_ms"] / 1e3
+    for o in outs:
+        if o.shape != (new,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise RuntimeError(f"{tag} static: bad output {o}")
+    bk = eng.last_serve_stats["buckets"]
+    a = {"tok_s": len(reqs) * new / wall, "wall_s": wall, "launches": m["launches"],
+         "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+         "prefill_ms": sum(b["prefill_s"] for b in bk) * 1e3 / len(bk),
+         "decode_ms_per_step": sum(b["decode_s"] for b in bk) * 1e3
+         / sum(b["decode_steps"] for b in bk), **meter.summary()}
+    rec = bucket_recompute(torch, np, params, cfg, reqs, outs, batch, max_seq)
+    a["divergences"] = held_to_logits(torch, np, f"{tag} static vs its buckets recomputed",
+                                      outs, rec)
+    del rec
+    log(f"[moe] {tag} static: {len(a['divergences'])} near-tie partings from the buckets "
+        f"recomputed step by step {stamp()}")
+    nd = no_drop(cfg)
+    errs = []
+    for i in sorted(range(len(reqs)), key=lambda i: lens[i])[:batch]:
+        t = torch.as_tensor(np.concatenate([reqs[i], outs[i]]).astype(np.int64)[None],
+                            device=device)
+        dec = teacher_forced(torch, params, nd, t, max_seq, start=int(lens[i]))
+        fwd, _ = lm.forward(params, nd, t)
+        errs.append(rel_err(dec, fwd[:, int(lens[i]) - 1:-1]))
+        del dec, fwd
+    a["decode_vs_forward_rel"] = max(errs)
+    log(f"[moe] {tag} static: teacher-forced decode vs lm.forward at capacity_factor E/top_k "
+        f"(no drop), {batch} requests x {new} tokens: max err "
+        f"{a['decode_vs_forward_rel']:.3e} of max|logit| (tol {DENSE_REL:.0e}) {stamp()}")
+    if not a["decode_vs_forward_rel"] <= DENSE_REL:
+        raise RuntimeError(f"{tag}: decode logits disagree with lm.forward")
+    if cuda:
+        t0 = time.perf_counter()
+        eng.serve_requests(reqs, batch_size=batch, seed=0)
+        torch.cuda.synchronize()
+        a["warm_tok_s"] = len(reqs) * new / (time.perf_counter() - t0)
+        wb = eng.last_serve_stats["buckets"]
+        a["warm_decode_ms_per_step"] = (sum(b["decode_s"] for b in wb) * 1e3
+                                        / sum(b["decode_steps"] for b in wb))
+    log(f"[moe] {tag} static: {len(reqs) * new} tokens in {wall:.3f} s: {a['tok_s']:.2f} tok/s "
+        f"cold, {a.get('warm_tok_s')} warm; prefill_ms (mean per bucket) {a['prefill_ms']:.1f}; "
+        f"decode_ms_per_step {a['decode_ms_per_step']:.3f} cold, "
+        f"{a.get('warm_decode_ms_per_step')} warm; moe_drop_frac {a['moe_drop_frac']:.4f} "
+        f"({a['dropped_choices']} of {a['routed_choices']} choices, {a['calls_with_drops']} of "
+        f"{a['calls']} moe calls); peak_mem_GB={(a['peak_mem_bytes'] or 0) / 1e9:.3f} "
+        f"{stamp()}")
+    return a, eng
+
+
+def moe_continuous(torch, np, params, cfg, reqs, budgets, runs_spec, tag, device, slots,
+                   hold_gathers=False):
+    """The continuous cell's runs ``runs_spec`` [(name, ServeConfig
+    overrides)], each a :func:`continuous_run` (counted exactly, drops
+    metered, prefix hits and preemptions checked; with ``hold_gathers``
+    every gather held bit for bit).  Returns ``(metrics, streams, engines)``
+    by run name."""
+    from repro_torch.serve.engine import ServeConfig
+
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"])
+    runs, streams, engines = {}, {}, {}
+    for name, extra in runs_spec:
+        engines[name], streams[name], runs[name] = continuous_run(
+            torch, np, params, cfg, base, extra, (reqs, budgets, slots), f"{tag} {name}",
+            device, "moe", hold_gathers=hold_gathers)
+    return runs, streams, engines
+
+
+def hot_temperature(torch, logits) -> tuple[float, float]:
+    """The first of ``OLMOE_HOT_TS`` at which the greedy tokens' expected
+    share off the argmax, ``1 - max softmax(logits / T)`` averaged over the
+    rows of ``logits (n, vocab)``, reaches ``OLMOE_HOT_SHARE`` (else the
+    last); returns ``(T, that share)``."""
+    for t in OLMOE_HOT_TS:
+        expect = (1 - torch.softmax(logits / t, -1).amax(-1)).mean().item()
+        if expect >= OLMOE_HOT_SHARE:
+            break
+    return t, expect
+
+
+def held_sampled(torch, np, tag, params, cfg, reqs, outs, seed, temperature, device):
+    """Each sampled stream (request ``i`` of ``serve_continuous(seed=seed)``)
+    equal to the tokens its perturbed scores draw (:func:`sampled_gaps`),
+    unless the first divergence is a near-tie: a perturbed top-2 gap below
+    ``DENSE_TIE`` of max|logit| over T (``cfg`` must not drop).  Returns the
+    divergences and the share of tokens off the argmax of their own logits."""
+    divs, off, n = [], 0, 0
+    for i, (r, o) in enumerate(zip(reqs, outs)):
+        gaps, offs, drawn, lmax = sampled_gaps(torch, np, params, cfg, r, o, i, seed,
+                                               temperature, device)
+        off, n = off + int(offs.sum()), n + len(o)
+        diff = np.nonzero(o != drawn)[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        g, tol = float(gaps[j]), DENSE_TIE * lmax / temperature
+        divs.append({"run": tag, "request": i, "step": j, "gap": g, "tol": tol})
+        log(f"[moe] {tag}: request {i} parts from its recomputation at step {j}; perturbed "
+            f"top-2 gap {g:.3e} (near-tie below {tol:.1e})")
+        if g >= tol:
+            raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
+    return divs, off / n
+
+
+def parted_from(np, tag, outs, ref) -> list[dict]:
+    """Where each stream first parts from ``ref`` (counted, not failed)."""
+    divs = []
+    for i, (o, r) in enumerate(zip(outs, ref)):
+        diff = np.nonzero(o != r)[0]
+        if diff.size:
+            divs.append({"run": tag, "request": i, "step": int(diff[0])})
+    log(f"[moe] {tag}: {len(divs)} of {len(outs)} streams part from the dense run's "
+        f"{[(d['request'], d['step']) for d in divs]}")
+    return divs
+
+
+def olmoe_path(torch, np, device="cuda", cfg=None):
+    """Phase 11 (a), any miss raises: olmoe-1b-7b at full width and depth
+    (random weights from seed 0, fp32) served statically, continuously
+    (dense, paged shadow, paged step, the 25-block pool), speculatively
+    (1-layer drafter, dense and paged shadow) and sampled at ``SAMPLE_T``,
+    each run counted exactly; the no-drop runs hold the paged (shadow, step,
+    the tight pool) and speculative streams to the dense ones, every stream
+    to ``lm.forward``, and a run sampled at a hot T (:func:`hot_temperature`)
+    to its recomputed draws, with at least ``MIN_SAMPLED_SHARE`` of its
+    tokens off the argmax.
+    ``device="cpu"`` with a reduced ``cfg`` rehearses it."""
+    from repro_torch.configs import olmoe_1b_7b
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.models import lm
+
+    cuda = device == "cuda"
+    t_start = time.perf_counter()
+    cfg = cfg or olmoe_1b_7b.config().model
+    moe = cfg.unit[0].moe
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
+           "init_s": time.perf_counter() - t_start}
+    log(f"[moe] olmoe-1b-7b full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+        f"heads={cfg.unit[0].attn.n_heads}/{cfg.unit[0].attn.n_kv_heads} experts="
+        f"{moe.n_experts} top-{moe.top_k} d_ff={moe.d_ff} capacity_factor "
+        f"{moe.capacity_factor} vocab={cfg.vocab} params={out['params'] / 1e9:.3f}B fp32, "
+        f"made in {out['init_s']:.1f} s")
+    rs = np.random.RandomState(0)
+    n, batch, new = MOE_CELL["static_requests"], MOE_CELL["static_batch"], MOE_CELL["static_new"]
+    lens = rs.randint(32, 129, n)
+    reqs = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in lens]
+    out["static"], eng = moe_static(torch, np, params, cfg, reqs, new, batch, "olmoe", device)
+    if cuda:                   # one warm bucket under the profiler
+        order = sorted(range(n), key=lambda i: lens[i])[:batch]
+        T = int(max(lens[i] for i in order))
+        prompts = np.stack([np.pad(reqs[i], (0, T - lens[i])) for i in order]).astype(np.int32)
+        out["static"]["profile"] = profile_generate(torch, eng, prompts,
+                                                    lens[order].astype(np.int32))
+    del eng
+    log(f"[moe] olmoe static done (at {time.perf_counter() - t_start:.1f} s)")
+
+    creqs, budgets = continuous_requests(np, cfg.vocab)
+    runs, streams, engines = moe_continuous(torch, np, params, cfg, creqs, budgets, OLMOE_RUNS,
+                                            "olmoe", device, CONT["slots"], hold_gathers=True)
+    dense = streams["dense"]
+    parted = []
+    for name in runs:
+        if name == "dense":
+            continue
+        parted += parted_from(np, f"olmoe {name} vs dense", streams[name], dense)
+    # sampled at phase 6c's T: olmoe's top-2 lead beats the noise there, so
+    # this run's streams are the greedy ones (printed, not held); the hot
+    # run below is the one that checks sampling
+    s_runs, s_streams, _ = moe_continuous(torch, np, params, cfg, creqs, budgets,
+                                          [("sampled", {"temperature": SAMPLE_T})], "olmoe",
+                                          device, CONT["slots"])
+    toks = sum(len(o) for o in dense)
+    off = sum(int((a != b).sum()) for a, b in zip(s_streams["sampled"], dense)) / toks
+    # how far the noise (a Gumbel max over the vocabulary, ~ln(vocab)) is
+    # from the greedy token's lead over the runner-up, in units of T
+    lg, _ = lm.forward(params, cfg, torch.as_tensor(
+        np.concatenate([creqs[0], dense[0]]).astype(np.int64)[None], device=device))
+    lg = lg[0, len(creqs[0]) - 1:-1]
+    top = torch.topk(lg, 2, dim=-1).values
+    lead = ((top[:, 0] - top[:, 1]) / SAMPLE_T).median().item()
+    hot_t, expect = hot_temperature(torch, lg)
+    del lg
+    s_runs["sampled"].update(share_off_greedy=off, median_lead_over_T=lead)
+    log(f"[moe] olmoe sampled at T={SAMPLE_T}: {off:.3f} of the tokens differ from the greedy "
+        f"dense run's; request 0's median top-2 logit gap over T {lead:.2f} against a Gumbel "
+        f"max of ~ln(vocab) = {math.log(cfg.vocab):.2f}; the hot run takes T={hot_t} "
+        f"(expected share off the argmax {expect:.3f})")
+    runs["sampled"] = s_runs["sampled"]
+    log(f"[moe] olmoe continuous done (at {time.perf_counter() - t_start:.1f} s)")
+
+    # no drop: paged and speculative held to dense, every stream to lm.forward
+    nd = no_drop(cfg)
+    nd_runs, nd_streams, _ = moe_continuous(torch, np, params, nd, creqs, budgets,
+                                            OLMOE_NODROP_RUNS, "olmoe", device, CONT["slots"],
+                                            hold_gathers=True)
+    for name, r in nd_runs.items():
+        if r["dropped_choices"]:
+            raise RuntimeError(f"olmoe {name}: {r['dropped_choices']} choices dropped at "
+                               "capacity_factor E/top_k")
+    ref = forward_logits(torch, np, params, nd, creqs, nd_streams["nodrop_dense"], device)
+    held = held_to_logits(torch, np, "olmoe nodrop_dense vs lm.forward",
+                          nd_streams["nodrop_dense"], ref)
+    del ref
+    gaps = {}
+    for name in nd_runs:
+        if name != "nodrop_dense":
+            held += held_streams(torch, np, f"olmoe {name}", nd_streams[name],
+                                 nd_streams["nodrop_dense"], params, nd, creqs, device, gaps)
+    # the hot sampled run, no drop: each token held to its recomputation
+    h_runs, h_streams, _ = moe_continuous(torch, np, params, nd, creqs, budgets,
+                                          [("nodrop_sampled_hot", {"temperature": hot_t})],
+                                          "olmoe", device, CONT["slots"])
+    s_divs, share = held_sampled(torch, np, "olmoe nodrop_sampled_hot", params, nd, creqs,
+                                 h_streams["nodrop_sampled_hot"], 0, hot_t, device)
+    h_runs["nodrop_sampled_hot"].update(temperature=hot_t, share_off_argmax=share,
+                                        expected_share_off_argmax=expect,
+                                        near_tie_divergences=len(s_divs))
+    runs.update(nd_runs)
+    runs.update(h_runs)
+    out.update({"runs": runs, "parted_from_dense": parted, "nodrop_divergences": held,
+                "sampled_divergences": s_divs})
+    log(f"[moe] olmoe no-drop runs: {len(held)} near-tie divergences; sampled at T={hot_t}: "
+        f"{share:.4f} of the tokens off the argmax of their own logits (floor "
+        f"{MIN_SAMPLED_SHARE}), {len(s_divs)} near-tie partings from the recomputation (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
+    if share < MIN_SAMPLED_SHARE:
+        raise RuntimeError(f"olmoe: only {share:.4f} of the hot sampled tokens are off the argmax")
+
+    if cuda:      # one warm wave of the paged shadow run, profiled
+        wave, st_ = creqs[:PROFILE_WAVE["requests"]], []
+        eng = engines["paged_shadow"]
+
+        def serve_wave():
+            eng.serve_continuous(wave, slots=CONT["slots"], chunk_steps=CONT["chunk_steps"],
+                                 max_new=PROFILE_WAVE["tokens"])
+            st_.append(eng.last_serve_stats)
+
+        prof = profile_call(torch, serve_wave, lambda: (
+            f"one warm olmoe paged_shadow run of the cell's first {len(wave)} requests, "
+            f"{PROFILE_WAVE['tokens']} tokens each"))
+        steps = st_[0]["chunks_run"] * CONT["chunk_steps"]
+        prof.update({"warm_tok_s": st_[0]["useful_tokens"] / (prof["wall_ms"] / 1e3),
+                     "warm_decode_ms_per_step": st_[0]["decode_s"] * 1e3 / steps,
+                     "warm_prefill_ms": st_[0]["prefill_s"] * 1e3, "decode_steps": steps})
+        log(f"[moe] olmoe paged_shadow warm wave: {prof['warm_tok_s']:.2f} tok/s, "
+            f"{prof['warm_decode_ms_per_step']:.3f} ms per decode step, admission prefill "
+            f"{prof['warm_prefill_ms']:.1f} ms (unprofiled), busy share {prof['busy_share']}")
+        out["profile_cont"] = prof
+    del engines, params
+    return out
+
+
+def deepseek_path(torch, np, device="cuda", cfg=None):
+    """Phase 11 (b), any miss raises: deepseek-v2-lite at full width and
+    depth (random weights from seed 0, fp32; MLA, a dense prologue, 2
+    shared + 64 routed experts): the static cell of 4 prompts and the dense
+    continuous cell (8 requests, 4 slots), each counted, at the published
+    capacity; the continuous cell again at no drop, held to ``lm.forward``;
+    the latent cache's bytes beside the GQA cache it replaces."""
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.models import lm
+
+    cuda = device == "cuda"
+    t_start = time.perf_counter()
+    cfg = cfg or deepseek_v2_lite.config().model
+    a, moe = cfg.unit[0].attn, cfg.unit[0].moe
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
+           "params_peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    log(f"[moe] deepseek-v2-lite full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+        f"(1 dense prologue, d_ff {cfg.prologue[0].d_ff}) MLA kv_lora {a.kv_lora_rank} rope "
+        f"{a.qk_rope_dim} heads {a.n_heads} x {a.head_dim}; experts {moe.n_experts} routed "
+        f"top-{moe.top_k} + {moe.n_shared} shared, d_ff {moe.d_ff}; vocab {cfg.vocab}; "
+        f"params={out['params'] / 1e9:.3f}B fp32, peak {(out['params_peak_mem_bytes'] or 0) / 1e9:.2f}"
+        f" GB after init")
+    rs = np.random.RandomState(0)
+    n, new = MOE_CELL["ds_static_requests"], MOE_CELL["static_new"]
+    reqs = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in rs.randint(32, 129, n)]
+    out["static"], eng = moe_static(torch, np, params, cfg, reqs, new, n, "deepseek", device)
+    del eng
+    creqs, budgets = continuous_requests(np, cfg.vocab)
+    creqs, budgets = creqs[:MOE_CELL["ds_requests"]], budgets[:MOE_CELL["ds_requests"]]
+    runs, streams, _ = moe_continuous(torch, np, params, cfg, creqs, budgets, [("dense", {})],
+                                      "deepseek", device, MOE_CELL["ds_slots"])
+    nd = no_drop(cfg)
+    nd_runs, nd_streams, _ = moe_continuous(torch, np, params, nd, creqs, budgets,
+                                            [("nodrop_dense", {})], "deepseek", device,
+                                            MOE_CELL["ds_slots"])
+    if nd_runs["nodrop_dense"]["dropped_choices"]:
+        raise RuntimeError("deepseek: choices dropped at capacity_factor E/top_k")
+    ref = forward_logits(torch, np, params, nd, creqs, nd_streams["nodrop_dense"], device)
+    held = held_to_logits(torch, np, "deepseek nodrop_dense vs lm.forward",
+                          nd_streams["nodrop_dense"], ref)
+    del ref
+    parted = parted_from(np, "deepseek dense vs nodrop_dense", streams["dense"],
+                         nd_streams["nodrop_dense"])
+    runs.update(nd_runs)
+    gqa = dataclasses.replace(cfg, prologue=(), n_repeats=cfg.n_layers, unit=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, kv_lora_rank=None))
+        for b in cfg.unit))
+    slots = MOE_CELL["ds_slots"]
+    cache = {name: tree_bytes(lm.init_caches(m, slots, CONT["max_seq"], torch.float32, "meta"))
+             for name, m in (("mla", cfg), ("gqa", gqa))}
+    log(f"[moe] deepseek KV cache of the continuous cell ({slots} slots x "
+        f"{CONT['max_seq']}): MLA latent {cache['mla']} bytes ({a.kv_lora_rank + a.qk_rope_dim} "
+        f"floats per token and layer) against {cache['gqa']} for GQA K/V of the same heads "
+        f"({2 * a.n_heads * a.head_dim}): {cache['gqa'] / cache['mla']:.2f}x smaller")
+    out.update({"runs": runs, "held_divergences": held, "parted_from_nodrop": parted,
+                "cache_bytes": cache,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None})
+    log(f"[moe] deepseek done (at {time.perf_counter() - t_start:.1f} s); peak_mem_GB="
+        f"{(out['peak_mem_bytes'] or 0) / 1e9:.3f}")
+    del params
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2599,16 +3182,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gemma = gemma_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    olmoe = olmoe_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek = deepseek_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
-        f"{time.perf_counter() - t6:.1f} s")
+        f"{t7 - t6:.1f} s, MoE models {time.perf_counter() - t7:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
-            "qwen_path": qwen, "gemma_path": gemma, "build_s": built}
+            "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
+            "deepseek_path": deepseek, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -2619,7 +3212,11 @@ def main() -> int:
                **{k: m["launches"] for k, m in reskan["runs"].items()},
                "qwen_static": qwen["static"]["launches"],
                **{"qwen_" + k: m["launches"] for k, m in qwen["runs"].items()},
-               "gemma_static": gemma["launches"]}
+               "gemma_static": gemma["launches"],
+               "olmoe_static": olmoe["static"]["launches"],
+               **{"olmoe_" + k: m["launches"] for k, m in olmoe["runs"].items()},
+               "deepseek_static": deepseek["static"]["launches"],
+               **{"deepseek_" + k: m["launches"] for k, m in deepseek["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

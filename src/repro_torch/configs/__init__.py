@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-kanformer-100m and the dense models (qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b,
-gemma3-12b) are ported; the other architectures of ``repro.configs`` wait
-for their block kinds or input kinds (ROADMAP queue 1, item 8)."""
+kanformer-100m, the dense models (qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b,
+gemma3-12b) and the MoE models (olmoe-1b-7b; deepseek-v2-lite with MLA and
+a dense prologue) are ported; the other architectures of ``repro.configs``
+(zamba2-1.2b, xlstm-1.3b, paligemma-3b, musicgen-large) wait for their block
+kinds or input kinds (ROADMAP queue 1, item 8)."""
 
 import importlib
 
@@ -11,6 +13,8 @@ ARCHS = {
     "gemma3-12b": "gemma3_12b",
     "qwen1.5-32b": "qwen1_5_32b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
     "kanformer-100m": "kanformer_100m",
 }
 

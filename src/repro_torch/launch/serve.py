@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 ``--arch`` takes the port's registry (``repro_torch.configs``):
-kanformer-100m, qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b, gemma3-12b.  Takes
+kanformer-100m, qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b, gemma3-12b,
+olmoe-1b-7b, deepseek-v2-lite.  Takes
 the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
 length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
 continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
@@ -13,8 +14,9 @@ with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
 ``--temperature T > 0`` samples in every engine mode, each request's key
 chain keyed by ``--seed`` and its index, as the reference's CLI does;
 ``--mesh`` exits with rc=2 and says it is not ported yet.  A windowed model
-(gemma3) is refused as the reference refuses it: ``--spec-k`` with rc=2,
-``--paged`` by the ``NotImplementedError`` of its paged caches.  Reduced
+(gemma3) or an MLA one (deepseek-v2-lite) is refused as the reference
+refuses it: ``--spec-k`` with rc=2, ``--paged`` by the
+``NotImplementedError`` of its paged caches.  Reduced
 shapes are the default; ``--full`` selects the full config.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
 """

@@ -26,9 +26,15 @@ With ``AttnConfig.kv_quant`` a cache holds int8 ``k``/``v`` leaves and fp32
 per-(token, KV head) ``k_scale``/``v_scale`` leaves (:func:`_kv_quantize`),
 and the decode reads dequantise chunk by chunk inside an online softmax, as
 the reference does.  ``AttnConfig.qk_norm`` RMS-normalises q and k per head
-before rotary (gemma3).  MLA (``kv_lora_rank``) is not ported yet (ROADMAP
-queue 1, item 8) and raises ``NotImplementedError``; the paged and
-verify-window entry points refuse windowed layers, as the reference does.
+before rotary (gemma3).
+
+MLA (DeepSeek-V2's multi-head latent attention, ``kv_lora_rank``):
+:func:`attn_forward` runs it through :func:`_mla_forward`, whose cache is
+the UNNORMALISED ``r``-dim latent beside the rotated ``rope``-dim key, one
+``(B, S, r + rope)`` leaf ``ckv`` for all heads; :func:`mla_decode_step`
+normalises the whole latent cache on read and scores it with the absorbed
+``w_uk``/``w_uv`` weights.  The paged and verify-window entry points refuse
+windowed and MLA layers, as the reference asserts.
 """
 
 from __future__ import annotations
@@ -64,18 +70,10 @@ class AttnConfig:
         return min(max_seq, self.window) if self.window else max_seq
 
 
-def check_supported(cfg: AttnConfig) -> None:
-    """Raise for the attention variant the port lacks: MLA."""
-    if cfg.kv_lora_rank is not None:
-        raise NotImplementedError(
-            "attention: MLA (kv_lora_rank) not ported yet (ROADMAP queue 1, item 8)")
-
-
 def _check_full_attention(cfg: AttnConfig, what: str) -> None:
     """The paged and verify-window paths take full-attention GQA layers
-    only, as the reference asserts."""
-    check_supported(cfg)
-    if cfg.window is not None:
+    only (no window, no MLA latent), as the reference asserts."""
+    if cfg.window is not None or cfg.kv_lora_rank is not None:
         raise NotImplementedError(f"{what} supports full-attention GQA layers only")
 
 
@@ -158,16 +156,43 @@ def attn_forward(
     chunk: int = 1024,
     return_cache: bool = False,
 ):
-    """Prefill attention; with ``return_cache`` also the post-rotary K/V."""
-    check_supported(cfg)
+    """Prefill attention; with ``return_cache`` also what the decode cache
+    stores: the post-rotary K/V, or MLA's latent (:func:`_mla_forward`)."""
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
+    if cfg.kv_lora_rank is not None:
+        return _mla_forward(params, cfg, x, positions, chunk, return_cache)
     q, k, v = _project_qkv(params, cfg, x, positions)
     o = flash_attention(q, k, v, causal=True, window=cfg.window, chunk=chunk)
     y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
     if return_cache:
         return y, {"k": k, "v": v}
+    return y
+
+
+def _mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+                 chunk: int, return_cache: bool = False):
+    """MLA prefill: queries of ``head_dim + rope`` dims per head; keys and
+    values expanded from the normalised latent by ``w_uk``/``w_uv``, the
+    rotated rope key shared by every head.  The cache keeps the latent
+    before its norm (``mla_decode_step`` normalises on read)."""
+    hd, rope, r = cfg.head_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    ckv = x @ params["w_dkv"].to(x.dtype)                      # (B, T, r + rope)
+    c_kv = _qk_rmsnorm(ckv[..., :r], params["kv_norm"])
+    k_nope = torch.einsum("btr,rhk->bthk", c_kv, params["w_uk"].to(x.dtype))
+    v = torch.einsum("btr,rhk->bthk", c_kv, params["w_uv"].to(x.dtype))
+    cos, sin = L.rotary_embedding(positions, rope, cfg.rope_theta, x.dtype)
+    q_rope = L.apply_rotary(q_rope, cos, sin)
+    k_rope1 = L.apply_rotary(ckv[..., None, r:], cos, sin)[..., 0, :]   # (B, T, rope)
+    k_rope = k_rope1[..., None, :].expand(k_nope.shape[:-1] + (rope,))
+    o = flash_attention(torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope], -1),
+                        v, causal=True, chunk=chunk)
+    y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    if return_cache:
+        return y, {"ckv": torch.cat([ckv[..., :r], k_rope1], -1)}
     return y
 
 
@@ -235,7 +260,6 @@ def attn_decode_step(  # kanlint: ignore[KL105]
     """One-token decode against a pre-filled KV cache.  A windowed layer
     writes its ring slot ``pos % S``; rotary is applied before caching, so
     the read needs no slot positions."""
-    check_supported(cfg)
     B = x.shape[0]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
@@ -243,6 +267,44 @@ def attn_decode_step(  # kanlint: ignore[KL105]
     _write_cache(cache, "k", k, slot, cfg.kv_quant)
     _write_cache(cache, "v", v, slot, cfg.kv_quant)
     return _cache_attend(params, cfg, x, cache, q, pos_b), cache
+
+
+def mla_decode_step(  # kanlint: ignore[KL105] (see attn_decode_step)
+    params: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,                  # (B, 1, d_model)
+    cache_ckv: torch.Tensor,          # (B, S, r + rope) latent cache, written in place
+    pos: torch.Tensor,                # scalar or (B,) absolute position
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA decode: write the token's latent (unnormalised) and rotated rope
+    key at ``pos`` (per row, a slot ``>= S`` writes nothing, as the
+    reference's scatter drops it), then attend the whole cache with the
+    absorbed weights: ``score = (q_nope W_uk)·norm(c) + q_rope·k_rope`` over
+    ``sqrt(head_dim + rope)``, and ``((p·norm(c)) W_uv) W_o``."""
+    B = x.shape[0]
+    S = cache_ckv.shape[1]
+    pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    r, rope, hd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.head_dim
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    ckv_new = x @ params["w_dkv"].to(x.dtype)                  # (B, 1, r + rope)
+    cos, sin = L.rotary_embedding(pos_b[:, None], rope, cfg.rope_theta, x.dtype)
+    q_rope = L.apply_rotary(q_rope, cos, sin)
+    rotated = L.apply_rotary(ckv_new[..., None, r:], cos, sin)[..., 0, :]
+    _write_cache({"ckv": cache_ckv}, "ckv", torch.cat([ckv_new[..., :r], rotated], -1), pos)
+    c_kv = _qk_rmsnorm(cache_ckv[..., :r].to(x.dtype), params["kv_norm"])   # (B, S, r)
+    k_rope = cache_ckv[..., r:].to(x.dtype)                                  # (B, S, rope)
+    q_abs = torch.einsum("bthk,rhk->bthr", q_nope, params["w_uk"].to(x.dtype))
+    s = torch.einsum("bhr,bsr->bhs", q_abs[:, 0], c_kv)
+    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], k_rope)
+    s = s / math.sqrt(hd + rope)
+    mask = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
+    s = torch.where(mask[:, None], s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, c_kv)                 # (B, H, r)
+    o = torch.einsum("bhr,rhk->bhk", o_lat, params["w_uv"].to(x.dtype))
+    y = torch.einsum("bhk,hkd->bd", o, params["wo"].to(x.dtype))[:, None]
+    return y, cache_ckv
 
 
 def _slot_mask(cfg: AttnConfig, kv_slot: torch.Tensor, pos_b: torch.Tensor,

@@ -1,12 +1,15 @@
 """Decoder blocks in PyTorch (counterpart of ``repro/models/blocks.py``).
 
-Two kinds are ported, both pre-norm GQA attention followed by an FFN:
-``attn_mlp``, the SwiGLU MLP of the dense models (qwen, gemma3), and
+Three kinds are ported, each pre-norm attention followed by an FFN:
+``attn_mlp``, the SwiGLU MLP of the dense models (qwen, gemma3, deepseek's
+dense prologue); ``attn_moe``, the routed experts of ``models/moe.py``
+(olmoe, deepseek), whose auxiliary losses :func:`block_apply` returns; and
 ``attn_kan``, the KAN FFN of two spline layers ``d -> kan_ff -> d`` (the
 paper's technique as an FFN replacement).  Windowed attention (a ring
-cache of ``window`` slots), q/k norm and int8 KV caches come with the
-attention config.  ``attn_moe``, ``mamba2``, ``mlstm``, ``slstm`` and shared
-blocks raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
+cache of ``window`` slots), q/k norm, int8 KV caches and MLA (a
+``{"ckv": (B, max_seq, r + rope)}`` latent cache, not pageable) come with
+the attention config.  ``mamba2``, ``mlstm``, ``slstm`` and shared blocks
+raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from repro_torch.core import kan_layer as KL
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
-KINDS = ("attn_mlp", "attn_kan")
+KINDS = ("attn_mlp", "attn_moe", "attn_kan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +33,7 @@ class BlockCfg:
     kind: str
     attn: A.AttnConfig | None = None
     d_ff: int = 0                         # attn_mlp: SwiGLU hidden size
+    moe: M.MoEConfig | None = None        # attn_moe
     kan_grid: SplineGrid | None = None    # attn_kan
     kan_ff: int = 0
     shared_id: int | None = None
@@ -39,7 +44,6 @@ def check_supported(blk: BlockCfg) -> None:
         raise NotImplementedError(
             f"block kind {blk.kind!r} (shared_id={blk.shared_id}) is not ported "
             f"yet: only {', '.join(KINDS)} (ROADMAP queue 1, item 8)")
-    A.check_supported(blk.attn)
 
 
 def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -65,14 +69,23 @@ def _kan_ffn(
     return y.reshape(lead + (y.shape[-1],)).to(x.dtype)
 
 
-def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor, method: str = "auto") -> torch.Tensor:
-    """The block's FFN on the post-attention norm.  Inference passes
-    ``method="auto"``: the KAN FFN then resolves to the fused kernel at
-    prefill and verify-window row counts and the sparse one at decode row
-    counts on CUDA (``KL.resolve_inference_method``)."""
+def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor,
+         method: str = "auto") -> tuple[torch.Tensor, dict]:
+    """The block's FFN on the post-attention norm -> ``(y, aux)``, ``aux``
+    the MoE's auxiliary losses (empty for the other kinds).  Inference
+    passes ``method="auto"``: the KAN FFN then resolves to the fused kernel
+    at prefill and verify-window row counts and the sparse one at decode
+    row counts on CUDA (``KL.resolve_inference_method``)."""
     if blk.kind == "attn_mlp":
-        return _mlp(params["mlp"], h)
-    return _kan_ffn(params["kan"], h, blk.kan_grid, method=method)
+        return _mlp(params["mlp"], h), {}
+    if blk.kind == "attn_moe":
+        return M.moe_forward(params["moe"], blk.moe, h)
+    return _kan_ffn(params["kan"], h, blk.kan_grid, method=method), {}
+
+
+def _residual_ffn(params: dict, blk: BlockCfg, x: torch.Tensor) -> torch.Tensor:
+    """``x + FFN(norm(x))`` on the inference paths (the aux is dropped)."""
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x))[0]
 
 
 def block_apply(
@@ -84,12 +97,13 @@ def block_apply(
     chunk: int = 1024,
 ) -> tuple[torch.Tensor, dict]:
     """Pre-norm residual application (training/forward path: the KAN FFN
-    runs ``method="dense"``, as the reference's); returns ``(x, {})``, the
-    ported kinds having no auxiliary losses."""
+    runs ``method="dense"``, as the reference's); returns ``(x, aux)``,
+    ``aux`` an attn_moe block's auxiliary losses, else empty."""
     check_supported(blk)
     h = L.rmsnorm(params["ln1"], x)
     x = x + A.attn_forward(params["attn"], blk.attn, h, positions=positions, chunk=chunk)
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x), method="dense"), {}
+    y, aux = _ffn(params, blk, L.rmsnorm(params["ln2"], x), method="dense")
+    return x + y, aux
 
 
 def block_supports_paging(blk: BlockCfg) -> bool:
@@ -130,9 +144,13 @@ def block_init_paged_cache(blk: BlockCfg, n_blocks: int, block_size: int,
 def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
                      device) -> dict:
     """Per-block decode state: the ``(batch, S, KV, D)`` K/V rows, ``S`` =
-    ``window`` slots for a windowed layer's ring, else ``max_seq``."""
+    ``window`` slots for a windowed layer's ring, else ``max_seq``; an MLA
+    layer's ``(batch, max_seq, r + rope)`` latent."""
     check_supported(blk)
     c = blk.attn
+    if c.kv_lora_rank is not None:
+        return {"ckv": torch.zeros((batch, max_seq, c.kv_lora_rank + c.qk_rope_dim),
+                                   dtype=dtype, device=device)}
     return _kv_leaves(c, (batch, c.cache_len(max_seq)), dtype, device)
 
 
@@ -153,14 +171,17 @@ def block_prefill(  # kanlint: ignore[KL105]
     ``s`` holds the latest position ``p < T`` with ``p % S == s`` (decode
     then writes ``pos % S``).  Slots past T hold what the reference's
     zero-padded prefill cache holds: zeros, quantised like any other slot
-    under ``kv_quant``."""
+    under ``kv_quant``.  An MLA layer stores its latent at slots ``0..T-1``."""
     check_supported(blk)
     c = blk.attn
     T = x.shape[1]
-    S = cache["k"].shape[1]
     h = L.rmsnorm(params["ln1"], x)
     y, kv = A.attn_forward(params["attn"], c, h, positions=positions,
                            chunk=chunk, return_cache=True)
+    if "ckv" in kv:
+        cache["ckv"][:, :T] = kv["ckv"].to(cache["ckv"].dtype)
+        return _residual_ffn(params, blk, x + y), cache
+    S = cache["k"].shape[1]
     if c.window and S < T:
         s_idx = torch.arange(S, device=x.device)
         p_s = (T - 1) - torch.remainder(T - 1 - s_idx, S)
@@ -178,9 +199,8 @@ def block_prefill(  # kanlint: ignore[KL105]
     else:
         cache["k"][:, :n] = kv["k"].to(cache["k"].dtype)
         cache["v"][:, :n] = kv["v"].to(cache["v"].dtype)
-    x = x + y
     # prefill sees B·T rows: "auto" resolves to the fused kernel on CUDA
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
+    return _residual_ffn(params, blk, x + y), cache
 
 
 def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
@@ -206,8 +226,7 @@ def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
     y, cache = A.attn_prefill_paged(params["attn"], blk.attn, h, positions, cache,
                                     table, lengths, start, chunk=chunk,
                                     view_blocks=view_blocks)
-    x = x + y
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
+    return _residual_ffn(params, blk, x + y), cache
 
 
 def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
@@ -227,11 +246,12 @@ def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     if table is not None:
         y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
                                             table, pos)
+    elif blk.attn.kv_lora_rank is not None:
+        y, _ = A.mla_decode_step(params["attn"], blk.attn, h, cache["ckv"], pos)
     else:
         y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos)
-    x = x + y
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
+    return _residual_ffn(params, blk, x + y), cache
 
 
 def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
@@ -256,7 +276,6 @@ def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
                                               table, pos)
     else:
         y, cache = A.attn_verify_window(params["attn"], blk.attn, h, cache, pos)
-    x = x + y
     # the FFN sees B·W rows: "auto" resolves to the fused kernel on CUDA
     # when B·W > $KAN_SAS_SPARSE_MAX_ROWS (8)
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x)), cache
+    return _residual_ffn(params, blk, x + y), cache

@@ -1,18 +1,25 @@
 """Decoder LM in PyTorch (counterpart of ``repro/models/lm.py``).
 
-The model is a repeating ``unit`` of blocks driven ``n_repeats`` times.  As
-in the reference, the unit's parameters (and its decode caches) are stacked
-along a leading layers axis; here a Python loop walks that axis, and the
-caches are updated in place through views of the stacked buffers.  Dense
-caches have one layout, ``(n_repeats, B, S, KV, D)``, so the batch axis is
-axis 1 (the reference finds it by name through ``cache_axes``); paged pools
-are ``(n_repeats, n_blocks, block_size, KV, D)``.  Each unit block has its
-own cache entry, so the blocks of one unit may differ in cache length
-(gemma3: five ``window``-slot rings and one ``max_seq`` cache) and an int8
-KV cache adds ``k_scale``/``v_scale`` leaves beside ``k``/``v``.
+The model is ``prologue + unit * n_repeats + epilogue``.  As in the
+reference, the unit's parameters (and its decode caches) are stacked along
+a leading layers axis; here a Python loop walks that axis
+(:func:`_walk`), and the caches are updated in place through views of the
+stacked buffers.  Prologue and epilogue blocks (deepseek-v2-lite's dense
+first layer) keep lists of unstacked parameters and caches.  So a dense
+cache leaf is ``(n_repeats, B, S, ...)`` in the unit and ``(B, S, ...)`` in
+the prologue and epilogue: the batch axis is axis 1 of a stacked leaf and
+axis 0 of the others (the reference finds it by name through
+``cache_axes``), whatever follows ``S`` (``KV, D`` of a K/V leaf, ``r +
+rope`` of an MLA latent).  Paged pools are ``([n_repeats,] n_blocks,
+block_size, KV, D)``.  Each block has its own cache entry, so the blocks of
+one unit may differ in cache length (gemma3: five ``window``-slot rings and
+one ``max_seq`` cache) and an int8 KV cache adds ``k_scale``/``v_scale``
+leaves beside ``k``/``v``.
 
-Prologue, epilogue and shared blocks, and inputs other than tokens, are not
-ported yet (ROADMAP queue 1, item 8); a config that uses them raises
+:func:`forward` returns the reference's auxiliary losses, the MoE blocks'
+``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac`` summed over layers
+(zeros without MoE blocks).  Shared blocks and inputs other than tokens are
+not ported yet (ROADMAP queue 1, item 8); a config that uses them raises
 ``NotImplementedError``.
 """
 
@@ -50,12 +57,16 @@ class ModelConfig:
         return len(self.prologue) + len(self.unit) * self.n_repeats + len(self.epilogue)
 
 
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+PARTS = ("prologue", "unit", "epilogue")      # a tree's parts in depth order
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.prologue or cfg.epilogue or cfg.shared or cfg.input_kind != "tokens":
+    if cfg.shared or cfg.input_kind != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: prologue/epilogue/shared blocks and non-token inputs "
-            "are not ported yet (ROADMAP queue 1, item 8)")
-    for blk in cfg.unit:
+            f"{cfg.name}: shared blocks and non-token inputs are not ported yet "
+            "(ROADMAP queue 1, item 8)")
+    for blk in cfg.prologue + cfg.unit + cfg.epilogue:
         B.check_supported(blk)
 
 
@@ -75,18 +86,29 @@ class ParamSpec:
 
 
 def _block_shapes(d: int, blk: BlockCfg) -> dict:
-    """``ParamSpec`` tree of one attn_mlp or attn_kan block, as
-    ``blocks.block_init`` / ``attention.attn_init`` / ``blocks._mlp_init``
-    / ``blocks._kan_ffn_init`` build it."""
+    """``ParamSpec`` tree of one block, as ``blocks.block_init`` /
+    ``attention.attn_init`` / ``blocks._mlp_init`` / ``moe.moe_init`` /
+    ``blocks._kan_ffn_init`` build it."""
     a = blk.attn
     h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
-    attn = {
-        "wq": ParamSpec((d, h, hd), "normal", None),
-        "wk": ParamSpec((d, kv, hd), "normal", None),
-        "wv": ParamSpec((d, kv, hd), "normal", None),
-        "wo": ParamSpec((h, hd, d), "normal", None),
-    }
-    if a.qkv_bias:
+    if a.kv_lora_rank is None:
+        attn = {
+            "wq": ParamSpec((d, h, hd), "normal", None),
+            "wk": ParamSpec((d, kv, hd), "normal", None),
+            "wv": ParamSpec((d, kv, hd), "normal", None),
+            "wo": ParamSpec((h, hd, d), "normal", None),
+        }
+    else:                              # MLA: the nope part of q/k is head_dim wide
+        r, rope = a.kv_lora_rank, a.qk_rope_dim
+        attn = {
+            "wq": ParamSpec((d, h, hd + rope)),
+            "w_dkv": ParamSpec((d, r + rope)),
+            "w_uk": ParamSpec((r, h, hd)),
+            "w_uv": ParamSpec((r, h, hd)),
+            "wo": ParamSpec((h, hd, d)),
+            "kv_norm": ParamSpec((r,), "ones"),
+        }
+    if a.qkv_bias and a.kv_lora_rank is None:
         attn["bq"] = ParamSpec((h, hd), "zeros", None)
         attn["bk"] = ParamSpec((kv, hd), "zeros", None)
         attn["bv"] = ParamSpec((kv, hd), "zeros", None)
@@ -102,6 +124,17 @@ def _block_shapes(d: int, blk: BlockCfg) -> dict:
         ff = blk.d_ff
         tree["mlp"] = {"wi": ParamSpec((d, ff)), "wg": ParamSpec((d, ff)),
                        "wo": ParamSpec((ff, d))}
+    elif blk.kind == "attn_moe":
+        m = blk.moe
+        f, e = m.d_ff, m.n_experts
+        tree["moe"] = {"router": ParamSpec((d, e), "normal", 0.02),
+                       "wi": ParamSpec((e, d, f)), "wo": ParamSpec((e, f, d))}
+        if m.gated:
+            tree["moe"]["wg"] = ParamSpec((e, d, f))
+        if m.n_shared:
+            fs = f * m.n_shared
+            tree["moe"].update(shared_wi=ParamSpec((d, fs)), shared_wg=ParamSpec((d, fs)),
+                               shared_wo=ParamSpec((fs, d)))
     else:
         ff, M_ = blk.kan_ff, blk.kan_grid.n_basis
         tree["kan"] = {
@@ -115,7 +148,8 @@ def _block_shapes(d: int, blk: BlockCfg) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Tree of :class:`ParamSpec` leaves mirroring ``lm.model_init``
-    (unit leaves carry the leading ``n_repeats`` layers axis)."""
+    (unit leaves carry the leading ``n_repeats`` layers axis; prologue and
+    epilogue blocks are lists of unstacked trees)."""
     check_supported(cfg)
     d = cfg.d_model
 
@@ -124,11 +158,15 @@ def param_shapes(cfg: ModelConfig) -> dict:
             return {k: stack(v) for k, v in tree.items()}
         return dataclasses.replace(tree, shape=(cfg.n_repeats,) + tree.shape)
 
-    return {
+    tree = {
         "embed": {"table": ParamSpec((cfg.vocab, d), "normal", 1.0)},
         "final_ln": {"scale": ParamSpec((d,), "ones", None)},
         "unit": [stack(_block_shapes(d, blk)) for blk in cfg.unit],
     }
+    for part in ("prologue", "epilogue"):
+        if getattr(cfg, part):
+            tree[part] = [_block_shapes(d, blk) for blk in getattr(cfg, part)]
+    return tree
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -153,7 +191,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         if scale is None:
             scale = 1.0 / math.sqrt(max(1, math.prod(per_layer[:-1])))
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return (scale * w).to(dtype)
+        return w.mul_(scale).to(dtype)          # in place: a 19 GB expert leaf, not two
 
     def walk(tree, stacked):
         if isinstance(tree, dict):
@@ -162,12 +200,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
             return [walk(v, stacked) for v in tree]
         return make(tree, stacked)
 
-    shapes = param_shapes(cfg)
-    return {
-        "embed": walk(shapes["embed"], False),
-        "final_ln": walk(shapes["final_ln"], False),
-        "unit": walk(shapes["unit"], True),
-    }
+    return {k: walk(v, k == "unit") for k, v in param_shapes(cfg).items()}
 
 
 def _layer(tree, r: int):
@@ -179,6 +212,31 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _walk(params: dict, cfg: ModelConfig, caches: dict | None = None):
+    """``(block params, BlockCfg, block cache or None)`` of every block in
+    depth order: the prologue's, the unit's repeat by repeat (views of the
+    stacked leaves), the epilogue's."""
+    for part in PARTS:
+        blks = getattr(cfg, part)
+        if not blks:
+            continue
+        stacked = part == "unit"
+        for r in range(cfg.n_repeats if stacked else 1):
+            ps = _layer(params[part], r) if stacked else params[part]
+            cs = None if caches is None else (_layer(caches[part], r) if stacked
+                                              else caches[part])
+            for i, blk in enumerate(blks):
+                yield ps[i], blk, None if cs is None else cs[i]
+
+
+def _cache_parts(caches: dict):
+    """``(part, block caches, stacked)`` of each part a cache tree holds:
+    unit leaves carry the leading layers axis, the others do not."""
+    for part in PARTS:
+        if part in caches:
+            yield part, caches[part], part == "unit"
+
+
 # ---------------------------------------------------------------------------
 # Forward (the whole sequence, no cache).
 # ---------------------------------------------------------------------------
@@ -187,18 +245,19 @@ def _layer(tree, r: int):
 @torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             compute_dtype=torch.float32) -> tuple[torch.Tensor, dict]:
-    """``tokens (B, T)`` -> ``(logits (B, T, vocab) fp32, {})``: the
-    reference's ``lm.forward`` on token inputs (no remat; the ported block
-    kinds have no auxiliary losses).  Windowed layers use the sliding
-    flash mask."""
+    """``tokens (B, T)`` -> ``(logits (B, T, vocab) fp32, aux)``: the
+    reference's ``lm.forward`` on token inputs (no remat), ``aux`` its
+    fp32 auxiliary losses summed over the blocks (:data:`AUX_KEYS`; zeros
+    without MoE blocks).  Windowed layers use the sliding flash mask."""
     check_supported(cfg)
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    for r in range(cfg.n_repeats):
-        rep = _layer(params["unit"], r)
-        for i, blk in enumerate(cfg.unit):
-            h, _ = B.block_apply(rep[i], blk, h, positions=positions, chunk=cfg.attn_chunk)
-    return _logits(params, cfg, h), {}
+    aux = {k: torch.zeros((), device=tokens.device) for k in AUX_KEYS}
+    for p, blk, _ in _walk(params, cfg):
+        h, a = B.block_apply(p, blk, h, positions=positions, chunk=cfg.attn_chunk)
+        for k, v in a.items():
+            aux[k] = aux[k] + v
+    return _logits(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -208,16 +267,27 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device="cuda") -> dict:
-    """Zeroed KV caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}:
-    (n_repeats, batch, S, ...)]}``, the reference's stacked layout, ``S``
-    each block's own cache length (``window`` for a ring)."""
+    """Zeroed KV caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]} or
+    {"ckv"}: (n_repeats, batch, S, ...)]}``, the reference's stacked
+    layout, ``S`` each block's own cache length (``window`` for a ring),
+    and ``"prologue"``/``"epilogue"`` lists of unstacked ``(batch, S, ...)``
+    caches where the model has such blocks."""
     check_supported(cfg)
-    unit = []
-    for blk in cfg.unit:
-        one = B.block_init_cache(blk, batch, max_seq, dtype, device)
-        unit.append({k: v[None].repeat((cfg.n_repeats,) + (1,) * v.dim())
-                     for k, v in one.items()})
-    return {"unit": unit}
+    return _make_caches(cfg, lambda blk: B.block_init_cache(blk, batch, max_seq, dtype, device))
+
+
+def _make_caches(cfg: ModelConfig, one_block) -> dict:
+    """A cache tree from ``one_block(blk)``: the unit's stacked
+    ``n_repeats`` times, the prologue's and epilogue's as they are."""
+    caches = {}
+    for part in PARTS:
+        made = [one_block(blk) for blk in getattr(cfg, part)]
+        if part == "unit":
+            made = [{k: v[None].repeat((cfg.n_repeats,) + (1,) * v.dim()) for k, v in c.items()}
+                    for c in made]
+        if made or part == "unit":
+            caches[part] = made
+    return caches
 
 
 def model_supports_paging(cfg: ModelConfig) -> bool:
@@ -242,19 +312,15 @@ def model_kv_quant(cfg: ModelConfig) -> bool:
 def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
                       dtype=torch.float32, device="cuda") -> dict:
     """Zeroed pools ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}:
-    (n_repeats, n_blocks, block_size, ...)]}``: one physical block id
-    addresses every layer's pool, so one allocation covers a token's KV
-    through the whole depth."""
+    (n_repeats, n_blocks, block_size, ...)]}`` (and unstacked prologue and
+    epilogue pools): one physical block id addresses every layer's pool, so
+    one allocation covers a token's KV through the whole depth."""
     check_supported(cfg)
     if not model_supports_paging(cfg):
         raise NotImplementedError(
             f"{cfg.name}: paged KV needs full-attention GQA blocks throughout")
-    unit = []
-    for blk in cfg.unit:
-        one = B.block_init_paged_cache(blk, n_blocks, block_size, dtype, device)
-        unit.append({k: v[None].repeat((cfg.n_repeats,) + (1,) * v.dim())
-                     for k, v in one.items()})
-    return {"unit": unit}
+    return _make_caches(cfg, lambda blk: B.block_init_paged_cache(
+        blk, n_blocks, block_size, dtype, device))
 
 
 def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
@@ -262,9 +328,11 @@ def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[K
     (batch = table rows, seq = n_logical·block_size): the engine's "shadow"
     read path gathers it once per decode chunk, runs the dense decode on it
     and writes the chunk's span back with :func:`writeback_paged_chunk`.
-    One gather launch per unit block covers its leaves (the four of an int8
-    cache too) and every stacked layer (the reference's ``vmap``)."""
-    return {"unit": [ops.gather_views(c, table, stacked=True) for c in caches["unit"]]}
+    One gather launch per block of the tree covers its leaves (the four of
+    an int8 cache too) and, in the unit, every stacked layer (the
+    reference's ``vmap``)."""
+    return {part: [ops.gather_views(c, table, stacked=stacked) for c in cs]
+            for part, cs, stacked in _cache_parts(caches)}
 
 
 def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
@@ -283,11 +351,12 @@ def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
     rows = torch.arange(positions.shape[0], device=dev)[:, None]
     block_size = caches["unit"][0]["k"].shape[2]
     phys, off = (t.long() for t in A.paged_route(table, positions, block_size))
-    for pools, views in zip(caches["unit"], view["unit"]):
-        for name, pool in pools.items():
-            v = views[name]                                      # (R, B, S, ...)
-            vals = v[:, rows, torch.clamp_max(positions, v.shape[2] - 1)]
-            pool[:, phys, off] = vals.to(pool.dtype)             # (R, B, steps, ...)
+    for part, cs, stacked in _cache_parts(caches):
+        for pools, views in zip(cs, view[part]):
+            for name, pool in pools.items():
+                v = views[name] if stacked else views[name][None]      # (R, B, S, ...)
+                vals = v[:, rows, torch.clamp_max(positions, v.shape[2] - 1)]
+                (pool if stacked else pool[None])[:, phys, off] = vals.to(pool.dtype)
     return caches
 
 
@@ -302,9 +371,11 @@ def copy_paged_blocks(  # kanlint: ignore[KL105] (see decode_step)
     dev = caches["unit"][0]["k"].device
     idx = torch.as_tensor(srcs, device=dev).reshape(-1).long()
     dst = torch.as_tensor(dsts, device=dev).reshape(-1).long()
-    for pools in caches["unit"]:
-        for pool in pools.values():
-            pool[:, dst] = pool[:, idx]           # pools: (n_repeats, n_blocks, ...)
+    for _, cs, stacked in _cache_parts(caches):
+        for pools in cs:
+            for pool in pools.values():
+                blocks = pool if stacked else pool[None]     # (R, n_blocks, ...)
+                blocks[:, dst] = blocks[:, idx]
     return caches
 
 
@@ -316,10 +387,12 @@ def copy_paged_block(caches: dict, src, dst) -> dict:  # kanlint: ignore[KL105]
 def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ignore[KL105]
                       slot: int) -> dict:
     """Write a batch-1 cache tree ``one`` into batch row ``slot`` of a live
-    cache, in place (both built for the same ``max_seq``)."""
-    for big, small in zip(caches["unit"], one["unit"]):
-        for name, buf in big.items():
-            buf[:, slot] = small[name][:, 0].to(buf.dtype)
+    cache, in place (both built for the same ``max_seq``): batch is axis 1
+    of a stacked unit leaf, axis 0 of a prologue or epilogue leaf."""
+    for part, cs, stacked in _cache_parts(caches):
+        for big, small in zip(cs, one[part]):
+            for name, buf in big.items():
+                buf.select(int(stacked), slot).copy_(small[name].select(int(stacked), 0))
     return caches
 
 
@@ -356,7 +429,8 @@ def prefill_into_slots(  # kanlint: ignore[KL105] (see decode_step)
     logits, many = prefill(params, cfg, tokens, max_seq, compute_dtype)
     last = logits[torch.arange(k, device=tokens.device), lengths.long() - 1]
     for i, slot in enumerate(slots):
-        one = {"unit": [{n: a[:, i:i + 1] for n, a in c.items()} for c in many["unit"]]}
+        one = {part: [{n: a.narrow(int(stacked), i, 1) for n, a in c.items()} for c in cs]
+               for part, cs, stacked in _cache_parts(many)}
         insert_cache_slot(cfg, caches, one, int(slot))
     return last, caches
 
@@ -383,13 +457,10 @@ def prefill_into_pages(  # kanlint: ignore[KL105] (see decode_step)
     dev = tokens.device
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     positions = torch.arange(start, start + Ts, device=dev)[None, :]
-    for r in range(cfg.n_repeats):
-        rep = _layer(params["unit"], r)
-        for i, blk in enumerate(cfg.unit):
-            h, _ = B.block_prefill_paged(
-                rep[i], blk, h, positions=positions,
-                cache=_layer(caches["unit"][i], r), table=tables, lengths=lengths,
-                start=start, chunk=cfg.attn_chunk, view_blocks=view_blocks)
+    for p, blk, c in _walk(params, cfg, caches):
+        h, _ = B.block_prefill_paged(
+            p, blk, h, positions=positions, cache=c, table=tables, lengths=lengths,
+            start=start, chunk=cfg.attn_chunk, view_blocks=view_blocks)
     logits = _logits(params, cfg, h)
     last = logits[torch.arange(k, device=dev), lengths.long() - 1 - start]
     return last, caches
@@ -422,12 +493,8 @@ def prefill(
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     positions = torch.arange(T, device=dev)[None, :]
     caches = init_caches(cfg, Bsz, max_seq, compute_dtype, dev)
-    for r in range(cfg.n_repeats):
-        rep = _layer(params["unit"], r)
-        for i, blk in enumerate(cfg.unit):
-            h, _ = B.block_prefill(rep[i], blk, h, positions=positions,
-                                   cache=_layer(caches["unit"][i], r),
-                                   chunk=cfg.attn_chunk)
+    for p, blk, c in _walk(params, cfg, caches):
+        h, _ = B.block_prefill(p, blk, h, positions=positions, cache=c, chunk=cfg.attn_chunk)
     return _logits(params, cfg, h), caches
 
 
@@ -449,11 +516,8 @@ def decode_step(  # kanlint: ignore[KL105]
     With ``table``, ``caches`` holds paged pools (:func:`init_paged_caches`)
     and every layer reads and writes through the block table."""
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
-    for r in range(cfg.n_repeats):
-        rep = _layer(params["unit"], r)
-        for i, blk in enumerate(cfg.unit):
-            h, _ = B.block_decode_step(rep[i], blk, h,
-                                       _layer(caches["unit"][i], r), pos, table)
+    for p, blk, c in _walk(params, cfg, caches):
+        h, _ = B.block_decode_step(p, blk, h, c, pos, table)
     return _logits(params, cfg, h)[:, 0], caches
 
 
@@ -481,9 +545,6 @@ def verify_window(  # kanlint: ignore[KL105] (see decode_step)
             "GQA blocks throughout")
     check_supported(cfg)
     h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
-    for r in range(cfg.n_repeats):
-        rep = _layer(params["unit"], r)
-        for i, blk in enumerate(cfg.unit):
-            h, _ = B.block_verify_window(rep[i], blk, h, _layer(caches["unit"][i], r),
-                                         pos, table)
+    for p, blk, c in _walk(params, cfg, caches):
+        h, _ = B.block_verify_window(p, blk, h, c, pos, table)
     return _logits(params, cfg, h), caches

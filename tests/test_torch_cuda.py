@@ -19,7 +19,9 @@ and read every ROM address as ``build_lut_u8`` holds it; the B-spline LUT
 kernel's values and ``k`` must equal its plain version's exactly.  ConvKAN
 through the fused kernel is held within 2^-16 of max|y| of its plain version
 (K up to 4608); training steps on the card against the CPU's within 1e-5
-of each Adam moment's max and 1e-2 lr on parameters.
+of each Adam moment's max and 1e-2 lr on parameters.  The reduced MoE
+models (olmoe-1b-7b, deepseek-v2-lite) decode on the card within logits
+atol 1e-4 of the CPU, with the CPU's drop counts and engine streams.
 """
 
 import ctypes
@@ -1246,3 +1248,68 @@ def test_reduced_qwen_decode_on_card_matches_cpu(cuda_device, quant):
         reqs, slots=3, chunk_steps=3) for dev in ("cpu", "cuda")}
     for a, b in zip(streams["cpu"], streams["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,paged", [("olmoe-1b-7b", True), ("deepseek-v2-lite", False)])
+def test_reduced_moe_decode_on_card_matches_cpu(cuda_device, arch, paged):
+    """olmoe-1b-7b and deepseek-v2-lite ``reduced()`` (attn_moe blocks;
+    deepseek with MLA and a dense prologue): prefill and 4 per-row decode
+    steps on the card against the CPU, logits atol 1e-4 (fp32 sums in
+    another order), the MoE aux of ``lm.forward`` within 1e-5 and its drop
+    count equal; then the continuous engine (paged step for olmoe, dense
+    for deepseek, whose MLA cache does not page) gives the CPU's streams."""
+    from repro_torch.serve.engine import _to_device
+
+    model = configs.get_reduced(arch).model
+    params = lm.init_params(model, seed=0, device="cpu")
+    gpu = _to_device(params, cuda_device)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(0, model.vocab, (2, 9)))
+    got, gc = lm.prefill(gpu, model, toks.to(cuda_device), 16)
+    want, wc = lm.prefill(params, model, toks, 16)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    pos = torch.tensor([9, 6])
+    for s in range(4):
+        tok = toks[:, s:s + 1]
+        got, gc = lm.decode_step(gpu, model, tok.to(cuda_device), gc, pos.to(cuda_device))
+        want, wc = lm.decode_step(params, model, tok, wc, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        pos = pos + 1
+    (_, gaux), (_, waux) = (lm.forward(p, model, toks.to(d))
+                            for p, d in ((gpu, cuda_device), (params, "cpu")))
+    routed = toks.numel() * model.unit[0].moe.top_k
+    assert round(gaux["moe_drop_frac"].item() * routed) == round(waux["moe_drop_frac"].item() * routed)
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        assert abs(gaux[k].item() - waux[k].item()) <= 1e-5 * abs(waux[k].item())
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    scfg = ServeConfig(max_seq=32, max_new_tokens=6, block_size=4, paged=paged,
+                       paged_read="step")
+    streams = {dev: Engine(params, model, scfg, device=dev).serve_continuous(
+        reqs, slots=3, chunk_steps=3) for dev in ("cpu", "cuda")}
+    for a, b in zip(streams["cpu"], streams["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gather_views_at_olmoe_pools_bitwise(cuda_device):
+    """fp32 k and v at olmoe-1b-7b's pools (16 stacked layers, 16 KV heads,
+    head_dim 128), stacked and one layer, in one launch each, bit-equal to
+    the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    pool = (16, 97, 16, 16, 128)
+    rs = np.random.RandomState(6)
+    ids = rs.permutation(np.arange(1, 97))[:96].reshape(8, 12)
+    ids[np.arange(12)[None, :] >= rs.randint(3, 13, 8)[:, None]] = 0
+    table = torch.as_tensor(ids.astype(np.int32), device=cuda_device)
+    for stacked in (True, False):
+        shape = pool if stacked else pool[1:]
+        cache = {n: torch.randn(shape, generator=g, device=cuda_device) for n in ("k", "v")}
+        ops.reset_launches()
+        got = ops.gather_views(cache, table, stacked)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["gather_blocks"] == 1
+        want = G.gather_views_reference(cache, table, stacked)
+        for n in want:
+            assert torch.equal(got[n], want[n])

@@ -170,7 +170,7 @@ def test_decode_steps_match_reference(setup, ragged):
 
 
 def test_forward_matches_reference_and_teacher_forced_decode(setup):
-    """``lm.forward`` equals the reference's; and (the reference's
+    """``lm.forward`` equals the reference's, its aux too; and (the reference's
     ``test_decode_matches_prefill_qwen``) decode steps fed every token from
     position 0 reproduce it, atol 2e-4 as there."""
     s = setup
@@ -179,7 +179,9 @@ def test_forward_matches_reference_and_teacher_forced_decode(setup):
                              jnp.float32)
     tlog, taux = tlm.forward(s["tparams"], s["tmodel"], torch.tensor(toks))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=LOGIT_ATOL)
-    assert taux == {}
+    assert set(taux) == set(jaux)                    # the MoE losses, zero without MoE
+    for k, v in jaux.items():
+        assert float(taux[k]) == float(v) == 0.0
     caches = tlm.init_caches(s["tmodel"], 2, 10, torch.float32, "cpu")
     dec = []
     for t in range(10):

@@ -7,6 +7,8 @@ logits and KV caches atol 1e-4 (fp32 sums over d=64 and the KAN contraction
 taken in another order by XLA and by torch).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,26 +180,35 @@ def test_decode_steps_match_reference(models, ragged):
 
 
 def test_unported_variants_raise():
-    """What the port still refuses: MLA attention and the block kinds of
-    ROADMAP queue 1, item 8 (MoE, SSM, xLSTM, shared blocks).  Windows,
-    int8 KV caches, q/k norm and attn_mlp blocks are ported."""
-    from repro_torch.models.attention import AttnConfig, check_supported
-
-    with pytest.raises(NotImplementedError, match="MLA"):
-        check_supported(AttnConfig(64, 4, 4, 16, kv_lora_rank=32))
-    for ok in (AttnConfig(64, 4, 4, 16, window=8), AttnConfig(64, 4, 4, 16, kv_quant=True),
-               AttnConfig(64, 4, 4, 16, qk_norm=True)):
-        check_supported(ok)
+    """What the port still refuses: the block kinds of ROADMAP queue 1,
+    item 8 (SSM, xLSTM), shared blocks and inputs other than tokens.
+    Windows, int8 KV caches, q/k norm, MLA, and attn_mlp and attn_moe
+    blocks are ported."""
+    from repro_torch.models.attention import AttnConfig
     from repro_torch.models.blocks import BlockCfg
     from repro_torch.models.blocks import check_supported as blk_check
+    from repro_torch.models.moe import MoEConfig
 
     attn = AttnConfig(64, 4, 4, 16)
-    for kind in ("attn_moe", "mamba2", "mlstm", "slstm"):
+    for kind in ("mamba2", "mlstm", "slstm"):
         with pytest.raises(NotImplementedError, match=kind):
             blk_check(BlockCfg(kind, attn=attn, d_ff=8))
     with pytest.raises(NotImplementedError, match="shared_id=0"):
         blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8, shared_id=0))
-    blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8))
+    moe = MoEConfig(d_model=64, d_ff=8, n_experts=4, top_k=2)
+    for ok in (AttnConfig(64, 4, 4, 16, window=8), AttnConfig(64, 4, 4, 16, kv_quant=True),
+               AttnConfig(64, 4, 4, 16, qk_norm=True), AttnConfig(64, 4, 4, 16, kv_lora_rank=32)):
+        blk_check(BlockCfg("attn_mlp", attn=ok, d_ff=8))
+        blk_check(BlockCfg("attn_moe", attn=ok, moe=moe))
+    from repro_torch.models.lm import ModelConfig, check_supported
+
+    model = ModelConfig("m", 64, 32, unit=(BlockCfg("attn_mlp", attn=attn, d_ff=8),),
+                        n_repeats=1, prologue=(BlockCfg("attn_moe", attn=attn, moe=moe),))
+    check_supported(model)
+    for bad in ({"input_kind": "embeddings"}, {"input_kind": "mixed"},
+                {"shared": (BlockCfg("attn_mlp", attn=attn, d_ff=8),)}):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            check_supported(dataclasses.replace(model, **bad))
 
 
 def test_per_row_cache_write_past_max_seq_is_dropped(models):
