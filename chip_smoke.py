@@ -172,7 +172,30 @@ Phases; any failed check raises and the script exits non-zero:
    (a)'s) and 8 requests through 4 dense continuous slots, at the
    published capacity and at no drop (held to ``lm.forward``); peak memory
    and the latent cache's bytes beside the GQA cache's.
-12. A JSON line with every ported kernel's numbers, the card's line, and as
+12. The recurrent models (see the note above ``RECUR``), each at full width
+   and depth from seed 0 in fp32 and freed before the next.  (a) zamba2-1.2b
+   (32 Mamba2 layers and one shared attention block invoked at 6 depths; 1.35
+   B parameters, its 6 unread stacked copies of that block included) serves
+   phase 4's requests statically, held to its buckets recomputed step by
+   step; 4 unpadded prompts of 128 tokens, their teacher-forced decode
+   logits within ``SSM_REL`` of ``lm.forward`` and their streams equal to its
+   argmax up to near-ties (``DENSE_TIE``); the SSD scan across chunks, a
+   prefill of 896 tokens (7 chunks) and 127 teacher-forced decode steps
+   held to ``lm.forward`` over 1024 tokens (8 chunks); phase 6's ragged
+   continuous cell dense twice (equal streams), the same cell with every
+   prompt 64 tokens long (nothing padded: each stream equal to its solo
+   ``generate`` up to near-ties), and sampled at ``SAMPLE_T`` (and at a hot T
+   if fewer than ``MIN_SAMPLED_SHARE`` of its tokens leave the argmax),
+   each token equal to the draw of its recomputed logits and key chain up
+   to near-ties; every run with exact launch counts (0: no kernel on this
+   path); paged, speculative and verify-window serving refused.  (b)
+   xlstm-1.3b (42 mLSTM and 6 sLSTM layers; 3.40 B parameters, 705 MB of
+   state per request): the same set, with the chunked mLSTM (256 tokens, 4
+   chunks of 64) held to the recurrent forward within ``XLSTM_REL`` in
+   place of the long prefill.  Each prints its peak memory, its per-request
+   state bytes beside its KV bytes per token, tok/s, and one warm decode
+   step of 8 slots under ``torch.profiler`` (busy share, kernels per step).
+13. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -2203,7 +2226,8 @@ def rel_gaps(torch, np, params, cfg, prompt, stream, device):
     return ((top[:, 0] - top[:, 1]) / lg.abs().amax()).cpu().numpy()
 
 
-def held_streams(torch, np, tag, outs, ref, params, cfg, reqs, device, gaps, exact=False):
+def held_streams(torch, np, tag, outs, ref, params, cfg, reqs, device, gaps, exact=False,
+                 group="dense"):
     """Each of ``outs`` equal to ``ref``, unless (``exact`` False) the first
     divergence is a near-tie of ``ref``'s logits; returns the divergences."""
     divs = []
@@ -2218,7 +2242,7 @@ def held_streams(torch, np, tag, outs, ref, params, cfg, reqs, device, gaps, exa
             gaps[i] = rel_gaps(torch, np, params, cfg, reqs[i], r, device)
         g = float(gaps[i][j])
         divs.append({"run": tag, "request": i, "step": j, "top2_gap_rel": g})
-        log(f"[dense] {tag}: request {i} diverges at step {j}; top-2 gap {g:.3e} of "
+        log(f"[{group}] {tag}: request {i} diverges at step {j}; top-2 gap {g:.3e} of "
             f"max|logit| (tol {DENSE_TIE:.0e})")
         if g >= DENSE_TIE:
             raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
@@ -2736,7 +2760,7 @@ def bucket_recompute(torch, np, params, cfg, reqs, outs, batch, max_seq):
     return got
 
 
-def held_to_logits(torch, np, tag, outs, logits_of, ref_logits=None):
+def held_to_logits(torch, np, tag, outs, logits_of, group="moe"):
     """Each stream ``outs[i]`` equal to the argmax of ``logits_of[i]``
     (``(len, vocab)``) unless the first divergence is a near-tie (a top-2
     gap below ``DENSE_TIE`` of max|logit|); returns the divergences."""
@@ -2751,7 +2775,7 @@ def held_to_logits(torch, np, tag, outs, logits_of, ref_logits=None):
         top = torch.topk(lg[j], 2).values
         g = ((top[0] - top[1]) / lg.abs().amax()).item()
         divs.append({"run": tag, "request": i, "step": j, "top2_gap_rel": g})
-        log(f"[moe] {tag}: request {i} parts from its recomputation at step {j}; top-2 gap "
+        log(f"[{group}] {tag}: request {i} parts from its recomputation at step {j}; top-2 gap "
             f"{g:.3e} of max|logit| (tol {DENSE_TIE:.0e})")
         if g >= DENSE_TIE:
             raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
@@ -2772,20 +2796,14 @@ def forward_logits(torch, np, params, cfg, reqs, outs, device):
     return got
 
 
-def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
-    """The static cell of a MoE model: served at the published capacity,
-    timed, held to :func:`bucket_recompute`; then the first bucket's rows
-    teacher-forced through decode steps against ``lm.forward``, both at the
-    no-drop capacity (check 1)."""
-    from repro_torch.models import lm
+def static_cell(torch, np, params, cfg, reqs, new, batch, tag, device, group):
+    """The static cell of a model: ``serve_requests`` counted and timed
+    (MoE drops metered), every output in range, the streams held to
+    :func:`bucket_recompute` (the same buckets, padded the same way), then
+    a warm repeat.  Returns ``(metrics, engine, outputs)``."""
     from repro_torch.serve.engine import Engine, ServeConfig
 
     cuda = device == "cuda"
-    t_start = time.perf_counter()
-
-    def stamp() -> str:
-        return f"(at {time.perf_counter() - t_start:.1f} s)"
-
     lens = np.array([len(r) for r in reqs])
     max_seq = int(lens.max()) + new + 8
     eng = Engine(params, cfg, ServeConfig(max_seq=max_seq, max_new_tokens=new), device=device)
@@ -2793,7 +2811,7 @@ def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
         torch.cuda.reset_peak_memory_stats()
     with DropMeter() as meter:
         outs, m = counted(torch, f"{tag} static", lambda: eng.serve_requests(
-            reqs, batch_size=batch, seed=0), {}, device, tag="moe")
+            reqs, batch_size=batch, seed=0), {}, device, tag=group)
     wall = m["wall_ms"] / 1e3
     for o in outs:
         if o.shape != (new,) or o.min() < 0 or o.max() >= cfg.vocab:
@@ -2803,13 +2821,41 @@ def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
          "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
          "prefill_ms": sum(b["prefill_s"] for b in bk) * 1e3 / len(bk),
          "decode_ms_per_step": sum(b["decode_s"] for b in bk) * 1e3
-         / sum(b["decode_steps"] for b in bk), **meter.summary()}
+         / sum(b["decode_steps"] for b in bk), **(meter.summary() if meter.calls else {})}
     rec = bucket_recompute(torch, np, params, cfg, reqs, outs, batch, max_seq)
     a["divergences"] = held_to_logits(torch, np, f"{tag} static vs its buckets recomputed",
-                                      outs, rec)
+                                      outs, rec, group=group)
     del rec
-    log(f"[moe] {tag} static: {len(a['divergences'])} near-tie partings from the buckets "
-        f"recomputed step by step {stamp()}")
+    if cuda:
+        t0 = time.perf_counter()
+        eng.serve_requests(reqs, batch_size=batch, seed=0)
+        torch.cuda.synchronize()
+        a["warm_tok_s"] = len(reqs) * new / (time.perf_counter() - t0)
+        wb = eng.last_serve_stats["buckets"]
+        a["warm_decode_ms_per_step"] = (sum(b["decode_s"] for b in wb) * 1e3
+                                        / sum(b["decode_steps"] for b in wb))
+    drops = (f"; moe_drop_frac {a['moe_drop_frac']:.4f} ({a['dropped_choices']} of "
+             f"{a['routed_choices']} choices, {a['calls_with_drops']} of {a['calls']} moe "
+             "calls)" if meter.calls else "")
+    log(f"[{group}] {tag} static: {len(reqs) * new} tokens in {wall:.3f} s: {a['tok_s']:.2f} "
+        f"tok/s cold, {a.get('warm_tok_s')} warm; prefill_ms (mean per bucket) "
+        f"{a['prefill_ms']:.1f}; decode_ms_per_step {a['decode_ms_per_step']:.3f} cold, "
+        f"{a.get('warm_decode_ms_per_step')} warm; {len(a['divergences'])} near-tie partings "
+        f"from the buckets recomputed step by step{drops}; peak_mem_GB="
+        f"{(a['peak_mem_bytes'] or 0) / 1e9:.3f}")
+    return a, eng, outs
+
+
+def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
+    """The static cell of a MoE model (:func:`static_cell`) at the
+    published capacity; then the first bucket's rows teacher-forced through
+    decode steps against ``lm.forward``, both at the no-drop capacity."""
+    from repro_torch.models import lm
+
+    t_start = time.perf_counter()
+    a, eng, outs = static_cell(torch, np, params, cfg, reqs, new, batch, tag, device, "moe")
+    lens = np.array([len(r) for r in reqs])
+    max_seq = int(lens.max()) + new + 8
     nd = no_drop(cfg)
     errs = []
     for i in sorted(range(len(reqs)), key=lambda i: lens[i])[:batch]:
@@ -2822,24 +2868,10 @@ def moe_static(torch, np, params, cfg, reqs, new, batch, tag, device):
     a["decode_vs_forward_rel"] = max(errs)
     log(f"[moe] {tag} static: teacher-forced decode vs lm.forward at capacity_factor E/top_k "
         f"(no drop), {batch} requests x {new} tokens: max err "
-        f"{a['decode_vs_forward_rel']:.3e} of max|logit| (tol {DENSE_REL:.0e}) {stamp()}")
+        f"{a['decode_vs_forward_rel']:.3e} of max|logit| (tol {DENSE_REL:.0e}) "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
     if not a["decode_vs_forward_rel"] <= DENSE_REL:
         raise RuntimeError(f"{tag}: decode logits disagree with lm.forward")
-    if cuda:
-        t0 = time.perf_counter()
-        eng.serve_requests(reqs, batch_size=batch, seed=0)
-        torch.cuda.synchronize()
-        a["warm_tok_s"] = len(reqs) * new / (time.perf_counter() - t0)
-        wb = eng.last_serve_stats["buckets"]
-        a["warm_decode_ms_per_step"] = (sum(b["decode_s"] for b in wb) * 1e3
-                                        / sum(b["decode_steps"] for b in wb))
-    log(f"[moe] {tag} static: {len(reqs) * new} tokens in {wall:.3f} s: {a['tok_s']:.2f} tok/s "
-        f"cold, {a.get('warm_tok_s')} warm; prefill_ms (mean per bucket) {a['prefill_ms']:.1f}; "
-        f"decode_ms_per_step {a['decode_ms_per_step']:.3f} cold, "
-        f"{a.get('warm_decode_ms_per_step')} warm; moe_drop_frac {a['moe_drop_frac']:.4f} "
-        f"({a['dropped_choices']} of {a['routed_choices']} choices, {a['calls_with_drops']} of "
-        f"{a['calls']} moe calls); peak_mem_GB={(a['peak_mem_bytes'] or 0) / 1e9:.3f} "
-        f"{stamp()}")
     return a, eng
 
 
@@ -2874,7 +2906,8 @@ def hot_temperature(torch, logits) -> tuple[float, float]:
     return t, expect
 
 
-def held_sampled(torch, np, tag, params, cfg, reqs, outs, seed, temperature, device):
+def held_sampled(torch, np, tag, params, cfg, reqs, outs, seed, temperature, device,
+                 group="moe"):
     """Each sampled stream (request ``i`` of ``serve_continuous(seed=seed)``)
     equal to the tokens its perturbed scores draw (:func:`sampled_gaps`),
     unless the first divergence is a near-tie: a perturbed top-2 gap below
@@ -2891,7 +2924,7 @@ def held_sampled(torch, np, tag, params, cfg, reqs, outs, seed, temperature, dev
         j = int(diff[0])
         g, tol = float(gaps[j]), DENSE_TIE * lmax / temperature
         divs.append({"run": tag, "request": i, "step": j, "gap": g, "tol": tol})
-        log(f"[moe] {tag}: request {i} parts from its recomputation at step {j}; perturbed "
+        log(f"[{group}] {tag}: request {i} parts from its recomputation at step {j}; perturbed "
             f"top-2 gap {g:.3e} (near-tie below {tol:.1e})")
         if g >= tol:
             raise RuntimeError(f"{tag}: request {i} diverges at step {j}, not a near-tie")
@@ -3116,6 +3149,289 @@ def deepseek_path(torch, np, device="cuda", cfg=None):
     return out
 
 
+# Phase 12: the recurrent models of ROADMAP item 8: zamba2-1.2b (Mamba2
+# SSD and one shared attention block) and xlstm-1.3b (mLSTM and sLSTM).
+# Their decode state is per request and not pad-invariant: a right-padded
+# prompt feeds its pads through the recurrence, as in the reference's
+# engine.  So a padded run is held to a recomputation that pads the same
+# way (the static buckets, step by step) or to a repeat of itself (the
+# ragged continuous cell), and the checks against ``lm.forward`` and solo
+# ``generate`` take prompts that nothing pads.  Paging and speculative
+# windows are refused, as the reference refuses them.
+RECUR = {"new": 32, "batch": 4, "tf_requests": 4, "tf_len": 128, "unpadded_len": 64,
+         "long_rows": 2, "long_prefill": 896, "long_len": 1024, "chunked_rows": 2,
+         "chunked_len": 256}
+# Tolerances, relative to max|logit| of the logits compared.  zamba2's
+# decode is the recurrence (exp(dt A) per step) where lm.forward is the SSD
+# form (exp of differences of in-chunk cumulative sums, which reach a few
+# hundred: one fp32 ulp there is ~3e-5 of a decay), so the two part by up to
+# ~1e-5 of a Mamba2 layer's output, and a layer's output is a small part of
+# the residual stream that max|logit| measures.  xlstm's decode and its
+# recurrent forward are the same recurrence in another order; its chunked
+# mLSTM sums each chunk as a masked quadratic form over exp() of log-gate
+# sums.  Rehearsed on the CPU at the reduced widths (PERF.md §6):
+# 3.7e-7 (zamba2, 1024 tokens) and 1.9e-7 (xlstm, chunked); the full
+# widths sum over 32x longer head dims and 8-14x more layers.
+SSM_REL = 1e-4
+XLSTM_REL = 1e-4
+
+
+def ssd_forward(torch, params, cfg, t):
+    """``lm.forward`` logits of ``t (B, T)``.  A Mamba2 model's SSD scan
+    takes ``T`` up to its chunk or a multiple of it, so there ``t`` is
+    right-padded with zeros to the next multiple (causal: the first ``T``
+    positions do not see the pad)."""
+    from repro_torch.models import lm
+
+    chunk = min((b.mamba.chunk for b in cfg.prologue + cfg.unit + cfg.epilogue
+                 if b.kind == "mamba2"), default=None)
+    T = t.shape[1]
+    if chunk and T > chunk and T % chunk:
+        t = torch.nn.functional.pad(t, (0, chunk - T % chunk))
+    logits, _ = lm.forward(params, cfg, t)
+    return logits[:, :T]
+
+
+def state_bytes(torch, cfg) -> tuple[int, int]:
+    """``(per-request state bytes, KV bytes per token)`` of ``cfg``'s
+    decode caches, fp32: what one row holds at any length, and what each
+    token adds (zamba2's shared-attention K/V)."""
+    from repro_torch.models import lm
+
+    one, two = (tree_bytes(lm.init_caches(cfg, 1, s, torch.float32, "meta")) for s in (1, 2))
+    return 2 * one - two, two - one
+
+
+def recurrent_path(torch, np, tag, cfg, device, rel, extra_check):
+    """Phase 12 for one recurrent model (random weights from seed 0, fp32),
+    any miss raises: phase 4's requests served statically and held to
+    their buckets recomputed step by step; 4 unpadded prompts of
+    ``tf_len`` served statically, their teacher-forced decode within
+    ``rel`` of ``lm.forward`` and their streams equal to its argmax up to
+    near-ties; ``extra_check(params)`` (the model's own long-sequence
+    check); phase 6's continuous cell dense twice (equal streams), the same
+    cell unpadded (each stream equal to its solo ``generate`` up to
+    near-ties) and sampled at ``SAMPLE_T`` (each token equal to the draw of
+    its recomputed perturbed scores up to near-ties); paged and speculative
+    serving refused; one warm decode step of the cell's 8 slots profiled."""
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.models import lm
+    from repro_torch.serve import speculative
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cuda = device == "cuda"
+    t_start = time.perf_counter()
+
+    def stamp() -> str:
+        return f"(at {time.perf_counter() - t_start:.1f} s)"
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    state, kv_tok = state_bytes(torch, cfg)
+    out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
+           "state_bytes_per_request": state, "kv_bytes_per_token": kv_tok}
+    kinds = sorted({b.kind for b in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared})
+    log(f"[recur] {tag} full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+        f"kinds {kinds} shared {len(cfg.shared)} vocab={cfg.vocab} params="
+        f"{out['params'] / 1e9:.3f}B fp32; per-request state {state} bytes "
+        f"({state / 1e6:.1f} MB), KV {kv_tok} bytes per token {stamp()}")
+    new, batch = RECUR["new"], RECUR["batch"]
+
+    # (a) phase 4's requests, statically, held to their buckets recomputed
+    rs = np.random.RandomState(0)
+    reqs = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in rs.randint(32, 129, 8)]
+    out["static"], eng, _ = static_cell(torch, np, params, cfg, reqs, new, batch, tag,
+                                        device, "recur")
+    del eng
+
+    # (b) unpadded prompts: decode held to lm.forward, streams to its argmax
+    rs = np.random.RandomState(5)
+    n, T0 = RECUR["tf_requests"], RECUR["tf_len"]
+    ureqs = [rs.randint(0, cfg.vocab, T0).astype(np.int32) for _ in range(n)]
+    eng = Engine(params, cfg, ServeConfig(max_seq=T0 + new, max_new_tokens=new), device=device)
+    uouts, m = counted(torch, f"{tag} static unpadded", lambda: eng.serve_requests(
+        ureqs, batch_size=n, seed=0), {}, device, tag="recur")
+    del eng
+    t = torch.as_tensor(np.stack([np.concatenate([r, o]) for r, o in zip(ureqs, uouts)])
+                        .astype(np.int64), device=device)
+    dec = teacher_forced(torch, params, cfg, t, T0 + new, start=T0)
+    fwd = ssd_forward(torch, params, cfg, t[:, :-1])[:, T0 - 1:]
+    b = {"launches": m["launches"], "tok_s": n * new / (m["wall_ms"] / 1e3),
+         "decode_vs_forward_rel": rel_err(dec, fwd),
+         "divergences": held_to_logits(torch, np, f"{tag} unpadded streams vs lm.forward",
+                                       uouts, fwd, group="recur")}
+    del dec, fwd
+    log(f"[recur] {tag} static unpadded ({n} x {T0} tokens, {new} new): teacher-forced decode "
+        f"vs lm.forward max err {b['decode_vs_forward_rel']:.3e} of max|logit| (tol {rel:.0e}); "
+        f"{len(b['divergences'])} near-tie partings of the streams from its argmax {stamp()}")
+    if not b["decode_vs_forward_rel"] <= rel:
+        raise RuntimeError(f"{tag}: decode logits disagree with lm.forward")
+    out["static_unpadded"] = b
+    out.update(extra_check(params))
+    log(f"[recur] {tag} long check done {stamp()}")
+
+    # (c) phase 6's continuous cell, dense, twice: repeatable
+    creqs, budgets = continuous_requests(np, cfg.vocab)
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets))
+    runs, streams = {}, {}
+    for name in ("dense", "dense_again"):
+        _, streams[name], runs[name] = continuous_run(
+            torch, np, params, cfg, base, {}, (creqs, budgets, CONT["slots"]),
+            f"{tag} {name}", device, "recur", stamp=stamp)
+    held_streams(torch, np, f"{tag} dense_again vs dense", streams["dense_again"],
+                 streams["dense"], params, cfg, creqs, device, {}, exact=True, group="recur")
+    # (d) the same cell with every prompt L tokens (L a multiple of the pad
+    # multiple, so nothing pads): each stream equal to its solo generate
+    L = RECUR["unpadded_len"]
+    ureqs = [np.resize(r, L) for r in creqs]
+    eng, streams["unpadded"], runs["unpadded"] = continuous_run(
+        torch, np, params, cfg, base, {}, (ureqs, budgets, CONT["slots"]), f"{tag} unpadded",
+        device, "recur", stamp=stamp)
+    solo = [eng.generate(r[None], max_new=bud)[0] for r, bud in zip(ureqs, budgets)]
+    out["unpadded_divergences"] = held_streams(
+        torch, np, f"{tag} unpadded vs solo generate", streams["unpadded"], solo, params, cfg,
+        ureqs, device, {}, group="recur")
+    # (e) sampled at SAMPLE_T on the unpadded cell, each token held to its draw
+    _, streams["sampled"], runs["sampled"] = continuous_run(
+        torch, np, params, cfg, base, {"temperature": SAMPLE_T},
+        (ureqs, budgets, CONT["slots"]), f"{tag} sampled", device, "recur", stamp=stamp)
+    s_divs, share = held_sampled(torch, np, f"{tag} sampled", params, cfg, ureqs,
+                                 streams["sampled"], 0, SAMPLE_T, device, group="recur")
+    runs["sampled"].update(temperature=SAMPLE_T, share_off_argmax=share,
+                           near_tie_divergences=len(s_divs))
+    log(f"[recur] {tag} sampled at T={SAMPLE_T}: {share:.4f} of the tokens off the argmax of "
+        f"their own logits, {len(s_divs)} near-tie partings from their recomputed draws "
+        f"{stamp()}")
+    if share < MIN_SAMPLED_SHARE:
+        # the input token's lead beats the noise at SAMPLE_T: hold a run at
+        # phase 11's hot T too, where the draws leave the argmax
+        lg, _ = lm.forward(params, cfg, torch.as_tensor(np.concatenate(
+            [ureqs[0], streams["unpadded"][0][:-1]]).astype(np.int64)[None], device=device))
+        hot_t, expect = hot_temperature(torch, lg[0, L - 1:])
+        del lg
+        _, streams["sampled_hot"], runs["sampled_hot"] = continuous_run(
+            torch, np, params, cfg, base, {"temperature": hot_t},
+            (ureqs, budgets, CONT["slots"]), f"{tag} sampled_hot", device, "recur", stamp=stamp)
+        h_divs, h_share = held_sampled(torch, np, f"{tag} sampled_hot", params, cfg, ureqs,
+                                       streams["sampled_hot"], 0, hot_t, device, group="recur")
+        runs["sampled_hot"].update(temperature=hot_t, share_off_argmax=h_share,
+                                   expected_share_off_argmax=expect,
+                                   near_tie_divergences=len(h_divs))
+        log(f"[recur] {tag} sampled at the hot T={hot_t}: {h_share:.4f} of the tokens off the "
+            f"argmax (expected {expect:.3f}, floor {MIN_SAMPLED_SHARE}), {len(h_divs)} near-tie "
+            f"partings from their recomputed draws {stamp()}")
+        if h_share < MIN_SAMPLED_SHARE:
+            raise RuntimeError(f"{tag}: only {h_share:.4f} of the hot sampled tokens are off "
+                               "the argmax")
+
+    # (f) refused as the reference refuses them
+    for what, fn in (
+            ("paged", lambda: Engine(params, cfg, ServeConfig(
+                max_seq=16, paged=True, block_size=8), device=device).serve_continuous(
+                    [ureqs[0][:4]], slots=1, max_new=2)),
+            ("speculative", lambda: speculative.DraftModel.from_target(params, cfg, 1)),
+            ("verify window", lambda: lm.verify_window(
+                params, cfg, torch.zeros((1, 2), dtype=torch.long, device=device),
+                lm.init_caches(cfg, 1, 8, torch.float32, device),
+                torch.zeros(1, dtype=torch.long, device=device)))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            log(f"[recur] {tag} {what} refused: {e}")
+        else:
+            raise RuntimeError(f"{tag}: {what} serving was not refused")
+
+    # (g) one warm decode step of the cell's slots, profiled
+    if cuda:
+        k = CONT["slots"]
+        toks = torch.as_tensor(np.stack(ureqs[:k]).astype(np.int64), device=device)
+        _, caches = lm.prefill(params, cfg, toks, L + 8)
+        tok, pos = toks[:, -1:], torch.full((k,), L, device=device)
+        step = lambda: lm.decode_step(params, cfg, tok, caches, pos)   # noqa: E731
+        step()
+        prof = profile_call(torch, step, lambda: f"one warm {tag} decode step of {k} slots")
+        out["profile_step"] = {x: prof.get(x) for x in ("wall_ms", "busy_ms", "busy_share",
+                                                         "kernels", "top")}
+        del caches
+    out["runs"] = runs
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    log(f"[recur] {tag} done {stamp()}; peak_mem_GB={(out['peak_mem_bytes'] or 0) / 1e9:.3f}")
+    del params
+    return out
+
+
+def zamba_path(torch, np, device="cuda", cfg=None):
+    """Phase 12 (a): zamba2-1.2b at full width and depth (38 layers; the
+    shared block's 6 unread stacked copies kept, as the reference's tree),
+    and the SSD scan across chunks: a prefill of ``long_prefill`` tokens
+    (7 chunks) and teacher-forced decode to ``long_len`` held to
+    ``lm.forward`` over all of them (8 chunks)."""
+    from repro_torch.configs import zamba2_1_2b
+
+    cfg = cfg or zamba2_1_2b.config().model
+
+    def long_check(params):
+        rs = np.random.RandomState(6)
+        t = torch.as_tensor(rs.randint(0, cfg.vocab, (RECUR["long_rows"], RECUR["long_len"])),
+                            device=device)
+        T0 = RECUR["long_prefill"]
+        t0 = time.perf_counter()
+        dec = teacher_forced(torch, params, cfg, t, t.shape[1], start=T0)
+        fwd = ssd_forward(torch, params, cfg, t)[:, T0 - 1:-1]
+        err = rel_err(dec, fwd)
+        log(f"[recur] zamba2 prefill {T0} + {t.shape[1] - T0 - 1} decode steps vs lm.forward "
+            f"over {t.shape[1]} tokens ({RECUR['long_rows']} rows): max err {err:.3e} of "
+            f"max|logit| (tol {SSM_REL:.0e}), {time.perf_counter() - t0:.1f} s")
+        if not err <= SSM_REL:
+            raise RuntimeError("zamba2: decode past 7 SSD chunks disagrees with lm.forward")
+        return {"long_decode_vs_forward_rel": err}
+
+    return recurrent_path(torch, np, "zamba2", cfg, device, SSM_REL, long_check)
+
+
+def xlstm_path(torch, np, device="cuda", cfg=None):
+    """Phase 12 (b): xlstm-1.3b at full width and depth (42 mLSTM and 6
+    sLSTM layers), and the chunked mLSTM: ``chunked_len`` tokens (4 chunks
+    of 64) through ``mlstm_impl="chunked"`` held to the recurrent forward,
+    both timed."""
+    import dataclasses
+
+    from repro_torch.configs import xlstm_1_3b
+    from repro_torch.models import lm
+
+    cfg = cfg or xlstm_1_3b.config().model
+
+    def chunked_check(params):
+        ccfg = dataclasses.replace(cfg, unit=tuple(
+            dataclasses.replace(b, xlstm=dataclasses.replace(b.xlstm, mlstm_impl="chunked"))
+            for b in cfg.unit))
+        rs = np.random.RandomState(7)
+        t = torch.as_tensor(rs.randint(0, cfg.vocab, (RECUR["chunked_rows"],
+                                                      RECUR["chunked_len"])), device=device)
+        got = {}
+        for name, c in (("recurrent", cfg), ("chunked", ccfg)):
+            lm.forward(params, c, t[:, :8])                     # warm
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = lm.forward(params, c, t)[0]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            got[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+        err = rel_err(got["chunked"], got["recurrent"])
+        log(f"[recur] xlstm chunked mLSTM ({t.shape[1]} tokens, chunk "
+            f"{cfg.unit[0].xlstm.chunk}, {t.shape[0]} rows) vs recurrent: max err {err:.3e} of "
+            f"max|logit| (tol {XLSTM_REL:.0e}); lm.forward {got['recurrent_ms']:.1f} ms "
+            f"recurrent, {got['chunked_ms']:.1f} ms chunked")
+        if not err <= XLSTM_REL:
+            raise RuntimeError("xlstm: the chunked mLSTM disagrees with the recurrent one")
+        return {"chunked_vs_recurrent_rel": err, "forward_recurrent_ms": got["recurrent_ms"],
+                "forward_chunked_ms": got["chunked_ms"]}
+
+    return recurrent_path(torch, np, "xlstm", cfg, device, XLSTM_REL, chunked_check)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3191,17 +3507,26 @@ def main() -> int:
     deepseek = deepseek_path(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    zamba = zamba_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm = xlstm_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
-        f"{t7 - t6:.1f} s, MoE models {time.perf_counter() - t7:.1f} s")
+        f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
+        f"{time.perf_counter() - t8:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
-            "deepseek_path": deepseek, "build_s": built}
+            "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
+            "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -3216,7 +3541,12 @@ def main() -> int:
                "olmoe_static": olmoe["static"]["launches"],
                **{"olmoe_" + k: m["launches"] for k, m in olmoe["runs"].items()},
                "deepseek_static": deepseek["static"]["launches"],
-               **{"deepseek_" + k: m["launches"] for k, m in deepseek["runs"].items()}}
+               **{"deepseek_" + k: m["launches"] for k, m in deepseek["runs"].items()},
+               **{f"{tag}_{cell}": r[cell]["launches"] for tag, r in (("zamba2", zamba),
+                                                                      ("xlstm", xlstm))
+                  for cell in ("static", "static_unpadded")},
+               **{f"{tag}_{k}": m["launches"] for tag, r in (("zamba2", zamba), ("xlstm", xlstm))
+                  for k, m in r["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

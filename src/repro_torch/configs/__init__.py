@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 kanformer-100m, the dense models (qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b,
-gemma3-12b) and the MoE models (olmoe-1b-7b; deepseek-v2-lite with MLA and
-a dense prologue) are ported; the other architectures of ``repro.configs``
-(zamba2-1.2b, xlstm-1.3b, paligemma-3b, musicgen-large) wait for their block
-kinds or input kinds (ROADMAP queue 1, item 8)."""
+gemma3-12b), the MoE models (olmoe-1b-7b; deepseek-v2-lite with MLA and a
+dense prologue) and the recurrent ones (zamba2-1.2b, Mamba2 with a shared
+attention block; xlstm-1.3b, mLSTM and sLSTM) are ported; the other
+architectures of ``repro.configs`` (paligemma-3b, musicgen-large) wait for
+their input kinds (ROADMAP queue 1, item 8)."""
 
 import importlib
 
@@ -15,6 +16,8 @@ ARCHS = {
     "qwen2.5-3b": "qwen2_5_3b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-v2-lite": "deepseek_v2_lite",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "kanformer-100m": "kanformer_100m",
 }
 

@@ -2,7 +2,7 @@
 
 ``--arch`` takes the port's registry (``repro_torch.configs``):
 kanformer-100m, qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b, gemma3-12b,
-olmoe-1b-7b, deepseek-v2-lite.  Takes
+olmoe-1b-7b, deepseek-v2-lite, zamba2-1.2b, xlstm-1.3b.  Takes
 the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
 length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
 continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
@@ -14,9 +14,9 @@ with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
 ``--temperature T > 0`` samples in every engine mode, each request's key
 chain keyed by ``--seed`` and its index, as the reference's CLI does;
 ``--mesh`` exits with rc=2 and says it is not ported yet.  A windowed model
-(gemma3) or an MLA one (deepseek-v2-lite) is refused as the reference
-refuses it: ``--spec-k`` with rc=2, ``--paged`` by the
-``NotImplementedError`` of its paged caches.  Reduced
+(gemma3), an MLA one (deepseek-v2-lite) or a recurrent one (zamba2-1.2b,
+xlstm-1.3b) is refused as the reference refuses it: ``--spec-k`` with
+rc=2, ``--paged`` by the ``NotImplementedError`` of its paged caches.  Reduced
 shapes are the default; ``--full`` selects the full config.  Runs on
 ``cuda`` unless ``--device cpu`` is given.
 """

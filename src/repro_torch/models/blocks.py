@@ -1,15 +1,20 @@
 """Decoder blocks in PyTorch (counterpart of ``repro/models/blocks.py``).
 
-Three kinds are ported, each pre-norm attention followed by an FFN:
-``attn_mlp``, the SwiGLU MLP of the dense models (qwen, gemma3, deepseek's
-dense prologue); ``attn_moe``, the routed experts of ``models/moe.py``
-(olmoe, deepseek), whose auxiliary losses :func:`block_apply` returns; and
-``attn_kan``, the KAN FFN of two spline layers ``d -> kan_ff -> d`` (the
-paper's technique as an FFN replacement).  Windowed attention (a ring
-cache of ``window`` slots), q/k norm, int8 KV caches and MLA (a
-``{"ckv": (B, max_seq, r + rope)}`` latent cache, not pageable) come with
-the attention config.  ``mamba2``, ``mlstm``, ``slstm`` and shared blocks
-raise ``NotImplementedError`` (ROADMAP queue 1, item 8).
+Every kind of the reference is ported.  Three are pre-norm attention
+followed by an FFN: ``attn_mlp``, the SwiGLU MLP of the dense models (qwen,
+gemma3, deepseek's dense prologue, zamba2's shared block); ``attn_moe``,
+the routed experts of ``models/moe.py`` (olmoe, deepseek), whose auxiliary
+losses :func:`block_apply` returns; and ``attn_kan``, the KAN FFN of two
+spline layers ``d -> kan_ff -> d`` (the paper's technique as an FFN
+replacement).  Windowed attention (a ring cache of ``window`` slots), q/k
+norm, int8 KV caches and MLA (a ``{"ckv": (B, max_seq, r + rope)}`` latent
+cache, not pageable) come with the attention config.  Three are recurrent,
+a pre-norm mixer with no FFN: ``mamba2`` (``models/ssm.py``; zamba2),
+``mlstm`` and ``slstm`` (``models/xlstm.py``; xlstm).  Their decode state
+is per request, not per token (``{"ssm", "conv"}``, ``{"C", "n", "m",
+"conv"}``, ``{"c", "n", "h", "m"}``): it neither pages nor takes a verify
+window, as in the reference.  A block with ``shared_id`` is applied by
+``models/lm.py`` with the model's shared parameters.
 """
 
 from __future__ import annotations
@@ -24,8 +29,17 @@ from repro_torch.core.bspline import SplineGrid
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
 
-KINDS = ("attn_mlp", "attn_moe", "attn_kan")
+ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_kan")
+# a recurrent kind's parameter key and its forward, decode step and state init
+RECURRENT = {
+    "mamba2": ("mamba", S.mamba2_forward, S.mamba2_decode_step, S.mamba2_init_state),
+    "mlstm": ("mlstm", X.mlstm_forward, X.mlstm_decode_step, X.mlstm_init_state),
+    "slstm": ("slstm", X.slstm_forward, X.slstm_decode_step, X.slstm_init_state),
+}
+KINDS = ATTN_KINDS + tuple(RECURRENT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,16 +48,21 @@ class BlockCfg:
     attn: A.AttnConfig | None = None
     d_ff: int = 0                         # attn_mlp: SwiGLU hidden size
     moe: M.MoEConfig | None = None        # attn_moe
+    mamba: S.Mamba2Config | None = None   # mamba2
+    xlstm: X.XLSTMConfig | None = None    # mlstm, slstm
     kan_grid: SplineGrid | None = None    # attn_kan
     kan_ff: int = 0
-    shared_id: int | None = None
+    shared_id: int | None = None          # an entry of the model's shared set
 
 
 def check_supported(blk: BlockCfg) -> None:
-    if blk.kind not in KINDS or blk.shared_id is not None:
+    if blk.kind not in KINDS:
         raise NotImplementedError(
-            f"block kind {blk.kind!r} (shared_id={blk.shared_id}) is not ported "
-            f"yet: only {', '.join(KINDS)} (ROADMAP queue 1, item 8)")
+            f"block kind {blk.kind!r} is not a block kind: {', '.join(KINDS)}")
+
+
+def _recurrent_cfg(blk: BlockCfg):
+    return blk.mamba if blk.kind == "mamba2" else blk.xlstm
 
 
 def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +120,9 @@ def block_apply(
     ``aux`` an attn_moe block's auxiliary losses, else empty."""
     check_supported(blk)
     h = L.rmsnorm(params["ln1"], x)
+    if blk.kind in RECURRENT:
+        key, fwd, _, _ = RECURRENT[blk.kind]
+        return x + fwd(params[key], _recurrent_cfg(blk), h), {}
     x = x + A.attn_forward(params["attn"], blk.attn, h, positions=positions, chunk=chunk)
     y, aux = _ffn(params, blk, L.rmsnorm(params["ln2"], x), method="dense")
     return x + y, aux
@@ -110,7 +132,7 @@ def block_supports_paging(blk: BlockCfg) -> bool:
     """Paged KV (DESIGN.md §3b) covers full-attention GQA layers (windowed
     rings and MLA latents do not strand per-token memory as a dense
     ``max_seq`` row does)."""
-    return (blk.kind in ("attn_mlp", "attn_moe", "attn_kan")
+    return (blk.kind in ATTN_KINDS
             and blk.attn.kv_lora_rank is None and blk.attn.window is None)
 
 
@@ -145,8 +167,11 @@ def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
                      device) -> dict:
     """Per-block decode state: the ``(batch, S, KV, D)`` K/V rows, ``S`` =
     ``window`` slots for a windowed layer's ring, else ``max_seq``; an MLA
-    layer's ``(batch, max_seq, r + rope)`` latent."""
+    layer's ``(batch, max_seq, r + rope)`` latent; a recurrent layer's state
+    (fp32 but for the ``conv`` row, in ``dtype``, as the reference's)."""
     check_supported(blk)
+    if blk.kind in RECURRENT:
+        return RECURRENT[blk.kind][3](_recurrent_cfg(blk), batch, dtype, device)
     c = blk.attn
     if c.kv_lora_rank is not None:
         return {"ckv": torch.zeros((batch, max_seq, c.kv_lora_rank + c.qk_rope_dim),
@@ -171,11 +196,19 @@ def block_prefill(  # kanlint: ignore[KL105]
     ``s`` holds the latest position ``p < T`` with ``p % S == s`` (decode
     then writes ``pos % S``).  Slots past T hold what the reference's
     zero-padded prefill cache holds: zeros, quantised like any other slot
-    under ``kv_quant``.  An MLA layer stores its latent at slots ``0..T-1``."""
+    under ``kv_quant``.  An MLA layer stores its latent at slots ``0..T-1``;
+    a recurrent layer its state after token ``T - 1`` (pads included: a
+    right-padded prompt feeds its pads through the recurrence)."""
     check_supported(blk)
-    c = blk.attn
     T = x.shape[1]
     h = L.rmsnorm(params["ln1"], x)
+    if blk.kind in RECURRENT:
+        key, fwd, _, _ = RECURRENT[blk.kind]
+        y, st = fwd(params[key], _recurrent_cfg(blk), h, return_state=True)
+        for name, t in st.items():
+            cache[name].copy_(t)
+        return x + y, cache
+    c = blk.attn
     y, kv = A.attn_forward(params["attn"], c, h, positions=positions,
                            chunk=chunk, return_cache=True)
     if "ckv" in kv:
@@ -243,6 +276,10 @@ def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
     if table is not None and not block_supports_paging(blk):
         raise NotImplementedError(f"paged decode: unsupported kind {blk.kind!r}")
     h = L.rmsnorm(params["ln1"], x)
+    if blk.kind in RECURRENT:            # the position does not enter the state
+        key, _, step, _ = RECURRENT[blk.kind]
+        y, cache = step(params[key], _recurrent_cfg(blk), h, cache)
+        return x + y, cache
     if table is not None:
         y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
                                             table, pos)

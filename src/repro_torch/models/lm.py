@@ -14,12 +14,20 @@ rope`` of an MLA latent).  Paged pools are ``([n_repeats,] n_blocks,
 block_size, KV, D)``.  Each block has its own cache entry, so the blocks of
 one unit may differ in cache length (gemma3: five ``window``-slot rings and
 one ``max_seq`` cache) and an int8 KV cache adds ``k_scale``/``v_scale``
-leaves beside ``k``/``v``.
+leaves beside ``k``/``v``.  A recurrent block's cache is its per-request
+state (``models/ssm.py``, ``models/xlstm.py``), laid out the same way:
+batch on axis 1 of a stacked leaf, 0 elsewhere.
+
+Shared blocks (zamba2's shared attention): ``params["shared"]`` holds one
+unstacked tree per entry of ``cfg.shared``, and a unit block with
+``shared_id`` runs with ``params["shared"][shared_id]`` in place of its own
+stacked parameters, which the tree keeps but nothing reads (the reference's
+``abstract_params`` has them too); its cache stays its own, one per repeat.
 
 :func:`forward` returns the reference's auxiliary losses, the MoE blocks'
 ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac`` summed over layers
-(zeros without MoE blocks).  Shared blocks and inputs other than tokens are
-not ported yet (ROADMAP queue 1, item 8); a config that uses them raises
+(zeros without MoE blocks).  Inputs other than tokens are not ported yet
+(ROADMAP queue 1, item 8); a config that uses them raises
 ``NotImplementedError``.
 """
 
@@ -62,11 +70,11 @@ PARTS = ("prologue", "unit", "epilogue")      # a tree's parts in depth order
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.shared or cfg.input_kind != "tokens":
+    if cfg.input_kind != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: shared blocks and non-token inputs are not ported yet "
+            f"{cfg.name}: non-token inputs ({cfg.input_kind!r}) are not ported yet "
             "(ROADMAP queue 1, item 8)")
-    for blk in cfg.prologue + cfg.unit + cfg.epilogue:
+    for blk in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared:
         B.check_supported(blk)
 
 
@@ -85,10 +93,46 @@ class ParamSpec:
     scale: float | None = None
 
 
+def _recurrent_shapes(d: int, blk: BlockCfg) -> dict:
+    """The mixer of a recurrent block, as ``ssm.mamba2_init`` /
+    ``xlstm.mlstm_init`` / ``xlstm.slstm_init`` build it."""
+    if blk.kind == "mamba2":
+        m = blk.mamba
+        di, H, GN = m.d_inner, m.n_heads, m.n_groups * m.d_state
+        return {"in_proj": ParamSpec((d, 2 * di + 2 * GN + H)),
+                "conv_w": ParamSpec((m.conv_width, m.conv_dim), "normal", 0.5),
+                "conv_b": ParamSpec((m.conv_dim,), "zeros"),
+                "A_log": ParamSpec((H,), "ones"), "D": ParamSpec((H,), "ones"),
+                "dt_bias": ParamSpec((H,), "zeros"), "norm": ParamSpec((di,), "ones"),
+                "out_proj": ParamSpec((di, d))}
+    x = blk.xlstm
+    H = x.n_heads
+    if blk.kind == "mlstm":
+        di = x.d_inner
+        return {"up": ParamSpec((d, 2 * di)),
+                "conv_w": ParamSpec((x.conv_width, di), "normal", 0.5),
+                "conv_b": ParamSpec((di,), "zeros"),
+                "wq": ParamSpec((di, di)), "wk": ParamSpec((di, di)), "wv": ParamSpec((di, di)),
+                "w_i": ParamSpec((di, H), "normal", 0.02),
+                "w_f": ParamSpec((di, H), "normal", 0.02),
+                "b_i": ParamSpec((H,), "zeros"), "b_f": ParamSpec((H,), "ones"),
+                "norm": ParamSpec((di,), "ones"), "down": ParamSpec((di, d))}
+    tree = {"norm": ParamSpec((d,), "ones")}
+    for g in "zifo":
+        tree[f"w_{g}"] = ParamSpec((d, d), "normal", 0.02)
+        tree[f"r_{g}"] = ParamSpec((H, d // H, d // H), "normal", 0.02)
+        tree[f"b_{g}"] = ParamSpec((d,), "ones" if g == "f" else "zeros")
+    return tree
+
+
 def _block_shapes(d: int, blk: BlockCfg) -> dict:
     """``ParamSpec`` tree of one block, as ``blocks.block_init`` /
     ``attention.attn_init`` / ``blocks._mlp_init`` / ``moe.moe_init`` /
-    ``blocks._kan_ffn_init`` build it."""
+    ``blocks._kan_ffn_init`` build it; a recurrent block is its pre-norm
+    and its mixer."""
+    if blk.kind in B.RECURRENT:
+        return {"ln1": {"scale": ParamSpec((d,), "ones", None)},
+                B.RECURRENT[blk.kind][0]: _recurrent_shapes(d, blk)}
     a = blk.attn
     h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
     if a.kv_lora_rank is None:
@@ -148,8 +192,9 @@ def _block_shapes(d: int, blk: BlockCfg) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Tree of :class:`ParamSpec` leaves mirroring ``lm.model_init``
-    (unit leaves carry the leading ``n_repeats`` layers axis; prologue and
-    epilogue blocks are lists of unstacked trees)."""
+    (unit leaves carry the leading ``n_repeats`` layers axis, a shared
+    block's unread copy too; prologue, epilogue and shared blocks are lists
+    of unstacked trees)."""
     check_supported(cfg)
     d = cfg.d_model
 
@@ -163,7 +208,7 @@ def param_shapes(cfg: ModelConfig) -> dict:
         "final_ln": {"scale": ParamSpec((d,), "ones", None)},
         "unit": [stack(_block_shapes(d, blk)) for blk in cfg.unit],
     }
-    for part in ("prologue", "epilogue"):
+    for part in ("prologue", "epilogue", "shared"):
         if getattr(cfg, part):
             tree[part] = [_block_shapes(d, blk) for blk in getattr(cfg, part)]
     return tree
@@ -215,7 +260,10 @@ def _layer(tree, r: int):
 def _walk(params: dict, cfg: ModelConfig, caches: dict | None = None):
     """``(block params, BlockCfg, block cache or None)`` of every block in
     depth order: the prologue's, the unit's repeat by repeat (views of the
-    stacked leaves), the epilogue's."""
+    stacked leaves; a block with ``shared_id`` takes
+    ``params["shared"][shared_id]`` and keeps its own cache, as the
+    reference's unit body), the epilogue's."""
+    shared = params.get("shared", [])
     for part in PARTS:
         blks = getattr(cfg, part)
         if not blks:
@@ -226,7 +274,8 @@ def _walk(params: dict, cfg: ModelConfig, caches: dict | None = None):
             cs = None if caches is None else (_layer(caches[part], r) if stacked
                                               else caches[part])
             for i, blk in enumerate(blks):
-                yield ps[i], blk, None if cs is None else cs[i]
+                p = shared[blk.shared_id] if stacked and blk.shared_id is not None else ps[i]
+                yield p, blk, None if cs is None else cs[i]
 
 
 def _cache_parts(caches: dict):
@@ -267,11 +316,13 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device="cuda") -> dict:
-    """Zeroed KV caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]} or
-    {"ckv"}: (n_repeats, batch, S, ...)]}``, the reference's stacked
-    layout, ``S`` each block's own cache length (``window`` for a ring),
-    and ``"prologue"``/``"epilogue"`` lists of unstacked ``(batch, S, ...)``
-    caches where the model has such blocks."""
+    """Zeroed decode caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}
+    or {"ckv"}: (n_repeats, batch, S, ...)]}``, the reference's stacked
+    layout, ``S`` each block's own cache length (``window`` for a ring), or
+    a recurrent block's ``(n_repeats, batch, ...)`` state leaves, and
+    ``"prologue"``/``"epilogue"`` lists of unstacked caches where the model
+    has such blocks.  Each leaf takes the reference's dtype (``dtype``, or
+    fp32 for a recurrent state but its ``conv`` row)."""
     check_supported(cfg)
     return _make_caches(cfg, lambda blk: B.block_init_cache(blk, batch, max_seq, dtype, device))
 
@@ -388,7 +439,9 @@ def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ign
                       slot: int) -> dict:
     """Write a batch-1 cache tree ``one`` into batch row ``slot`` of a live
     cache, in place (both built for the same ``max_seq``): batch is axis 1
-    of a stacked unit leaf, axis 0 of a prologue or epilogue leaf."""
+    of a stacked unit leaf, axis 0 of a prologue or epilogue leaf, for K/V
+    rows and recurrent states alike (a recurrent row is replaced whole, so
+    a recycled slot keeps nothing of its last occupant)."""
     for part, cs, stacked in _cache_parts(caches):
         for big, small in zip(cs, one[part]):
             for name, buf in big.items():

@@ -48,8 +48,13 @@ by ``generate``, in a static bucket or by either continuous engine.
 Caveat, as the reference's: ragged decode into windowed (ring-buffer)
 layers can attend stale pad slots once a row's position wraps the window
 (a right-padded prompt longer than the window leaves pad K/V in the ring);
-full-attention models are exactly pad-invariant.  Equal-length buckets
-avoid padding.
+full-attention models are exactly pad-invariant.  SSM and LSTM states
+(zamba2's Mamba2 layers, xlstm's mLSTM and sLSTM) are not pad-invariant
+under any padding: a right-padded prompt feeds its pads through the
+recurrence, in a ragged ``serve_requests`` bucket as in a
+``serve_continuous`` admission padded to ``prompt_pad_multiple``.  The
+port serves the JAX engine's streams there, not repaired ones.
+Equal-length buckets avoid padding.
 
 Meshes are not ported yet (ROADMAP queue 1, item 9).
 """

@@ -21,7 +21,8 @@ through the fused kernel is held within 2^-16 of max|y| of its plain version
 (K up to 4608); training steps on the card against the CPU's within 1e-5
 of each Adam moment's max and 1e-2 lr on parameters.  The reduced MoE
 models (olmoe-1b-7b, deepseek-v2-lite) decode on the card within logits
-atol 1e-4 of the CPU, with the CPU's drop counts and engine streams.
+atol 1e-4 of the CPU, with the CPU's drop counts and engine streams; so do the
+reduced recurrent models (zamba2-1.2b, xlstm-1.3b), their states within 1e-5.
 """
 
 import ctypes
@@ -1290,6 +1291,55 @@ def test_reduced_moe_decode_on_card_matches_cpu(cuda_device, arch, paged):
         reqs, slots=3, chunk_steps=3) for dev in ("cpu", "cuda")}
     for a, b in zip(streams["cpu"], streams["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_reduced_recurrent_decode_on_card_matches_cpu(cuda_device, arch):
+    """zamba2-1.2b and xlstm-1.3b ``reduced()`` (Mamba2 with the shared
+    attention block; mLSTM and sLSTM): prefill and 4 per-row decode steps
+    on the card against the CPU, logits atol 1e-4 and every state leaf
+    within 1e-5 (fp32 sums in another order; the states are updated in
+    place); xlstm's chunked mLSTM forward (3 chunks of 64) too; then the
+    dense continuous engine, greedy and sampled, gives the CPU's streams."""
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.serve.engine import _to_device
+
+    model = configs.get_reduced(arch).model
+    params = lm.init_params(model, seed=0, device="cpu")
+    gpu = _to_device(params, cuda_device)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(0, model.vocab, (2, 9)))
+    got, gc = lm.prefill(gpu, model, toks.to(cuda_device), 16)
+    want, wc = lm.prefill(params, model, toks, 16)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    pos = torch.tensor([9, 6])
+    for s in range(4):
+        tok = toks[:, s:s + 1]
+        got, gc = lm.decode_step(gpu, model, tok.to(cuda_device), gc, pos.to(cuda_device))
+        want, wc = lm.decode_step(params, model, tok, wc, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        pos = pos + 1
+    wflat = flatten_with_paths(wc)
+    for k, g in flatten_with_paths(gc).items():
+        if "['k']" not in k and "['v']" not in k:
+            torch.testing.assert_close(g.cpu(), wflat[k], rtol=0, atol=1e-5)
+    if arch == "xlstm-1.3b":
+        chunked = dataclasses.replace(model, unit=tuple(
+            dataclasses.replace(b, xlstm=dataclasses.replace(b.xlstm, mlstm_impl="chunked"))
+            for b in model.unit))
+        long = torch.as_tensor(np.random.RandomState(2).randint(0, model.vocab, (2, 192)))
+        got, _ = lm.forward(gpu, chunked, long.to(cuda_device))
+        want, _ = lm.forward(params, chunked, long)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    for temperature in (0.0, 20.0):
+        scfg = ServeConfig(max_seq=32, max_new_tokens=6, temperature=temperature)
+        streams = {dev: Engine(params, model, scfg, device=dev).serve_continuous(
+            reqs, slots=3, chunk_steps=3) for dev in ("cpu", "cuda")}
+        for a, b in zip(streams["cpu"], streams["cuda"]):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

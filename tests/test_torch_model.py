@@ -180,21 +180,24 @@ def test_decode_steps_match_reference(models, ragged):
 
 
 def test_unported_variants_raise():
-    """What the port still refuses: the block kinds of ROADMAP queue 1,
-    item 8 (SSM, xLSTM), shared blocks and inputs other than tokens.
-    Windows, int8 KV caches, q/k norm, MLA, and attn_mlp and attn_moe
-    blocks are ported."""
+    """What the port still refuses: inputs other than tokens (ROADMAP queue
+    1, item 8) and block kinds the reference does not have.  Every block
+    kind is ported (the recurrent ``mamba2``, ``mlstm`` and ``slstm`` too),
+    and so are shared blocks, windows, int8 KV caches, q/k norm and MLA."""
     from repro_torch.models.attention import AttnConfig
     from repro_torch.models.blocks import BlockCfg
     from repro_torch.models.blocks import check_supported as blk_check
     from repro_torch.models.moe import MoEConfig
+    from repro_torch.models.ssm import Mamba2Config
+    from repro_torch.models.xlstm import XLSTMConfig
 
     attn = AttnConfig(64, 4, 4, 16)
-    for kind in ("mamba2", "mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match=kind):
-            blk_check(BlockCfg(kind, attn=attn, d_ff=8))
-    with pytest.raises(NotImplementedError, match="shared_id=0"):
-        blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8, shared_id=0))
+    blk_check(BlockCfg("mamba2", mamba=Mamba2Config(64)))
+    for kind in ("mlstm", "slstm"):
+        blk_check(BlockCfg(kind, xlstm=XLSTMConfig(64)))
+    blk_check(BlockCfg("attn_mlp", attn=attn, d_ff=8, shared_id=0))
+    with pytest.raises(NotImplementedError, match="'conv_lstm' is not a block kind"):
+        blk_check(BlockCfg("conv_lstm", attn=attn, d_ff=8))
     moe = MoEConfig(d_model=64, d_ff=8, n_experts=4, top_k=2)
     for ok in (AttnConfig(64, 4, 4, 16, window=8), AttnConfig(64, 4, 4, 16, kv_quant=True),
                AttnConfig(64, 4, 4, 16, qk_norm=True), AttnConfig(64, 4, 4, 16, kv_lora_rank=32)):
@@ -205,10 +208,13 @@ def test_unported_variants_raise():
     model = ModelConfig("m", 64, 32, unit=(BlockCfg("attn_mlp", attn=attn, d_ff=8),),
                         n_repeats=1, prologue=(BlockCfg("attn_moe", attn=attn, moe=moe),))
     check_supported(model)
-    for bad in ({"input_kind": "embeddings"}, {"input_kind": "mixed"},
-                {"shared": (BlockCfg("attn_mlp", attn=attn, d_ff=8),)}):
+    check_supported(dataclasses.replace(model, shared=(BlockCfg("attn_mlp", attn=attn, d_ff=8),)))
+    for bad in ({"input_kind": "embeddings"}, {"input_kind": "mixed"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             check_supported(dataclasses.replace(model, **bad))
+    with pytest.raises(NotImplementedError, match="not a block kind"):
+        check_supported(dataclasses.replace(
+            model, shared=(BlockCfg("conv_lstm", attn=attn, d_ff=8),)))
 
 
 def test_per_row_cache_write_past_max_seq_is_dropped(models):
