@@ -189,13 +189,36 @@ Phases; any failed check raises and the script exits non-zero:
    each token equal to the draw of its recomputed logits and key chain up
    to near-ties; every run with exact launch counts (0: no kernel on this
    path); paged, speculative and verify-window serving refused.  (b)
-   xlstm-1.3b (42 mLSTM and 6 sLSTM layers; 3.40 B parameters, 705 MB of
+   xlstm-1.3b at full width and ``XLSTM_REPEATS`` = 2 of its 6 units (14
+   mLSTM and 2 sLSTM layers of its 42 and 6; 1.20 B parameters, 235 MB of
    state per request): the same set, with the chunked mLSTM (256 tokens, 4
    chunks of 64) held to the recurrent forward within ``XLSTM_REL`` in
    place of the long prefill.  Each prints its peak memory, its per-request
    state bytes beside its KV bytes per token, tok/s, and one warm decode
    step of 8 slots under ``torch.profiler`` (busy share, kernels per step).
-13. A JSON line with every ported kernel's numbers, the card's line, and as
+13. The LM trainer and the non-token inputs (see the note above ``TRAIN``).
+   (a) Full-width kanformer-100m trained through ``launch.train`` with the
+   reference example's settings (batch 8, seq 64, lr 2e-3, 300 steps, a
+   checkpoint every 75), every run with zero kernel launches (the KAN FFN
+   trains on its ``dense`` path): the mean loss of the last 10 steps at
+   least ``LOSS_DROP`` below the first 10's, the three newest checkpoints
+   kept, ms per warm step, tokens/s and peak memory; the 20-step restart
+   drill resumes at step 300; 10 steps + save + restore + 10 against 20
+   straight steps (``RESUME_ATOL_LR``, ``RESUME_RTOL``; the batches after
+   the resume equal the straight run's bit for bit); 20 steps at bf16
+   compute, the loss falling; 3 steps (batch 2 x 64) on the card against
+   the same steps on this machine's CPU (``CARD_CPU_RTOL``); (b) the trained weights
+   serve phase 4's requests statically with exact launch counts of kernels
+   1 and 2, the kernel path within ``LOGIT_ATOL`` of the plain path; one
+   warm training step profiled.  (c) Full-width, full-depth paligemma-3b
+   (2.51 B, 18 layers, MQA): 256 patch embeddings + 32 text tokens, prefill
+   and 16 greedy decode steps from position 288 teacher-forced against
+   ``lm.forward`` within ``DENSE_REL``; (d) musicgen-large (3.23 B, 48
+   layers): 128 frame embeddings prefilled, 32 decoded as ``(B, 1, d)`` and
+   as ``(B, d)`` rows (equal), against ``lm.forward`` within ``DENSE_REL``;
+   (e) one AdamW step of each at full width and depth: loss, gradient norm
+   and parameters finite, ``ntokens`` the text labels alone, peak memory.
+14. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -1506,31 +1529,8 @@ def main_path(torch, np):
 
     # kernel path vs plain path on the same tokens: prefill of the first
     # bucket, then 4 decode steps teacher-forced with the served tokens
-    order = sorted(range(n_req), key=lambda i: lens[i])[:batch]
-    T = int(max(lens[i] for i in order))
-    toks = torch.as_tensor(np.stack([np.pad(reqs[i], (0, T - len(reqs[i])))
-                                     for i in order]).astype(np.int64), device="cuda")
-    rl = torch.as_tensor(lens[order], device="cuda")
-    forced = [torch.as_tensor(np.stack([outs[i][s] for i in order]).astype(np.int64),
-                              device="cuda")[:, None] for s in range(4)]
-
-    def run(method):
-        if method:
-            os.environ["KAN_SAS_INFERENCE_METHOD"] = method
-        try:
-            logits, caches = lm.prefill(eng.params, cfg, toks, max_seq)
-            got = [logits[torch.arange(batch, device="cuda"), rl - 1]]
-            pos = rl.clone()
-            for s in range(4):
-                lg, caches = lm.decode_step(eng.params, cfg, forced[s], caches, pos)
-                got.append(lg)
-                pos = pos + 1
-            return torch.stack(got)
-        finally:
-            os.environ.pop("KAN_SAS_INFERENCE_METHOD", None)
-
-    kern = run(None)
-    ref = run("compact")
+    kern, ref, toks, order = kernel_vs_plain(torch, np, eng.params, cfg, reqs, outs, batch,
+                                             max_seq)
     err = (kern - ref).abs().max().item()
     agree = (kern.argmax(-1) == ref.argmax(-1)).float().mean().item()
     if not (torch.isfinite(kern).all() and kern.shape == (5, batch, cfg.vocab)):
@@ -1564,6 +1564,42 @@ def main_path(torch, np):
                       "decode_ms_per_step": decode_ms, "peak_mem_bytes": peak,
                       "logit_max_abs_err": err, "greedy_agreement": agree,
                       "warm": warm, "profile": prof}
+
+
+def kernel_vs_plain(torch, np, params, cfg, reqs, outs, batch, max_seq, device="cuda"):
+    """The first static bucket (the ``batch`` shortest prompts, right-padded)
+    prefilled, then 4 decode steps teacher-forced with the served tokens
+    ``outs``, on the kernel path and on the plain path
+    (``KAN_SAS_INFERENCE_METHOD=compact``) -> ``(kernel logits, plain
+    logits, each (5, batch, vocab); the padded prompts; the bucket's
+    request indices)``."""
+    from repro_torch.models import lm
+
+    lens = np.array([len(r) for r in reqs])
+    order = sorted(range(len(reqs)), key=lambda i: lens[i])[:batch]
+    T = int(max(lens[i] for i in order))
+    toks = torch.as_tensor(np.stack([np.pad(reqs[i], (0, T - len(reqs[i])))
+                                     for i in order]).astype(np.int64), device=device)
+    rl = torch.as_tensor(lens[order], device=device)
+    forced = [torch.as_tensor(np.stack([outs[i][s] for i in order]).astype(np.int64),
+                              device=device)[:, None] for s in range(4)]
+
+    def run(method):
+        if method:
+            os.environ["KAN_SAS_INFERENCE_METHOD"] = method
+        try:
+            logits, caches = lm.prefill(params, cfg, toks, max_seq)
+            got = [logits[torch.arange(batch, device=device), rl - 1]]
+            pos = rl.clone()
+            for s in range(4):
+                lg, caches = lm.decode_step(params, cfg, forced[s], caches, pos)
+                got.append(lg)
+                pos = pos + 1
+            return torch.stack(got)
+        finally:
+            os.environ.pop("KAN_SAS_INFERENCE_METHOD", None)
+
+    return run(None), run("compact"), toks, order
 
 
 def profile_generate(torch, eng, prompts, lens):
@@ -3161,6 +3197,11 @@ def deepseek_path(torch, np, device="cuda", cfg=None):
 RECUR = {"new": 32, "batch": 4, "tf_requests": 4, "tf_len": 128, "unpadded_len": 64,
          "long_rows": 2, "long_prefill": 896, "long_len": 1024, "chunked_rows": 2,
          "chunked_len": 256}
+# xlstm-1.3b's depth here: 2 of its 6 units of 7 mLSTM + 1 sLSTM blocks (16
+# of 48 layers) at full width.  With phase 13 and xlstm at full depth the
+# whole script took 1067 s of its 1200 on an H100 80GB HBM3 at 700 W, 127 s
+# of it xlstm's; the cut keeps every check of the cell.
+XLSTM_REPEATS = 2
 # Tolerances, relative to max|logit| of the logits compared.  zamba2's
 # decode is the recurrence (exp(dt A) per step) where lm.forward is the SSD
 # form (exp of differences of in-chunk cumulative sums, which reach a few
@@ -3232,7 +3273,7 @@ def recurrent_path(torch, np, tag, cfg, device, rel, extra_check):
     out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
            "state_bytes_per_request": state, "kv_bytes_per_token": kv_tok}
     kinds = sorted({b.kind for b in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared})
-    log(f"[recur] {tag} full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+    log(f"[recur] {tag} full width: d={cfg.d_model} layers={cfg.n_layers} "
         f"kinds {kinds} shared {len(cfg.shared)} vocab={cfg.vocab} params="
         f"{out['params'] / 1e9:.3f}B fp32; per-request state {state} bytes "
         f"({state / 1e6:.1f} MB), KV {kv_tok} bytes per token {stamp()}")
@@ -3391,16 +3432,16 @@ def zamba_path(torch, np, device="cuda", cfg=None):
 
 
 def xlstm_path(torch, np, device="cuda", cfg=None):
-    """Phase 12 (b): xlstm-1.3b at full width and depth (42 mLSTM and 6
-    sLSTM layers), and the chunked mLSTM: ``chunked_len`` tokens (4 chunks
-    of 64) through ``mlstm_impl="chunked"`` held to the recurrent forward,
-    both timed."""
+    """Phase 12 (b): xlstm-1.3b at full width, ``XLSTM_REPEATS`` of its 6
+    units deep (14 mLSTM and 2 sLSTM layers), and the chunked mLSTM:
+    ``chunked_len`` tokens (4 chunks of 64) through ``mlstm_impl="chunked"``
+    held to the recurrent forward, both timed."""
     import dataclasses
 
     from repro_torch.configs import xlstm_1_3b
     from repro_torch.models import lm
 
-    cfg = cfg or xlstm_1_3b.config().model
+    cfg = cfg or xlstm_1_3b.build(n_repeats=XLSTM_REPEATS).model
 
     def chunked_check(params):
         ccfg = dataclasses.replace(cfg, unit=tuple(
@@ -3430,6 +3471,376 @@ def xlstm_path(torch, np, device="cuda", cfg=None):
                 "forward_chunked_ms": got["chunked_ms"]}
 
     return recurrent_path(torch, np, "xlstm", cfg, device, XLSTM_REL, chunked_check)
+
+
+# Phase 13: the LM trainer and the non-token inputs.  (a) kanformer-100m
+# trained at full width with the reference example's settings
+# (examples/lm_train.py: batch 8, seq 64, lr 2e-3, 300 steps, a checkpoint
+# every 75), then its restart drill; (b) the trained weights served through
+# kernels 1 and 2; (c)-(e) paligemma-3b and musicgen-large at full width and
+# depth: decode against forward, and one AdamW step each.  Training runs the
+# KAN FFN on its ``dense`` path, as the reference trains it: no kernel.
+TRAIN = {"arch": "kanformer-100m", "steps": 300, "batch": 8, "seq": 64, "lr": 2e-3,
+         "ckpt_every": 75, "drill": 20, "resume_at": 10, "resume_to": 20, "bf16_steps": 20,
+         "card_cpu_steps": 3, "card_cpu_batch": 2, "warm_from": 10}
+# the mean loss of the last 10 steps at least this far (nats) below the first
+# 10's: a CPU rehearsal of the recipe at the reduced width fell by 47.5 nats
+# (53.38 -> 5.87); the full width starts higher (logits ~ sqrt(d) wider)
+LOSS_DROP = 10.0
+# card vs the same machine's CPU, 3 steps from the same start: loss and
+# grad_norm (fp32 sums over d = 512 and 512 rows in other orders)
+CARD_CPU_RTOL = 1e-4
+# 10 steps + save + restore + 10 against 20 straight steps: the same ops in
+# the same order, but the embedding gradient's index_put_ may accumulate in
+# another order (on the CPU at batch 8 x 64: an ulp of the table, 3.0e-5 lr
+# in the state after 20 steps); Adam's normalised step can carry an ulp of a
+# gradient near zero to ~1e-2 lr (tests/test_torch_train.py, STEP_ATOL)
+RESUME_ATOL_LR = 1e-2
+RESUME_RTOL = 1e-5
+NONTOKEN = {"batch": 2, "text": 32, "decode": 16, "frames": 128, "more_frames": 32,
+            "train_batch": 1, "pali_train_text": 32, "music_train_frames": 64}
+
+
+def _mean(xs) -> float:
+    return float(sum(xs) / len(xs))
+
+
+def train_path(torch, np, device="cuda", reduced=False, steps=TRAIN["steps"]):
+    """Phase 13 (a) and (b), any miss raises: kanformer-100m trained through
+    ``launch.train.run`` (``reduced`` for a CPU rehearsal), with zero kernel
+    launches, its loss falling by ``LOSS_DROP``; the restart drill; card
+    against CPU; resume against straight; bf16; one warm step profiled; then
+    the trained weights served statically with exact launch counts and the
+    kernel path held to the plain path."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.convert import flatten_with_paths, tree_map
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import step as TS
+
+    cuda = device == "cuda"
+    arch = TRAIN["arch"]
+    cfg = (configs.get_reduced if reduced else configs.get_config)(arch).model
+    B, S, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    flags = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--lr", str(lr),
+             "--device", device, "--log-every", "50"] + (["--reduced"] if reduced else [])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out, runs = {}, {}
+    seen: dict = {}
+    make_batch = T.make_batch
+
+    def recording(model, data_cfg, step, dev):         # the batches a run consumes
+        batch = make_batch(model, data_cfg, step, dev)
+        seen.setdefault(seen["run"], {})[step] = {k: v.cpu() for k, v in batch.items()}
+        return batch
+
+    def train(name, argv):
+        seen["run"] = name
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res, m = counted(torch, f"{arch} {name}", lambda: T.run(flags + argv), {}, device,
+                         tag="train")
+        runs[name] = {"launches": m["launches"], "wall_ms": m["wall_ms"]}
+        if not np.isfinite(res["losses"]).all():
+            raise RuntimeError(f"training {name}: a loss is not finite")
+        return res, (torch.cuda.max_memory_allocated() if cuda else None)
+
+    T.make_batch = recording
+    try:
+        # (a) the reference example's run, then its restart drill
+        ckpt = os.path.join(tmp, "run")
+        res, peak = train("trained", ["--steps", str(steps), "--ckpt-dir", ckpt,
+                                      "--ckpt-every", str(TRAIN["ckpt_every"])])
+        losses = res["losses"]
+        first, last = _mean(losses[:10]), _mean(losses[-10:])
+        warm = sorted(res["step_s"][TRAIN["warm_from"]:])
+        ms = 1e3 * warm[len(warm) // 2]
+        kept = store.all_steps(ckpt)
+        want_kept = sorted({*range(TRAIN["ckpt_every"], steps + 1, TRAIN["ckpt_every"]),
+                            steps})[-3:]          # the writer keeps the newest 3
+        log(f"[train] {arch} {'reduced' if reduced else 'full width'} d={cfg.d_model} "
+            f"layers={cfg.n_repeats}: {steps} steps of batch {B} x {S} at lr {lr}: loss "
+            f"{first:.4f} (first 10) -> {last:.4f} (last 10), drop {first - last:.3f} (min "
+            f"{LOSS_DROP}); {ms:.3f} ms per warm step (median, synchronised by the loss read), "
+            f"{B * S / ms * 1e3:.0f} tokens/s; peak_mem_GB={(peak or 0) / 1e9:.3f}; "
+            f"checkpoints kept {kept}")
+        if first - last < LOSS_DROP:
+            raise RuntimeError(f"training: the loss fell by {first - last:.3f} < {LOSS_DROP}")
+        if kept != want_kept:
+            raise RuntimeError(f"training: checkpoints {kept}, expected {want_kept}")
+        params, state = res["params"], res["opt_state"]
+        drill, _ = train("drill", ["--steps", str(steps + TRAIN["drill"]), "--ckpt-dir", ckpt,
+                                   "--ckpt-every", str(TRAIN["ckpt_every"])])
+        if (drill["start_step"], drill["steps"]) != (steps, steps + TRAIN["drill"]):
+            raise RuntimeError(f"restart drill: resumed at {drill['start_step']}, ended at "
+                               f"{drill['steps']}")
+        log(f"[train] restart drill: resumed at step {drill['start_step']}, "
+            f"{len(drill['losses'])} more steps, loss {drill['losses'][0]:.4f} -> "
+            f"{drill['losses'][-1]:.4f}")
+        out.update({"loss_first10": first, "loss_last10": last, "ms_per_step": ms,
+                    "tokens_per_s": B * S / ms * 1e3, "peak_mem_bytes": peak,
+                    "checkpoints": kept, "drill_losses": drill["losses"]})
+
+        # 10 steps + save + restore + 10 against 20 straight steps
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        n, at = TRAIN["resume_to"], TRAIN["resume_at"]
+        straight, _ = train("straight", ["--steps", str(n), "--ckpt-dir", a_dir,
+                                         "--ckpt-every", str(at)])
+        shutil.copytree(os.path.join(a_dir, f"step_{at:08d}"),
+                        os.path.join(b_dir, f"step_{at:08d}"))
+        resumed, _ = train("resumed", ["--steps", str(n), "--ckpt-dir", b_dir,
+                                       "--ckpt-every", str(at)])
+        if resumed["start_step"] != at or sorted(seen["resumed"]) != list(range(at, n)):
+            raise RuntimeError(f"resume: started at {resumed['start_step']}, batches "
+                               f"{sorted(seen['resumed'])}")
+        stream_equal = all(torch.equal(seen["resumed"][s][k], seen["straight"][s][k])
+                           for s in range(at, n) for k in seen["straight"][s])
+        pa = flatten_with_paths((straight["params"], straight["opt_state"]))
+        pb = flatten_with_paths((resumed["params"], resumed["opt_state"]))
+        gap = max((pa[k].double() - pb[k].double()).abs().max().item() for k in pa)
+        loss_gap = max(abs(x - y) / abs(y) for x, y in zip(resumed["losses"],
+                                                           straight["losses"][at:]))
+        log(f"[train] {at} steps + save + restore + {n - at} against {n} straight: max "
+            f"|state gap| {gap:.3e} = {gap / lr:.3e} lr (tol {RESUME_ATOL_LR:.0e} lr), losses "
+            f"rel {loss_gap:.3e} (tol {RESUME_RTOL:.0e}); the resumed run's batches "
+            f"{'equal' if stream_equal else 'DIFFER FROM'} the straight run's, bit for bit")
+        if not stream_equal or gap > RESUME_ATOL_LR * lr or loss_gap > RESUME_RTOL:
+            raise RuntimeError("resume: the resumed run differs from the straight run")
+        out["resume"] = {"state_gap": gap, "loss_rel_gap": loss_gap, "stream_equal": True}
+
+        # bf16 compute, 20 steps
+        bf, _ = train("bf16", ["--steps", str(TRAIN["bf16_steps"]), "--compute-dtype",
+                               "bfloat16"])
+        b_first, b_last = _mean(bf["losses"][:5]), _mean(bf["losses"][-5:])
+        log(f"[train] bf16 compute, {TRAIN['bf16_steps']} steps: loss {b_first:.4f} (first 5) "
+            f"-> {b_last:.4f} (last 5)")
+        if not b_last < b_first:
+            raise RuntimeError("bf16 training: the loss did not fall")
+        out["bf16"] = {"loss_first5": b_first, "loss_last5": b_last}
+    finally:
+        T.make_batch = make_batch
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # card against this machine's CPU: 3 steps from the same start and batches
+    # (2 rows of 64: the CPU's full-width steps at 8 x 64 are slow)
+    opt = adamw.AdamWConfig(lr=lr, total_steps=steps, warmup_steps=min(20, steps // 10 + 1))
+    data = T.dp.LMDataConfig(cfg.vocab, S, TRAIN["card_cpu_batch"])
+    start = lm.init_params(cfg, seed=1, device="cpu")
+    mets = []
+    for dev in ("cpu", device):                    # the updates are in place: a copy each
+        p = tree_map(lambda t: t.to(dev, copy=True), start)
+        st, fn, m = adamw.init_state(p), TS.make_train_step(cfg, opt), []
+        for i in range(TRAIN["card_cpu_steps"]):
+            p, st, met = fn(p, st, T.make_batch(cfg, data, i, dev))
+            m.append((float(met["loss"]), float(met["grad_norm"])))
+        mets.append(np.array(m))
+        del p, st
+    rel = float(np.abs(mets[1] - mets[0]).max() / np.abs(mets[0]).min())
+    log(f"[train] {TRAIN['card_cpu_steps']} steps on {device} against the CPU: (loss, grad_norm) "
+        f"{mets[1].tolist()} vs {mets[0].tolist()}; max rel gap {rel:.3e} "
+        f"(tol {CARD_CPU_RTOL:.0e})")
+    if rel > CARD_CPU_RTOL:
+        raise RuntimeError("training on the card disagrees with the CPU")
+    out["card_vs_cpu_rel"] = rel
+
+    # (b) the trained weights served through kernels 1 and 2
+    rs = np.random.RandomState(0)
+    lens = rs.randint(32, 129, 8)
+    reqs = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in lens]
+    batch, new = 4, 32
+    max_seq = int(lens.max()) + new + 8
+    eng = Engine(params, cfg, ServeConfig(max_seq=max_seq, max_new_tokens=new), device=device)
+    per_pass = 2 * cfg.n_repeats
+
+    def want():
+        nb = len(eng.last_serve_stats["buckets"])
+        return {"kan_fused_gemm": nb * per_pass, "kan_sparse_gemm": nb * (new - 1) * per_pass}
+
+    outs, m = counted(torch, "trained kanformer static", lambda: eng.serve_requests(
+        reqs, batch_size=batch, seed=0), want, device, tag="train")
+    runs["trained_static"] = {"launches": m["launches"], "wall_ms": m["wall_ms"]}
+    for o in outs:
+        if o.shape != (new,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise RuntimeError(f"trained static: bad output {o}")
+    kern, ref, _, _ = kernel_vs_plain(torch, np, eng.params, cfg, reqs, outs, batch, max_seq,
+                                      device)
+    err = (kern - ref).abs().max().item()
+    if not torch.isfinite(kern).all():
+        raise RuntimeError("trained kanformer: logits not finite")
+    log(f"[train] trained weights served statically: {len(reqs) * new} tokens in "
+        f"{m['wall_ms'] / 1e3:.3f} s ({len(reqs) * new / m['wall_ms'] * 1e3:.1f} tok/s); kernel "
+        f"vs plain path logits (prefill + 4 decode steps) max_abs_err={err:.3e} tol="
+        f"{LOGIT_ATOL:.1e} max|logit|={ref.abs().max().item():.2f}")
+    if err > LOGIT_ATOL:
+        raise RuntimeError("trained kanformer: kernel path logits disagree with the plain path")
+    out["served"] = {"logit_max_abs_err": err, "max_logit": ref.abs().max().item(),
+                     "tok_s": len(reqs) * new / m["wall_ms"] * 1e3}
+
+    # one warm training step under the profiler
+    if cuda:
+        fn = TS.make_train_step(cfg, opt)
+        one = T.make_batch(cfg, T.dp.LMDataConfig(cfg.vocab, S, B), 0, device)
+        out["profile_step"] = profile_call(torch, lambda: fn(params, state, one),
+                                           lambda: f"one warm {arch} training step (batch "
+                                                   f"{B} x {S})")
+    out["runs"] = runs
+    return out
+
+
+def nontoken_path(torch, np, device="cuda", reduced=False):
+    """Phase 13 (c)-(e), any miss raises: paligemma-3b (256 patch embeddings
+    + 32 text tokens, 16 greedy decode steps from position 288) and
+    musicgen-large (128 frames prefilled, 32 decoded as ``(B, 1, d)`` rows
+    and again as ``(B, d)`` rows) at full width and depth (``reduced`` for a
+    CPU rehearsal), random weights from seed 0: prefill against
+    ``lm.forward``, decode teacher-forced against ``lm.forward`` over the
+    whole sequence within ``DENSE_REL`` of max|logit|; then one AdamW step
+    of each (loss, gradient norm and parameters finite; ``ntokens`` the
+    text labels alone), peak memory.  Every run counted: no kernel."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cuda = device == "cuda"
+    get = configs.get_reduced if reduced else configs.get_config
+    B, out, runs = NONTOKEN["batch"], {}, {}
+
+    def run(name, fn):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            res, m = counted(torch, name, fn, {}, device, tag="inputs")
+        runs[name] = {"launches": m["launches"], "wall_ms": m["wall_ms"],
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+        return res
+
+    def train_step(tag, cfg, params, seq):
+        state = adamw.init_state(params)
+        step = TS.make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN["lr"]))
+        batch = T.make_batch(cfg, T.dp.LMDataConfig(cfg.vocab, seq, NONTOKEN["train_batch"]), 0,
+                             device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        (p, st, met), m = counted(torch, f"{tag} AdamW step", lambda: step(params, state, batch),
+                                  {}, device, tag="inputs")
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        runs[f"{tag}_train_step"] = {"launches": m["launches"], "wall_ms": m["wall_ms"],
+                                     "peak_mem_bytes": peak}
+        finite = all(torch.isfinite(t).all().item() for t in flatten_with_paths(p).values())
+        want_tokens = NONTOKEN["train_batch"] * (seq - 1)
+        r = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+             "ntokens": float(met["ntokens"]), "params_finite": finite, "peak_mem_bytes": peak,
+             "state_bytes": tree_bytes(p) * 4}
+        log(f"[inputs] {tag} one AdamW step at full width and depth: loss {r['loss']:.4f}, "
+            f"grad_norm {r['grad_norm']:.4f}, ntokens {r['ntokens']:.0f} (the text labels: "
+            f"{want_tokens}), parameters finite {finite}; {m['wall_ms']:.1f} ms; params + grads "
+            f"+ m + v {r['state_bytes'] / 1e9:.2f} GB; peak_mem_GB={(peak or 0) / 1e9:.3f}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and finite
+                and r["ntokens"] == want_tokens):
+            raise RuntimeError(f"{tag} train step: {r}")
+        del state, st
+        return r
+
+    # (c) paligemma-3b: patch prefix + text, greedy decode
+    cfg = get("paligemma-3b").model
+    params = lm.init_params(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in flatten_with_paths(params).values())
+    rs = np.random.RandomState(5)
+    P, Tt, n = cfg.n_prefix, NONTOKEN["text"], NONTOKEN["decode"]
+    prefix = torch.as_tensor(rs.normal(size=(B, P, cfg.d_model)).astype(np.float32),
+                             device=device)
+    text = torch.as_tensor(rs.randint(0, cfg.vocab, (B, Tt)), device=device)
+    inputs = {"prefix_embeddings": prefix, "tokens": text}
+    log(f"[inputs] paligemma-3b: d={cfg.d_model} layers={cfg.n_layers} heads "
+        f"{cfg.unit[0].attn.n_heads}/{cfg.unit[0].attn.n_kv_heads} d_ff={cfg.unit[0].d_ff} "
+        f"vocab={cfg.vocab} params={n_params / 1e9:.3f}B fp32; {B} x ({P} patches + {Tt} "
+        f"tokens), {n} decode steps")
+
+    def pali():
+        fwd, _ = lm.forward(params, cfg, inputs)
+        pre, caches = lm.prefill(params, cfg, inputs, P + Tt + n)
+        e_pre = rel_err(pre, fwd)
+        del fwd
+        dec, toks = [pre[:, -1]], []
+        for j in range(n):
+            toks.append(dec[-1].argmax(-1)[:, None])
+            lg, caches = lm.decode_step(params, cfg, toks[-1], caches,
+                                        torch.tensor(P + Tt + j, device=device))
+            dec.append(lg)
+        full, _ = lm.forward(params, cfg, {"prefix_embeddings": prefix,
+                                           "tokens": torch.cat([text] + toks, 1)})
+        dec = torch.stack(dec, 1)
+        want = full[:, P + Tt - 1:]
+        return e_pre, rel_err(dec, want), (dec.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+    e_pre, e_dec, agree = run("paligemma decode", pali)
+    log(f"[inputs] paligemma prefill vs lm.forward: {e_pre:.3e} of max|logit|; {n} greedy "
+        f"decode steps from position {P + Tt} teacher-forced vs lm.forward over "
+        f"{P + Tt + n} positions: {e_dec:.3e} (tol {DENSE_REL:.0e}), top-1 agreement {agree:.4f}")
+    if max(e_pre, e_dec) > DENSE_REL:
+        raise RuntimeError("paligemma: decode disagrees with lm.forward")
+    out["paligemma"] = {"params": n_params, "prefill_vs_forward_rel": e_pre,
+                        "decode_vs_forward_rel": e_dec, "top1_agreement": agree,
+                        "train_step": train_step("paligemma", cfg, params,
+                                                 NONTOKEN["pali_train_text"])}
+    del params, prefix, text, inputs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) musicgen-large: frames, decoded as (B, 1, d) rows and as (B, d) rows
+    cfg = get("musicgen-large").model
+    params = lm.init_params(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in flatten_with_paths(params).values())
+    F0, n = NONTOKEN["frames"], NONTOKEN["more_frames"]
+    frames = torch.as_tensor(np.random.RandomState(6).normal(
+        size=(B, F0 + n, cfg.d_model)).astype(np.float32), device=device)
+    log(f"[inputs] musicgen-large: d={cfg.d_model} layers={cfg.n_layers} heads "
+        f"{cfg.unit[0].attn.n_heads} d_ff={cfg.unit[0].d_ff} vocab={cfg.vocab} "
+        f"params={n_params / 1e9:.3f}B fp32; {B} x {F0} frames prefilled, {n} decoded")
+
+    def music():
+        fwd, _ = lm.forward(params, cfg, {"embeddings": frames})
+        rows = []
+        for flat in (False, True):
+            pre, caches = lm.prefill(params, cfg, {"embeddings": frames[:, :F0]}, F0 + n)
+            got = []
+            for j in range(n):
+                row = frames[:, F0 + j] if flat else frames[:, F0 + j:F0 + j + 1]
+                lg, caches = lm.decode_step(params, cfg, row, caches,
+                                            torch.tensor(F0 + j, device=device))
+                got.append(lg)
+            rows.append(torch.stack(got, 1))
+        return (rel_err(pre, fwd[:, :F0]), rel_err(rows[0], fwd[:, F0:]),
+                torch.equal(rows[0], rows[1]))
+
+    e_pre, e_dec, same = run("musicgen decode", music)
+    log(f"[inputs] musicgen prefill vs lm.forward: {e_pre:.3e}; {n} frames decoded vs "
+        f"lm.forward over {F0 + n}: {e_dec:.3e} of max|logit| (tol {DENSE_REL:.0e}); (B, d) rows "
+        f"{'equal' if same else 'DIFFER FROM'} (B, 1, d) rows")
+    if max(e_pre, e_dec) > DENSE_REL or not same:
+        raise RuntimeError("musicgen: decode disagrees with lm.forward or across row shapes")
+    out["musicgen"] = {"params": n_params, "prefill_vs_forward_rel": e_pre,
+                       "decode_vs_forward_rel": e_dec, "row_shapes_equal": same,
+                       "train_step": train_step("musicgen", cfg, params,
+                                                NONTOKEN["music_train_frames"])}
+    del params, frames
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out
 
 
 def main() -> int:
@@ -3514,19 +3925,24 @@ def main() -> int:
     xlstm = xlstm_path(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    trained = train_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nontoken = nontoken_path(torch, np)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
         f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
-        f"{time.perf_counter() - t8:.1f} s")
+        f"{t9 - t8:.1f} s, trainer and non-token inputs {time.perf_counter() - t9:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
             "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
-            "build_s": built}
+            "train_path": trained, "nontoken_path": nontoken, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -3546,7 +3962,10 @@ def main() -> int:
                                                                       ("xlstm", xlstm))
                   for cell in ("static", "static_unpadded")},
                **{f"{tag}_{k}": m["launches"] for tag, r in (("zamba2", zamba), ("xlstm", xlstm))
-                  for k, m in r["runs"].items()}}
+                  for k, m in r["runs"].items()},
+               **{"train_" + k: m["launches"] for k, m in trained["runs"].items()},
+               **{"inputs_" + k.replace(" ", "_"): m["launches"]
+                  for k, m in nontoken["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

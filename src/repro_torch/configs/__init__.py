@@ -3,9 +3,11 @@
 kanformer-100m, the dense models (qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b,
 gemma3-12b), the MoE models (olmoe-1b-7b; deepseek-v2-lite with MLA and a
 dense prologue) and the recurrent ones (zamba2-1.2b, Mamba2 with a shared
-attention block; xlstm-1.3b, mLSTM and sLSTM) are ported; the other
-architectures of ``repro.configs`` (paligemma-3b, musicgen-large) wait for
-their input kinds (ROADMAP queue 1, item 8)."""
+attention block; xlstm-1.3b, mLSTM and sLSTM) and the two with non-token
+inputs (paligemma-3b, patch embeddings before the text; musicgen-large,
+frame embeddings) are ported: every architecture of ``repro.configs``.
+The serving engine takes token prompts only, as the reference's, so the
+last two run through ``models/lm.py`` and the trainer."""
 
 import importlib
 
@@ -19,6 +21,8 @@ ARCHS = {
     "zamba2-1.2b": "zamba2_1_2b",
     "xlstm-1.3b": "xlstm_1_3b",
     "kanformer-100m": "kanformer_100m",
+    "paligemma-3b": "paligemma_3b",
+    "musicgen-large": "musicgen_large",
 }
 
 

@@ -1,15 +1,47 @@
-"""Synthetic data sets, numpy only (counterpart of ``repro/data/pipeline.py``).
+"""Synthetic data sets (counterpart of ``repro/data/pipeline.py``).
 
 The container that builds this repository has no downloads, so MNIST is a
 class-conditional stand-in and the regression set a symbolic target.  Both
 draw from ``np.random.RandomState`` exactly as the reference does, so the
-same arguments give byte-equal arrays.  ``lm_batch`` is not here: it draws
-through ``jax.random`` (ROADMAP queue 1, item 9).
+same arguments give byte-equal arrays.  ``lm_batch``, the trainer's token
+stream, draws through the threefry port (``serve/threefry.py``), which
+gives ``jax.random``'s integers: its tokens equal the reference's.  Every
+batch is a function of ``(seed, step)``, so a restart at step N goes on
+with the same stream.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from repro_torch.serve import threefry
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+
+def lm_batch(cfg: LMDataConfig, step: int, device="cpu") -> dict:
+    """Markov-chain synthetic tokens: each row starts at a uniform token and
+    steps forward by 0-6 modulo the vocabulary -> ``{"tokens", "labels"}``,
+    ``(global_batch, seq_len)`` int32 on ``device``; the labels are the
+    tokens shifted left, -100 last.  Drawn on the host from
+    ``fold_in(PRNGKey(seed), step)``, as the reference's."""
+    key = threefry.fold_in(threefry.prng_key(cfg.seed), step)
+    k1, k2 = threefry.split(key)
+    B, T, V = cfg.global_batch, cfg.seq_len, cfg.vocab
+    start = threefry.randint(k1, (B, 1), 0, V)
+    steps = threefry.randint(k2, (B, T), 0, 7)
+    tokens = ((start + torch.cumsum(steps, dim=1, dtype=torch.int32)) % V).to(torch.int32)
+    labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -100)], dim=1)
+    return {"tokens": tokens.to(device), "labels": labels.to(device)}
 
 
 def mnist_like(

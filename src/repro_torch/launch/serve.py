@@ -2,7 +2,9 @@
 
 ``--arch`` takes the port's registry (``repro_torch.configs``):
 kanformer-100m, qwen1.5-0.5b, qwen2.5-3b, qwen1.5-32b, gemma3-12b,
-olmoe-1b-7b, deepseek-v2-lite, zamba2-1.2b, xlstm-1.3b.  Takes
+olmoe-1b-7b, deepseek-v2-lite, zamba2-1.2b, xlstm-1.3b; paligemma-3b and
+musicgen-large exit with rc=2, since the engine serves token prompts only
+(the reference's CLI dies on them with a ``KeyError``).  Takes
 the flags of ``repro/launch/serve.py``.  ``--engine static`` drains
 length-sorted fixed buckets (``Engine.serve_requests``); ``--engine
 continuous`` runs the slot-recycling loop (``Engine.serve_continuous``,
@@ -31,7 +33,7 @@ import numpy as np
 
 from repro_torch import configs
 from repro_torch.models import lm
-from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.engine import Engine, ServeConfig, token_prompts_only
 
 
 def pick_config(arch: str, full: bool):
@@ -77,6 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusal(args, model) -> str | None:
     """Why these flags cannot be served (rc=2), or None."""
+    if model.input_kind != "tokens":
+        return token_prompts_only(model)
     if args.paged and args.engine != "continuous":
         return "--paged requires --engine continuous"
     if args.spec_k < 0:

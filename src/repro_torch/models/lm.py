@@ -26,9 +26,17 @@ stacked parameters, which the tree keeps but nothing reads (the reference's
 
 :func:`forward` returns the reference's auxiliary losses, the MoE blocks'
 ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac`` summed over layers
-(zeros without MoE blocks).  Inputs other than tokens are not ported yet
-(ROADMAP queue 1, item 8); a config that uses them raises
-``NotImplementedError``.
+(zeros without MoE blocks).  It follows the caller's grad mode, so
+:func:`lm_loss` (next-token cross-entropy plus the weighted MoE losses)
+trains through it; ``prefill``, ``decode_step`` and ``verify_window``
+run under ``torch.no_grad``.
+
+Inputs come in the reference's three kinds (``ModelConfig.input_kind``):
+``{"tokens"}`` (embedded and scaled by sqrt(d)), ``{"embeddings"}``
+(precomputed ``(B, T, d)`` frames taken as they are: musicgen's stubbed
+EnCodec frontend) and ``{"prefix_embeddings", "tokens"}`` (``n_prefix``
+patch embeddings before the scaled text embeddings: paligemma's stubbed
+SigLIP tower).  A bare tensor means ``{"tokens": tensor}``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ class ModelConfig:
     prologue: tuple[BlockCfg, ...] = ()
     epilogue: tuple[BlockCfg, ...] = ()
     shared: tuple[BlockCfg, ...] = ()
-    input_kind: str = "tokens"
+    input_kind: str = "tokens"          # "tokens" | "embeddings" | "mixed"
+    n_prefix: int = 0                   # mixed: image/audio prefix length
     max_seq: int = 8192
     attn_chunk: int = 1024
     logit_softcap: float | None = None
@@ -67,13 +76,15 @@ class ModelConfig:
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 PARTS = ("prologue", "unit", "epilogue")      # a tree's parts in depth order
+# the inputs dict each input kind takes
+INPUT_KEYS = {"tokens": ("tokens",), "embeddings": ("embeddings",),
+              "mixed": ("prefix_embeddings", "tokens")}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: non-token inputs ({cfg.input_kind!r}) are not ported yet "
-            "(ROADMAP queue 1, item 8)")
+    if cfg.input_kind not in INPUT_KEYS:
+        raise ValueError(f"{cfg.name}: input_kind {cfg.input_kind!r} is not one of "
+                         f"{', '.join(INPUT_KEYS)}")
     for blk in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared:
         B.check_supported(blk)
 
@@ -257,6 +268,21 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _layers(tree, n: int) -> list:
+    """Every slice of the stacked layers axis of every leaf, ``n`` trees of
+    views made by one ``unbind`` per leaf.  Its backward is one ``stack``;
+    ``n`` separate selects would each build a zero tensor of the whole
+    stacked leaf for its gradient, ``n`` times the leaf's bytes to fill and
+    add (48 layers of 3.2 GB leaves in musicgen-large)."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    if isinstance(tree, list):
+        per = [_layers(v, n) for v in tree]
+        return [[v[r] for v in per] for r in range(n)]
+    return tree.unbind(0)
+
+
 def _walk(params: dict, cfg: ModelConfig, caches: dict | None = None):
     """``(block params, BlockCfg, block cache or None)`` of every block in
     depth order: the prologue's, the unit's repeat by repeat (views of the
@@ -269,8 +295,8 @@ def _walk(params: dict, cfg: ModelConfig, caches: dict | None = None):
         if not blks:
             continue
         stacked = part == "unit"
-        for r in range(cfg.n_repeats if stacked else 1):
-            ps = _layer(params[part], r) if stacked else params[part]
+        per_layer = _layers(params[part], cfg.n_repeats) if stacked else [params[part]]
+        for r, ps in enumerate(per_layer):
             cs = None if caches is None else (_layer(caches[part], r) if stacked
                                               else caches[part])
             for i, blk in enumerate(blks):
@@ -287,26 +313,71 @@ def _cache_parts(caches: dict):
 
 
 # ---------------------------------------------------------------------------
-# Forward (the whole sequence, no cache).
+# Forward (the whole sequence, no cache) and the training loss.
 # ---------------------------------------------------------------------------
 
 
-@torch.no_grad()
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype) -> torch.Tensor:
+    """The first hidden state ``(B, T, d)`` of an inputs dict (or a bare
+    token tensor): scaled token embeddings, precomputed embeddings as they
+    are, or ``mixed``'s prefix before the scaled text embeddings."""
+    if not isinstance(inputs, dict):
+        inputs = {"tokens": inputs}
+    missing = [k for k in INPUT_KEYS[cfg.input_kind] if k not in inputs]
+    if missing:
+        raise KeyError(f"{cfg.name}: input_kind {cfg.input_kind!r} takes "
+                       f"{INPUT_KEYS[cfg.input_kind]}; missing {missing}")
+    if cfg.input_kind == "embeddings":
+        return inputs["embeddings"].to(dtype)
+    txt = L.embed_lookup(params["embed"], inputs["tokens"], dtype) * math.sqrt(cfg.d_model)
+    if cfg.input_kind == "mixed":
+        return torch.cat([inputs["prefix_embeddings"].to(dtype), txt], dim=1)
+    return txt
+
+
+def forward(params: dict, cfg: ModelConfig, inputs,
             compute_dtype=torch.float32) -> tuple[torch.Tensor, dict]:
-    """``tokens (B, T)`` -> ``(logits (B, T, vocab) fp32, aux)``: the
-    reference's ``lm.forward`` on token inputs (no remat), ``aux`` its
+    """``inputs`` (see the module docstring) -> ``(logits (B, T, vocab)
+    fp32, aux)``: the reference's ``lm.forward`` (no remat), ``aux`` its
     fp32 auxiliary losses summed over the blocks (:data:`AUX_KEYS`; zeros
-    without MoE blocks).  Windowed layers use the sliding flash mask."""
+    without MoE blocks).  Windowed layers use the sliding flash mask.  It
+    records for autograd when grad is on and a parameter requires grad."""
     check_supported(cfg)
-    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    aux = {k: torch.zeros((), device=tokens.device) for k in AUX_KEYS}
+    h = _embed_inputs(params, cfg, inputs, compute_dtype)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    aux = {k: torch.zeros((), device=h.device) for k in AUX_KEYS}
     for p, blk, _ in _walk(params, cfg):
         h, a = B.block_apply(p, blk, h, positions=positions, chunk=cfg.attn_chunk)
         for k, v in a.items():
             aux[k] = aux[k] + v
     return _logits(params, cfg, h), aux
+
+
+def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.float32,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy over ``batch["labels"]`` (aligned with the
+    token positions, -100 masked; a ``mixed`` model's ``n_prefix`` prefix
+    positions are masked too) plus ``aux_weight`` times the MoE balance
+    and z losses -> ``(total, metrics)``: ``loss``, ``ntokens`` (labels >=
+    0), the MoE losses, ``moe_drop_frac`` and ``total_loss``, as the
+    reference's ``lm_loss``."""
+    logits, aux = forward(params, cfg, batch, compute_dtype)
+    labels = batch["labels"].long()
+    if cfg.input_kind == "mixed":
+        pad = labels.new_full((labels.shape[0], cfg.n_prefix), -100)
+        labels = torch.cat([pad, labels], dim=1)
+    mask = (labels >= 0).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp(0, cfg.vocab - 1)[..., None])[..., 0]
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    metrics = {"loss": loss, "ntokens": mask.sum()}
+    total = loss
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        total = total + aux_weight * aux[k]
+        metrics[k] = aux[k]
+    metrics["moe_drop_frac"] = aux["moe_drop_frac"]
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +603,7 @@ def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def prefill(
     params: dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,             # (B, T) int
+    inputs,                           # (B, T) int tokens, or an inputs dict
     max_seq: int,
     compute_dtype=torch.float32,
 ) -> tuple[torch.Tensor, dict]:
@@ -540,10 +611,12 @@ def prefill(
 
     Returns ``(logits (B, T, vocab) fp32, caches)``; each cache row holds the
     prompt's K/V at slots ``0..T-1`` and zeros beyond, or a ring's latest
-    ``window`` positions (``blocks.block_prefill``)."""
-    Bsz, T = tokens.shape
-    dev = tokens.device
-    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    ``window`` positions (``blocks.block_prefill``).  ``T`` counts every
+    input position (a ``mixed`` model's prefix too)."""
+    check_supported(cfg)
+    h = _embed_inputs(params, cfg, inputs, compute_dtype)
+    Bsz, T = h.shape[:2]
+    dev = h.device
     positions = torch.arange(T, device=dev)[None, :]
     caches = init_caches(cfg, Bsz, max_seq, compute_dtype, dev)
     for p, blk, c in _walk(params, cfg, caches):
@@ -558,7 +631,7 @@ def prefill(
 def decode_step(  # kanlint: ignore[KL105]
     params: dict,
     cfg: ModelConfig,
-    tokens: torch.Tensor,             # (B, 1) int
+    tokens: torch.Tensor,             # (B, 1) int, or (B, 1, d) / (B, d) embeddings
     caches: dict,                     # updated in place
     pos: torch.Tensor,                # scalar or (B,) int
     compute_dtype=torch.float32,
@@ -566,9 +639,16 @@ def decode_step(  # kanlint: ignore[KL105]
 ) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole model -> ``(logits (B, vocab), caches)``.
 
+    ``tokens`` are ``(B, 1)`` ids for ``tokens`` and ``mixed`` models (the
+    prefix is prompt only) and embedding rows for ``embeddings`` models.
     With ``table``, ``caches`` holds paged pools (:func:`init_paged_caches`)
     and every layer reads and writes through the block table."""
-    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    if cfg.input_kind == "embeddings":
+        h = tokens.to(compute_dtype)
+        if h.dim() == 2:                   # (B, d) rows
+            h = h[:, None]
+    else:
+        h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
     for p, blk, c in _walk(params, cfg, caches):
         h, _ = B.block_decode_step(p, blk, h, c, pos, table)
     return _logits(params, cfg, h)[:, 0], caches

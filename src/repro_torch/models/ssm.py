@@ -41,6 +41,14 @@ class Mamba2Config:
         return self.d_inner + 2 * self.n_groups * self.d_state
 
 
+def records_grad(*ts: torch.Tensor) -> bool:
+    """True when autograd records an op on ``ts``: grad mode is on and one
+    of them requires grad.  Then the in-place state updates of the serving
+    paths would overwrite what a backward needs, and the out-of-place form
+    (the same products in the same order) runs instead."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over ``(B, T, C)`` with a width-W kernel ``(W, C)``."""
     W, T = w.shape[0], x.shape[1]
@@ -86,8 +94,12 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, chunk: int, return_final: bool = False):
     L = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0).float()
     del seg
     CB = torch.einsum("bcign,bcjgn->bcijg", C_c, B_c)   # (B, nc, Qi, Qj, G)
-    L.view(Bsz, nc, Q, Q, G, rep).mul_(CB[..., None])
-    L.mul_(dt_f[:, :, None, :, :])
+    if records_grad(xh, Bm, Cm, dt, A):   # the product's backward needs this L
+        L = (L.view(Bsz, nc, Q, Q, G, rep) * CB[..., None]).view(Bsz, nc, Q, Q, H)
+        L = L * dt_f[:, :, None, :, :]
+    else:
+        L.view(Bsz, nc, Q, Q, G, rep).mul_(CB[..., None])
+        L.mul_(dt_f[:, :, None, :, :])
     y = torch.einsum("bcijh,bcjhp->bcihp", L, x_c)      # one batched matmul over j
     del L, CB
 

@@ -6,7 +6,8 @@ arXiv:2405.04517, xlstm-1.3b).
   over time that keeps ``[C | n]`` in one ``(B·H, D, D + 1)`` buffer,
   updated in place: three launches per step (scale by the forget gate,
   add the outer product, read ``[C^T q | n·q]``), the stabiliser's two
-  before them.  The chunked form evaluates a masked quadratic inside each
+  before them.  Where autograd records (training), each step makes a new
+  buffer instead.  The chunked form evaluates a masked quadratic inside each
   chunk and updates the state once per chunk.
 * sLSTM: scalar memory with block-diagonal recurrent weights, a loop over
   time.
@@ -21,7 +22,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.ssm import _causal_conv, _gated_rms
+from repro_torch.models.ssm import _causal_conv, _gated_rms, records_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +82,13 @@ def _mlstm_core(q, k, v, i_pre, f_pre):
     qs = steps(q.float() * D ** -0.5)[:, :, None]               # (T, BH, 1, D)
     fs = steps(f_)[..., None, None]                             # (T, BH, 1, 1)
     Cn = torch.zeros((BH, D, D + 1), dtype=torch.float32, device=dev)   # [C | n]
+    track = records_grad(q, k, v, i_pre, f_pre)     # bmm's backward keeps each Cn
     out = []
     for t in range(T):
-        Cn.mul_(fs[t]).baddbmm_(ik[t], v1[t][:, None])
+        if track:
+            Cn = torch.baddbmm(Cn * fs[t], ik[t], v1[t][:, None])
+        else:
+            Cn.mul_(fs[t]).baddbmm_(ik[t], v1[t][:, None])
         out.append(torch.bmm(qs[t], Cn))                        # (BH, 1, D + 1)
     out = torch.stack(out).reshape(T, B, H, D + 1).transpose(0, 1)
     den = torch.maximum(out[..., D].abs(), torch.exp(-m_all))

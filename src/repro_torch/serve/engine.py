@@ -56,7 +56,11 @@ recurrence, in a ragged ``serve_requests`` bucket as in a
 port serves the JAX engine's streams there, not repaired ones.
 Equal-length buckets avoid padding.
 
-Meshes are not ported yet (ROADMAP queue 1, item 9).
+Prompts are tokens.  A model with non-token inputs (paligemma-3b's patch
+prefix, musicgen-large's frames) is refused, as the reference's engine
+cannot serve one either (it prefills ``{"tokens": ...}`` and dies with a
+``KeyError``); such models run through ``lm.prefill`` and
+``lm.decode_step``.  Meshes are not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -114,6 +118,14 @@ class ServeConfig:
     draft_quant: bool = False    # derived drafter: int8 fake-quant weights
 
 
+def token_prompts_only(model_cfg: lm.ModelConfig) -> str:
+    """Why the engine refuses a model with non-token inputs."""
+    return (f"{model_cfg.name}: the engine serves token prompts only, and this model's "
+            f"inputs are {model_cfg.input_kind!r}; the reference's engine prefills "
+            "{'tokens': ...} and dies on it with a KeyError.  Run it through "
+            "lm.forward, lm.prefill and lm.decode_step.")
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -126,6 +138,8 @@ class Engine:
     def __init__(self, params, model_cfg: lm.ModelConfig, serve_cfg: ServeConfig,
                  device="cuda"):
         lm.check_supported(model_cfg)
+        if model_cfg.input_kind != "tokens":
+            raise NotImplementedError(token_prompts_only(model_cfg))
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_ieee_fp32()

@@ -4,7 +4,8 @@ The counterpart of the parts of ``jax.random`` that the reference's
 serving path draws through (``repro/serve/engine.py`` and
 ``repro/serve/speculative.py``): ``PRNGKey``, ``fold_in``, ``split``, 32-bit
 ``random_bits``, float32 ``uniform``, ``gumbel`` (mode ``"low"``) and
-``categorical``.  Given the same key, every function here returns the same
+``categorical``; and ``randint``, which the trainer's synthetic token stream
+(``data/pipeline.py: lm_batch``) draws through.  Given the same key, every function here returns the same
 integers as ``jax.random``; the floats of ``uniform`` are built from those
 integers bit for bit, and ``gumbel`` differs only by the rounding of
 ``torch.log`` against XLA's ``log`` (an ulp or so).
@@ -150,3 +151,26 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"categorical takes float32 logits, got {logits.dtype}")
     g = gumbel(key, (logits.shape[-1],))
     return torch.argmax(g + logits, dim=-1)
+
+
+def randint(key, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, scalar
+    bounds within int32) -> an int32 tensor on the key's device, the same
+    integers.
+
+    As in ``jax.random``: two 32-bit draws from the two keys of
+    ``split(key)``, ``hi`` and ``lo``; ``span = maxval - minval`` (1 when
+    ``maxval <= minval``); ``multiplier = (2^16 mod span)^2 mod span``, its
+    square taken in uint32 (it wraps to 0 for spans above 2^16); then
+    ``minval + ((hi mod span) · multiplier + lo mod span) mod span``, the
+    product and the sum wrapping at 2^32 as the reference's uint32 ops do."""
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError(f"randint takes int32 bounds, got [{minval}, {maxval})")
+    key = torch.as_tensor(key)
+    k1, k2 = split(key).unbind(-2)
+    hi, lo = random_bits_u32(k1, shape), random_bits_u32(k2, shape)
+    span = max(1, maxval - minval)
+    mult = (((1 << 16) % span) ** 2 & MASK) % span
+    offset = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    val = minval + offset % span                   # within int32: minval + span <= maxval
+    return val.to(torch.int32)

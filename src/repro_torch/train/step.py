@@ -1,0 +1,69 @@
+"""The LM training step (counterpart of ``repro/train/step.py``).
+
+``make_train_step`` returns ``(params, opt_state, batch) -> (params,
+opt_state, metrics)``.  The loss is ``lm.lm_loss`` (the KAN FFN on its
+``dense`` path, as the reference trains it: no kernel launches), its
+gradient comes from ``torch.autograd`` with respect to detached copies of
+the leaves (the parameters themselves never require grad, so serving the
+trained tree records nothing), and ``optim/adamw.py`` applies it in place.
+With ``accum_steps > 1`` the batch splits along axis 0 into that many
+microbatches in order; their fp32 gradients are summed and divided by
+``accum_steps``, and the metrics are the mean loss alone, as the
+reference's ``lax.scan`` gives.  ``grad_compression`` (``"bf16"`` or
+``"int8"``) round-trips the gradient through a wire format first.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.convert import flatten_with_paths, tree_map, unflatten_paths
+from repro_torch.dist import compression
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+
+
+def loss_and_grads(params, model_cfg, batch: dict, compute_dtype=torch.float32):
+    """``lm.lm_loss`` and its gradient -> ``(total, metrics, grads)``, every
+    value detached; a leaf the loss does not read (zamba2's unread stacked
+    copy of its shared block) gets a zero gradient, as ``jax.grad`` gives."""
+    flat = {k: v.detach().requires_grad_(True) for k, v in flatten_with_paths(params).items()}
+    with torch.enable_grad():
+        total, metrics = lm.lm_loss(unflatten_paths(flat), model_cfg, batch, compute_dtype)
+        grads = torch.autograd.grad(total, list(flat.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(flat.items(), grads)}
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            unflatten_paths(grads))
+
+
+def make_train_step(
+    model_cfg,
+    opt_cfg: adamw.AdamWConfig,
+    *,
+    compute_dtype=torch.float32,
+    accum_steps: int = 1,
+    grad_compression: str | None = None,   # None | "bf16" | "int8"
+) -> Callable:
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            _, metrics, grads = loss_and_grads(params, model_cfg, batch, compute_dtype)
+        else:
+            rows = next(iter(batch.values())).shape[0] // accum_steps
+            grads, loss = None, 0.0
+            for i in range(accum_steps):
+                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                l, _, g = loss_and_grads(params, model_cfg, mb, compute_dtype)
+                g = tree_map(lambda a: a.to(torch.float32), g)
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                loss = loss + l
+            grads = tree_map(lambda a: a / accum_steps, grads)
+            metrics = {"loss": loss / accum_steps}
+        if grad_compression:
+            grads = compression.compress_tree(grads, grad_compression)
+        params, opt_state, opt_metrics = adamw.apply_updates(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step

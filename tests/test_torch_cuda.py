@@ -22,7 +22,11 @@ through the fused kernel is held within 2^-16 of max|y| of its plain version
 of each Adam moment's max and 1e-2 lr on parameters.  The reduced MoE
 models (olmoe-1b-7b, deepseek-v2-lite) decode on the card within logits
 atol 1e-4 of the CPU, with the CPU's drop counts and engine streams; so do the
-reduced recurrent models (zamba2-1.2b, xlstm-1.3b), their states within 1e-5.
+reduced recurrent models (zamba2-1.2b, xlstm-1.3b), their states within 1e-5,
+and the reduced non-token models (paligemma-3b, musicgen-large).  Three
+``make_train_step`` steps of every registered architecture's reduced config
+match the CPU's: loss and grad_norm rtol 1e-5, parameters within 1e-1 lr
+and 99.9 % of them within 1e-3 lr.
 """
 
 import ctypes
@@ -1363,3 +1367,85 @@ def test_gather_views_at_olmoe_pools_bitwise(cuda_device):
         want = G.gather_views_reference(cache, table, stacked)
         for n in want:
             assert torch.equal(got[n], want[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", configs.list_configs())
+def test_reduced_train_steps_on_card_match_the_cpu(cuda_device, arch):
+    """Three ``make_train_step`` steps of every registered architecture's
+    ``reduced()`` on the card against the CPU, from the same parameters and
+    ``launch.train``'s batches: loss and grad_norm rtol 1e-5, parameters
+    within 1e-1 lr and 99.9 % of them within 1e-3 lr (Adam's per-element
+    step near eps, as tests/test_torch_train.py sets out); no kernel
+    launches (the KAN FFN trains on its ``dense`` path)."""
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.launch import train as T
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import _to_device
+    from repro_torch.train import step as TS
+
+    model = configs.get_reduced(arch).model
+    lr = 2e-3
+    opt = adamw.AdamWConfig(lr=lr, total_steps=10, warmup_steps=2)
+    data = T.dp.LMDataConfig(model.vocab, 16, 4)
+    out = []                                  # the CPU's, then the card's
+    for dev in ("cpu", cuda_device):
+        params = _to_device(lm.init_params(model, seed=0, device="cpu"), dev)
+        state = adamw.init_state(params)
+        step = TS.make_train_step(model, opt)
+        ops.reset_launches()
+        mets = []
+        for i in range(3):
+            params, state, met = step(params, state, T.make_batch(model, data, i, dev))
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        assert not any(ops.LAUNCHES.values())
+        out.append((flatten_with_paths(params), mets))
+    (want, want_mets), (got, got_mets) = out
+    np.testing.assert_allclose(got_mets, want_mets, rtol=1e-5)
+    gap = torch.cat([(g.cpu() - want[k]).abs().reshape(-1) for k, g in got.items()])
+    assert gap.max().item() <= 1e-1 * lr
+    assert (gap <= 1e-3 * lr).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-large"])
+def test_reduced_non_token_decode_on_card_matches_cpu(cuda_device, arch):
+    """paligemma-3b (patch prefix + text) and musicgen-large (frames)
+    ``reduced()``: forward, prefill and 4 decode steps on the card against
+    the CPU, logits atol 1e-4; musicgen's ``(B, d)`` rows as its ``(B, 1,
+    d)`` rows."""
+    from repro_torch.serve.engine import _to_device
+
+    model = configs.get_reduced(arch).model
+    params = lm.init_params(model, seed=0, device="cpu")
+    gpu = _to_device(params, cuda_device)
+    rs = np.random.RandomState(3)
+    B, T, n = 2, 7, 4
+    if model.input_kind == "embeddings":
+        full = {"embeddings": torch.as_tensor(rs.normal(size=(B, T + n, model.d_model)),
+                                              dtype=torch.float32)}
+        key = "embeddings"
+    else:
+        full = {"prefix_embeddings": torch.as_tensor(
+                    rs.normal(size=(B, model.n_prefix, model.d_model)), dtype=torch.float32),
+                "tokens": torch.as_tensor(rs.randint(0, model.vocab, (B, T + n)))}
+        key = "tokens"
+    first = {k: v[:, :T] if k == key else v for k, v in full.items()}
+    on = lambda d: {k: v.to(cuda_device) for k, v in d.items()}
+    got, _ = lm.forward(gpu, model, on(full))
+    want, _ = lm.forward(params, model, full)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    got, gc = lm.prefill(gpu, model, on(first), 32)
+    want, wc = lm.prefill(params, model, first, 32)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    start = T + model.n_prefix
+    for j in range(n):
+        row = full[key][:, T + j:T + j + 1]
+        pos = torch.tensor(start + j)
+        got, gc = lm.decode_step(gpu, model, row.to(cuda_device), gc, pos.to(cuda_device))
+        want, wc = lm.decode_step(params, model, row, wc, pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        if key == "embeddings":
+            flat, _ = lm.decode_step(gpu, model, row[:, 0].to(cuda_device), gc,
+                                     pos.to(cuda_device))
+            assert torch.equal(flat, got)

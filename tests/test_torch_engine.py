@@ -92,8 +92,9 @@ def test_serve_requests_streams_equal_reference(engines):
 
 def test_engine_rejects_what_it_cannot_serve(engines):
     _, teng, vocab = engines
-    # a model the port does not run yet (ROADMAP queue 1, item 8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # a model with non-token inputs: the engine serves token prompts only, as
+    # the reference's (which dies on such a model with a KeyError)
+    with pytest.raises(NotImplementedError, match="serves token prompts only"):
         Engine(teng.params, dataclasses.replace(teng.model, input_kind="embeddings"),
                ServeConfig(temperature=0.7), device="cpu")
     prompts, _ = _padded(5, [38], vocab)

@@ -180,10 +180,11 @@ def test_decode_steps_match_reference(models, ragged):
 
 
 def test_unported_variants_raise():
-    """What the port still refuses: inputs other than tokens (ROADMAP queue
-    1, item 8) and block kinds the reference does not have.  Every block
-    kind is ported (the recurrent ``mamba2``, ``mlstm`` and ``slstm`` too),
-    and so are shared blocks, windows, int8 KV caches, q/k norm and MLA."""
+    """What the port still refuses: block kinds and input kinds the
+    reference does not have.  Every block kind is ported (the recurrent
+    ``mamba2``, ``mlstm`` and ``slstm`` too), and so are shared blocks,
+    windows, int8 KV caches, q/k norm, MLA and the non-token inputs
+    (``embeddings``, ``mixed``)."""
     from repro_torch.models.attention import AttnConfig
     from repro_torch.models.blocks import BlockCfg
     from repro_torch.models.blocks import check_supported as blk_check
@@ -209,9 +210,10 @@ def test_unported_variants_raise():
                         n_repeats=1, prologue=(BlockCfg("attn_moe", attn=attn, moe=moe),))
     check_supported(model)
     check_supported(dataclasses.replace(model, shared=(BlockCfg("attn_mlp", attn=attn, d_ff=8),)))
-    for bad in ({"input_kind": "embeddings"}, {"input_kind": "mixed"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            check_supported(dataclasses.replace(model, **bad))
+    for kind in ("embeddings", "mixed"):            # ported: the non-token inputs
+        check_supported(dataclasses.replace(model, input_kind=kind))
+    with pytest.raises(ValueError, match="input_kind 'audio' is not one of"):
+        check_supported(dataclasses.replace(model, input_kind="audio"))
     with pytest.raises(NotImplementedError, match="not a block kind"):
         check_supported(dataclasses.replace(
             model, shared=(BlockCfg("conv_lstm", attn=attn, d_ff=8),)))
