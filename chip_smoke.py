@@ -218,7 +218,27 @@ Phases; any failed check raises and the script exits non-zero:
    as ``(B, d)`` rows (equal), against ``lm.forward`` within ``DENSE_REL``;
    (e) one AdamW step of each at full width and depth: loss, gradient norm
    and parameters finite, ``ntokens`` the text labels alone, peak memory.
-14. A JSON line with every ported kernel's numbers, the card's line, and as
+14. GPipe pipeline training (``train/pipeline.py``; see the note above
+   ``PIPE``), one card running every stage.  (a) Full-width kanformer-100m
+   (8 repeats), phase 13's batch of 8 x 64, ``S`` = 2 and 4 stages at ``M``
+   = 4 microbatches and ``S`` = 2 at ``M`` = 8: the pipelined loss within
+   ``PIPE_LOSS_RTOL`` of ``lm.lm_loss`` on the same weights and batch, and
+   each gradient leaf, mapped back from the staged layout, within
+   ``PIPE_GRAD_REL`` of its max|g| of ``train.step.loss_and_grads`` summed
+   over the same microbatches (its gap to the whole batch's recorded); each
+   schedule again at fp64 compute, each leaf within ``PIPE_GRAD_REL`` of
+   its max|g| of the whole batch's ``loss_and_grads`` at fp64; a bf16 run
+   finite.  (b) qwen1.5-0.5b at full width and depth (24 repeats), ``S = M
+   = 4``, the same checks.  (c) olmoe-1b-7b at full width, 4 of its 16
+   repeats, ``S`` = 2, ``M`` = 4: the loss within ``PIPE_LOSS_RTOL`` of
+   ``lm.forward``'s token-weighted NLL over each microbatch alone (the
+   reference drops the auxiliary losses and routes each microbatch alone),
+   the gradients finite, the drop fractions of the whole batch and of the
+   microbatches.  Every run counted: no kernel.  Each run's warm ms beside
+   the plain ``loss_and_grads``', kernels per step, peak memory, the bubble
+   ``(S-1)/(M+S-1)``, and ``costs.model_flops`` as a share of the fp32
+   peak (phase 13's warm step prints its share too).
+15. A JSON line with every ported kernel's numbers, the card's line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
@@ -3519,7 +3539,7 @@ def train_path(torch, np, device="cuda", reduced=False, steps=TRAIN["steps"]):
     from repro_torch.checkpoint import store
     from repro_torch.convert import flatten_with_paths, tree_map
     from repro_torch.launch import train as T
-    from repro_torch.models import lm
+    from repro_torch.models import costs, lm
     from repro_torch.optim import adamw
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.train import step as TS
@@ -3564,12 +3584,15 @@ def train_path(torch, np, device="cuda", reduced=False, steps=TRAIN["steps"]):
         kept = store.all_steps(ckpt)
         want_kept = sorted({*range(TRAIN["ckpt_every"], steps + 1, TRAIN["ckpt_every"]),
                             steps})[-3:]          # the writer keeps the newest 3
+        flops = costs.model_flops(cfg, B * S, "train")
+        share = flops / (ms / 1e3) / PEAK_FLOPS["float32"] if cuda else None
         log(f"[train] {arch} {'reduced' if reduced else 'full width'} d={cfg.d_model} "
             f"layers={cfg.n_repeats}: {steps} steps of batch {B} x {S} at lr {lr}: loss "
             f"{first:.4f} (first 10) -> {last:.4f} (last 10), drop {first - last:.3f} (min "
             f"{LOSS_DROP}); {ms:.3f} ms per warm step (median, synchronised by the loss read), "
             f"{B * S / ms * 1e3:.0f} tokens/s; peak_mem_GB={(peak or 0) / 1e9:.3f}; "
-            f"checkpoints kept {kept}")
+            f"checkpoints kept {kept}; model FLOPs {flops / 1e9:.1f} G per step "
+            f"(costs.model_flops) = {share or 0:.4f} of the fp32 peak at the warm step")
         if first - last < LOSS_DROP:
             raise RuntimeError(f"training: the loss fell by {first - last:.3f} < {LOSS_DROP}")
         if kept != want_kept:
@@ -3585,6 +3608,7 @@ def train_path(torch, np, device="cuda", reduced=False, steps=TRAIN["steps"]):
             f"{drill['losses'][-1]:.4f}")
         out.update({"loss_first10": first, "loss_last10": last, "ms_per_step": ms,
                     "tokens_per_s": B * S / ms * 1e3, "peak_mem_bytes": peak,
+                    "model_flops": flops, "fp32_peak_share": share,
                     "checkpoints": kept, "drill_losses": drill["losses"]})
 
         # 10 steps + save + restore + 10 against 20 straight steps
@@ -3843,6 +3867,273 @@ def nontoken_path(torch, np, device="cuda", reduced=False):
     return out
 
 
+# Phase 14: GPipe pipeline training (``train/pipeline.py``) on one card, where
+# the reference's stages over the ``pod`` axis are a microbatch schedule.
+# kanformer-100m and qwen1.5-0.5b at full width and depth, olmoe-1b-7b at
+# full width and 4 of its 16 repeats (the script's time), phase 13's batch;
+# like training, no kernel on the path.  At full width in fp32, kanformer's
+# ``lm_loss`` gradients over the whole batch and summed over microbatches
+# differ by ~1.6e-3 of max|g| in two KAN leaves.  So the fp32 pipeline is
+# held to ``lm_loss`` over the same microbatches, and each schedule is run
+# again at fp64 compute (the blocks; the logits stay fp32, as the
+# reference's) and held to the whole batch's ``loss_and_grads`` at fp64:
+# a defect that depends on the rows per call would show there too.
+PIPE = {"batch": 8, "seq": 64, "seed": 0, "warm": 3,
+        "models": (("kanformer-100m", None, ((2, 4), (4, 4), (2, 8))),
+                   ("qwen1.5-0.5b", None, ((4, 4),)),
+                   ("olmoe-1b-7b", 4, ((2, 4),)))}
+# the tolerances of tests/test_torch_train.py (LOSS_RTOL, GRAD_REL): fp32
+# sums over microbatches in another order than one batch's
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_REL = 1e-4
+
+
+def max_leaf_rel(got: dict, want: dict) -> float:
+    """The largest ``max|got - want| / max|want|`` over the leaves."""
+    return max(float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for k, w in want.items())
+
+
+def gap_columns(got: dict, want: dict, rel: float) -> dict:
+    """Per leaf whose ``max|got - want|`` passes ``rel`` of its max|want|:
+    the (leading index, last-axis index) pairs where an entry passes
+    ``rel / 10`` of it (their count, the first four): a jump in one output
+    column of one repeat, or a spread."""
+    out = {}
+    for k, w in want.items():
+        e = (got[k] - w).abs() / w.abs().max().clamp_min(1e-30)
+        if float(e.max()) > rel:
+            idx = (e > rel / 10).nonzero()
+            pairs = sorted({(int(i[0]), int(i[-1])) for i in idx.tolist()})
+            out[k] = {"max": float(e.max()), "pairs": len(pairs), "first": pairs[:4]}
+    return out
+
+
+def kernels_per_call(torch, fn) -> dict:
+    """``fn`` once under ``torch.profiler`` with device activity only (the
+    host's op records cost ~0.5 ms per kernel): kernels launched and the
+    union of their intervals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for s, e in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return {"kernels": len(spans) or None, "busy_ms": busy / 1e3 if spans else None}
+
+
+def pipeline_path(torch, np, device="cuda", reduced=False):
+    """Phase 14, any miss raises: per model of ``PIPE``, the plain
+    ``loss_and_grads`` and the pipelined loss and gradient at each ``(S,
+    M)``, every run counted (no kernel); kanformer and qwen: the pipelined
+    loss within ``PIPE_LOSS_RTOL`` of ``lm_loss`` and each gradient leaf,
+    mapped back from the staged layout, within ``PIPE_GRAD_REL`` of its
+    max|g| of ``lm_loss`` over the same microbatches, at fp64 compute
+    within ``PIPE_GRAD_REL`` of the whole batch's ``loss_and_grads`` at
+    fp64, and a bf16 run finite; olmoe: the loss within ``PIPE_LOSS_RTOL``
+    of ``lm.forward``'s token-weighted NLL over each microbatch alone, the
+    gradients finite, the drop fractions of the whole batch and of the
+    microbatches.  Recorded per run: warm ms (median of ``PIPE["warm"]``),
+    kernels per step, peak memory, the bubble ``(S-1)/(M+S-1)``, model FLOPs
+    (``costs.model_flops``) and their share of the fp32 peak.  ``reduced``:
+    a CPU rehearsal at the reduced widths, every model at 4 repeats."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.convert import flatten_with_paths, tree_map
+    from repro_torch.launch import train as T
+    from repro_torch.models import costs, lm
+    from repro_torch.train import pipeline as PP
+    from repro_torch.train import step as TS
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    Bt, St = PIPE["batch"], PIPE["seq"]
+    out, runs = {}, {}
+
+    def warm_ms(fn):
+        times = []
+        for _ in range(PIPE["warm"]):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    def measured(tag, name, fn, flops):
+        """The counted run (peak memory over it), then warm runs and one
+        under the profiler."""
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res, m = counted(torch, f"{tag} {name}", fn, {}, device, tag="pipe")
+        runs[f"{tag}_{name}"] = m
+        rec = {"launches": m["launches"], "cold_ms": m["wall_ms"],
+               "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+               "ms": warm_ms(fn) if cuda else None}
+        rec.update(kernels_per_call(torch, fn) if cuda else {"kernels": None, "busy_ms": None})
+        rec["flops"] = flops
+        rec["fp32_peak_share"] = (flops / (rec["ms"] / 1e3) / PEAK_FLOPS["float32"]
+                                  if rec["ms"] else None)
+        return res, rec
+
+    for arch, repeats, schedules in PIPE["models"]:
+        cfg = (configs.get_reduced if reduced else configs.get_config)(arch).model
+        if reduced:
+            repeats = 4
+        if repeats:
+            cfg = dataclasses.replace(cfg, n_repeats=repeats)
+        moe = arch == "olmoe-1b-7b"
+        params = lm.init_params(cfg, seed=PIPE["seed"], device=device)
+        batch = T.make_batch(cfg, T.dp.LMDataConfig(cfg.vocab, St, Bt), 0, device)
+        flops = costs.model_flops(cfg, Bt * St, "train")
+        tag = arch.split("-")[0]
+        res = {"n_repeats": cfg.n_repeats, "params": costs.n_params(cfg), "runs": {}}
+        (plain_loss, plain_met, plain_g), rec = measured(
+            tag, "plain", lambda: TS.loss_and_grads(params, cfg, batch), flops)
+        res["plain"] = rec
+        want, split = flatten_with_paths(plain_g), {}
+
+        def split_grads(M):
+            """``loss_and_grads`` of each microbatch alone, weighted by its
+            share of the labels and summed: the pipeline's gradient,
+            computed by ``lm_loss`` over the same rows at a time."""
+            if M not in split:
+                total = float((batch["labels"] >= 0).sum())
+                acc = {}
+                for i in range(M):
+                    mb = {k: v.chunk(M)[i] for k, v in batch.items()}
+                    _, met, g = TS.loss_and_grads(params, cfg, mb)
+                    w = float(met["ntokens"]) / total
+                    for k, v in flatten_with_paths(g).items():
+                        acc[k] = acc[k] + v * w if k in acc else v * w
+                split[M] = acc
+            return split[M]
+
+        if moe:                  # lm.forward on each microbatch alone, and the whole batch
+            with torch.no_grad(), DropMeter() as whole:
+                lm.forward(params, cfg, batch["tokens"])
+            res["moe_drop_frac_batch"] = whole.summary()["moe_drop_frac"]
+        for S, M in schedules:
+            fn = PP.make_pp_loss(cfg, S, M)
+            staged = PP.stage_params(params, S)
+            name = f"S{S}_M{M}"
+            (loss, _, g), rec = measured(tag, name, lambda: TS.value_and_grads(
+                lambda p: (fn(p, batch), {}), staged), flops)
+            got = flatten_with_paths(PP.unstage_params(g))
+            finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+            rec.update(loss=float(loss), bubble=(S - 1) / (M + S - 1), grads_finite=finite,
+                       kernels_vs_plain=(rec["kernels"] / res["plain"]["kernels"]
+                                         if rec["kernels"] else None))
+            if moe:
+                nll, count = 0.0, 0.0
+                with torch.no_grad(), DropMeter() as micro:
+                    for tok, lbl in zip(batch["tokens"].chunk(M), batch["labels"].chunk(M)):
+                        logits, _ = lm.forward(params, cfg, tok)
+                        mask = (lbl >= 0).float()
+                        logp = torch.log_softmax(logits, -1)
+                        per = -logp.gather(-1, lbl.long().clamp(0, cfg.vocab - 1)[..., None])
+                        nll += float((per[..., 0] * mask).sum())
+                        count += float(mask.sum())
+                want_loss = nll / count
+                rec.update(moe_drop_frac_microbatches=micro.summary()["moe_drop_frac"],
+                           lm_loss_nll=float(plain_met["loss"]))
+                grad_err = None
+            else:
+                want_loss = float(plain_loss)
+                grad_err = max_leaf_rel(got, split_grads(M))
+                rec.update(grad_rel_whole_batch=max_leaf_rel(got, want),
+                           split_vs_whole_batch=max_leaf_rel(split_grads(M), want))
+            rec.update(want_loss=want_loss, loss_rel=abs(float(loss) - want_loss) / abs(want_loss),
+                       grad_rel=grad_err)
+            log(f"[pipe] {arch} {cfg.n_repeats} repeats, S={S} M={M} (bubble "
+                f"{rec['bubble']:.3f}): loss {float(loss):.6f} vs "
+                f"{'per-microbatch lm.forward NLL' if moe else 'lm_loss'} {want_loss:.6f}, rel "
+                f"{rec['loss_rel']:.3e} (tol {PIPE_LOSS_RTOL:.0e}); grads "
+                f"{'finite' if finite else 'NOT FINITE'}"
+                + (f", max leaf err / max|g| {grad_err:.3e} (tol {PIPE_GRAD_REL:.0e}) against "
+                   f"lm_loss over the same microbatches; against lm_loss over the whole batch "
+                   f"{rec['grad_rel_whole_batch']:.3e}, where lm_loss's own microbatch split "
+                   f"gives {rec['split_vs_whole_batch']:.3e}"
+                   if grad_err is not None else
+                   f"; drop frac microbatches {rec['moe_drop_frac_microbatches']:.4f}, whole "
+                   f"batch {res['moe_drop_frac_batch']:.4f}, lm_loss NLL "
+                   f"{rec['lm_loss_nll']:.6f}"))
+            if (rec["loss_rel"] > PIPE_LOSS_RTOL or not finite
+                    or (grad_err is not None and grad_err > PIPE_GRAD_REL)):
+                raise RuntimeError(f"pipeline {arch} S={S} M={M} disagrees with its reference")
+            res["runs"][name] = rec
+            del g, got, staged
+        if not moe:              # bf16 compute at the first schedule
+            S, M = schedules[0]
+            fn = PP.make_pp_loss(cfg, S, M, compute_dtype=torch.bfloat16)
+            staged = PP.stage_params(params, S)
+            (loss, _, g), m = counted(torch, f"{tag} bf16 S={S} M={M}", lambda: TS.value_and_grads(
+                lambda p: (fn(p, batch), {}), staged), {}, device, tag="pipe")
+            runs[f"{tag}_bf16"] = m
+            finite = bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(v).all()) for v in flatten_with_paths(g).values())
+            log(f"[pipe] {arch} bf16 S={S} M={M}: loss {float(loss):.4f} (fp32 "
+                f"{res['runs'][f'S{S}_M{M}']['loss']:.4f}), loss and grads "
+                f"{'finite' if finite else 'NOT FINITE'}")
+            if not finite:
+                raise RuntimeError(f"pipeline {arch} bf16: loss or gradients not finite")
+            res["bf16"] = {"loss": float(loss), "finite": finite}
+            del g, staged
+            # the whole batch at fp64 compute, against each schedule at fp64
+            p64 = tree_map(lambda t: t.to(torch.float64) if t.is_floating_point() else t,
+                           params)
+            (_, _, g64), m = counted(torch, f"{tag} fp64 plain", lambda: TS.loss_and_grads(
+                p64, cfg, batch, torch.float64), {}, device, tag="pipe")
+            runs[f"{tag}_fp64_plain"] = m
+            want64 = flatten_with_paths(g64)
+            res["fp64"] = {"plain_fp32_vs_fp64": max_leaf_rel(want, want64),
+                           "plain_fp32_gaps": gap_columns(want, want64, PIPE_GRAD_REL)}
+            log(f"[pipe] {arch} the whole batch at fp32 against fp64: leaves past "
+                f"{PIPE_GRAD_REL:.0e} of max|g| and their (repeat, column) pairs past a tenth "
+                f"of it: {res['fp64']['plain_fp32_gaps']}")
+            for S, M in schedules:
+                fn = PP.make_pp_loss(cfg, S, M, compute_dtype=torch.float64)
+                staged = PP.stage_params(p64, S)
+                (_, _, g), m = counted(torch, f"{tag} fp64 S={S} M={M}",
+                                       lambda: TS.value_and_grads(
+                                           lambda p: (fn(p, batch), {}), staged),
+                                       {}, device, tag="pipe")
+                runs[f"{tag}_fp64_S{S}_M{M}"] = m
+                err = max_leaf_rel(flatten_with_paths(PP.unstage_params(g)), want64)
+                res["fp64"][f"S{S}_M{M}"] = {
+                    "grad_rel": err, "split_fp32_vs_fp64": max_leaf_rel(split_grads(M), want64)}
+                log(f"[pipe] {arch} fp64 S={S} M={M}: max leaf err / max|g| {err:.3e} (tol "
+                    f"{PIPE_GRAD_REL:.0e}) against the whole batch's loss_and_grads at fp64; "
+                    f"at fp32, against that fp64 gradient: the whole batch "
+                    f"{res['fp64']['plain_fp32_vs_fp64']:.3e}, lm_loss over {M} microbatches "
+                    f"{res['fp64'][f'S{S}_M{M}']['split_fp32_vs_fp64']:.3e}")
+                if err > PIPE_GRAD_REL:
+                    raise RuntimeError(f"pipeline {arch} fp64 S={S} M={M} disagrees with the "
+                                       "whole batch's gradient")
+                del g, staged
+            del p64, g64, want64
+        for name, rec in [("plain", res["plain"]), *res["runs"].items()] if cuda else ():
+            log(f"[pipe] {arch} {name}: {rec['ms'] or 0:.1f} ms warm (cold "
+                f"{rec['cold_ms']:.1f}), {rec['kernels']} kernels, device busy "
+                f"{rec['busy_ms'] or 0:.1f} ms, peak_mem_GB={(rec['peak_mem_bytes'] or 0) / 1e9:.3f}, "
+                f"model FLOPs {rec['flops'] / 1e9:.1f} G = "
+                f"{rec['fp32_peak_share'] or 0:.4f} of the fp32 peak")
+        out[arch] = res
+        del params, plain_g, want, split, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3930,19 +4221,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nontoken = nontoken_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    pipe = pipeline_path(torch, np)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
         f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
-        f"{t9 - t8:.1f} s, trainer and non-token inputs {time.perf_counter() - t9:.1f} s")
+        f"{t9 - t8:.1f} s, trainer and non-token inputs {t10 - t9:.1f} s, pipeline "
+        f"{time.perf_counter() - t10:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
             "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
-            "train_path": trained, "nontoken_path": nontoken, "build_s": built}
+            "train_path": trained, "nontoken_path": nontoken, "pipeline_path": pipe,
+            "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -3965,7 +4262,8 @@ def main() -> int:
                   for k, m in r["runs"].items()},
                **{"train_" + k: m["launches"] for k, m in trained["runs"].items()},
                **{"inputs_" + k.replace(" ", "_"): m["launches"]
-                  for k, m in nontoken["runs"].items()}}
+                  for k, m in nontoken["runs"].items()},
+               **{"pipeline_" + k: m["launches"] for k, m in pipe["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

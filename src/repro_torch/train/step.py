@@ -25,18 +25,26 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw
 
 
-def loss_and_grads(params, model_cfg, batch: dict, compute_dtype=torch.float32):
-    """``lm.lm_loss`` and its gradient -> ``(total, metrics, grads)``, every
-    value detached; a leaf the loss does not read (zamba2's unread stacked
-    copy of its shared block) gets a zero gradient, as ``jax.grad`` gives."""
+def value_and_grads(fn, params):
+    """``fn(params) -> (value, aux)`` and the gradient of ``value`` with
+    respect to detached copies of every leaf of ``params`` -> ``(value,
+    aux, grads)``, every tensor detached; a leaf ``fn`` does not read (zamba2's
+    unread stacked copy of its shared block) gets a zero gradient, as
+    ``jax.grad`` gives."""
     flat = {k: v.detach().requires_grad_(True) for k, v in flatten_with_paths(params).items()}
     with torch.enable_grad():
-        total, metrics = lm.lm_loss(unflatten_paths(flat), model_cfg, batch, compute_dtype)
-        grads = torch.autograd.grad(total, list(flat.values()), allow_unused=True)
+        value, aux = fn(unflatten_paths(flat))
+        grads = torch.autograd.grad(value, list(flat.values()), allow_unused=True)
     grads = {k: torch.zeros_like(v) if g is None else g
              for (k, v), g in zip(flat.items(), grads)}
-    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
-            unflatten_paths(grads))
+    return value.detach(), tree_map(torch.Tensor.detach, aux), unflatten_paths(grads)
+
+
+def loss_and_grads(params, model_cfg, batch: dict, compute_dtype=torch.float32):
+    """``lm.lm_loss`` and its gradient -> ``(total, metrics, grads)``
+    (:func:`value_and_grads`)."""
+    return value_and_grads(
+        lambda p: lm.lm_loss(p, model_cfg, batch, compute_dtype), params)
 
 
 def make_train_step(

@@ -26,7 +26,11 @@ reduced recurrent models (zamba2-1.2b, xlstm-1.3b), their states within 1e-5,
 and the reduced non-token models (paligemma-3b, musicgen-large).  Three
 ``make_train_step`` steps of every registered architecture's reduced config
 match the CPU's: loss and grad_norm rtol 1e-5, parameters within 1e-1 lr
-and 99.9 % of them within 1e-3 lr.
+and 99.9 % of them within 1e-3 lr.  The reduced kanformer's pipelined
+loss and gradients (``train/pipeline.py``) match the CPU's (loss rtol
+1e-5, each leaf within 1e-4 of its max|g|), a pipelined step of each model
+the pipeline takes launches no kernel, and naming the card for each stage
+gives the default placement's result bit for bit.
 """
 
 import ctypes
@@ -1449,3 +1453,71 @@ def test_reduced_non_token_decode_on_card_matches_cpu(cuda_device, arch):
             flat, _ = lm.decode_step(gpu, model, row[:, 0].to(cuda_device), gc,
                                      pos.to(cuda_device))
             assert torch.equal(flat, got)
+
+
+def _pipelined(model, params, batch, S, M, devices=None):
+    """The pipelined loss and its staged gradient, and the kernel launches."""
+    from repro_torch.train import pipeline as PP
+    from repro_torch.train import step as TS
+
+    fn = PP.make_pp_loss(model, S, M, devices=devices)
+    ops.reset_launches()
+    loss, _, grads = TS.value_and_grads(lambda p: (fn(p, batch), {}), PP.stage_params(params, S))
+    return loss, grads, dict(ops.LAUNCHES)
+
+
+def _pipeline_case(model, dev):
+    from repro_torch.launch import train as T
+    from repro_torch.serve.engine import _to_device
+
+    params = lm.init_params(model, seed=0, device="cpu")
+    batch = T.make_batch(model, T.dp.LMDataConfig(model.vocab, 16, 8), 0, "cpu")
+    return _to_device(params, dev), {k: v.to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M", [(2, 4), (1, 2), (2, 8)])
+def test_reduced_pipeline_on_card_matches_cpu(cuda_device, S, M):
+    """The reduced kanformer's pipelined loss and gradients on the card
+    against the CPU: loss rtol 1e-5, each gradient leaf within 1e-4 of its
+    max|g| (tests/test_torch_train.py's tolerances)."""
+    from repro_torch.convert import flatten_with_paths
+
+    model = configs.get_reduced("kanformer-100m").model
+    want_loss, want, _ = _pipelined(model, *_pipeline_case(model, "cpu"), S, M)
+    loss, got, _ = _pipelined(model, *_pipeline_case(model, cuda_device), S, M)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want, got = flatten_with_paths(want), flatten_with_paths(got)
+    for k, w in want.items():
+        assert (got[k].cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-9, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["kanformer-100m", "qwen1.5-0.5b", "olmoe-1b-7b",
+                                  "paligemma-3b"])
+def test_reduced_pipeline_on_card_launches_no_kernel(cuda_device, arch):
+    """The reference trains through its plain blocks (the KAN FFN on its
+    ``dense`` path): a pipelined step launches none of the six kernels."""
+    from repro_torch.convert import flatten_with_paths
+
+    model = configs.get_reduced(arch).model
+    loss, grads, launches = _pipelined(model, *_pipeline_case(model, cuda_device), 2, 4)
+    assert not any(launches.values()), launches
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in flatten_with_paths(grads).values())
+
+
+@pytest.mark.cuda
+def test_pipeline_devices_one_card_per_stage_equals_the_default(cuda_device):
+    """``devices``: a list naming the card for each stage runs the same ops
+    as the default placement, so the loss and gradients are bit-equal."""
+    from repro_torch.convert import flatten_with_paths
+
+    model = configs.get_reduced("kanformer-100m").model
+    params, batch = _pipeline_case(model, cuda_device)
+    want_loss, want, _ = _pipelined(model, params, batch, 2, 4)
+    loss, got, _ = _pipelined(model, params, batch, 2, 4, devices=[cuda_device] * 2)
+    assert torch.equal(loss, want_loss)
+    got = flatten_with_paths(got)
+    assert all(torch.equal(got[k], w) for k, w in flatten_with_paths(want).items())
+

@@ -86,6 +86,14 @@ def test_sampling_slice_modules_import_neither_jax_nor_repro(module):
     assert roots <= {"__future__", "dataclasses", "numpy", "torch", "repro_torch"}
 
 
+# the modules the GPipe and cost-model slice added: torch and the port only
+@pytest.mark.parametrize("module", ["train/pipeline.py", "models/costs.py"])
+def test_pipeline_and_costs_modules_import_neither_jax_nor_repro(module):
+    roots = _imported_roots(PORT / module)
+    assert not roots & set(FORBIDDEN)
+    assert roots <= {"__future__", "math", "typing", "torch", "repro_torch"}
+
+
 def test_chip_smoke_sampling_phase_rehearses_on_the_cpu(monkeypatch):
     """Phase 6c's checks at the reduced width on the kernels' plain versions
     (every launch count 0): the threefry answers, seven sampled runs, a
