@@ -239,7 +239,20 @@ Phases; any failed check raises and the script exits non-zero:
    ``(S-1)/(M+S-1)``, and ``costs.model_flops`` as a share of the fp32
    peak (phase 13's warm step prints its share too).
 15. A JSON line with every ported kernel's numbers, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   the last line ``{"ok": true, "device": {...}}``, printed after phase 16.
+16. The port's kanlint on the card, where there is no JAX
+   (``repro_torch.analysis``): ``python -m repro_torch.analysis --check
+   src/repro_torch`` in a subprocess (the static rules, the registry half
+   and the card half of KL2xx) must exit 0 with 0 new findings; then the
+   card half again in this process: every registry plan equal to its
+   library's ``<library>_plan`` export on every problem of the suite
+   (PERF.md section 6's shapes and each kernel's admitted extremes), every
+   plan within the card's shared-memory, grid and thread budgets, every
+   instantiation's registers x threads within a block's and its spills
+   within its own record (``kernels/spills.py``; ``ptxas -v``, the log kept
+   beside each library); a row per instantiation the main shapes take (registers,
+   static and dynamic shared memory, threads, spills), and every spilling
+   instantiation by name.  Any finding fails the phase.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
 checkout of the repository.  Imports nothing of JAX.
@@ -4134,6 +4147,41 @@ def pipeline_path(torch, np, device="cuda", reduced=False):
     return out
 
 
+def lint_path(torch) -> dict:
+    """Phase 16: the port's kanlint on the card (see the module docstring)."""
+    from repro_torch.analysis import kernel_configs
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--check",
+                        "src/repro_torch"], cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    cli_s = time.perf_counter() - t0
+    for ln in (r.stdout + r.stderr).strip().splitlines():
+        log(f"[kanlint:cli] {ln}")
+    if r.returncode != 0 or "0 new finding(s)" not in r.stdout:
+        raise RuntimeError(f"python -m repro_torch.analysis --check src/repro_torch: "
+                           f"rc={r.returncode}, not 0 new findings")
+    t1 = time.perf_counter()
+    card = kernel_configs.validate_card(torch)
+    for row in card["rows"]:
+        log(f"[kanlint] {row['kernel']} at {row['shape']}: {row['registers']} registers x "
+            f"{row['threads']} threads, shared memory {row['static_smem']} B static + "
+            f"{row['dynamic_smem']} B dynamic, spills {row['spill_stores']}/"
+            f"{row['spill_loads']} B")
+    for what in card["spills"]:
+        log(f"[kanlint] spills: {what}")
+    for f in card["findings"]:
+        log(f"[kanlint] {f.format()}")
+    if card["findings"]:
+        raise RuntimeError(f"kanlint's card half: {len(card['findings'])} finding(s)")
+    log(f"[kanlint] {card['plans']} plans equal to their exports; CLI {cli_s:.1f} s, card "
+        f"half {time.perf_counter() - t1:.1f} s")
+    return {"cli_rc": r.returncode, "cli_s": cli_s, "plans": card["plans"],
+            "instantiations": card["rows"], "spills": card["spills"],
+            "card_s": time.perf_counter() - t1}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4168,8 +4216,8 @@ def main() -> int:
     log(f"[build] {len(built)} libraries built in {time.perf_counter() - t0:.1f} s, all at "
         f"once; each library's own seconds: "
         f"{ {n: round(t, 1) for n, t in built.items()} }")
-    for name, text in build.build_log.items():
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+    for name in build.LIBRARIES:          # built now, or earlier: the log kept beside it
+        regs = [ln.strip() for ln in build.log_of(name).splitlines() if "registers" in ln]
         log(f"[build] {name}: {regs[:2]}")
 
     grid = SplineGrid(-1.0, 1.0, 5, 3)
@@ -4225,13 +4273,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t10 = time.perf_counter()
     pipe = pipeline_path(torch, np)
+    t11 = time.perf_counter()
+    lint = lint_path(torch)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
         f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
         f"{t9 - t8:.1f} s, trainer and non-token inputs {t10 - t9:.1f} s, pipeline "
-        f"{time.perf_counter() - t10:.1f} s")
+        f"{t11 - t10:.1f} s, kanlint {time.perf_counter() - t11:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
@@ -4239,7 +4289,7 @@ def main() -> int:
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
             "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
             "train_path": trained, "nontoken_path": nontoken, "pipeline_path": pipe,
-            "build_s": built}
+            "lint_path": lint, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],

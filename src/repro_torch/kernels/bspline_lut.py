@@ -20,9 +20,34 @@ import torch
 
 from repro_torch.core.bspline import SplineGrid, lut_basis_compact
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as pl
 
 SUPPORTED_P = (1, 2, 3)
 MAX_TABLE_BYTES = 200 * 1024      # dynamic shared memory the kernel may ask for
+_THREADS = 256                    # csrc/bspline_lut.cu:26
+STATIC_SMEM = 0
+
+
+def launch_plan(n: int, S: int, P: int, sms: int = pl.SMS,
+                per_sm: int | None = None) -> pl.Plan:
+    """``bspline_lut_plan`` (csrc/bspline_lut.cu:67-80) in Python: ``n``
+    inputs, a float table of ``S`` rows."""
+    if S < 2 or n < 0 or P not in SUPPORTED_P:
+        return pl.Plan(error=pl.INVALID_VALUE)
+    half = (P + 2) // 2
+    smem = 4 * S * half
+    return pl.Plan(grid=(pl.cdiv(n, _THREADS), 1, 1), threads=_THREADS, smem=smem, grant=smem,
+                   vec=4, inst=P - 1, template=(P,), rows=((4, 4 * half),))
+
+
+def plan_export(lib, n: int, S: int, P: int) -> pl.Plan:
+    """The library's own plan (``bspline_lut_plan``)."""
+    return pl.read_export(lib.bspline_lut_plan, [n, S, P], lambda inst: (inst + 1,))
+
+
+def threads_of(template: tuple) -> int:
+    """``__launch_bounds__(kThreads)`` (.cu:29)."""
+    return _THREADS
 
 
 def bspline_lut_reference(

@@ -7,7 +7,9 @@ interface (no PyTorch headers, so a build takes seconds), compiled for
 of the sources and flags, so an unchanged tree reuses them.  All missing
 libraries are compiled in parallel, one ``nvcc`` process per source.  A
 failed build raises; nothing falls back.  ``build_log`` keeps what
-``nvcc`` printed (``ptxas``: registers and shared memory per kernel).
+``nvcc`` printed (``ptxas``: registers, spills and shared memory per
+kernel), also for a library built earlier: each library's log is kept
+beside it (``<library>-<hash>.log``) and read back when it is loaded.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 SPLIT_COMPILE = {"kan_fused_gemm": ["--split-compile=0"],
                  "kan_sparse_gemm": ["--split-compile=0"]}
 
-# library name -> (source, exported C functions -> (ctypes argtypes, restype))
+# library name -> (source, exported C functions -> (ctypes argtypes, restype));
+# each library exports ``<name>_plan``, the launch plan its launcher uses
+# (``kan_common.cuh``: PlanField; ``PLAN_INTS`` ints), which
+# ``repro_torch.analysis.kernel_configs`` holds against ``ops.KERNELS``
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES = {
     "kan_fused_gemm": (
@@ -41,6 +46,7 @@ LIBRARIES = {
                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
             "kan_fused_gemm_tickets": ([_I, _I], ctypes.c_longlong),
             "kan_fused_gemm_partials": ([_I, _I, _I], ctypes.c_longlong),
+            "kan_fused_gemm_plan": ([_I] * 8 + [_P], _I),
         },
     ),
     "kan_sparse_gemm": (
@@ -50,11 +56,13 @@ LIBRARIES = {
                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P], _I),
             "kan_sparse_gemm_tickets": ([_I, _I], ctypes.c_longlong),
             "kan_sparse_gemm_partials": ([_I, _I, _I], ctypes.c_longlong),
+            "kan_sparse_gemm_plan": ([_I] * 8 + [_P], _I),
         },
     ),
     "paged_gather": (
         "paged_gather.cu",
-        {"paged_gather": ([_P, _I, _P, _I, _I, _P], _I)},
+        {"paged_gather": ([_P, _I, _P, _I, _I, _P], _I),
+         "paged_gather_plan": ([_P, _I, _I, _I, _P], _I)},
     ),
     "kan_int8_gemm": (
         "kan_int8_gemm.cu",
@@ -63,6 +71,7 @@ LIBRARIES = {
                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
             "kan_int8_gemm_tickets": ([_I, _I], ctypes.c_longlong),
             "kan_int8_gemm_accumulators": ([_I, _I, _I], ctypes.c_longlong),
+            "kan_int8_gemm_plan": ([_I] * 8 + [_P], _I),
         },
     ),
     "kan_sparse_int8_gemm": (
@@ -72,13 +81,17 @@ LIBRARIES = {
                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
             "kan_sparse_int8_gemm_tickets": ([_I, _I], ctypes.c_longlong),
             "kan_sparse_int8_gemm_accumulators": ([_I, _I, _I], ctypes.c_longlong),
+            "kan_sparse_int8_gemm_plan": ([_I] * 7 + [_P], _I),
         },
     ),
     "bspline_lut": (
         "bspline_lut.cu",
-        {"bspline_lut": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I)},
+        {"bspline_lut": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P], _I),
+         "bspline_lut_plan": ([_I, _I, _I, _P], _I)},
     ),
 }
+
+PLAN_INTS = 16                 # kan_common.cuh: kPlanInts
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}     # library -> nvcc output (ptxas report)
@@ -137,10 +150,11 @@ def build_all(names=None) -> dict[str, float]:
         log.seek(0)
         build_log[n] = log.read()
         log.close()
-        os.remove(log.name)
         if proc.returncode != 0:
+            os.remove(log.name)
             errors.append(f"nvcc failed for {n} (rc={proc.returncode}):\n{build_log[n]}")
             continue
+        os.replace(log.name, out.with_suffix(".log"))
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -153,6 +167,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all([name])
+    log_of(name)
     lib = ctypes.CDLL(str(_lib_path(name)))
     for fn, (argtypes, restype) in LIBRARIES[name][1].items():
         f = getattr(lib, fn)
@@ -160,6 +175,17 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = restype
     _loaded[name] = lib
     return lib
+
+
+def log_of(name: str) -> str:
+    """The ``nvcc`` output of library ``name``: this process's build, else
+    the log kept beside the library ("" if there is none)."""
+    if name not in build_log:
+        try:
+            build_log[name] = _lib_path(name).with_suffix(".log").read_text()
+        except OSError:
+            return ""
+    return build_log[name]
 
 
 def check(err: int, what: str) -> None:

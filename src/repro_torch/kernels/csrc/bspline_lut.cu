@@ -51,36 +51,43 @@ bspline_lut_kernel(const float* __restrict__ x, const float* __restrict__ lut,
   k_out[i] = k;
 }
 
-template <int P>
-int launch(const void* x, const void* lut, void* vals, void* k, int n, int S, int M, float t0,
-           float delta, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)S * ((P + 2) / 2);
-  auto kern = bspline_lut_kernel<P>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  kern<<<blocks, kThreads, smem, stream>>>(static_cast<const float*>(x),
-                                          static_cast<const float*>(lut),
-                                          static_cast<float*>(vals), static_cast<int*>(k), n, S,
-                                          M, t0, delta);
-  return (int)cudaGetLastError();
+const void* kernel_of(int P) {
+  return P == 1 ? (const void*)bspline_lut_kernel<1>
+                : (P == 2 ? (const void*)bspline_lut_kernel<2> : (const void*)bspline_lut_kernel<3>);
 }
 
+// the dynamic shared memory granted so far, per degree and device
+int granted[3][64] = {};
+
 }  // namespace
+
+// The launch plan of a call (kan_common.cuh: PlanField; the instantiation
+// is P-1), which the launcher below computes with this function.  Returns
+// a cudaError_t.
+extern "C" int bspline_lut_plan(int n, int S, int P, int* plan) {
+  kan::plan_clear(plan);
+  if (S < 2 || n < 0 || P < 1 || P > 3) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * S * ((P + 2) / 2);
+  plan[kan::kGridX] = (n + kThreads - 1) / kThreads;
+  plan[kan::kGridY] = 1;
+  plan[kan::kGridZ] = 1;
+  plan[kan::kBlockThreads] = kThreads;
+  plan[kan::kDynSmem] = smem;
+  plan[kan::kGrant] = smem;
+  plan[kan::kVecBytes] = 4;
+  plan[kan::kInst] = P - 1;
+  return 0;
+}
 
 // float32 x (n,) and table (S, ceil((P+1)/2)); P in {1, 2, 3}; M = G+P.
 // Writes vals (n, P+1) float32 and k (n,) int32.  Returns a cudaError_t.
 extern "C" int bspline_lut(const void* x, const void* lut, void* vals, void* k, int n, int S,
                            int P, int M, float t0, float delta, void* stream) {
-  if (S < 2 || M <= P || n < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 1: return launch<1>(x, lut, vals, k, n, S, M, t0, delta, s);
-    case 2: return launch<2>(x, lut, vals, k, n, S, M, t0, delta, s);
-    case 3: return launch<3>(x, lut, vals, k, n, S, M, t0, delta, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (M <= P) return (int)cudaErrorInvalidValue;
+  int plan[kan::kPlanInts];
+  const int err = bspline_lut_plan(n, S, P, plan);
+  if (err != 0) return err;
+  void* args[] = {&x, &lut, &vals, &k, &n, &S, &M, &t0, &delta};
+  return kan::launch_planned(kernel_of(P), plan, args, static_cast<cudaStream_t>(stream),
+                             granted[P - 1]);
 }

@@ -23,7 +23,14 @@
 //     sparse kernels' staged rows;
 //   * atomic_add_acq_rel: a device-scope counter increment that releases
 //     and acquires, for the split-K tickets;
-//   * sm_count: the current device's SM count (host), cached.
+//   * sm_count: the current device's SM count (host), cached;
+//   * the launch plan (PlanField, kPlanInts): what a launcher computes from
+//     its problem before it launches, written by each library's
+//     `<library>_plan` export and read back by the launcher itself, so the
+//     plan the lint checks (repro_torch/analysis/kernel_configs.py, which
+//     holds the Python mirror in kernels/ops.py: KERNELS against the export
+//     on the card) is the plan that launches; ptr_align, grant_smem and
+//     launch_planned, the launchers' common steps.
 // The plain PyTorch versions live in repro_torch/kernels/common.py.
 #pragma once
 
@@ -161,6 +168,60 @@ inline int sm_count() {
   if (dev < 0 || dev >= 64) return 132;
   if (count[dev] == 0) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
   return count[dev] > 0 ? count[dev] : 132;
+}
+
+// A launch plan, kPlanInts ints: the grid, threads per block (the
+// instantiation's __launch_bounds__), the dynamic shared memory, the
+// dynamic shared memory the launch must be granted, the bytes of the
+// widest vector access to an operand row, the template instantiation
+// (each library numbers its own), the SM count and resident blocks per SM
+// a split assumed (0: none), then the kernel's own fields.
+enum PlanField {
+  kGridX, kGridY, kGridZ, kBlockThreads, kDynSmem, kGrant, kVecBytes, kInst, kSms, kPerSm,
+  kExtra
+};
+constexpr int kPlanInts = 16;
+
+inline void plan_clear(int* plan) {
+  for (int i = 0; i < kPlanInts; ++i) plan[i] = 0;
+}
+
+// The largest power of two, at most 16, dividing a device address (16 for
+// nullptr: an absent operand constrains nothing).
+inline int ptr_align(const void* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  int b = 16;
+  while (b > 1 && a % b != 0) b /= 2;
+  return b;
+}
+
+// Raise `kern`'s dynamic shared memory limit to `bytes` on the current
+// device whenever `bytes` exceeds what was granted there before
+// (`granted`: 64 devices), even below 48 KB: static shared memory counts
+// against the default limit.
+inline cudaError_t grant_smem(const void* kern, int bytes, int* granted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 0 && dev < 64 && bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < 64) granted[dev] = bytes;
+  return err;
+}
+
+// Grant and launch `kern` as `plan` says, with the kernel's arguments
+// `args` (pointers to each); `granted` nullptr where the plan export has
+// granted already (the plans that ask the occupancy calculator).  Returns
+// cudaGetLastError() after the launch.
+inline int launch_planned(const void* kern, const int* plan, void** args, cudaStream_t stream,
+                          int* granted) {
+  if (granted != nullptr) {
+    const cudaError_t err = grant_smem(kern, plan[kGrant], granted);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchKernel(kern, dim3(plan[kGridX], plan[kGridY], plan[kGridZ]),
+                   dim3(plan[kBlockThreads]), args, (size_t)plan[kDynSmem], stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace kan

@@ -296,84 +296,95 @@ int tiles(int BS, int N, int BN) { return ((N + BN - 1) / BN) * ((BS + kBM - 1) 
 
 // The most slices a call is split into (launch: as many as fill one wave of
 // resident blocks, at most 256/BN per SM by the launch bounds).
-int max_splits(int BS, int N, int BN) {
-  return max(1, min(kMaxSplits, 256 / BN * kan::sm_count() / tiles(BS, N, BN)));
+int max_splits(int BS, int N, int BN, int sms) {
+  return max(1, min(kMaxSplits, 256 / BN * sms / tiles(BS, N, BN)));
 }
 
-template <typename TX, typename TC, int P, int BN, bool VEC>
-int launch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
-           void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t stream) {
+// The instantiations, numbered ((x dtype * 2 + C dtype) * 3 + P-1) * 5 + the
+// tile: 0 = 64 columns by element, 1 = 64 by 16-byte copies, 2 = 128 by
+// element, 3 = 128 by 16-byte copies, 4 = 256 by 16-byte copies.
+constexpr int kTileKinds = 5;
+constexpr int kInsts = 4 * 3 * kTileKinds;
+int tile_kind(int BN, bool vec) { return BN == 64 ? (int)vec : (BN == 128 ? 2 + (int)vec : 4); }
+
+template <typename TX, typename TC, int P>
+const void* kernel_of_tile(int kind) {
+  switch (kind) {
+    case 0: return (const void*)kan_fused_kernel<TX, TC, P, 64, false>;
+    case 1: return (const void*)kan_fused_kernel<TX, TC, P, 64, true>;
+    case 2: return (const void*)kan_fused_kernel<TX, TC, P, 128, false>;
+    case 3: return (const void*)kan_fused_kernel<TX, TC, P, 128, true>;
+    default: return (const void*)kan_fused_kernel<TX, TC, P, 256, true>;
+  }
+}
+template <typename TX, typename TC>
+const void* kernel_of_p(int P, int kind) {
+  return P == 1 ? kernel_of_tile<TX, TC, 1>(kind)
+                : (P == 2 ? kernel_of_tile<TX, TC, 2>(kind) : kernel_of_tile<TX, TC, 3>(kind));
+}
+const void* kernel_of(int inst) {
+  const int kind = inst % kTileKinds, P = inst / kTileKinds % 3 + 1, dt = inst / (3 * kTileKinds);
+  switch (dt) {
+    case 0: return kernel_of_p<float, float>(P, kind);
+    case 1: return kernel_of_p<float, __nv_bfloat16>(P, kind);
+    case 2: return kernel_of_p<__nv_bfloat16, float>(P, kind);
+    default: return kernel_of_p<__nv_bfloat16, __nv_bfloat16>(P, kind);
+  }
+}
+
+// the dynamic shared memory granted so far, per instantiation and device
+int granted[kInsts][64] = {};
+
+}  // namespace
+
+// The launch plan of a call (kan_common.cuh: PlanField), which the launcher
+// below computes with this function; kernel fields: BN, BK, K steps per
+// slice.  `align`: the smallest ptr_align of coeff and base_w.  Grants the
+// chosen instantiation this plan's shared memory and asks the occupancy
+// calculator for its resident blocks per SM, which the split counts on.
+// Returns a cudaError_t.
+extern "C" int kan_fused_gemm_plan(int BS, int K, int N, int M, int P, int x_dtype, int c_dtype,
+                                   int align, int* plan) {
+  kan::plan_clear(plan);
+  if (P < 1 || P > 3 || M <= P || M > 64 || BS < 1 || K < 0 || N < 1 || x_dtype < 0 ||
+      x_dtype > 1 || c_dtype < 0 || c_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int esize = c_dtype == 0 ? 4 : 2;
+  const bool vec = N % (16 / esize) == 0 && align % 16 == 0;
+  const int BN = tile_n(N, M, vec);
   const int BK = max(1, kKW / (M + 1));
   const int W = BK * (M + 1);
-  const size_t smem = (size_t)kStages * W * BN * sizeof(TC) + 2 * (size_t)W * kBM * sizeof(float);
-  auto kern = kan_fused_kernel<TX, TC, P, BN, VEC>;
-  // the dynamic shared memory granted so far, per instantiation and device
-  static size_t granted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const int inst = ((x_dtype * 2 + c_dtype) * 3 + P - 1) * kTileKinds + tile_kind(BN, vec);
+  const int smem = kStages * W * BN * esize + 2 * W * kBM * (int)sizeof(float);
+  const int sms = kan::sm_count();
+  // granted first: the calculator counts no more than the grant
+  int per_sm = 1;
+  cudaError_t err = kan::grant_smem(kernel_of(inst), smem, granted[inst]);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(inst), 2 * BN, smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > granted[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) granted[dev] = smem;
-  }
   // Split K only where the output tiles leave resident block slots empty:
   // as many slices as fill one wave, each a whole number of steps.
-  int per_sm = 1;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 2 * BN, smem);
-  if (err != cudaSuccess) return (int)err;
   const int steps = (K + BK - 1) / BK;
-  int splits = min(max(1, per_sm * kan::sm_count() / tiles(BS, N, BN)), max_splits(BS, N, BN));
+  int splits = min(max(1, per_sm * sms / tiles(BS, N, BN)), max_splits(BS, N, BN, sms));
   splits = min(splits, max(steps, 1));
   const int per_split = max(1, (steps + splits - 1) / splits);
   splits = max(1, (steps + per_split - 1) / per_split);
-  dim3 grid((N + BN - 1) / BN, (BS + kBM - 1) / kBM, splits);
-  kern<<<grid, 2 * BN, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TC*>(coeff),
-      static_cast<const TC*>(base_w), static_cast<float*>(partial),
-      static_cast<unsigned*>(tickets), static_cast<TX*>(y), BS, K, N, M, BK, per_split, t0,
-      delta);
-  return (int)cudaGetLastError();
+  plan[kan::kGridX] = (N + BN - 1) / BN;
+  plan[kan::kGridY] = (BS + kBM - 1) / kBM;
+  plan[kan::kGridZ] = splits;
+  plan[kan::kBlockThreads] = 2 * BN;
+  plan[kan::kDynSmem] = smem;
+  plan[kan::kGrant] = smem;
+  plan[kan::kVecBytes] = vec ? 16 : esize;
+  plan[kan::kInst] = inst;
+  plan[kan::kSms] = sms;
+  plan[kan::kPerSm] = per_sm;
+  plan[kan::kExtra] = BN;
+  plan[kan::kExtra + 1] = BK;
+  plan[kan::kExtra + 2] = per_split;
+  return 0;
 }
-
-template <typename TX, typename TC, int P>
-int dispatch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
-             void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t s) {
-  const bool vec = N % kVec<TC> == 0 && reinterpret_cast<uintptr_t>(coeff) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(base_w) % 16 == 0;
-  switch (tile_n(N, M, vec)) {
-    case 64:
-      return vec ? launch<TX, TC, P, 64, true>(x, coeff, base_w, tickets, partial, y, BS, K, N,
-                                               M, t0, delta, s)
-                 : launch<TX, TC, P, 64, false>(x, coeff, base_w, tickets, partial, y, BS, K, N,
-                                                M, t0, delta, s);
-    case 256:
-      return launch<TX, TC, P, 256, true>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                          delta, s);
-    default:
-      return vec ? launch<TX, TC, P, 128, true>(x, coeff, base_w, tickets, partial, y, BS, K, N,
-                                                M, t0, delta, s)
-                 : launch<TX, TC, P, 128, false>(x, coeff, base_w, tickets, partial, y, BS, K,
-                                                 N, M, t0, delta, s);
-  }
-}
-
-template <typename TX, typename TC>
-int dispatch_p(const void* x, const void* coeff, const void* base_w, void* tickets,
-               void* partial, void* y, int BS, int K, int N, int M, int P, float t0, float delta,
-               cudaStream_t s) {
-  switch (P) {
-    case 1: return dispatch<TX, TC, 1>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                       delta, s);
-    case 2: return dispatch<TX, TC, 2>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                       delta, s);
-    case 3: return dispatch<TX, TC, 3>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                       delta, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
 
 // Workspace of one call at (BS, K, N), in two buffers the caller keeps:
 // the ticket counters, one uint32 per output tile, which must be zero
@@ -386,7 +397,7 @@ extern "C" long long kan_fused_gemm_tickets(int BS, int N) {
 extern "C" long long kan_fused_gemm_partials(int BS, int K, int N) {
   long long most = 0;
   for (const int BN : {tile_n(N, 64, false), tile_n(N, 0, true)}) {
-    const int s = max_splits(BS, N, BN);
+    const int s = max_splits(BS, N, BN, kan::sm_count());
     if (s > 1) most = std::max(most, (long long)tiles(BS, N, BN) * s * kBM * BN);
   }
   return most;
@@ -398,19 +409,13 @@ extern "C" int kan_fused_gemm(const void* x, const void* coeff, const void* base
                               void* tickets, void* partial, void* y, int BS, int K, int N,
                               int M, int P, float t0, float delta, int x_dtype, int c_dtype,
                               void* stream) {
-  if (P < 1 || P > 3 || M <= P || M > 64) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && c_dtype == 0)
-    return dispatch_p<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, P, t0,
-                                    delta, s);
-  if (x_dtype == 1 && c_dtype == 1)
-    return dispatch_p<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS,
-                                                    K, N, M, P, t0, delta, s);
-  if (x_dtype == 1 && c_dtype == 0)
-    return dispatch_p<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                            P, t0, delta, s);
-  if (x_dtype == 0 && c_dtype == 1)
-    return dispatch_p<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                            P, t0, delta, s);
-  return (int)cudaErrorInvalidValue;
+  int plan[kan::kPlanInts];
+  const int err = kan_fused_gemm_plan(BS, K, N, M, P, x_dtype, c_dtype,
+                                      min(kan::ptr_align(coeff), kan::ptr_align(base_w)), plan);
+  if (err != 0) return err;
+  int BK = plan[kan::kExtra + 1], per_split = plan[kan::kExtra + 2];
+  void* args[] = {&x, &coeff, &base_w, &partial, &tickets, &y, &BS, &K, &N, &M,
+                  &BK, &per_split, &t0, &delta};
+  return kan::launch_planned(kernel_of(plan[kan::kInst]), plan, args,
+                             static_cast<cudaStream_t>(stream), nullptr);
 }

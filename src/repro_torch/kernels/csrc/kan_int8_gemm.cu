@@ -419,76 +419,81 @@ kan_int8_kernel(const int* __restrict__ x_q, const int8_t* __restrict__ coeff,
 
 int tile_n(int N) { return N <= 64 ? 64 : 128; }
 
-template <int P, int OUT, int BN, bool VEC>
-int launch(const void* x_q, const void* coeff, const void* scale, const void* rom,
-           void* tickets, void* sums, void* y, int BS, int K, int N, int M, int G, int S,
-           int qmax, cudaStream_t stream) {
-  auto kern = kan_int8_kernel<P, OUT, BN, VEC>;
+// The instantiations, numbered ((P-1) * 3 + out) * 4 + (BN == 128) * 2 + VEC.
+constexpr int kInsts = 3 * 3 * 4;
+
+template <int P, int OUT>
+const void* kernel_of_tile(int t) {
+  switch (t) {
+    case 0: return (const void*)kan_int8_kernel<P, OUT, 64, false>;
+    case 1: return (const void*)kan_int8_kernel<P, OUT, 64, true>;
+    case 2: return (const void*)kan_int8_kernel<P, OUT, 128, false>;
+    default: return (const void*)kan_int8_kernel<P, OUT, 128, true>;
+  }
+}
+template <int P>
+const void* kernel_of_out(int out, int t) {
+  return out == 0 ? kernel_of_tile<P, 0>(t)
+                  : (out == 1 ? kernel_of_tile<P, 1>(t) : kernel_of_tile<P, 2>(t));
+}
+const void* kernel_of(int inst) {
+  const int t = inst % 4, out = inst / 4 % 3, P = inst / 12 + 1;
+  return P == 1 ? kernel_of_out<1>(out, t)
+                : (P == 2 ? kernel_of_out<2>(out, t) : kernel_of_out<3>(out, t));
+}
+
+// the dynamic shared memory granted so far, per instantiation and device
+int granted[kInsts][64] = {};
+
+}  // namespace
+
+// The launch plan of a call (kan_common.cuh: PlanField), which the launcher
+// below computes with this function; kernel fields: BN, BK, K steps per
+// slice.  `out`: the output code; `align`: ptr_align of coeff.  Grants the
+// chosen instantiation this plan's shared memory and asks the occupancy
+// calculator for its resident blocks per SM, which the split counts on.
+// Returns a cudaError_t.
+extern "C" int kan_int8_gemm_plan(int BS, int K, int N, int M, int P, int S, int out, int align,
+                                  int* plan) {
+  kan::plan_clear(plan);
+  if (P < 1 || P > 3 || M <= P || M > 64 || S < 2 || S * ((P + 2) / 2) > kMaxRomBytes ||
+      out < 0 || out > 2 || BS < 1 || K < 0 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = N % 16 == 0 && align % 16 == 0;
+  const int BN = tile_n(N);
   const int BK = min(kW / M, 32);
   const Layout L = layout(BN, BK, S * ((P + 2) / 2));
-  // the dynamic shared memory granted so far, per instantiation and device
-  static int granted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const int inst = ((P - 1) * 3 + out) * 4 + (BN == 128) * 2 + (int)vec;
+  const int sms = kan::sm_count();
+  // granted first: the calculator counts no more than the grant
+  int per_sm = 1;
+  cudaError_t err = kan::grant_smem(kernel_of(inst), L.total, granted[inst]);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel_of(inst), 2 * BN,
+                                                        L.total);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || L.total > granted[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) granted[dev] = L.total;
-  }
   // Split K only where the output tiles leave resident block slots empty:
   // as many slices as fill one wave, each a whole number of steps.
   const int steps = (K + BK - 1) / BK;
   const int tiles = ((N + BN - 1) / BN) * ((BS + kBM - 1) / kBM);
-  int per_sm = 1;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 2 * BN, L.total);
-  if (err != cudaSuccess) return (int)err;
-  int splits = min(max(1, per_sm * kan::sm_count() / tiles), max(steps, 1));
+  int splits = min(max(1, per_sm * sms / tiles), max(steps, 1));
   const int per_split = max(1, (steps + splits - 1) / splits);
   splits = max(1, (steps + per_split - 1) / per_split);
-  dim3 grid((N + BN - 1) / BN, (BS + kBM - 1) / kBM, splits);
-  kern<<<grid, 2 * BN, L.total, stream>>>(
-      static_cast<const int*>(x_q), static_cast<const int8_t*>(coeff),
-      static_cast<const float*>(scale), static_cast<const uint8_t*>(rom),
-      static_cast<int*>(sums), static_cast<unsigned*>(tickets), y, BS, K, N, M, G, S, qmax, BK,
-      per_split);
-  return (int)cudaGetLastError();
+  plan[kan::kGridX] = (N + BN - 1) / BN;
+  plan[kan::kGridY] = (BS + kBM - 1) / kBM;
+  plan[kan::kGridZ] = splits;
+  plan[kan::kBlockThreads] = 2 * BN;
+  plan[kan::kDynSmem] = L.total;
+  plan[kan::kGrant] = L.total;
+  plan[kan::kVecBytes] = vec ? 16 : 1;
+  plan[kan::kInst] = inst;
+  plan[kan::kSms] = sms;
+  plan[kan::kPerSm] = per_sm;
+  plan[kan::kExtra] = BN;
+  plan[kan::kExtra + 1] = BK;
+  plan[kan::kExtra + 2] = per_split;
+  return 0;
 }
-
-template <int P, int OUT>
-int dispatch_tile(const void* x_q, const void* coeff, const void* scale, const void* rom,
-                  void* tickets, void* sums, void* y, int BS, int K, int N, int M, int G, int S,
-                  int qmax, cudaStream_t s) {
-  if (reinterpret_cast<uintptr_t>(x_q) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(coeff) % 16 == 0;
-  if (tile_n(N) == 64)
-    return vec ? launch<P, OUT, 64, true>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N,
-                                          M, G, S, qmax, s)
-               : launch<P, OUT, 64, false>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N,
-                                           M, G, S, qmax, s);
-  return vec ? launch<P, OUT, 128, true>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M,
-                                         G, S, qmax, s)
-             : launch<P, OUT, 128, false>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M,
-                                          G, S, qmax, s);
-}
-
-template <int P>
-int dispatch_out(const void* x_q, const void* coeff, const void* scale, const void* rom,
-                 void* tickets, void* sums, void* y, int BS, int K, int N, int M, int G, int S,
-                 int qmax, int out, cudaStream_t s) {
-  if (out == 2 && scale == nullptr)
-    return dispatch_tile<P, 2>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                               qmax, s);
-  if (out == 0 && scale != nullptr)
-    return dispatch_tile<P, 0>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                               qmax, s);
-  if (out == 1 && scale != nullptr)
-    return dispatch_tile<P, 1>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                               qmax, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // Workspace of one call at (BS, K, N), in two buffers the caller keeps,
 // both zero before a call and left zero by it: the ticket counters, one
@@ -507,17 +512,15 @@ extern "C" int kan_int8_gemm(const void* x_q, const void* coeff, const void* sca
                              const void* rom, void* tickets, void* sums, void* y, int BS, int K,
                              int N, int M, int G, int P, int S, int qmax, int out,
                              void* stream) {
-  if (M != G + P || M <= P || M > 64 || S < 2 || qmax < 1 ||
-      S * ((P + 2) / 2) > kMaxRomBytes)
+  if (M != G + P || qmax < 1 || (out == 2) != (scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 1: return dispatch_out<1>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                                   qmax, out, s);
-    case 2: return dispatch_out<2>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                                   qmax, out, s);
-    case 3: return dispatch_out<3>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S,
-                                   qmax, out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (reinterpret_cast<uintptr_t>(x_q) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  int plan[kan::kPlanInts];
+  const int err = kan_int8_gemm_plan(BS, K, N, M, P, S, out, kan::ptr_align(coeff), plan);
+  if (err != 0) return err;
+  int BK = plan[kan::kExtra + 1], per_split = plan[kan::kExtra + 2];
+  void* args[] = {&x_q, &coeff, &scale, &rom, &sums, &tickets, &y, &BS, &K, &N, &M, &G, &S,
+                  &qmax, &BK, &per_split};
+  return kan::launch_planned(kernel_of(plan[kan::kInst]), plan, args,
+                             static_cast<cudaStream_t>(stream), nullptr);
 }

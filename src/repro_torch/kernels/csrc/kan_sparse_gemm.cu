@@ -398,60 +398,70 @@ kan_sparse_kernel(const TX* __restrict__ x, const TC* __restrict__ coeff,
   if (tid == 0) tickets[tile] = 0u;   // ready for the next launch on this workspace
 }
 
+// The instantiations, numbered ((x dtype * 2 + C dtype) * 3 + P-1) * 3 + the
+// copy unit: 0 = 16-byte groups, 1 = 4-byte elements, 2 = 2-byte elements
+// (bf16 rows of odd length; not compiled for fp32 C).
+constexpr int kInsts = 4 * 3 * 3;
+
 template <typename TX, typename TC, int P>
-int launch(const void* x, const void* coeff, const void* base_w, void* tickets, void* partial,
-           void* y, int BS, int K, int N, int M, float t0, float delta, cudaStream_t stream) {
-  const Split s = split(BS, K, N, M, sizeof(TC), kan::sm_count());
-  const size_t smem = layout(s, M, sizeof(TC)).total;
-  // the copy unit: 16-byte groups, else 4-byte or (bf16 rows of odd length)
-  // 2-byte elements
-  auto aligned = [&](int b) {
-    return (N * sizeof(TC)) % b == 0 && reinterpret_cast<uintptr_t>(coeff) % b == 0 &&
-           reinterpret_cast<uintptr_t>(base_w) % b == 0;
-  };
-  const int u = aligned(16) ? 0 : (aligned(4) ? 1 : 2);
-  decltype(&kan_sparse_kernel<TX, TC, P, 16>) kern = kan_sparse_kernel<TX, TC, P, 16>;
-  if (u == 1) kern = kan_sparse_kernel<TX, TC, P, 4>;
-  if constexpr (sizeof(TC) == 2) {
-    if (u == 2) kern = kan_sparse_kernel<TX, TC, P, 2>;
-  } else {
-    if (u == 2) return (int)cudaErrorMisalignedAddress;
+const void* kernel_of_unit(int u) {
+  if (u == 0) return (const void*)kan_sparse_kernel<TX, TC, P, 16>;
+  if (u == 1) return (const void*)kan_sparse_kernel<TX, TC, P, 4>;
+  if constexpr (sizeof(TC) == 2) return (const void*)kan_sparse_kernel<TX, TC, P, 2>;
+  return nullptr;
+}
+template <typename TX, typename TC>
+const void* kernel_of_p(int P, int u) {
+  return P == 1 ? kernel_of_unit<TX, TC, 1>(u)
+                : (P == 2 ? kernel_of_unit<TX, TC, 2>(u) : kernel_of_unit<TX, TC, 3>(u));
+}
+const void* kernel_of(int inst) {
+  const int u = inst % 3, P = inst / 3 % 3 + 1, dt = inst / 9;
+  switch (dt) {
+    case 0: return kernel_of_p<float, float>(P, u);
+    case 1: return kernel_of_p<float, __nv_bfloat16>(P, u);
+    case 2: return kernel_of_p<__nv_bfloat16, float>(P, u);
+    default: return kernel_of_p<__nv_bfloat16, __nv_bfloat16>(P, u);
   }
-  // the dynamic shared memory granted so far, per instantiation and device
-  // (set even below 48 KB: the static bytes count against the default)
-  static size_t granted[3][64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > granted[u][dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) granted[u][dev] = smem;
-  }
-  dim3 grid(s.tiles_n * s.row_blocks, s.slices);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TC*>(coeff),
-      static_cast<const TC*>(base_w), static_cast<float*>(partial),
-      static_cast<unsigned*>(tickets), static_cast<TX*>(y), BS, K, N, M, t0, delta, s);
-  return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TC>
-int dispatch_p(const void* x, const void* coeff, const void* base_w, void* tickets,
-               void* partial, void* y, int BS, int K, int N, int M, int P, float t0, float delta,
-               cudaStream_t s) {
-  switch (P) {
-    case 1: return launch<TX, TC, 1>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                     delta, s);
-    case 2: return launch<TX, TC, 2>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                     delta, s);
-    case 3: return launch<TX, TC, 3>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, t0,
-                                     delta, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+// the dynamic shared memory granted so far, per instantiation and device
+int granted[kInsts][64] = {};
 
 }  // namespace
+
+// The launch plan of a call (kan_common.cuh: PlanField), which the launcher
+// below computes with this function; kernel fields: TQ, JS, column tiles,
+// row blocks.  `align`: the smallest ptr_align of coeff and base_w.
+// Returns a cudaError_t.
+extern "C" int kan_sparse_gemm_plan(int BS, int K, int N, int M, int P, int x_dtype,
+                                    int c_dtype, int align, int* plan) {
+  kan::plan_clear(plan);
+  if (P < 1 || P > 3 || M <= P || M > 16 || K < 1 || BS < 1 || N < 1 || x_dtype < 0 ||
+      x_dtype > 1 || c_dtype < 0 || c_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int esize = c_dtype == 0 ? 4 : 2;
+  const Split s = split(BS, K, N, M, esize, kan::sm_count());
+  // the copy unit: 16-byte groups, else 4-byte or (bf16 rows of odd length)
+  // 2-byte elements
+  auto aligned = [&](int b) { return (N * esize) % b == 0 && align % b == 0; };
+  const int u = aligned(16) ? 0 : (aligned(4) ? 1 : 2);
+  if (u == 2 && esize == 4) return (int)cudaErrorMisalignedAddress;
+  plan[kan::kGridX] = s.tiles_n * s.row_blocks;
+  plan[kan::kGridY] = s.slices;
+  plan[kan::kGridZ] = 1;
+  plan[kan::kBlockThreads] = kThreads;
+  plan[kan::kDynSmem] = layout(s, M, esize).total;
+  plan[kan::kGrant] = plan[kan::kDynSmem];
+  plan[kan::kVecBytes] = u == 0 ? 16 : (u == 1 ? 4 : 2);
+  plan[kan::kInst] = ((x_dtype * 2 + c_dtype) * 3 + P - 1) * 3 + u;
+  plan[kan::kSms] = kan::sm_count();
+  plan[kan::kExtra] = s.TQ;
+  plan[kan::kExtra + 1] = s.JS;
+  plan[kan::kExtra + 2] = s.tiles_n;
+  plan[kan::kExtra + 3] = s.row_blocks;
+  return 0;
+}
 
 // Workspace of one call at (BS, K, N), in two buffers the caller keeps:
 // the ticket counters, one uint32 per column tile and row block, which
@@ -488,19 +498,18 @@ extern "C" int kan_sparse_gemm(const void* x, const void* coeff, const void* bas
                                void* tickets, void* partial, void* y, int BS, int K, int N,
                                int M, int P, float t0, float delta, int x_dtype, int c_dtype,
                                void* stream) {
-  if (P < 1 || P > 3 || M <= P || M > 16 || K < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && c_dtype == 0)
-    return dispatch_p<float, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M, P, t0,
-                                    delta, s);
-  if (x_dtype == 1 && c_dtype == 1)
-    return dispatch_p<__nv_bfloat16, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS,
-                                                    K, N, M, P, t0, delta, s);
-  if (x_dtype == 1 && c_dtype == 0)
-    return dispatch_p<__nv_bfloat16, float>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                            P, t0, delta, s);
-  if (x_dtype == 0 && c_dtype == 1)
-    return dispatch_p<float, __nv_bfloat16>(x, coeff, base_w, tickets, partial, y, BS, K, N, M,
-                                            P, t0, delta, s);
-  return (int)cudaErrorInvalidValue;
+  int plan[kan::kPlanInts];
+  const int err = kan_sparse_gemm_plan(BS, K, N, M, P, x_dtype, c_dtype,
+                                       min(kan::ptr_align(coeff), kan::ptr_align(base_w)), plan);
+  if (err != 0) return err;
+  Split s;
+  s.TQ = plan[kan::kExtra];
+  s.JS = plan[kan::kExtra + 1];
+  s.tiles_n = plan[kan::kExtra + 2];
+  s.row_blocks = plan[kan::kExtra + 3];
+  s.slices = plan[kan::kGridY];
+  void* args[] = {&x, &coeff, &base_w, &partial, &tickets, &y, &BS, &K, &N, &M, &t0, &delta, &s};
+  const int inst = plan[kan::kInst];
+  return kan::launch_planned(kernel_of(inst), plan, args, static_cast<cudaStream_t>(stream),
+                             granted[inst]);
 }

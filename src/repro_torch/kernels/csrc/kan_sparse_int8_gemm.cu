@@ -315,38 +315,53 @@ Split split(int BS, int K, int N, int M) {
   return s;
 }
 
-template <int P>
-int launch(const void* x_q, const void* coeff, const void* scale, const void* rom,
-           void* tickets, void* sums, void* y, int BS, int K, int N, int M, int G, int S,
-           int qmax, int out, cudaStream_t stream) {
-  const Split s = split(BS, K, N, M);
-  const int CT = 4 * s.TQ;
-  const size_t smem = (size_t)area_bytes(s.JS, M, CT) + (size_t)kRows * s.JS * sizeof(int2) +
-                      ((size_t)S * ((P + 2) / 2) + 15) / 16 * 16;
-  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(coeff) % 16 == 0;
-  auto kern = vec ? kan_sparse_int8_kernel<P, true> : kan_sparse_int8_kernel<P, false>;
-  // the dynamic shared memory granted so far, per instantiation and device
-  // (set even below 48 KB: the static last_s counts against the default,
-  // so 49,152 dynamic bytes need the grant)
-  static size_t granted[2][64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || smem > granted[vec][dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) granted[vec][dev] = smem;
+// The instantiations, numbered (P-1) * 2 + VEC.
+constexpr int kInsts = 3 * 2;
+
+const void* kernel_of(int inst) {
+  const bool vec = inst % 2 == 1;
+  switch (inst / 2) {
+    case 0: return vec ? (const void*)kan_sparse_int8_kernel<1, true>
+                       : (const void*)kan_sparse_int8_kernel<1, false>;
+    case 1: return vec ? (const void*)kan_sparse_int8_kernel<2, true>
+                       : (const void*)kan_sparse_int8_kernel<2, false>;
+    default: return vec ? (const void*)kan_sparse_int8_kernel<3, true>
+                        : (const void*)kan_sparse_int8_kernel<3, false>;
   }
-  dim3 grid(s.tiles_n * s.row_blocks, s.slices);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const int*>(x_q), static_cast<const int8_t*>(coeff),
-      static_cast<const float*>(scale), static_cast<const uint8_t*>(rom),
-      static_cast<int*>(sums), static_cast<unsigned*>(tickets), y, BS, K, N, M, G, S, qmax,
-      out, s.TQ, s.JS, s.tiles_n);
-  return (int)cudaGetLastError();
 }
 
+// the dynamic shared memory granted so far, per instantiation and device
+int granted[kInsts][64] = {};
+
 }  // namespace
+
+// The launch plan of a call (kan_common.cuh: PlanField), which the launcher
+// below computes with this function; kernel fields: TQ, JS, column tiles.
+// `align`: ptr_align of coeff.  Returns a cudaError_t.
+extern "C" int kan_sparse_int8_gemm_plan(int BS, int K, int N, int M, int P, int S, int align,
+                                         int* plan) {
+  kan::plan_clear(plan);
+  if (P < 1 || P > 3 || M <= P || M > 16 || S < 2 || S * ((P + 2) / 2) > 16384 || BS < 1 ||
+      K < 1 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  const Split s = split(BS, K, N, M);
+  const int CT = 4 * s.TQ;
+  const bool vec = N % 16 == 0 && align % 16 == 0;
+  plan[kan::kGridX] = s.tiles_n * s.row_blocks;
+  plan[kan::kGridY] = s.slices;
+  plan[kan::kGridZ] = 1;
+  plan[kan::kBlockThreads] = kThreads;
+  plan[kan::kDynSmem] = area_bytes(s.JS, M, CT) + kRows * s.JS * (int)sizeof(int2) +
+                        (S * ((P + 2) / 2) + 15) / 16 * 16;
+  plan[kan::kGrant] = plan[kan::kDynSmem];
+  plan[kan::kVecBytes] = vec ? 16 : 1;
+  plan[kan::kInst] = (P - 1) * 2 + (int)vec;
+  plan[kan::kSms] = kan::sm_count();
+  plan[kan::kExtra] = s.TQ;
+  plan[kan::kExtra + 1] = s.JS;
+  plan[kan::kExtra + 2] = s.tiles_n;
+  return 0;
+}
 
 // Workspace of one call at (BS, K, N), in two buffers the caller keeps,
 // both zero before a call and left zero by it: the ticket counters, one
@@ -366,18 +381,16 @@ extern "C" int kan_sparse_int8_gemm(const void* x_q, const void* coeff, const vo
                                     const void* rom, void* tickets, void* sums, void* y,
                                     int BS, int K, int N, int M, int G, int P, int S, int qmax,
                                     int out, void* stream) {
-  if (M != G + P || M <= P || M > 16 || S < 2 || qmax < 1 || S * ((P + 2) / 2) > 16384)
-    return (int)cudaErrorInvalidValue;
+  if (M != G + P || qmax < 1) return (int)cudaErrorInvalidValue;
   if (!(out == 2 && scale == nullptr) && !((out == 0 || out == 1) && scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (P) {
-    case 1: return launch<1>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S, qmax,
-                             out, s);
-    case 2: return launch<2>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S, qmax,
-                             out, s);
-    case 3: return launch<3>(x_q, coeff, scale, rom, tickets, sums, y, BS, K, N, M, G, S, qmax,
-                             out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int plan[kan::kPlanInts];
+  const int err = kan_sparse_int8_gemm_plan(BS, K, N, M, P, S, kan::ptr_align(coeff), plan);
+  if (err != 0) return err;
+  int TQ = plan[kan::kExtra], JS = plan[kan::kExtra + 1], tiles_n = plan[kan::kExtra + 2];
+  void* args[] = {&x_q, &coeff, &scale, &rom, &sums, &tickets, &y, &BS, &K, &N, &M, &G, &S,
+                  &qmax, &out, &TQ, &JS, &tiles_n};
+  const int inst = plan[kan::kInst];
+  return kan::launch_planned(kernel_of(inst), plan, args, static_cast<cudaStream_t>(stream),
+                             granted[inst]);
 }

@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "kan_common.cuh"
+
 // One leaf as the C entry takes it: pool (layers, n_blocks, block_bytes)
 // and view (layers, B, L, block_bytes), both contiguous; elem_bytes is the
 // element size (1, 2 or 4), the copy unit when 16 bytes do not fit.
@@ -149,17 +151,16 @@ paged_gather_kernel(const __grid_constant__ Leaves leaves, const int* __restrict
   }
 }
 
-}  // namespace
-
-// n_leaves (1..kMaxLeaves) leaves gathered through one table (B, L) int32,
-// in one launch; a leaf with nothing to copy takes no CTA, and a call with
-// nothing to copy launches nothing.  Returns a cudaError_t (0 = success).
-extern "C" int paged_gather(const PagedLeaf* leaves, int n_leaves, const void* table, int B,
-                            int L, void* stream) {
+// The launch plan of a call into `d` (the leaves as the kernel takes them)
+// and `plan` (kan_common.cuh: PlanField; kernel fields: each leaf's copy
+// unit).  A call with nothing to copy plans a (0, 0, 0) grid: no launch.
+int plan_leaves(const PagedLeaf* leaves, int n_leaves, int B, int L, Leaves* d, int* plan) {
+  kan::plan_clear(plan);
+  *d = Leaves{};
   if (n_leaves < 1 || n_leaves > kMaxLeaves || B < 0 || L < 0)
     return (int)cudaErrorInvalidValue;
-  Leaves d = {};
   long long layers = 0, parts = 0;
+  int unit = 16;
   for (int i = 0; i < n_leaves; ++i) {
     const PagedLeaf& p = leaves[i];
     const int e = p.elem_bytes;
@@ -167,27 +168,61 @@ extern "C" int paged_gather(const PagedLeaf* leaves, int n_leaves, const void* t
         p.block_bytes % e)
       return (int)cudaErrorInvalidValue;
     if (p.layers == 0 || p.block_bytes == 0) continue;
-    Leaf& f = d.leaf[d.n++];
+    Leaf& f = d->leaf[d->n];
     f.pool = static_cast<const uint8_t*>(p.pool);
     f.view = static_cast<uint8_t*>(p.view);
     f.block_bytes = p.block_bytes;
     f.n_blocks = p.n_blocks;
-    f.unit = p.block_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(p.pool) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(p.view) % 16 == 0
+    f.unit = p.block_bytes % 16 == 0 && kan::ptr_align(p.pool) == 16 &&
+                     kan::ptr_align(p.view) == 16
                  ? 16 : e;
     f.part_bytes = kThreads * kUnroll * f.unit;
     const long long n = (p.block_bytes + f.part_bytes - 1) / f.part_bytes;
     if (n > 65535 || layers + p.layers > 65535) return (int)cudaErrorInvalidConfiguration;
     f.parts = (int)n;
     f.first = (int)layers;
+    plan[kan::kExtra + d->n] = f.unit;
+    unit = f.unit < unit ? f.unit : unit;
+    ++d->n;
     layers += p.layers;
     parts = n > parts ? n : parts;
   }
   const long long bl = (long long)B * L;
-  if (d.n == 0 || bl == 0) return 0;
+  if (d->n == 0 || bl == 0) return 0;
   if (bl > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)bl, (unsigned)parts, (unsigned)layers);
-  paged_gather_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const int*>(table));
-  return (int)cudaGetLastError();
+  plan[kan::kGridX] = (int)bl;
+  plan[kan::kGridY] = (int)parts;
+  plan[kan::kGridZ] = (int)layers;
+  plan[kan::kBlockThreads] = kThreads;
+  plan[kan::kVecBytes] = unit;
+  return 0;
+}
+
+}  // namespace
+
+// The launch plan of a call, as the launcher below computes it (the leaves'
+// pool and view addresses only decide their copy units).  Returns a
+// cudaError_t.
+extern "C" int paged_gather_plan(const PagedLeaf* leaves, int n_leaves, int B, int L,
+                                 int* plan) {
+  Leaves d;
+  const int err = plan_leaves(leaves, n_leaves, B, L, &d, plan);
+  if (err != 0) kan::plan_clear(plan);
+  return err;
+}
+
+// n_leaves (1..kMaxLeaves) leaves gathered through one table (B, L) int32,
+// in one launch; a leaf with nothing to copy takes no CTA, and a call with
+// nothing to copy launches nothing.  Returns a cudaError_t (0 = success).
+extern "C" int paged_gather(const PagedLeaf* leaves, int n_leaves, const void* table, int B,
+                            int L, void* stream) {
+  Leaves d;
+  int plan[kan::kPlanInts];
+  const int err = plan_leaves(leaves, n_leaves, B, L, &d, plan);
+  if (err != 0 || plan[kan::kGridX] == 0) return err;
+  const int* tbl = static_cast<const int*>(table);
+  void* args[] = {&d, &tbl};
+  static int granted[64] = {};       // never raised: no dynamic shared memory
+  return kan::launch_planned((const void*)paged_gather_kernel, plan, args,
+                             static_cast<cudaStream_t>(stream), granted);
 }

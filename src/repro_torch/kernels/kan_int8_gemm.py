@@ -35,6 +35,7 @@ from repro_torch.core import bspline
 from repro_torch.core.bspline import SplineGrid
 from repro_torch.core.quantization import build_lut_u8, lut_value_scale
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as pl
 from repro_torch.kernels.common import band_scatter, int8_compact_values_inblock, rom_table
 from repro_torch.kernels.workspace import workspace
 
@@ -42,6 +43,73 @@ SUPPORTED_P = (1, 2, 3)       # the degrees the int8 kernels are compiled for
 MAX_M = 64                    # the dense-band kernel's widest band (256/M inputs per K step)
 MAX_ROM_BYTES = 16384         # shared memory the kernels give the uint8 ROM
 OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+# csrc/kan_int8_gemm.cu:68-73: rows per block, band bytes per K step, the
+# shared row pitch, cp.async stages, codes tabulated
+_BM, _W, _PITCH, _STAGES, _CODES = 64, 128, 144, 2, 256
+STATIC_SMEM = 16              # .cu:225: ``last_s``, and the dynamic area's 16-byte alignment
+
+
+def _layout_total(BN: int, BK: int, rom_bytes: int) -> int:   # .cu:84-102
+    q = max(2, 32 // BK)
+    xp = (q * BK + 6) // 4 * 4
+    if (xp // 4) % 2 == 0:
+        xp += 4
+    bt = _STAGES * _W * BN + 2 * _BM * _PITCH
+    xs = bt + BN * _PITCH
+    tab = xs + 2 * _BM * xp * 4
+    return tab + _CODES * 5 + pl.cdiv(rom_bytes, 16) * 16
+
+
+def template_of(inst: int) -> tuple:
+    """The instantiation ``inst`` (.cu:422-423) as ``kan_int8_kernel``'s
+    template arguments ``(P, OUT, BN, VEC)``."""
+    return (inst // 12 + 1, inst // 4 % 3, 128 if inst % 4 >= 2 else 64, inst % 2 == 1)
+
+
+def launch_plan(BS: int, K: int, N: int, M: int, P: int, dtype: str = "int8", S: int = 256,
+                out: int = 0, align: int = 16, sms: int = pl.SMS,
+                per_sm: int | None = None) -> pl.Plan:
+    """``kan_int8_gemm_plan`` (.cu:456-496) in Python: ``S`` the ROM's
+    rows, ``out`` the output code (``OUT_CODES``), ``align`` C's address
+    alignment.  ``per_sm`` None: the occupancy bound
+    (``plan.occupancy_bound``) in place of the card's calculator.  x_q's
+    16-byte reads start at the aligned element at or before each row's
+    first input, so its row pitch is free; the launcher refuses an x_q
+    address that is not 16-byte aligned (the wrapper copies one)."""
+    half = (P + 2) // 2
+    if not (1 <= P <= 3 and P < M <= MAX_M and S >= 2 and S * half <= MAX_ROM_BYTES
+            and 0 <= out <= 2 and BS >= 1 and K >= 0 and N >= 1 and dtype == "int8"):
+        return pl.Plan(error=pl.INVALID_VALUE)
+    vec = N % 16 == 0 and align % 16 == 0
+    BN = 64 if N <= 64 else 128                                # .cu:420 (tile_n)
+    BK = min(_W // M, 32)
+    smem = _layout_total(BN, BK, S * half)
+    inst = ((P - 1) * 3 + out) * 4 + (BN == 128) * 2 + int(vec)
+    if per_sm is None:
+        per_sm = pl.occupancy_bound(2 * BN, smem + STATIC_SMEM)
+    steps = pl.cdiv(K, BK)
+    tiles = pl.cdiv(N, BN) * pl.cdiv(BS, _BM)
+    splits = min(max(1, per_sm * sms // tiles), max(steps, 1))
+    per_split = max(1, pl.cdiv(steps, splits))
+    splits = max(1, pl.cdiv(steps, per_split))
+    return pl.Plan(grid=(pl.cdiv(N, BN), pl.cdiv(BS, _BM), splits), threads=2 * BN, smem=smem,
+                   grant=smem, vec=16 if vec else 1, inst=inst, sms=sms, per_sm=per_sm,
+                   extra=(BN, BK, per_split), template=template_of(inst),
+                   rows=((16 if vec else 1, N),))
+
+
+def plan_export(lib, BS: int, K: int, N: int, M: int, P: int, dtype: str = "int8",
+                S: int = 256, out: int = 0, align: int = 16) -> pl.Plan:
+    """The library's own plan (``kan_int8_gemm_plan``), resident blocks
+    per SM from the card's occupancy calculator."""
+    return pl.read_export(lib.kan_int8_gemm_plan, [BS, K, N, M, P, S, out, align],
+                          template_of)
+
+
+def threads_of(template: tuple) -> int:
+    """``__launch_bounds__(2 * BN, ...)`` (.cu:216)."""
+    return 2 * template[2]
 
 
 @functools.lru_cache(maxsize=8)
@@ -90,8 +158,10 @@ def kan_int8_gemm_reference(
     BS, K = x_q.shape
     _, M, N = coeff_q.shape
     bvals, k = int8_compact_values_inblock(x_q, grid, S, qmax, lut_scale)
-    band = band_scatter(bvals.to(torch.float64), k, M).reshape(BS, K * M)
-    acc = (band @ coeff_q.to(torch.float64).reshape(K * M, N)).to(torch.int32)
+    # float64: exact integer sums (every partial sum is below 2^53)
+    band = band_scatter(bvals.to(torch.float64), k, M)  # kanlint: ignore[KL103]
+    c64 = coeff_q.to(torch.float64)  # kanlint: ignore[KL103]
+    acc = (band.reshape(BS, K * M) @ c64.reshape(K * M, N)).to(torch.int32)
     return dequant_epilogue(acc, scale, out_dtype)
 
 

@@ -26,6 +26,63 @@ from repro_torch.kernels import kan_fused_gemm as _fused
 from repro_torch.kernels import kan_int8_gemm as _int8
 from repro_torch.kernels import kan_sparse_gemm as _sparse
 from repro_torch.kernels import paged_gather as _gather
+from repro_torch.kernels.spills import SPILLS
+
+# Registered CUDA libraries, for the kernel-config lint
+# (``repro_torch.analysis.kernel_configs``; the counterpart of
+# ``repro/kernels/ops.py: KERNELS``): per library in ``build.LIBRARIES``,
+# the kernel's symbol, the dtypes, spline degrees and largest M its
+# wrapper's checks admit, its static shared memory at most (``last_s`` and
+# the dynamic area's alignment), its threads per block by instantiation
+# (the ``__launch_bounds__``), its launcher's plan in Python
+# (``launch_plan``) beside the library's own (``plan_export``), and the
+# bytes each of its instantiations spills (``kernels/spills.py``; a new or
+# larger spill fails the lint).  A library without an entry here fails the
+# lint's coverage check (KL204).
+KERNELS: dict[str, dict] = {
+    "kan_fused_gemm": {
+        "spills": SPILLS["kan_fused_gemm"],
+        "symbol": "kan_fused_kernel", "dtypes": ("float32", "bfloat16"),
+        "P": _fused.SUPPORTED_P, "max_m": _fused.MAX_M, "static_smem": _fused.STATIC_SMEM,
+        "threads": _fused.threads_of, "plan": _fused.launch_plan,
+        "plan_export": _fused.plan_export,
+    },
+    "kan_sparse_gemm": {
+        "spills": SPILLS["kan_sparse_gemm"],
+        "symbol": "kan_sparse_kernel", "dtypes": ("float32", "bfloat16"),
+        "P": _fused.SUPPORTED_P, "max_m": _sparse.MAX_M, "static_smem": _sparse.STATIC_SMEM,
+        "threads": _sparse.threads_of, "plan": _sparse.launch_plan,
+        "plan_export": _sparse.plan_export,
+    },
+    "kan_sparse_int8_gemm": {
+        "spills": SPILLS["kan_sparse_int8_gemm"],
+        "symbol": "kan_sparse_int8_kernel", "dtypes": ("int8",),
+        "P": _int8.SUPPORTED_P, "max_m": _sparse.MAX_M, "static_smem": _sparse.STATIC_SMEM,
+        "threads": _sparse.threads_of, "plan": _sparse.int8_launch_plan,
+        "plan_export": _sparse.int8_plan_export,
+    },
+    "kan_int8_gemm": {
+        "spills": SPILLS["kan_int8_gemm"],
+        "symbol": "kan_int8_kernel", "dtypes": ("int8",),
+        "P": _int8.SUPPORTED_P, "max_m": _int8.MAX_M, "static_smem": _int8.STATIC_SMEM,
+        "threads": _int8.threads_of, "plan": _int8.launch_plan,
+        "plan_export": _int8.plan_export,
+    },
+    "paged_gather": {
+        "spills": SPILLS["paged_gather"],
+        "symbol": "paged_gather_kernel", "dtypes": ("float32", "bfloat16", "float16", "int8",
+                                                    "uint8"),
+        "max_leaves": _gather.MAX_LEAVES, "static_smem": _gather.STATIC_SMEM,
+        "threads": _gather.threads_of, "plan": _gather.launch_plan,
+        "plan_export": _gather.plan_export,
+    },
+    "bspline_lut": {
+        "spills": SPILLS["bspline_lut"],
+        "symbol": "bspline_lut_kernel", "dtypes": ("float32",), "P": _lut.SUPPORTED_P,
+        "max_table_bytes": _lut.MAX_TABLE_BYTES, "static_smem": _lut.STATIC_SMEM,
+        "threads": _lut.threads_of, "plan": _lut.launch_plan, "plan_export": _lut.plan_export,
+    },
+}
 
 LAUNCHES: dict[str, int] = {
     "kan_fused_gemm": 0, "kan_sparse_gemm": 0, "gather_blocks": 0,

@@ -31,9 +31,58 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import plan as pl
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.uint8)
 MAX_LEAVES = 4                 # leaf descriptors one launch takes (csrc kMaxLeaves)
+_THREADS, _UNROLL = 128, 4     # csrc/paged_gather.cu:70-71
+STATIC_SMEM = 0
+
+
+def launch_plan(leaves: list, B: int, L: int, sms: int = pl.SMS,
+                per_sm: int | None = None) -> pl.Plan:
+    """``plan_leaves`` (csrc/paged_gather.cu:157-199) in Python.  Each leaf
+    is a dict of ``block_bytes``, ``n_blocks``, ``layers``, ``elem_bytes``
+    and ``align`` (the smaller address alignment of its pool and view)."""
+    if not 1 <= len(leaves) <= MAX_LEAVES or B < 0 or L < 0:
+        return pl.Plan(error=pl.INVALID_VALUE)
+    layers = parts = 0
+    units, rows = [], []
+    for f in leaves:
+        e, bb = f["elem_bytes"], f["block_bytes"]
+        if f["layers"] < 0 or f["n_blocks"] < 1 or bb < 0 or e not in (1, 2, 4) or bb % e:
+            return pl.Plan(error=pl.INVALID_VALUE)
+        if f["layers"] == 0 or bb == 0:
+            continue
+        unit = 16 if bb % 16 == 0 and f["align"] == 16 else e
+        n = pl.cdiv(bb, _THREADS * _UNROLL * unit)
+        if n > pl.MAX_GRID_YZ or layers + f["layers"] > pl.MAX_GRID_YZ:
+            return pl.Plan(error=pl.INVALID_CONFIGURATION)
+        units.append(unit)
+        rows.append((unit, bb))
+        layers += f["layers"]
+        parts = max(parts, n)
+    if not units or B * L == 0:
+        return pl.Plan(extra=tuple(units))
+    if B * L > pl.MAX_GRID_X:
+        return pl.Plan(error=pl.INVALID_CONFIGURATION)
+    return pl.Plan(grid=(B * L, parts, layers), threads=_THREADS, vec=min(units),
+                   extra=tuple(units), rows=tuple(rows))
+
+
+def plan_export(lib, leaves: list, B: int, L: int) -> pl.Plan:
+    """The library's own plan (``paged_gather_plan``); each leaf's pool
+    and view addresses are stand-ins of its ``align`` (nothing is read)."""
+    descs = (_Leaf * len(leaves))(*[
+        _Leaf(f["align"], f["align"], f["block_bytes"], f["n_blocks"], f["layers"],
+              f["elem_bytes"]) for f in leaves])
+    return pl.read_export(lambda *a: lib.paged_gather_plan(ctypes.addressof(descs), *a),
+                          [len(leaves), B, L], lambda inst: ())
+
+
+def threads_of(template: tuple) -> int:
+    """``__launch_bounds__(kThreads)`` (.cu:126)."""
+    return _THREADS
 
 
 class _Leaf(ctypes.Structure):

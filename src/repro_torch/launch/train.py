@@ -128,15 +128,16 @@ def run(argv=None) -> dict:
                         raise
                     print(f"[retry] step {step_i} attempt {attempt + 1}: {e}")
             step_i += 1
-            loss = float(metrics["loss"])
+            loss = float(metrics["loss"])  # kanlint: ignore[KL102] (each step's loss)
             step_s.append(time.perf_counter() - t0)
             losses.append(loss)
             if step_i % args.log_every == 0 or step_i == args.steps:
                 dt = time.time() - t_start
                 tok_s = step_i * args.batch * args.seq / max(dt, 1e-9)
-                print(f"step {step_i:5d} loss {loss:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"lr {float(metrics['lr']):.2e} tok/s {tok_s:,.0f}")
+                gnorm = float(metrics["grad_norm"])  # kanlint: ignore[KL102] (the log line)
+                lr = float(metrics["lr"])  # kanlint: ignore[KL102] (the log line)
+                print(f"step {step_i:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                      f"lr {lr:.2e} tok/s {tok_s:,.0f}")
             if ckpt is not None and (step_i % args.ckpt_every == 0 or stop["flag"]):
                 ckpt.save_async(step_i, (params, opt_state), {"loss": loss})
         if ckpt is not None:

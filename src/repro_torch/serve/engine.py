@@ -162,8 +162,9 @@ class Engine:
                     quant=serve_cfg.draft_quant)
 
     def _sync(self) -> None:
+        """Drain the stream, so a phase's host clock holds its device work."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # kanlint: ignore[KL102] (the stats' clocks)
 
     def _validate_request(self, rid, prompt_len: int, max_new: int) -> None:
         if max_new < 1:
@@ -520,7 +521,7 @@ class Engine:
             prefill logits; then activate its slot, or retire it at once (a
             budget of one token, or a first token that is EOS)."""
             kcs, firsts = self._keys_first(base, [rid for _, rid in pairs], last)
-            firsts = firsts.cpu().numpy()
+            firsts = firsts.cpu().numpy()  # kanlint: ignore[KL102] (one read per admission)
             for j, (b, rid) in enumerate(pairs):
                 first = int(firsts[j])
                 bufs[rid].append(first)
@@ -800,7 +801,14 @@ class Engine:
                 toks, tok_l, caches, pos_l, eos_l = self._decode_chunk(
                     chunk_steps, tok_d, caches, pos_d, eos_d, eos,
                     table_dev["arr"] if paged else None, kts_d)
-            toks, tok, pos, eos_hit = (a.cpu().numpy().copy() for a in (toks, tok_l, pos_l, eos_l))
+            # one read: the chunk's tokens, tok, pos and the EOS latch per slot
+            host = torch.cat([toks.T.long(), tok_l.long(), pos_l[:, None].long(),
+                              eos_l[:, None].long()], dim=1).cpu()
+            h_toks, h_tok, h_pos, h_eos = host.split([chunk_steps, 1, 1, 1], dim=1)
+            toks = h_toks.T.to(toks.dtype).numpy()
+            tok = h_tok.to(tok_l.dtype).numpy()
+            pos = h_pos[:, 0].to(pos_l.dtype).numpy()
+            eos_hit = h_eos[:, 0].to(eos_l.dtype).numpy()
             if chains is not None:           # every row split chunk_steps times
                 keys = chains[:, chunk_steps]
             timing["decode_s"] += time.perf_counter() - t1

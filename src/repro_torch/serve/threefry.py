@@ -134,7 +134,8 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     # float32 constants held as Python floats (exact): no host-to-device copy
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
-    return torch.clamp_min((f.double() * span + lo).float(), lo)
+    # float64: the reference's exact uniform (see above)
+    return torch.clamp_min((f.double() * span + lo).float(), lo)  # kanlint: ignore[KL103]
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

@@ -94,6 +94,18 @@ def test_pipeline_and_costs_modules_import_neither_jax_nor_repro(module):
     assert roots <= {"__future__", "math", "typing", "torch", "repro_torch"}
 
 
+# the modules the kanlint slice added: the standard library, torch and the port
+@pytest.mark.parametrize("module", ["analysis/__init__.py", "analysis/__main__.py",
+                                    "analysis/findings.py", "analysis/ast_rules.py",
+                                    "analysis/kernel_configs.py", "launch/lint.py",
+                                    "kernels/plan.py"])
+def test_kanlint_modules_import_neither_jax_nor_repro(module):
+    roots = _imported_roots(PORT / module)
+    assert not roots & set(FORBIDDEN)
+    assert roots <= {"__future__", "argparse", "ast", "collections", "ctypes", "dataclasses",
+                     "json", "os", "re", "sys", "torch", "repro_torch"}
+
+
 def test_chip_smoke_sampling_phase_rehearses_on_the_cpu(monkeypatch):
     """Phase 6c's checks at the reduced width on the kernels' plain versions
     (every launch count 0): the threefry answers, seven sampled runs, a
