@@ -153,9 +153,9 @@ Phases; any failed check raises and the script exits non-zero:
 11. The MoE models (see the note above ``MOE_CELL``).  Phase 6's gather
    check also holds the kernel, bit for bit, at olmoe-1b-7b's pools (16
    layers, 97 blocks of 16 tokens, 16 KV heads, head_dim 128), stacked and
-   one layer, each timed.  (a) Full-width, full-depth olmoe-1b-7b (64
-   experts top-8 in all 16 layers; random weights from seed 0, fp32, 27.3
-   GB) serves phase 4's requests statically, held to its buckets
+   one layer, each timed.  (a) Full-width olmoe-1b-7b at ``OLMOE_REPEATS``
+   = 8 of its 16 layers (64 experts top-8 in each; random weights from seed
+   0, fp32, 3.5 B parameters) serves phase 4's requests statically, held to its buckets
    recomputed step by step, its teacher-forced decode logits within
    ``DENSE_REL`` of ``lm.forward``'s at ``capacity_factor = E / top_k``;
    then phase 6's continuous cell dense, paged shadow, paged step, the
@@ -239,7 +239,7 @@ Phases; any failed check raises and the script exits non-zero:
    ``(S-1)/(M+S-1)``, and ``costs.model_flops`` as a share of the fp32
    peak (phase 13's warm step prints its share too).
 15. A JSON line with every ported kernel's numbers, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``, printed after phase 16.
+   the last line ``{"ok": true, "device": {...}}``, printed after phase 17.
 16. The port's kanlint on the card, where there is no JAX
    (``repro_torch.analysis``): ``python -m repro_torch.analysis --check
    src/repro_torch`` in a subprocess (the static rules, the registry half
@@ -253,6 +253,25 @@ Phases; any failed check raises and the script exits non-zero:
    beside each library); a row per instantiation the main shapes take (registers,
    static and dynamic shared memory, threads, spills), and every spilling
    instantiation by name.  Any finding fails the phase.
+17. Mesh serving (``ServeConfig.mesh``; see the note above ``MESH``),
+   full-width kanformer-100m from seed 0: phase 4's 8 requests sampled at
+   ``SAMPLE_T`` through ``serve_requests`` (batch 4) and the continuous
+   cell's 16 requests with budgets cut to ``MESH["budget"]`` through
+   ``serve_continuous`` dense, paged shadow (prefix caching) and paged
+   step.  (a) The unmeshed engine, then a 1x1 mesh on a one-rank NCCL
+   group in this process: every stream bit-equal, every run's launch counts
+   equal to the unmeshed run's and to its stats' expectation, a prefix hit.
+   (b) The 2x2 rehearsal: four ranks spawned on this one card over gloo
+   (``launch.mesh.run_ranks(share_card=True)``) serve the same cells plus
+   a 26-block pool that the data axis splits; each rank's launches exact at
+   its local shapes (dense rows split over data), its shard shapes those of
+   the battery's distribution proofs (``wq`` heads / 2, dense ``k`` rows
+   and KV heads / 2, the 26-block pool's blocks / 2, the default 97-block
+   pool whole), every rank's streams equal to rank 0's and to the
+   unmeshed run's unless the first divergence is a near-tie (top-2 gap
+   below ``LOGIT_ATOL``; sampled: of the perturbed scores, times T).  Ms per
+   dense decode step unmeshed, 1x1 and in the rehearsal (host-staged
+   collectives on one card: not a scale-out figure) beside the card's line.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
 checkout of the repository.  Imports nothing of JAX.
@@ -353,7 +372,7 @@ def time_ms(torch, fns, cycles_per_ms: float, reps: int = 30) -> float:
     host enqueues every call, and the events time the device's work only.
     Where the host was slower than that (a pause of the host, not of the
     card), the run is taken again behind a spin twice as long, at most
-    three times.
+    five times.
     """
     for f in fns:
         f()
@@ -365,7 +384,7 @@ def time_ms(torch, fns, cycles_per_ms: float, reps: int = 30) -> float:
     untimed_ms = (time.perf_counter() - t0) * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for factor in (2, 4, 8):
+    for factor in (2, 4, 8, 16, 32):
         torch.cuda._sleep(int(cycles_per_ms * (factor * untimed_ms + 5)))
         start.record()
         for i in range(reps):
@@ -3012,9 +3031,17 @@ def parted_from(np, tag, outs, ref) -> list[dict]:
     return divs
 
 
+# olmoe-1b-7b's depth in phase 11: 8 of its 16 layers at full width.  With
+# phase 17 (mesh serving) added and olmoe at full depth the whole script
+# took ~1118 s of its 1200 on an H100 80GB HBM3 at 700 W, phase 11 220.9 s
+# of it; the cut keeps every check and exact launch count of the cells.
+OLMOE_REPEATS = 8
+
+
 def olmoe_path(torch, np, device="cuda", cfg=None):
-    """Phase 11 (a), any miss raises: olmoe-1b-7b at full width and depth
-    (random weights from seed 0, fp32) served statically, continuously
+    """Phase 11 (a), any miss raises: olmoe-1b-7b at full width and
+    ``OLMOE_REPEATS`` of its 16 layers (random weights from seed 0, fp32)
+    served statically, continuously
     (dense, paged shadow, paged step, the 25-block pool), speculatively
     (1-layer drafter, dense and paged shadow) and sampled at ``SAMPLE_T``,
     each run counted exactly; the no-drop runs hold the paged (shadow, step,
@@ -3029,12 +3056,12 @@ def olmoe_path(torch, np, device="cuda", cfg=None):
 
     cuda = device == "cuda"
     t_start = time.perf_counter()
-    cfg = cfg or olmoe_1b_7b.config().model
+    cfg = cfg or olmoe_1b_7b.build(n_layers=OLMOE_REPEATS).model
     moe = cfg.unit[0].moe
     params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
     out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
            "init_s": time.perf_counter() - t_start}
-    log(f"[moe] olmoe-1b-7b full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+    log(f"[moe] olmoe-1b-7b full width, {cfg.n_layers} of 16 layers: d={cfg.d_model} "
         f"heads={cfg.unit[0].attn.n_heads}/{cfg.unit[0].attn.n_kv_heads} experts="
         f"{moe.n_experts} top-{moe.top_k} d_ff={moe.d_ff} capacity_factor "
         f"{moe.capacity_factor} vocab={cfg.vocab} params={out['params'] / 1e9:.3f}B fp32, "
@@ -4147,6 +4174,261 @@ def pipeline_path(torch, np, device="cuda", reduced=False):
     return out
 
 
+# Phase 17: mesh serving (``ServeConfig.mesh``, ``launch/mesh.py``).  The
+# continuous cell's 16 requests with budgets cut to ``MESH["budget"]`` (at
+# least two admission waves on 8 slots, so the prefix cache hits) and phase
+# 4's 8 requests sampled at SAMPLE_T, on a 1x1 NCCL mesh and in the 2x2
+# rehearsal on the one card.  The rehearsal's ranks share cuda:0 over gloo,
+# every collective staged through the host: its times say what the code
+# paths cost there, not what a mesh of cards would.
+MESH = {"budget": 16, "pool_blocks": 26, "rehearsal": (2, 2)}
+MESH_RUNS = [("dense", {}), ("paged_shadow", {"paged": True}),
+             ("paged_step", {"paged": True, "paged_read": "step"})]
+# 26 blocks: the data axis splits the pool (13 per rank), and 25 usable
+# blocks make the 8 slots wait or preempt
+MESH_REHEARSAL_RUNS = MESH_RUNS + [("paged_data_sharded_pool",
+                                    {"paged": True, "pool_blocks": MESH["pool_blocks"]})]
+
+
+def mesh_cells(torch, np, params, cfg, mesh, device, runs) -> dict:
+    """Phase 17's cells served on ``mesh`` (None: the unmeshed engine), each
+    with the launch counts reset just before and read just after: phase 4's
+    requests sampled through ``serve_requests``, then the continuous cell
+    ``runs`` ways -> ``{cell: {"streams", "launches", "stats", ...}}``."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(eng, serve):
+        sync()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = serve(eng)
+        sync()
+        return {"streams": outs, "launches": dict(ops.LAUNCHES),
+                "wall_s": time.perf_counter() - t0}
+
+    rs = np.random.RandomState(0)                  # phase 4's requests
+    lens4 = rs.randint(32, 129, 8)
+    reqs4 = [rs.randint(0, cfg.vocab, L).astype(np.int32) for L in lens4]
+    static = ServeConfig(max_seq=int(lens4.max()) + MESH["budget"] + 8, temperature=SAMPLE_T,
+                         max_new_tokens=MESH["budget"], mesh=mesh)
+    eng = Engine(params, cfg, static, device=device)
+    out = {"static_sampled": counted(
+        eng, lambda e: e.serve_requests(reqs4, batch_size=4, seed=SAMPLE_SEED))}
+    bk = eng.last_serve_stats["buckets"]
+    out["static_sampled"].update(
+        buckets=[(b["rows"], b["prompt_len"]) for b in bk],
+        decode_ms_per_step=sum(b["decode_s"] for b in bk) * 1e3
+        / sum(b["decode_steps"] for b in bk))
+    reqs, budgets = mesh_requests(np, cfg.vocab)
+    base = ServeConfig(max_seq=CONT["max_seq"], max_new_tokens=max(budgets),
+                       block_size=CONT["block_size"], mesh=mesh)
+    for name, extra in runs:
+        eng = Engine(params, cfg, dataclasses.replace(base, **extra), device=device)
+        out[name] = counted(eng, lambda e: e.serve_continuous(
+            reqs, slots=CONT["slots"], chunk_steps=CONT["chunk_steps"], max_new=budgets))
+        st = eng.last_serve_stats
+        out[name].update(
+            stats={k: st[k] for k in ("chunks_run", "prefill_groups", "n_preemptions",
+                                      "mesh_shape")},
+            prefill_tokens_saved=st.get("paged", {}).get("prefill_tokens_saved", 0),
+            decode_ms_per_step=st["decode_s"] * 1e3 / (st["chunks_run"] * CONT["chunk_steps"]))
+    return out
+
+
+def mesh_requests(np, vocab: int):
+    reqs, budgets = continuous_requests(np, vocab)
+    return reqs, [min(b, MESH["budget"]) for b in budgets]
+
+
+def mesh_rank(mesh, device, cfg, runs) -> dict:
+    """One rank of phase 17's rehearsal (``launch.mesh.run_ranks``): the
+    cells, and the shapes of this rank's shards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    out = mesh_cells(torch, np, params, cfg, mesh, device, runs)
+    eng = Engine(params, cfg, ServeConfig(max_seq=CONT["max_seq"], block_size=CONT["block_size"],
+                                          mesh=mesh), device=device)
+    slots, bs = CONT["slots"], CONT["block_size"]
+    default_pool = slots * CONT["max_seq"] // bs + 1
+    out["shapes"] = {
+        "wq": tuple(eng.params["unit"][0]["attn"]["wq"].shape),
+        "dense_k": tuple(eng._make_dense_caches(slots)["unit"][0]["k"].shape),
+        "pool_k": tuple(eng._make_paged_caches(MESH["pool_blocks"], bs)["unit"][0]["k"].shape),
+        "default_pool_k": tuple(eng._make_paged_caches(default_pool, bs)["unit"][0]["k"].shape)}
+    out["coord"] = tuple(int(c) for c in mesh.get_coordinate())
+    return out
+
+
+def mesh_expected(cfg, cell: str, r: dict, run: dict, d: int) -> dict:
+    """The launches one rank's cell implies at its local shapes: dense rows
+    split over the data axis (``d``), paged rows on every rank."""
+    from repro_torch.core import kan_layer as KL
+    from repro_torch.kernels import ops
+
+    if cell != "static_sampled":
+        rows = CONT["slots"] // d if not run.get("paged") else CONT["slots"]
+        return expected_launches(cfg, r["stats"], run, slots=rows)
+    per_pass = 2 * len(cfg.unit) * cfg.n_repeats
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    for rows, t in r["buckets"]:
+        local = rows // d if rows % d == 0 else rows
+        want["kan_" + KL.resolve_inference_method("cuda", local * t) + "_gemm"] += per_pass
+        want["kan_" + KL.resolve_inference_method("cuda", local) + "_gemm"] += \
+            per_pass * (MESH["budget"] - 1)
+    return want
+
+
+def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
+    """Phase 17 (see the module docstring; any miss raises).  ``device="cpu"``
+    with a reduced ``cfg`` rehearses it on the kernels' plain versions
+    (gloo; every count 0)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import kanformer_100m
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+
+    cfg = cfg or kanformer_100m.config().model
+    cuda = device == "cuda"
+    zeros = dict.fromkeys(ops.LAUNCHES, 0)
+    params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
+    reqs, budgets = mesh_requests(np, cfg.vocab)
+    out = {"requests": len(reqs), "budget": MESH["budget"], "runs": {}}
+    log(f"[mesh] {cfg.name} d={cfg.d_model} layers={cfg.n_repeats} vocab={cfg.vocab}; the "
+        f"continuous cell's {len(reqs)} requests, budgets cut to {MESH['budget']}, and phase "
+        f"4's 8 requests sampled at T = {SAMPLE_T} (batch 4)")
+
+    # (a) the unmeshed engine, then a 1x1 mesh on a one-rank group
+    t0 = time.perf_counter()
+    ref = mesh_cells(torch, np, params, cfg, None, device, MESH_RUNS)
+    tmp = tempfile.mkdtemp(prefix="mesh-")
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        one = mesh_cells(torch, np, params, cfg, M.make_host_mesh((1, 1)), device, MESH_RUNS)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for cell, r in one.items():
+        run = dict(MESH_RUNS).get(cell, {})
+        want = mesh_expected(cfg, cell, ref[cell], run, 1) if cuda else zeros
+        if ref[cell]["launches"] != want:
+            raise RuntimeError(f"unmeshed {cell}: launches {ref[cell]['launches']} != {want}")
+        if r["launches"] != ref[cell]["launches"]:
+            raise RuntimeError(f"1x1 {cell}: launches {r['launches']} != unmeshed "
+                               f"{ref[cell]['launches']}")
+        if not all(np.array_equal(a, b) for a, b in zip(r["streams"], ref[cell]["streams"])):
+            raise RuntimeError(f"1x1 {cell}: streams differ from the unmeshed engine's")
+        if cell != "static_sampled" and r["stats"]["mesh_shape"] != {"data": 1, "model": 1}:
+            raise RuntimeError(f"1x1 {cell}: mesh_shape {r['stats']['mesh_shape']}")
+        if cell == "paged_shadow" and r["prefill_tokens_saved"] <= 0:
+            raise RuntimeError("1x1 paged_shadow: no prefix hit")
+        out["runs"]["1x1_" + cell] = {"launches": r["launches"],
+                                      "decode_ms_per_step": r["decode_ms_per_step"]}
+        log(f"[mesh] 1x1 {'NCCL' if cuda else 'gloo'} {cell}: streams bit-equal to the "
+            f"unmeshed engine's, launches {r['launches']} equal; {r['decode_ms_per_step']:.3f} "
+            f"ms per decode step (unmeshed {ref[cell]['decode_ms_per_step']:.3f})")
+    out["1x1_s"] = time.perf_counter() - t0
+
+    # (b) the 2x2 rehearsal: four ranks on this one card (gloo)
+    d, m = MESH["rehearsal"]
+    t1 = time.perf_counter()
+    ranks = M.run_ranks(mesh_rank, (d, m), device, share_card=cuda,
+                        args=(cfg, MESH_REHEARSAL_RUNS))
+    out["rehearsal_s"] = time.perf_counter() - t1
+    a, hd = cfg.unit[0].attn, cfg.unit[0].attn.head_dim
+    L, bs = cfg.n_repeats, CONT["block_size"]
+    shapes = {"wq": (L, cfg.d_model, a.n_heads // m, hd),
+              "dense_k": (L, CONT["slots"] // d, CONT["max_seq"], a.n_kv_heads // m, hd),
+              "pool_k": (L, MESH["pool_blocks"] // d, bs, a.n_kv_heads // m, hd),
+              "default_pool_k": (L, CONT["slots"] * CONT["max_seq"] // bs + 1, bs,
+                                 a.n_kv_heads // m, hd)}
+    gaps = {}
+
+    def parting(cell: str, i: int, j: int) -> float:
+        """The gap that lets stream ``i`` of ``cell`` part from the unmeshed
+        one at step ``j``: greedy, the top-2 logit gap; sampled, the top-2
+        gap of the perturbed scores, scaled back by T."""
+        key = ("static" if cell == "static_sampled" else "cont", i)
+        if key not in gaps:
+            if cell == "static_sampled":
+                rs = np.random.RandomState(0)
+                lens4 = rs.randint(32, 129, 8)
+                reqs4 = [rs.randint(0, cfg.vocab, n).astype(np.int32) for n in lens4]
+                gaps[key] = sampled_gaps(torch, np, params, cfg, reqs4[i],
+                                         ref[cell]["streams"][i], i, SAMPLE_SEED, SAMPLE_T,
+                                         device)[0] * SAMPLE_T
+            else:
+                gaps[key] = stream_gaps(torch, np, params, cfg, reqs[i],
+                                        ref["dense"]["streams"][i], device)
+        return float(gaps[key][j])
+
+    partings = []
+    for r in ranks:
+        if r["shapes"] != shapes:
+            raise RuntimeError(f"rank {r['coord']}: shard shapes {r['shapes']} != {shapes}")
+        for cell, run in [("static_sampled", {})] + MESH_REHEARSAL_RUNS:
+            got = r[cell]
+            want = mesh_expected(cfg, cell, got, run, d) if cuda else zeros
+            if got["launches"] != want:
+                raise RuntimeError(f"2x2 rank {r['coord']} {cell}: launches {got['launches']} "
+                                   f"!= {want}")
+            base = ref[cell if cell == "static_sampled" else "dense"]["streams"]
+            for i, (g, w) in enumerate(zip(got["streams"], base)):
+                diff = np.nonzero(g != w)[0]
+                if diff.size:
+                    j = int(diff[0])
+                    gap = parting(cell, i, j)
+                    partings.append({"rank": r["coord"], "cell": cell, "request": i,
+                                     "step": j, "gap": gap})
+                    if gap >= LOGIT_ATOL:
+                        raise RuntimeError(f"2x2 rank {r['coord']} {cell}: request {i} parts "
+                                           f"at step {j}, gap {gap:.3e}: not a near-tie")
+            if not all(np.array_equal(x, y) for x, y in zip(got["streams"],
+                                                            ranks[0][cell]["streams"])):
+                raise RuntimeError(f"2x2 {cell}: rank {r['coord']} serves other streams "
+                                   "than rank 0")
+    r0 = ranks[0]
+    for cell, _ in [("static_sampled", {})] + MESH_REHEARSAL_RUNS:
+        out["runs"]["2x2_" + cell] = {"launches": r0[cell]["launches"],
+                                      "decode_ms_per_step": r0[cell]["decode_ms_per_step"],
+                                      "n_preemptions": r0[cell].get("stats", {}).get(
+                                          "n_preemptions")}
+        log(f"[mesh] 2x2 rehearsal {cell}: every rank's launches exact at its local shapes "
+            f"(rank 0 {r0[cell]['launches']}); {r0[cell]['decode_ms_per_step']:.3f} ms per "
+            f"decode step")
+    out["partings"] = partings
+    out["shapes"] = {k: list(v) for k, v in shapes.items()}
+    out["decode_ms_per_step"] = {"unmeshed": ref["dense"]["decode_ms_per_step"],
+                                 "1x1": one["dense"]["decode_ms_per_step"],
+                                 "2x2_rehearsal": r0["dense"]["decode_ms_per_step"]}
+    where = card_line() if cuda else "the CPU (plain versions)"
+    log(f"[mesh] shard shapes per rank {shapes}; streams parted at {len(partings)} near-ties "
+        f"(gap < {LOGIT_ATOL:.0e})")
+    log(f"[mesh] ms per dense decode step: unmeshed {out['decode_ms_per_step']['unmeshed']:.3f}, "
+        f"1x1 mesh {out['decode_ms_per_step']['1x1']:.3f}, 2x2 REHEARSAL (4 ranks on one card, "
+        f"collectives staged through the host over gloo; not a scale-out figure) "
+        f"{out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
+    log(f"[mesh] 1x1 cells {out['1x1_s']:.1f} s, 2x2 rehearsal {out['rehearsal_s']:.1f} s")
+    return out
+
+
 def lint_path(torch) -> dict:
     """Phase 16: the port's kanlint on the card (see the module docstring)."""
     from repro_torch.analysis import kernel_configs
@@ -4275,13 +4557,15 @@ def main() -> int:
     pipe = pipeline_path(torch, np)
     t11 = time.perf_counter()
     lint = lint_path(torch)
+    t12 = time.perf_counter()
+    mesh = mesh_path(torch, np)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
         f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
         f"{t9 - t8:.1f} s, trainer and non-token inputs {t10 - t9:.1f} s, pipeline "
-        f"{t11 - t10:.1f} s, kanlint {time.perf_counter() - t11:.1f} s")
+        f"{t11 - t10:.1f} s, kanlint {t12 - t11:.1f} s, mesh {time.perf_counter() - t12:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
@@ -4289,7 +4573,7 @@ def main() -> int:
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
             "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
             "train_path": trained, "nontoken_path": nontoken, "pipeline_path": pipe,
-            "lint_path": lint, "build_s": built}
+            "lint_path": lint, "mesh_path": mesh, "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -4313,7 +4597,8 @@ def main() -> int:
                **{"train_" + k: m["launches"] for k, m in trained["runs"].items()},
                **{"inputs_" + k.replace(" ", "_"): m["launches"]
                   for k, m in nontoken["runs"].items()},
-               **{"pipeline_" + k: m["launches"] for k, m in pipe["runs"].items()}}
+               **{"pipeline_" + k: m["launches"] for k, m in pipe["runs"].items()},
+               **{"mesh_" + k: m["launches"] for k, m in mesh["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

@@ -5,7 +5,9 @@ meaning in PyTorch and CUDA what it means there:
 
 * **KL1xx AST lints** (``ast_rules.py``): KL100 (the source does not
   parse), KL102 (host syncs in the serving and training loops), KL103
-  (float64 on a device path);
+  (float64 on a device path); and KL105 (``sharding_audit.py``: a public
+  cache-mutating ``models/`` entry point threads the mesh's
+  ``ShardingCtx``);
 * **KL2xx launch budgets** (``kernel_configs.py``): every CUDA launcher's
   plan (``kernels/ops.py: KERNELS``) over a problem suite against the
   card's shared memory, alignment and grid limits, and coverage of the
@@ -20,9 +22,9 @@ findings in neither.  Exit codes: 0 clean, 1 new findings, 2 usage error
 (``--device cuda`` without a card included).
 
 Not ported, for want of a torch meaning (ROADMAP.md): KL101, KL104 and the
-retrace sentinel (tracing; they come with CUDA graphs), KL105 (the
-sharding audit; with ``dist/sharding.py``), and the autotuner's candidate
-spaces and measurement cache (with the tile autotuner).
+retrace sentinel (tracing; they come with CUDA graphs), and the
+autotuner's candidate spaces and measurement cache (with the tile
+autotuner).
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def run_check(
     ``device="cuda"`` adds the card half of KL2xx (``card``: its rows and
     the number of plans held to the exports); the caller checks that a
     card is there."""
-    from repro_torch.analysis import ast_rules, findings
+    from repro_torch.analysis import ast_rules, findings, sharding_audit
 
     all_findings = []
     pragmas_by_path: dict[str, dict] = {}
@@ -81,6 +83,7 @@ def run_check(
             continue
         pragmas_by_path[rel] = findings.file_pragmas(source)
         all_findings.extend(ast_rules.lint_source(source, rel))
+        all_findings.extend(sharding_audit.audit_source(source, rel))
     card = None
     if kernel_validator:
         from repro_torch.analysis import kernel_configs

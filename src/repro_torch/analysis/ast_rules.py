@@ -34,8 +34,8 @@ means in ``repro/analysis/ast_rules.py``:
 
 Not ported, for want of a torch meaning (ROADMAP.md): KL101 (donation) and
 KL104 (impure traced function) concern tracing, which the eager port does
-not do; they get one with CUDA graphs.  KL105 concerns ``ShardingCtx``,
-which comes with the port's ``dist/sharding.py``.
+not do; they get one with CUDA graphs.  KL105 (the sharding contract) is
+``sharding_audit.py``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Lint launcher: ``python -m repro_torch.launch.lint [paths...]``.
 
 The launcher-flavoured front door to the port's kanlint
-(``repro_torch.analysis``): runs the AST lints and the launch-budget
-validator, prints a per-rule summary, and exits non-zero on new
+(``repro_torch.analysis``): runs the AST lints, the sharding audit and
+the launch-budget validator, prints a per-rule summary, and exits non-zero on new
 (non-baselined, non-waived) findings: the contract of ``python -m
 repro_torch.analysis --check``, plus the summary table.
 """

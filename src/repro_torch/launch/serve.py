@@ -14,8 +14,17 @@ with prefix caching and preemption (``--block-size``, ``--pool-blocks``);
 ``--spec-k K`` (continuous only) serves speculative windows of a
 ``--draft-layers``-deep drafter (``--draft-quant``: int8 fake-quantised).
 ``--temperature T > 0`` samples in every engine mode, each request's key
-chain keyed by ``--seed`` and its index, as the reference's CLI does;
-``--mesh`` exits with rc=2 and says it is not ported yet.  A windowed model
+chain keyed by ``--seed`` and its index, as the reference's CLI does.
+``--mesh DxM`` serves on a ``(data, model)`` mesh of ``D * M`` ranks
+(``launch/mesh.py``), one process each: spawned here, meeting at a
+``FileStore`` in a temporary directory, or the processes of ``torchrun``
+when its environment is set; only rank 0 prints.  ``--device cpu`` runs
+the ranks over gloo; ``--device cuda`` gives each rank its own card and
+NCCL, and exits with rc=2 when the mesh has more ranks than cards, unless
+``--share-card`` asks for the one-card rehearsal (every rank on
+``cuda:0``, collectives over gloo through the host).  A mesh serves the
+token-input ``attn_kan``/``attn_mlp`` models without ``--spec-k``; the
+others exit with rc=2 (ROADMAP queue 1, item 9.4).  A windowed model
 (gemma3), an MLA one (deepseek-v2-lite) or a recurrent one (zamba2-1.2b,
 xlstm-1.3b) is refused as the reference refuses it: ``--spec-k`` with
 rc=2, ``--paged`` by the ``NotImplementedError`` of its paged caches.  Reduced
@@ -32,6 +41,8 @@ import time
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.dist.sharding import mesh_shape
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.serve.engine import Engine, ServeConfig, token_prompts_only
 
@@ -59,7 +70,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="paged: physical blocks incl. the sentinel "
                          "(default: dense-equivalent capacity)")
-    ap.add_argument("--mesh", type=str, default=None, metavar="DxM")
+    ap.add_argument("--mesh", type=str, default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D*M ranks, e.g. 2x2")
+    ap.add_argument("--share-card", action="store_true",
+                    help="mesh on cuda: the one-card rehearsal, every rank on cuda:0 over "
+                         "gloo (not a scale-out figure)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="continuous: speculative decoding, drafts per verify "
                          "window (0 disables)")
@@ -93,9 +108,18 @@ def _refusal(args, model) -> str | None:
     if args.spec_k > 0 and not lm.model_supports_speculative(model):
         return (f"{args.arch} does not support speculative decoding "
                 "(needs token-input full-attention GQA blocks)")
-    if args.mesh is not None:
-        return "--mesh is not ported yet (ROADMAP queue 1, item 9)"
-    return None
+    if args.mesh is None:
+        return "--share-card needs --mesh" if args.share_card else None
+    try:
+        shape = mesh_lib.parse_mesh_shape(args.mesh)
+        missing = mesh_lib.devices_missing(shape, args.device, args.share_card)
+    except ValueError as e:
+        return str(e)
+    if args.share_card and args.device != "cuda":
+        return "--share-card rehearses a mesh on one CUDA card: it needs --device cuda"
+    if args.spec_k > 0:
+        return "--spec-k on a mesh is not ported yet (ROADMAP queue 1, item 9.4)"
+    return lm.mesh_refusal(model) or missing
 
 
 def main(argv=None) -> int:
@@ -105,7 +129,50 @@ def main(argv=None) -> int:
     if why:
         print(f"[serve] {why}", file=sys.stderr)
         return 2
-    params = lm.init_params(model, seed=args.seed, device=args.device)
+    if args.mesh is None:
+        lines = serve(args)
+    else:
+        shape = mesh_lib.parse_mesh_shape(args.mesh)
+        if mesh_lib.under_torchrun():
+            import torch.distributed as dist
+
+            try:
+                mesh, dev = mesh_lib.init_from_env(shape, args.device, args.share_card)
+            except ValueError as e:
+                print(f"[serve] {e}", file=sys.stderr)
+                return 2
+            lines = serve(args, mesh, dev)
+            if dist.get_rank() != 0:       # only rank 0 prints
+                lines = []
+            dist.destroy_process_group()
+        else:
+            lines = mesh_lib.run_ranks(_serve_rank, shape, args.device, args.share_card,
+                                       args=(vars(args),))[0]
+    for ln in lines:
+        print(ln)
+    return 0
+
+
+def _serve_rank(mesh, device, arg_dict: dict) -> list[str]:
+    return serve(argparse.Namespace(**arg_dict), mesh, device)
+
+
+def serve(args, mesh=None, device=None) -> list[str]:
+    """Serve the requests ``args`` describe -> the lines to print (on a
+    mesh, this rank's; every rank serves the same requests)."""
+    model = pick_config(args.arch, args.full).model
+    device = args.device if device is None else device
+    lines = []
+    if mesh is not None:
+        shape = mesh_shape(mesh)
+        how = mesh_lib.backend(args.device, args.share_card)
+        lines.append(f"[serve] mesh={shape} over {mesh.mesh.numel()} ranks ({how} on "
+                     f"{args.device})")
+        if args.share_card:
+            lines.append(f"[serve] rehearsal: {mesh.mesh.numel()} ranks share cuda:0, every "
+                         "collective staged through the host over gloo; not a scale-out "
+                         "figure")
+    params = lm.init_params(model, seed=args.seed, device=device)
     max_seq = args.prompt_len + args.max_new + 8
     if args.paged:                    # the paged pool addresses whole blocks
         max_seq = -(-max_seq // args.block_size) * args.block_size
@@ -114,8 +181,8 @@ def main(argv=None) -> int:
                              temperature=args.temperature, eos_id=args.eos_id, paged=args.paged,
                              block_size=args.block_size, pool_blocks=args.pool_blocks,
                              spec_k=args.spec_k, draft_layers=args.draft_layers,
-                             draft_quant=args.draft_quant),
-                 device=args.device)
+                             draft_quant=args.draft_quant, mesh=mesh),
+                 device=device)
     rs = np.random.RandomState(args.seed)
     reqs = [rs.randint(0, model.vocab, rs.randint(4, args.prompt_len + 1)).astype(np.int32)
             for _ in range(args.requests)]
@@ -127,26 +194,28 @@ def main(argv=None) -> int:
         outs = eng.serve_requests(reqs, batch_size=args.batch, seed=args.seed)
     dt = time.time() - t0
     total_new = sum(len(o) for o in outs)
-    print(f"[serve:{args.engine}] {len(reqs)} requests, {total_new} tokens in {dt:.2f}s "
-          f"({total_new / dt:.1f} tok/s) on {eng.device}")
+    lines.append(f"[serve:{args.engine}] {len(reqs)} requests, {total_new} tokens in "
+                 f"{dt:.2f}s ({total_new / dt:.1f} tok/s) on {eng.device}")
     if args.engine == "continuous":
         s = eng.last_serve_stats
-        print(f"[serve:continuous] slot_utilization={s['mean_slot_utilization']:.3f} "
-              f"chunks={s['chunks_run']} served={s['n_served']}/{s['n_submitted']}")
+        lines.append(f"[serve:continuous] slot_utilization={s['mean_slot_utilization']:.3f} "
+                     f"chunks={s['chunks_run']} served={s['n_served']}/{s['n_submitted']}")
         if args.paged:
             p = s["paged"]
-            print(f"[serve:paged] block_size={p['block_size']} "
-                  f"blocks_watermark={p['blocks_in_use_watermark']}/{p['pool_blocks'] - 1} "
-                  f"prefix_hit_blocks={p.get('prefix_hit_blocks', 0)} "
-                  f"prefill_tokens_saved={p['prefill_tokens_saved']} "
-                  f"preemptions={s['n_preemptions']}")
+            lines.append(
+                f"[serve:paged] block_size={p['block_size']} "
+                f"blocks_watermark={p['blocks_in_use_watermark']}/{p['pool_blocks'] - 1} "
+                f"prefix_hit_blocks={p.get('prefix_hit_blocks', 0)} "
+                f"prefill_tokens_saved={p['prefill_tokens_saved']} "
+                f"preemptions={s['n_preemptions']}")
         if args.spec_k > 0:
             sp = s["spec"]
-            print(f"[serve:spec] k={sp['spec_k']} draft_layers={sp['draft_layers']} "
-                  f"windows={sp['windows']} acceptance_rate={sp['acceptance_rate']:.3f} "
-                  f"emitted={sp['emitted_tokens']}")
-    print("sample output ids:", outs[0][:10].tolist())
-    return 0
+            lines.append(f"[serve:spec] k={sp['spec_k']} draft_layers={sp['draft_layers']} "
+                         f"windows={sp['windows']} "
+                         f"acceptance_rate={sp['acceptance_rate']:.3f} "
+                         f"emitted={sp['emitted_tokens']}")
+    lines.append(f"sample output ids: {outs[0][:10].tolist()}")
+    return lines
 
 
 if __name__ == "__main__":

@@ -28,6 +28,17 @@ and the decode reads dequantise chunk by chunk inside an online softmax, as
 the reference does.  ``AttnConfig.qk_norm`` RMS-normalises q and k per head
 before rotary (gemma3).
 
+On a mesh (``shard``) a rank computes its local heads: ``wq``/``wo`` are
+sharded on ``heads`` and ``wk``/``wv`` on ``kv_heads`` where the model axis
+divides them, so ``wo`` gives a partial sum and one ``all_reduce`` over
+``model`` completes it; the caches hold the local KV heads.  Where the
+heads divide and the KV heads do not (the K/V weights and caches whole on
+every rank), each local query head reads its own KV head
+(:func:`_local_attn`).  A paged pool whose ``kv_blocks`` the data axis
+splits is read by gathering this rank's blocks, zeros elsewhere, and one
+``all_reduce`` over ``data``; a write lands only in the rank that owns its
+block.  Windowed and MLA layers, and the verify window, take no mesh.
+
 MLA (DeepSeek-V2's multi-head latent attention, ``kv_lora_rank``):
 :func:`attn_forward` runs it through :func:`_mla_forward`, whose cache is
 the UNNORMALISED ``r``-dim latent beside the rotated ``rope``-dim key, one
@@ -68,6 +79,54 @@ class AttnConfig:
 
     def cache_len(self, max_seq: int) -> int:
         return min(max_seq, self.window) if self.window else max_seq
+
+
+def _attn_axes(cfg: AttnConfig) -> dict:
+    """Logical axes and whole shape of each GQA attention leaf."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": (("embed", "heads", "head_dim"), (d, H, hd)),
+            "wk": (("embed", "kv_heads", "head_dim"), (d, KV, hd)),
+            "wv": (("embed", "kv_heads", "head_dim"), (d, KV, hd)),
+            "wo": (("heads", "head_dim", "embed"), (H, hd, d)),
+            "bq": (("heads", "head_dim"), (H, hd)),
+            "bk": (("kv_heads", "head_dim"), (KV, hd)),
+            "bv": (("kv_heads", "head_dim"), (KV, hd)),
+            "q_norm": (("head_dim",), (hd,)), "k_norm": (("head_dim",), (hd,))}
+
+
+def _local_attn(params: dict, cfg: AttnConfig, shard):
+    """The weights as this rank computes with them -> ``(weights, kv,
+    partial)``: leaves sharded on ``heads``/``kv_heads`` stay local, any
+    other shard is gathered whole; ``kv`` the KV head of each local query
+    head when the heads are split and the KV heads are not (else None);
+    ``partial`` whether the output projection gives a partial sum over
+    ``model``."""
+    if shard is None:
+        return params, None, False
+    if cfg.window is not None or cfg.kv_lora_rank is not None:
+        raise NotImplementedError("a mesh serves full-attention GQA layers only")
+    axes = _attn_axes(cfg)
+    heads = shard.model_split(*axes["wq"]) == "heads"
+    kv_heads = shard.model_split(*axes["wk"]) == "kv_heads"
+    local = {name for name, split in (("heads", heads), ("kv_heads", kv_heads)) if split}
+    p = {n: w if local & set(axes[n][0]) else shard.whole(w, *axes[n])
+         for n, w in params.items()}
+    kv = None
+    if heads and not kv_heads:
+        n = cfg.n_heads // shard.size("model")
+        first = shard.coord("model") * n
+        kv = torch.div(first + torch.arange(n, device=params["wq"].device),
+                       cfg.n_heads // cfg.n_kv_heads, rounding_mode="floor")
+    return p, kv, heads
+
+
+def _pick(cache: dict, kv) -> dict:
+    """Each local query head's KV head of ``(B, S, KV, ...)`` leaves."""
+    return cache if kv is None else {n: a.index_select(2, kv) for n, a in cache.items()}
+
+
+def _finish(y: torch.Tensor, partial: bool, shard) -> torch.Tensor:
+    return shard.all_reduce(y, "model") if partial else y
 
 
 def _check_full_attention(cfg: AttnConfig, what: str) -> None:
@@ -155,17 +214,21 @@ def attn_forward(
     positions: torch.Tensor | None = None,
     chunk: int = 1024,
     return_cache: bool = False,
+    shard=None,
 ):
     """Prefill attention; with ``return_cache`` also what the decode cache
-    stores: the post-rotary K/V, or MLA's latent (:func:`_mla_forward`)."""
+    stores: the post-rotary K/V (this rank's KV heads on a mesh), or MLA's
+    latent (:func:`_mla_forward`)."""
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
+    params, kv_of, partial = _local_attn(params, cfg, shard)
     if cfg.kv_lora_rank is not None:
         return _mla_forward(params, cfg, x, positions, chunk, return_cache)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=True, window=cfg.window, chunk=chunk)
-    y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    kq = _pick({"k": k, "v": v}, kv_of)
+    o = flash_attention(q, kq["k"], kq["v"], causal=True, window=cfg.window, chunk=chunk)
+    y = _finish(torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype)), partial, shard)
     if return_cache:
         return y, {"k": k, "v": v}
     return y
@@ -247,29 +310,31 @@ def _write_cache(cache: dict, name: str, val: torch.Tensor,
             _put_rows(buf, v, slot)
 
 
-# kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
-# package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
-def attn_decode_step(  # kanlint: ignore[KL105]
+def attn_decode_step(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
     cache: dict,                      # {"k", "v"[, "k_scale", "v_scale"]}: (B, S, ...)
     pos: torch.Tensor,                # scalar or (B,) absolute position
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode against a pre-filled KV cache.  A windowed layer
     writes its ring slot ``pos % S``; rotary is applied before caching, so
     the read needs no slot positions."""
     B = x.shape[0]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    params, kv_of, partial = _local_attn(params, cfg, shard)
     q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
     slot = torch.remainder(pos, cache["k"].shape[1]) if cfg.window else pos
     _write_cache(cache, "k", k, slot, cfg.kv_quant)
     _write_cache(cache, "v", v, slot, cfg.kv_quant)
-    return _cache_attend(params, cfg, x, cache, q, pos_b), cache
+    y = _cache_attend(params, cfg, x, _pick(cache, kv_of), q, pos_b)
+    return _finish(y, partial, shard), cache
 
 
-def mla_decode_step(  # kanlint: ignore[KL105] (see attn_decode_step)
+# kanlint's KL105: a mesh serves no MLA layer (ROADMAP queue 1, item 9.4),
+# so no ShardingCtx reaches this cache write.
+def mla_decode_step(  # kanlint: ignore[KL105]
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
@@ -331,7 +396,7 @@ def _cache_attend(
     the reference).  The mask includes the slot just written."""
     B = x.shape[0]
     S = cache["k"].shape[1]
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV, D = q.shape[2], cache["k"].shape[2], cfg.head_dim    # this rank's heads
     rep = H // KV
     qh = q.reshape(B, KV, rep, D)
     dev = x.device
@@ -464,7 +529,9 @@ def _cache_attend_window(
     return torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
 
 
-def attn_verify_window(  # kanlint: ignore[KL105] (see attn_decode_step)
+# kanlint's KL105: a mesh serves no speculative window (ROADMAP queue 1,
+# item 9.4), so no ShardingCtx reaches these cache writes.
+def attn_verify_window(  # kanlint: ignore[KL105]
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, W, d_model): last token + k drafts
@@ -501,11 +568,46 @@ def attn_verify_window(  # kanlint: ignore[KL105] (see attn_decode_step)
 # ---------------------------------------------------------------------------
 
 
-def paged_view(cache: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
+def paged_view(cache: dict, table: torch.Tensor, shard=None, stacked: bool = False) -> dict:
     """The logical contiguous view of a paged cache tree: pools
-    ``(n_blocks, bs, ...)`` and table ``(B, L)`` -> ``(B, L·bs, ...)``
-    leaves, every leaf gathered in one launch of the block-table kernel."""
-    return ops.gather_views(cache, table)
+    ``([layers,] n_blocks, bs, ...)`` and table ``(B, L)`` -> ``([layers,]
+    B, L·bs, ...)`` leaves, every leaf gathered in one launch of the
+    block-table kernel.  On a mesh whose data axis splits the pool's
+    blocks, this rank gathers its own blocks (the others read as zeros)
+    and one ``all_reduce`` over ``data`` assembles the view."""
+    blocks = None if shard is None else shard.block_range()
+    if blocks is None:
+        return ops.gather_views(cache, table, stacked)
+    first, n = blocks
+    mine = (table >= first) & (table < first + n)
+    views = ops.gather_views(cache, torch.where(mine, table - first, 0).to(table.dtype),
+                             stacked)
+    bs = next(iter(cache.values())).shape[1 + stacked]
+    mine = mine.repeat_interleave(bs, dim=1)                   # (B, L·bs)
+    return {name: shard.all_reduce(
+                torch.where(mine.reshape(mine.shape + (1,) * (v.dim() - 2 - stacked)), v, 0),
+                "data")
+            for name, v in views.items()}
+
+
+def put_blocks(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor,
+               vals: torch.Tensor, shard=None, stacked: bool = False) -> None:
+    """``pool[phys, off] = vals`` in place (``stacked``: ``pool[:, phys,
+    off]``), ``phys`` global block ids.  On a mesh whose data axis splits
+    the pool's blocks, only the rank that owns a block writes it: the
+    others' writes go to a scratch block past this rank's shard."""
+    blocks = None if shard is None else shard.block_range()
+    target = pool
+    if blocks is not None:
+        first, n = blocks
+        phys = torch.where((phys >= first) & (phys < first + n), phys - first, n)
+        target = torch.cat([pool, pool.narrow(int(stacked), 0, 1)], dim=int(stacked))
+    if stacked:
+        target[:, phys, off] = vals
+    else:
+        target.index_put_((phys, off), vals)
+    if target is not pool:
+        pool.copy_(target.narrow(int(stacked), 0, pool.shape[int(stacked)]))
 
 
 def paged_route(
@@ -527,9 +629,9 @@ def paged_route(
     return phys, torch.remainder(positions, block_size)
 
 
-def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
+def paged_write_span(
     cache: dict, name: str, val: torch.Tensor, table: torch.Tensor,
-    start, lengths: torch.Tensor, quant: bool = False,
+    start, lengths: torch.Tensor, quant: bool = False, shard=None,
 ) -> None:
     """Scatter a span of K or V into pool blocks, in place (under ``quant``
     the int8 values into ``cache[name]`` and their scales into
@@ -540,7 +642,8 @@ def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
     are right-padded, and positions ``>= lengths[b]`` go to the sentinel
     block so pad K/V never lands in a real block.  The same redirect takes
     positions past the table span.  Duplicate writes to the sentinel land
-    in no defined order; the sentinel is never attended."""
+    in no defined order; the sentinel is never attended.  On a mesh each
+    block is written by its owner only (:func:`put_blocks`)."""
     pool = cache[name]
     B, T = val.shape[:2]
     bs = pool.shape[1]
@@ -551,22 +654,23 @@ def paged_write_span(  # kanlint: ignore[KL105] (see attn_decode_step)
     positions = positions.expand(B, T)
     phys, off = paged_route(table, positions, bs,
                             valid=positions < lengths.reshape(-1, 1))
-    at = (phys.long(), off.long())
+    phys, off = phys.long(), off.long()
     if quant:
         qv, sc = _kv_quantize(val)
-        pool.index_put_(at, qv)
-        cache[name + "_scale"].index_put_(at, sc)
+        put_blocks(pool, phys, off, qv, shard)
+        put_blocks(cache[name + "_scale"], phys, off, sc, shard)
     else:
-        pool.index_put_(at, val.to(pool.dtype))
+        put_blocks(pool, phys, off, val.to(pool.dtype), shard)
 
 
-def attn_decode_step_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+def attn_decode_step_paged(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
     cache: dict,                      # POOL leaves (n_blocks, bs, ...), in place
     table: torch.Tensor,              # (B, n_logical) int32 block table
     pos: torch.Tensor,                # (B,) absolute positions
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode against the paged pool: the QKV math of
     :func:`attn_decode_step`, writes routed through the block table, then
@@ -574,15 +678,17 @@ def attn_decode_step_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     _check_full_attention(cfg, "paged KV")
     B = x.shape[0]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
+    params, kv_of, partial = _local_attn(params, cfg, shard)
     q, k, v = _project_qkv(params, cfg, x, pos_b[:, None])
     # the T=1 span at per-row starts; lengths pos_b + 1 mask nothing, and
     # positions past the table still go to the sentinel
-    paged_write_span(cache, "k", k, table, pos_b, pos_b + 1, cfg.kv_quant)
-    paged_write_span(cache, "v", v, table, pos_b, pos_b + 1, cfg.kv_quant)
-    return _cache_attend(params, cfg, x, paged_view(cache, table), q, pos_b), cache
+    paged_write_span(cache, "k", k, table, pos_b, pos_b + 1, cfg.kv_quant, shard)
+    paged_write_span(cache, "v", v, table, pos_b, pos_b + 1, cfg.kv_quant, shard)
+    view = _pick(paged_view(cache, table, shard), kv_of)
+    return _finish(_cache_attend(params, cfg, x, view, q, pos_b), partial, shard), cache
 
 
-def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+def attn_prefill_paged(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, Ts, d_model): the UNCACHED suffix
@@ -594,6 +700,7 @@ def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     chunk: int = 1024,
     view_blocks: int | None = None,   # table columns the attention view needs
                                       # (covers start + Ts); None: all
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Suffix prefill into pool blocks: a prefix-cache hit makes ``start >
     0`` and computes only positions ``start..len-1``.
@@ -607,22 +714,24 @@ def attn_prefill_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
     empty in the causal online softmax."""
     _check_full_attention(cfg, "paged KV")
     T = x.shape[1]
+    params, kv_of, partial = _local_attn(params, cfg, shard)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    paged_write_span(cache, "k", k, table, start, lengths, cfg.kv_quant)
-    paged_write_span(cache, "v", v, table, start, lengths, cfg.kv_quant)
+    paged_write_span(cache, "k", k, table, start, lengths, cfg.kv_quant, shard)
+    paged_write_span(cache, "v", v, table, start, lengths, cfg.kv_quant, shard)
     view = paged_view(cache, table if view_blocks is None
-                      else table[:, :view_blocks].contiguous())
+                      else table[:, :view_blocks].contiguous(), shard)
     ck = _read_cache(view, "k", cfg.kv_quant, x.dtype)
     cv = _read_cache(view, "v", cfg.kv_quant, x.dtype)
     at = max(0, min(int(start), ck.shape[1] - T))
     ck[:, at:at + T] = k.to(ck.dtype)
     cv[:, at:at + T] = v.to(cv.dtype)
-    o = flash_attention(q, ck, cv, causal=True, q_offset=int(start), chunk=chunk)
-    y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
+    kq = _pick({"k": ck, "v": cv}, kv_of)
+    o = flash_attention(q, kq["k"], kq["v"], causal=True, q_offset=int(start), chunk=chunk)
+    y = _finish(torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype)), partial, shard)
     return y, cache
 
 
-def attn_verify_window_paged(  # kanlint: ignore[KL105] (see attn_decode_step)
+def attn_verify_window_paged(  # kanlint: ignore[KL105] (see attn_verify_window)
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, W, d_model)

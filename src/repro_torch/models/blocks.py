@@ -15,6 +15,14 @@ is per request, not per token (``{"ssm", "conv"}``, ``{"C", "n", "m",
 "conv"}``, ``{"c", "n", "h", "m"}``): it neither pages nor takes a verify
 window, as in the reference.  A block with ``shared_id`` is applied by
 ``models/lm.py`` with the model's shared parameters.
+
+On a mesh (``shard``) the FFN is Megatron-style: the first layer
+column-parallel (``ffn`` on ``model``: each rank computes its ``ff/m``
+hidden columns), the second row-parallel (its ``ff/m`` input rows give a
+partial sum, one ``all_reduce`` over ``model`` completes it).  A KAN layer
+is a sum over its input features (``sum_k B(h_k) C_k + ReLU(h_k) Wb_k``),
+so the KAN kernels run on the local rows as they are.  The attention
+blocks take a mesh (``attn_kan``, ``attn_mlp``); the others do not.
 """
 
 from __future__ import annotations
@@ -65,6 +73,30 @@ def _recurrent_cfg(blk: BlockCfg):
     return blk.mamba if blk.kind == "mamba2" else blk.xlstm
 
 
+def _ffn_axes(blk: BlockCfg, d: int) -> dict:
+    """Logical axes and whole shape of each FFN leaf of an attn_mlp or
+    attn_kan block."""
+    if blk.kind == "attn_mlp":
+        ff = blk.d_ff
+        return {"wi": (("embed", "ffn"), (d, ff)), "wg": (("embed", "ffn"), (d, ff)),
+                "wo": (("ffn", "embed"), (ff, d))}
+    ff, M_ = blk.kan_ff, blk.kan_grid.n_basis
+    return {"c1": (("embed", None, "ffn"), (d, M_, ff)), "b1": (("embed", "ffn"), (d, ff)),
+            "c2": (("ffn", None, "embed"), (ff, M_, d)), "b2": (("ffn", "embed"), (ff, d))}
+
+
+def _local_ffn(params: dict, blk: BlockCfg, d: int, shard) -> tuple[dict, bool]:
+    """The FFN weights as this rank computes with them -> ``(weights,
+    partial)``: local when ``ffn`` takes the model axis (the output then a
+    partial sum), else gathered whole."""
+    if shard is None:
+        return params, False
+    axes = _ffn_axes(blk, d)
+    if shard.model_split(*next(iter(axes.values()))) == "ffn":
+        return params, True
+    return {n: shard.whole(w, *axes[n]) for n, w in params.items()}, False
+
+
 def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``(silu(x Wg) * x Wi) Wo``."""
     h = x @ params["wi"].to(x.dtype)
@@ -89,22 +121,29 @@ def _kan_ffn(
 
 
 def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor,
-         method: str = "auto") -> tuple[torch.Tensor, dict]:
+         method: str = "auto", shard=None) -> tuple[torch.Tensor, dict]:
     """The block's FFN on the post-attention norm -> ``(y, aux)``, ``aux``
     the MoE's auxiliary losses (empty for the other kinds).  Inference
     passes ``method="auto"``: the KAN FFN then resolves to the fused kernel
     at prefill and verify-window row counts and the sparse one at decode
     row counts on CUDA (``KL.resolve_inference_method``)."""
-    if blk.kind == "attn_mlp":
-        return _mlp(params["mlp"], h), {}
     if blk.kind == "attn_moe":
         return M.moe_forward(params["moe"], blk.moe, h)
-    return _kan_ffn(params["kan"], h, blk.kan_grid, method=method), {}
+    key = "mlp" if blk.kind == "attn_mlp" else "kan"
+    p, partial = _local_ffn(params[key], blk, h.shape[-1], shard)
+    y = _mlp(p, h) if key == "mlp" else _kan_ffn(p, h, blk.kan_grid, method=method)
+    return (shard.all_reduce(y, "model") if partial else y), {}
 
 
-def _residual_ffn(params: dict, blk: BlockCfg, x: torch.Tensor) -> torch.Tensor:
+def _residual_ffn(params: dict, blk: BlockCfg, x: torch.Tensor, shard=None) -> torch.Tensor:
     """``x + FFN(norm(x))`` on the inference paths (the aux is dropped)."""
-    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x))[0]
+    return x + _ffn(params, blk, L.rmsnorm(params["ln2"], x, shard=shard), shard=shard)[0]
+
+
+def _check_mesh(blk: BlockCfg, shard) -> None:
+    if shard is not None and blk.kind not in ("attn_mlp", "attn_kan"):
+        raise NotImplementedError(
+            f"a mesh serves attn_mlp and attn_kan blocks, not {blk.kind!r}")
 
 
 def block_apply(
@@ -150,6 +189,44 @@ def _kv_leaves(c: A.AttnConfig, lead: tuple, dtype, device) -> dict:
     return cache
 
 
+def block_cache_axes(blk: BlockCfg) -> dict:
+    """Logical axes of :func:`block_init_cache`'s leaves, the reference's:
+    ``seq_cache`` lets the data axis shard a cache's sequence when the
+    batch cannot take it."""
+    check_supported(blk)
+    Ax = L.Axes
+    if blk.kind == "mamba2":
+        return {"ssm": Ax(("batch", "heads", "state", "head_dim")),
+                "conv": Ax(("batch", None, "ffn"))}
+    if blk.kind == "mlstm":
+        return {"C": Ax(("batch", "heads", "head_dim", "head_dim")),
+                "n": Ax(("batch", "heads", "head_dim")), "m": Ax(("batch", "heads")),
+                "conv": Ax(("batch", None, "ffn"))}
+    if blk.kind == "slstm":
+        ax = Ax(("batch", "heads", "head_dim"))
+        return {"c": ax, "n": ax, "h": ax, "m": ax}
+    if blk.attn.kv_lora_rank is not None:
+        return {"ckv": Ax(("batch", "seq_cache", "kv_lora"))}
+    return _kv_axes(blk.attn, ("batch", "seq_cache"))
+
+
+def block_paged_cache_axes(blk: BlockCfg) -> dict:
+    """Logical axes of :func:`block_init_paged_cache`'s pools: ``kv_blocks``
+    where a dense cache has ``batch`` and ``seq_cache``."""
+    if not block_supports_paging(blk):
+        raise NotImplementedError(f"paged KV cache: unsupported block kind {blk.kind!r}")
+    return _kv_axes(blk.attn, ("kv_blocks", None))
+
+
+def _kv_axes(c: A.AttnConfig, lead: tuple) -> dict:
+    axes = {"k": L.Axes(lead + ("kv_heads", "head_dim")),
+            "v": L.Axes(lead + ("kv_heads", "head_dim"))}
+    if c.kv_quant:
+        axes["k_scale"] = L.Axes(lead + ("kv_heads",))
+        axes["v_scale"] = L.Axes(lead + ("kv_heads",))
+    return axes
+
+
 def block_init_paged_cache(blk: BlockCfg, n_blocks: int, block_size: int,
                            dtype, device) -> dict:
     """Pool-shaped decode cache: ``(n_blocks, block_size, ...)`` leaves in
@@ -179,10 +256,7 @@ def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
     return _kv_leaves(c, (batch, c.cache_len(max_seq)), dtype, device)
 
 
-# kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
-# package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
-def block_prefill(  # kanlint: ignore[KL105]
+def block_prefill(
     params: dict,
     blk: BlockCfg,
     x: torch.Tensor,                  # (B, T, d)
@@ -190,6 +264,7 @@ def block_prefill(  # kanlint: ignore[KL105]
     positions: torch.Tensor | None = None,
     cache: dict,                      # (B, S, ...) rows, filled in place
     chunk: int = 1024,
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Forward that also stores its K/V in ``cache`` in place: slots
     ``0..T-1``, or, for a ring shorter than the prompt (``S < T``), slot
@@ -200,8 +275,9 @@ def block_prefill(  # kanlint: ignore[KL105]
     a recurrent layer its state after token ``T - 1`` (pads included: a
     right-padded prompt feeds its pads through the recurrence)."""
     check_supported(blk)
+    _check_mesh(blk, shard)
     T = x.shape[1]
-    h = L.rmsnorm(params["ln1"], x)
+    h = L.rmsnorm(params["ln1"], x, shard=shard)
     if blk.kind in RECURRENT:
         key, fwd, _, _ = RECURRENT[blk.kind]
         y, st = fwd(params[key], _recurrent_cfg(blk), h, return_state=True)
@@ -210,7 +286,7 @@ def block_prefill(  # kanlint: ignore[KL105]
         return x + y, cache
     c = blk.attn
     y, kv = A.attn_forward(params["attn"], c, h, positions=positions,
-                           chunk=chunk, return_cache=True)
+                           chunk=chunk, return_cache=True, shard=shard)
     if "ckv" in kv:
         cache["ckv"][:, :T] = kv["ckv"].to(cache["ckv"].dtype)
         return _residual_ffn(params, blk, x + y), cache
@@ -233,10 +309,10 @@ def block_prefill(  # kanlint: ignore[KL105]
         cache["k"][:, :n] = kv["k"].to(cache["k"].dtype)
         cache["v"][:, :n] = kv["v"].to(cache["v"].dtype)
     # prefill sees B·T rows: "auto" resolves to the fused kernel on CUDA
-    return _residual_ffn(params, blk, x + y), cache
+    return _residual_ffn(params, blk, x + y, shard), cache
 
 
-def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
+def block_prefill_paged(
     params: dict,
     blk: BlockCfg,
     x: torch.Tensor,                  # (B, Ts, d): uncached suffix tokens only
@@ -248,6 +324,7 @@ def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
     start: int,                       # first uncached position
     chunk: int = 1024,
     view_blocks: int | None = None,
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Suffix prefill writing K/V straight into pool blocks: the paged
     counterpart of :func:`block_prefill`.  A prefix-cache hit enters with
@@ -255,43 +332,48 @@ def block_prefill_paged(  # kanlint: ignore[KL105] (see block_prefill)
     if not block_supports_paging(blk):
         raise NotImplementedError(f"paged prefill: unsupported kind {blk.kind!r}")
     check_supported(blk)
-    h = L.rmsnorm(params["ln1"], x)
+    _check_mesh(blk, shard)
+    h = L.rmsnorm(params["ln1"], x, shard=shard)
     y, cache = A.attn_prefill_paged(params["attn"], blk.attn, h, positions, cache,
                                     table, lengths, start, chunk=chunk,
-                                    view_blocks=view_blocks)
-    return _residual_ffn(params, blk, x + y), cache
+                                    view_blocks=view_blocks, shard=shard)
+    return _residual_ffn(params, blk, x + y, shard), cache
 
 
-def block_decode_step(  # kanlint: ignore[KL105] (see block_prefill)
+def block_decode_step(
     params: dict,
     blk: BlockCfg,
     x: torch.Tensor,                  # (B, 1, d)
     cache: dict,                      # updated in place
     pos: torch.Tensor,                # scalar or (B,)
     table: torch.Tensor | None = None,  # (B, n_logical): paged block table
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step; with ``table``, ``cache`` holds pools and the step
     reads and writes through the block table."""
     check_supported(blk)
+    _check_mesh(blk, shard)
     if table is not None and not block_supports_paging(blk):
         raise NotImplementedError(f"paged decode: unsupported kind {blk.kind!r}")
-    h = L.rmsnorm(params["ln1"], x)
+    h = L.rmsnorm(params["ln1"], x, shard=shard)
     if blk.kind in RECURRENT:            # the position does not enter the state
         key, _, step, _ = RECURRENT[blk.kind]
         y, cache = step(params[key], _recurrent_cfg(blk), h, cache)
         return x + y, cache
     if table is not None:
         y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
-                                            table, pos)
+                                            table, pos, shard)
     elif blk.attn.kv_lora_rank is not None:
         y, _ = A.mla_decode_step(params["attn"], blk.attn, h, cache["ckv"], pos)
     else:
-        y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos)
+        y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos, shard)
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA
-    return _residual_ffn(params, blk, x + y), cache
+    return _residual_ffn(params, blk, x + y, shard), cache
 
 
-def block_verify_window(  # kanlint: ignore[KL105] (see block_prefill)
+# kanlint's KL105: a mesh serves no speculative window (ROADMAP queue 1,
+# item 9.4), so no ShardingCtx reaches these cache writes.
+def block_verify_window(  # kanlint: ignore[KL105]
     params: dict,
     blk: BlockCfg,
     x: torch.Tensor,                  # (B, W, d): last accepted token + k drafts

@@ -2,27 +2,76 @@
 
 Parameters are plain nested dicts of tensors with the JAX package's layout,
 so a JAX parameter tree converts leaf for leaf (``repro_torch.convert``).
+
+On a mesh (``shard``, a ``dist.sharding.ShardingCtx``) each rank holds its
+local shard of a leaf: the embedding is vocab-parallel (each rank looks up
+the ids in its vocabulary slice, zeros for the others, one ``all_reduce``
+over ``model``: exact, since the sum adds only zeros), the unembedding
+gives this rank's vocabulary slice of the logits (the caller gathers what
+it keeps), and a norm's ``scale``, sharded on ``embed``, is gathered at use.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 
-def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Axes:
+    """Logical axis names of one parameter or cache leaf (``dist/sharding.py``
+    turns them into partition specs)."""
+
+    names: tuple[str | None, ...]
+
+
+TABLE_AXES = ("vocab", "embed")
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6, shard=None) -> torch.Tensor:
+    scale = params["scale"]
+    if shard is not None:
+        scale = shard.whole(scale, ("embed",), (x.shape[-1],))
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params["scale"].float()
+    out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
 
-def embed_lookup(params: dict, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return params["table"].to(compute_dtype)[ids.long()]
+def _vocab_slice(table: torch.Tensor, shape: tuple[int, int], shard) -> int | None:
+    """The first token id of this rank's vocabulary slice when the model
+    axis splits the table's vocabulary, else None."""
+    if shard is None or shard.model_split(TABLE_AXES, shape) != "vocab":
+        return None
+    return shard.coord("model") * table.shape[0]
 
 
-def unembed_logits(params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits in fp32."""
-    return torch.einsum("...d,vd->...v", h.float(), params["table"].float())
+def embed_lookup(params: dict, ids: torch.Tensor, compute_dtype, shard=None,
+                 shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """Rows of the table; on a mesh ``shape`` is the whole table's
+    ``(vocab, d)``."""
+    table = params["table"]
+    v0 = _vocab_slice(table, shape, shard)
+    if v0 is None:
+        if shard is not None:
+            table = shard.whole(table, TABLE_AXES, shape)
+        return table.to(compute_dtype)[ids.long()]
+    local = ids.long() - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table.to(compute_dtype)[local.clamp(0, table.shape[0] - 1)]
+    return shard.all_reduce(torch.where(mine[..., None], rows, 0), "model")
+
+
+def unembed_logits(params: dict, h: torch.Tensor, shard=None,
+                   shape: tuple[int, int] | None = None) -> torch.Tensor:
+    """Tied unembedding: logits in fp32; on a mesh whose model axis splits
+    the vocabulary, this rank's slice of them (``shape`` as in
+    :func:`embed_lookup`)."""
+    table = params["table"]
+    if shard is not None and _vocab_slice(table, shape, shard) is None:
+        table = shard.whole(table, TABLE_AXES, shape)
+    return torch.einsum("...d,vd->...v", h.float(), table.float())
 
 
 def rotary_embedding(

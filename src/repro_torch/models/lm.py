@@ -46,7 +46,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.convert import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -96,12 +96,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """One parameter leaf: shape, init (``normal|ones|zeros``) and the
-    normal scale (``None``: ``1/sqrt(fan_in)`` over all but the last axis)."""
+    """One parameter leaf: shape, logical axes (``dist/sharding.py``'s
+    names, one per dimension, as the reference's ``ParamCtx.make`` gives
+    them), init (``normal|ones|zeros``) and the normal scale (``None``:
+    ``1/sqrt(fan_in)`` over all but the last axis)."""
 
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
     init: str = "normal"
     scale: float | None = None
+
+
+def _norm(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), "ones")}
 
 
 def _recurrent_shapes(d: int, blk: BlockCfg) -> dict:
@@ -110,29 +117,35 @@ def _recurrent_shapes(d: int, blk: BlockCfg) -> dict:
     if blk.kind == "mamba2":
         m = blk.mamba
         di, H, GN = m.d_inner, m.n_heads, m.n_groups * m.d_state
-        return {"in_proj": ParamSpec((d, 2 * di + 2 * GN + H)),
-                "conv_w": ParamSpec((m.conv_width, m.conv_dim), "normal", 0.5),
-                "conv_b": ParamSpec((m.conv_dim,), "zeros"),
-                "A_log": ParamSpec((H,), "ones"), "D": ParamSpec((H,), "ones"),
-                "dt_bias": ParamSpec((H,), "zeros"), "norm": ParamSpec((di,), "ones"),
-                "out_proj": ParamSpec((di, d))}
+        return {"in_proj": ParamSpec((d, 2 * di + 2 * GN + H), ("embed", "ffn")),
+                "conv_w": ParamSpec((m.conv_width, m.conv_dim), (None, "ffn"), "normal", 0.5),
+                "conv_b": ParamSpec((m.conv_dim,), ("ffn",), "zeros"),
+                "A_log": ParamSpec((H,), ("heads",), "ones"),
+                "D": ParamSpec((H,), ("heads",), "ones"),
+                "dt_bias": ParamSpec((H,), ("heads",), "zeros"),
+                "norm": ParamSpec((di,), ("ffn",), "ones"),
+                "out_proj": ParamSpec((di, d), ("ffn", "embed"))}
     x = blk.xlstm
     H = x.n_heads
     if blk.kind == "mlstm":
         di = x.d_inner
-        return {"up": ParamSpec((d, 2 * di)),
-                "conv_w": ParamSpec((x.conv_width, di), "normal", 0.5),
-                "conv_b": ParamSpec((di,), "zeros"),
-                "wq": ParamSpec((di, di)), "wk": ParamSpec((di, di)), "wv": ParamSpec((di, di)),
-                "w_i": ParamSpec((di, H), "normal", 0.02),
-                "w_f": ParamSpec((di, H), "normal", 0.02),
-                "b_i": ParamSpec((H,), "zeros"), "b_f": ParamSpec((H,), "ones"),
-                "norm": ParamSpec((di,), "ones"), "down": ParamSpec((di, d))}
-    tree = {"norm": ParamSpec((d,), "ones")}
+        fh = ("ffn", "heads")
+        return {"up": ParamSpec((d, 2 * di), ("embed", "ffn")),
+                "conv_w": ParamSpec((x.conv_width, di), (None, "ffn"), "normal", 0.5),
+                "conv_b": ParamSpec((di,), ("ffn",), "zeros"),
+                "wq": ParamSpec((di, di), fh), "wk": ParamSpec((di, di), fh),
+                "wv": ParamSpec((di, di), fh),
+                "w_i": ParamSpec((di, H), fh, "normal", 0.02),
+                "w_f": ParamSpec((di, H), fh, "normal", 0.02),
+                "b_i": ParamSpec((H,), ("heads",), "zeros"),
+                "b_f": ParamSpec((H,), ("heads",), "ones"),
+                "norm": ParamSpec((di,), ("ffn",), "ones"),
+                "down": ParamSpec((di, d), ("ffn", "embed"))}
+    tree = {"norm": ParamSpec((d,), ("embed",), "ones")}
     for g in "zifo":
-        tree[f"w_{g}"] = ParamSpec((d, d), "normal", 0.02)
-        tree[f"r_{g}"] = ParamSpec((H, d // H, d // H), "normal", 0.02)
-        tree[f"b_{g}"] = ParamSpec((d,), "ones" if g == "f" else "zeros")
+        tree[f"w_{g}"] = ParamSpec((d, d), ("embed", "heads"), "normal", 0.02)
+        tree[f"r_{g}"] = ParamSpec((H, d // H, d // H), ("heads", None, None), "normal", 0.02)
+        tree[f"b_{g}"] = ParamSpec((d,), ("heads",), "ones" if g == "f" else "zeros")
     return tree
 
 
@@ -142,61 +155,59 @@ def _block_shapes(d: int, blk: BlockCfg) -> dict:
     ``blocks._kan_ffn_init`` build it; a recurrent block is its pre-norm
     and its mixer."""
     if blk.kind in B.RECURRENT:
-        return {"ln1": {"scale": ParamSpec((d,), "ones", None)},
-                B.RECURRENT[blk.kind][0]: _recurrent_shapes(d, blk)}
+        return {"ln1": _norm(d), B.RECURRENT[blk.kind][0]: _recurrent_shapes(d, blk)}
     a = blk.attn
     h, kv, hd = a.n_heads, a.n_kv_heads, a.head_dim
     if a.kv_lora_rank is None:
         attn = {
-            "wq": ParamSpec((d, h, hd), "normal", None),
-            "wk": ParamSpec((d, kv, hd), "normal", None),
-            "wv": ParamSpec((d, kv, hd), "normal", None),
-            "wo": ParamSpec((h, hd, d), "normal", None),
+            "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+            "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
         }
     else:                              # MLA: the nope part of q/k is head_dim wide
         r, rope = a.kv_lora_rank, a.qk_rope_dim
         attn = {
-            "wq": ParamSpec((d, h, hd + rope)),
-            "w_dkv": ParamSpec((d, r + rope)),
-            "w_uk": ParamSpec((r, h, hd)),
-            "w_uv": ParamSpec((r, h, hd)),
-            "wo": ParamSpec((h, hd, d)),
-            "kv_norm": ParamSpec((r,), "ones"),
+            "wq": ParamSpec((d, h, hd + rope), ("embed", "heads", "head_dim")),
+            "w_dkv": ParamSpec((d, r + rope), ("embed", "kv_lora")),
+            "w_uk": ParamSpec((r, h, hd), ("kv_lora", "heads", "head_dim")),
+            "w_uv": ParamSpec((r, h, hd), ("kv_lora", "heads", "head_dim")),
+            "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
+            "kv_norm": ParamSpec((r,), ("kv_lora",), "ones"),
         }
     if a.qkv_bias and a.kv_lora_rank is None:
-        attn["bq"] = ParamSpec((h, hd), "zeros", None)
-        attn["bk"] = ParamSpec((kv, hd), "zeros", None)
-        attn["bv"] = ParamSpec((kv, hd), "zeros", None)
+        attn["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), "zeros")
+        attn["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
+        attn["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), "zeros")
     if a.qk_norm:
-        attn["q_norm"] = ParamSpec((hd,), "ones", None)
-        attn["k_norm"] = ParamSpec((hd,), "ones", None)
-    tree = {
-        "ln1": {"scale": ParamSpec((d,), "ones", None)},
-        "attn": attn,
-        "ln2": {"scale": ParamSpec((d,), "ones", None)},
-    }
+        attn["q_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
+        attn["k_norm"] = ParamSpec((hd,), ("head_dim",), "ones")
+    tree = {"ln1": _norm(d), "attn": attn, "ln2": _norm(d)}
     if blk.kind == "attn_mlp":
         ff = blk.d_ff
-        tree["mlp"] = {"wi": ParamSpec((d, ff)), "wg": ParamSpec((d, ff)),
-                       "wo": ParamSpec((ff, d))}
+        tree["mlp"] = {"wi": ParamSpec((d, ff), ("embed", "ffn")),
+                       "wg": ParamSpec((d, ff), ("embed", "ffn")),
+                       "wo": ParamSpec((ff, d), ("ffn", "embed"))}
     elif blk.kind == "attn_moe":
         m = blk.moe
         f, e = m.d_ff, m.n_experts
-        tree["moe"] = {"router": ParamSpec((d, e), "normal", 0.02),
-                       "wi": ParamSpec((e, d, f)), "wo": ParamSpec((e, f, d))}
+        tree["moe"] = {"router": ParamSpec((d, e), ("embed", "experts"), "normal", 0.02),
+                       "wi": ParamSpec((e, d, f), ("experts", "embed", "ffn")),
+                       "wo": ParamSpec((e, f, d), ("experts", "ffn", "embed"))}
         if m.gated:
-            tree["moe"]["wg"] = ParamSpec((e, d, f))
+            tree["moe"]["wg"] = ParamSpec((e, d, f), ("experts", "embed", "ffn"))
         if m.n_shared:
             fs = f * m.n_shared
-            tree["moe"].update(shared_wi=ParamSpec((d, fs)), shared_wg=ParamSpec((d, fs)),
-                               shared_wo=ParamSpec((fs, d)))
+            tree["moe"].update(shared_wi=ParamSpec((d, fs), ("embed", "ffn")),
+                               shared_wg=ParamSpec((d, fs), ("embed", "ffn")),
+                               shared_wo=ParamSpec((fs, d), ("ffn", "embed")))
     else:
         ff, M_ = blk.kan_ff, blk.kan_grid.n_basis
         tree["kan"] = {
-            "c1": ParamSpec((d, M_, ff), "normal", 0.02),
-            "b1": ParamSpec((d, ff), "normal", 0.02),
-            "c2": ParamSpec((ff, M_, d), "normal", 0.02),
-            "b2": ParamSpec((ff, d), "normal", 0.02),
+            "c1": ParamSpec((d, M_, ff), ("embed", None, "ffn"), "normal", 0.02),
+            "b1": ParamSpec((d, ff), ("embed", "ffn"), "normal", 0.02),
+            "c2": ParamSpec((ff, M_, d), ("ffn", None, "embed"), "normal", 0.02),
+            "b2": ParamSpec((ff, d), ("ffn", "embed"), "normal", 0.02),
         }
     return tree
 
@@ -212,17 +223,29 @@ def param_shapes(cfg: ModelConfig) -> dict:
     def stack(tree):
         if isinstance(tree, dict):
             return {k: stack(v) for k, v in tree.items()}
-        return dataclasses.replace(tree, shape=(cfg.n_repeats,) + tree.shape)
+        return dataclasses.replace(tree, shape=(cfg.n_repeats,) + tree.shape,
+                                   axes=("layers",) + tree.axes)
 
     tree = {
-        "embed": {"table": ParamSpec((cfg.vocab, d), "normal", 1.0)},
-        "final_ln": {"scale": ParamSpec((d,), "ones", None)},
+        "embed": {"table": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal", 1.0)},
+        "final_ln": _norm(d),
         "unit": [stack(_block_shapes(d, blk)) for blk in cfg.unit],
     }
     for part in ("prologue", "epilogue", "shared"):
         if getattr(cfg, part):
             tree[part] = [_block_shapes(d, blk) for blk in getattr(cfg, part)]
     return tree
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The reference's ``param_axes``: an :class:`~layers.Axes` leaf per
+    parameter (stacked unit leaves lead with ``layers``)."""
+    return tree_map(lambda leaf: L.Axes(leaf.axes), param_shapes(cfg))
+
+
+def tree_of_shapes(tree) -> dict:
+    """The shape of every leaf of a :class:`ParamSpec` or tensor tree."""
+    return tree_map(lambda leaf: tuple(leaf.shape), tree)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -317,6 +340,13 @@ def _cache_parts(caches: dict):
 # ---------------------------------------------------------------------------
 
 
+def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor, dtype,
+                  shard=None) -> torch.Tensor:
+    """Scaled token embeddings (vocab-parallel on a mesh)."""
+    e = L.embed_lookup(params["embed"], tokens, dtype, shard, (cfg.vocab, cfg.d_model))
+    return e * math.sqrt(cfg.d_model)
+
+
 def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype) -> torch.Tensor:
     """The first hidden state ``(B, T, d)`` of an inputs dict (or a bare
     token tensor): scaled token embeddings, precomputed embeddings as they
@@ -329,7 +359,7 @@ def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype) -> torch.Tensor
                        f"{INPUT_KEYS[cfg.input_kind]}; missing {missing}")
     if cfg.input_kind == "embeddings":
         return inputs["embeddings"].to(dtype)
-    txt = L.embed_lookup(params["embed"], inputs["tokens"], dtype) * math.sqrt(cfg.d_model)
+    txt = _embed_tokens(params, cfg, inputs["tokens"], dtype)
     if cfg.input_kind == "mixed":
         return torch.cat([inputs["prefix_embeddings"].to(dtype), txt], dim=1)
     return txt
@@ -385,17 +415,80 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.flo
 # ---------------------------------------------------------------------------
 
 
+def mesh_refusal(cfg: ModelConfig) -> str | None:
+    """Why a mesh cannot serve ``cfg`` yet, or None: the port's mesh serves
+    token-input models of full-attention GQA ``attn_kan`` and ``attn_mlp``
+    blocks (the reference serves every family through GSPMD)."""
+    why = None
+    if cfg.input_kind != "tokens":
+        why = f"{cfg.input_kind!r} inputs"
+    for blk in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared:
+        if why:
+            break
+        if blk.kind == "attn_moe":
+            why = "MoE experts"
+        elif blk.kind not in ("attn_mlp", "attn_kan"):
+            why = f"recurrent {blk.kind} blocks"
+        elif blk.attn.kv_lora_rank is not None:
+            why = "MLA (kv_lora) attention"
+        elif blk.attn.window is not None:
+            why = "windowed attention"
+    if why is None:
+        return None
+    return (f"{cfg.name}: serving {why} on a mesh is not ported yet (ROADMAP queue 1, "
+            "item 9.4); the mesh serves token-input attn_kan and attn_mlp models")
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree mirroring :func:`init_caches` (stacked unit caches
+    lead with ``layers``), the reference's ``cache_axes``."""
+    return _axes_tree(cfg, B.block_cache_axes)
+
+
+def paged_cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree mirroring :func:`init_paged_caches`."""
+    return _axes_tree(cfg, B.block_paged_cache_axes)
+
+
+def _axes_tree(cfg: ModelConfig, one_block) -> dict:
+    axes = {}
+    for part in PARTS:
+        made = [one_block(blk) for blk in getattr(cfg, part)]
+        if part == "unit":
+            made = [{k: L.Axes(("layers",) + a.names) for k, a in c.items()} for c in made]
+        if made or part == "unit":
+            axes[part] = made
+    return axes
+
+
+def _local_blk(blk: BlockCfg, shard) -> BlockCfg:
+    """``blk`` with this rank's KV heads (``kv_heads`` on ``model`` where it
+    divides), to build the cache shard."""
+    if shard is None:
+        return blk
+    kv = shard.local_shape(("kv_heads",), (blk.attn.n_kv_heads,))[0]
+    return dataclasses.replace(blk, attn=dataclasses.replace(blk.attn, n_kv_heads=kv))
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.float32, device="cuda") -> dict:
+                dtype=torch.float32, device="cuda", shard=None) -> dict:
     """Zeroed decode caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}
     or {"ckv"}: (n_repeats, batch, S, ...)]}``, the reference's stacked
     layout, ``S`` each block's own cache length (``window`` for a ring), or
     a recurrent block's ``(n_repeats, batch, ...)`` state leaves, and
     ``"prologue"``/``"epilogue"`` lists of unstacked caches where the model
     has such blocks.  Each leaf takes the reference's dtype (``dtype``, or
-    fp32 for a recurrent state but its ``conv`` row)."""
+    fp32 for a recurrent state but its ``conv`` row).
+
+    On a mesh each rank builds its shard: the rows of
+    ``shard.for_rows(batch).row_range()`` and its KV heads.  Where the data
+    axis does not divide ``batch``, the reference shards ``seq_cache``
+    instead; the port keeps every row and position on every data rank."""
     check_supported(cfg)
-    return _make_caches(cfg, lambda blk: B.block_init_cache(blk, batch, max_seq, dtype, device))
+    rows = None if shard is None else shard.for_rows(batch).row_range()
+    n = batch if rows is None else rows[1]
+    return _make_caches(cfg, lambda blk: B.block_init_cache(_local_blk(blk, shard), n, max_seq,
+                                                           dtype, device))
 
 
 def _make_caches(cfg: ModelConfig, one_block) -> dict:
@@ -432,33 +525,39 @@ def model_kv_quant(cfg: ModelConfig) -> bool:
 
 
 def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
-                      dtype=torch.float32, device="cuda") -> dict:
+                      dtype=torch.float32, device="cuda", shard=None) -> dict:
     """Zeroed pools ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}:
     (n_repeats, n_blocks, block_size, ...)]}`` (and unstacked prologue and
     epilogue pools): one physical block id addresses every layer's pool, so
-    one allocation covers a token's KV through the whole depth."""
+    one allocation covers a token's KV through the whole depth.  On a mesh
+    each rank builds its shard: the blocks of
+    ``shard.for_pool(n_blocks).block_range()`` and its KV heads."""
     check_supported(cfg)
     if not model_supports_paging(cfg):
         raise NotImplementedError(
             f"{cfg.name}: paged KV needs full-attention GQA blocks throughout")
+    blocks = None if shard is None else shard.for_pool(n_blocks).block_range()
+    n = n_blocks if blocks is None else blocks[1]
     return _make_caches(cfg, lambda blk: B.block_init_paged_cache(
-        blk, n_blocks, block_size, dtype, device))
+        _local_blk(blk, shard), n, block_size, dtype, device))
 
 
-def paged_views(caches: dict, table: torch.Tensor) -> dict:  # kanlint: ignore[KL105]
+def paged_views(caches: dict, table: torch.Tensor, shard=None) -> dict:
     """The logical dense view of every pool, shaped as :func:`init_caches`
     (batch = table rows, seq = n_logical·block_size): the engine's "shadow"
     read path gathers it once per decode chunk, runs the dense decode on it
     and writes the chunk's span back with :func:`writeback_paged_chunk`.
     One gather launch per block of the tree covers its leaves (the four of
     an int8 cache too) and, in the unit, every stacked layer (the
-    reference's ``vmap``)."""
-    return {part: [ops.gather_views(c, table, stacked=stacked) for c in cs]
+    reference's ``vmap``).  On a mesh (``shard.for_pool``) the view holds
+    every row on every rank (``attention.paged_view``)."""
+    return {part: [A.paged_view(c, table, shard, stacked) for c in cs]
             for part, cs, stacked in _cache_parts(caches)}
 
 
-def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
+def writeback_paged_chunk(
     caches: dict, view: dict, table: torch.Tensor, pos0: torch.Tensor, steps: int,
+    shard=None,
 ) -> dict:
     """Scatter a finished chunk's writes from the dense shadow ``view`` back
     into the pools, in place.
@@ -467,7 +566,8 @@ def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
     1`` (latched rows rewrote their frozen slot; the other positions of the
     window still hold the gathered pool values, so copying them back changes
     nothing).  Positions past the table (a chunk overrunning ``max_seq``) go
-    to the sentinel block through ``attention.paged_route``."""
+    to the sentinel block through ``attention.paged_route``.  On a mesh each
+    block is written by its owner only (``attention.put_blocks``)."""
     dev = pos0.device
     positions = pos0.reshape(-1, 1) + torch.arange(steps, device=dev)[None, :]
     rows = torch.arange(positions.shape[0], device=dev)[:, None]
@@ -478,41 +578,61 @@ def writeback_paged_chunk(  # kanlint: ignore[KL105] (see decode_step)
             for name, pool in pools.items():
                 v = views[name] if stacked else views[name][None]      # (R, B, S, ...)
                 vals = v[:, rows, torch.clamp_max(positions, v.shape[2] - 1)]
-                (pool if stacked else pool[None])[:, phys, off] = vals.to(pool.dtype)
+                A.put_blocks(pool if stacked else pool[None], phys, off, vals.to(pool.dtype),
+                             shard, stacked=True)
     return caches
 
 
-def copy_paged_blocks(  # kanlint: ignore[KL105] (see decode_step)
-    caches: dict, srcs, dsts,
-) -> dict:
+def copy_paged_blocks(caches: dict, srcs, dsts, shard=None) -> dict:
     """Copy physical blocks ``srcs[i] -> dsts[i]`` in every pool leaf, in
     place: the data half of copy-on-write (``kv_pool.BlockPool.copy_on_write``
     rebinds the table).  One gather and one scatter per leaf for the whole
     batch of copies.  ``dsts`` must be pairwise distinct (the pool's fresh
-    blocks are)."""
+    blocks are).  On a mesh whose data axis splits the pool
+    (``shard.for_pool``), a source's owner contributes its block to one
+    ``all_reduce`` over ``data`` and a destination's owner writes it."""
     dev = caches["unit"][0]["k"].device
     idx = torch.as_tensor(srcs, device=dev).reshape(-1).long()
     dst = torch.as_tensor(dsts, device=dev).reshape(-1).long()
+    owned = None if shard is None else shard.block_range()
     for _, cs, stacked in _cache_parts(caches):
         for pools in cs:
             for pool in pools.values():
                 blocks = pool if stacked else pool[None]     # (R, n_blocks, ...)
-                blocks[:, dst] = blocks[:, idx]
+                if owned is None:
+                    blocks[:, dst] = blocks[:, idx]
+                    continue
+                first, n = owned
+                mine = (idx >= first) & (idx < first + n)
+                vals = blocks[:, torch.where(mine, idx - first, 0)]
+                mask = mine.reshape((1, -1) + (1,) * (vals.dim() - 2))
+                vals = shard.all_reduce(torch.where(mask, vals, 0), "data")
+                bs = blocks.shape[2]
+                offs = torch.arange(bs, device=dev)[None].expand(len(dst), bs)
+                A.put_blocks(blocks, dst[:, None].expand(-1, bs), offs, vals, shard,
+                             stacked=True)
     return caches
 
 
-def copy_paged_block(caches: dict, src, dst) -> dict:  # kanlint: ignore[KL105]
+def copy_paged_block(caches: dict, src, dst, shard=None) -> dict:
     """Single-pair :func:`copy_paged_blocks`."""
-    return copy_paged_blocks(caches, [int(src)], [int(dst)])
+    return copy_paged_blocks(caches, [int(src)], [int(dst)], shard)
 
 
-def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ignore[KL105]
-                      slot: int) -> dict:
+def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict, slot: int,
+                      shard=None) -> dict:
     """Write a batch-1 cache tree ``one`` into batch row ``slot`` of a live
     cache, in place (both built for the same ``max_seq``): batch is axis 1
     of a stacked unit leaf, axis 0 of a prologue or epilogue leaf, for K/V
     rows and recurrent states alike (a recurrent row is replaced whole, so
-    a recycled slot keeps nothing of its last occupant)."""
+    a recycled slot keeps nothing of its last occupant).  On a mesh
+    (``shard.for_rows(batch)`` of the live cache) only the rank holding row
+    ``slot`` writes it."""
+    rows = None if shard is None else shard.row_range()
+    if rows is not None:
+        if not rows[0] <= slot < rows[0] + rows[1]:
+            return caches
+        slot -= rows[0]
     for part, cs, stacked in _cache_parts(caches):
         for big, small in zip(cs, one[part]):
             for name, buf in big.items():
@@ -521,21 +641,21 @@ def insert_cache_slot(cfg: ModelConfig, caches: dict, one: dict,  # kanlint: ign
 
 
 @torch.no_grad()
-def prefill_into_slot(  # kanlint: ignore[KL105] (see decode_step)
+def prefill_into_slot(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor, length: int, slot: int,
-    caches: dict, max_seq: int, compute_dtype=torch.float32,
+    caches: dict, max_seq: int, compute_dtype=torch.float32, shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Prefill ONE right-padded request ``tokens (1, T_pad)`` and splice
     its KV into row ``slot``; returns ``(last_logits (vocab,), caches)`` at
     its last real token.  The k=1 case of :func:`prefill_into_slots`."""
     last, caches = prefill_into_slots(
         params, cfg, tokens, torch.full((1,), length, device=tokens.device), [slot],
-        caches, max_seq, compute_dtype)
+        caches, max_seq, compute_dtype, shard)
     return last[0], caches
 
 
 @torch.no_grad()
-def prefill_into_slots(  # kanlint: ignore[KL105] (see decode_step)
+def prefill_into_slots(
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,             # (k, T_pad) int, right-padded prompts
@@ -544,23 +664,29 @@ def prefill_into_slots(  # kanlint: ignore[KL105] (see decode_step)
     caches: dict,                     # live (n_repeats, slots, max_seq, ...) caches
     max_seq: int,
     compute_dtype=torch.float32,
+    shard=None,                       # the live cache's: shard.for_rows(slots)
 ) -> tuple[torch.Tensor, dict]:
     """Prefill ``k`` queued requests in ONE pass and splice each row's KV
     into its slot of the live cache (continuous batching's admission).
     Returns ``(last_logits (k, vocab), caches)``, each row's logits at its
-    own last real token."""
+    own last real token.  On a mesh every rank prefills all ``k`` rows (its
+    KV heads) and keeps the rows whose slots it holds."""
     k = tokens.shape[0]
-    logits, many = prefill(params, cfg, tokens, max_seq, compute_dtype)
-    last = logits[torch.arange(k, device=tokens.device), lengths.long() - 1]
+    many = _make_caches(cfg, lambda blk: B.block_init_cache(
+        _local_blk(blk, shard), k, max_seq, compute_dtype, tokens.device))
+    logits = _fill(params, cfg, _embed_tokens(params, cfg, tokens, compute_dtype, shard),
+                   many, shard)
+    last = _whole_logits(cfg, logits[torch.arange(k, device=tokens.device),
+                                     lengths.long() - 1], shard)
     for i, slot in enumerate(slots):
         one = {part: [{n: a.narrow(int(stacked), i, 1) for n, a in c.items()} for c in cs]
                for part, cs, stacked in _cache_parts(many)}
-        insert_cache_slot(cfg, caches, one, int(slot))
+        insert_cache_slot(cfg, caches, one, int(slot), shard)
     return last, caches
 
 
 @torch.no_grad()
-def prefill_into_pages(  # kanlint: ignore[KL105] (see decode_step)
+def prefill_into_pages(
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,             # (k, Ts_pad) int, right-padded SUFFIX tokens
@@ -571,32 +697,65 @@ def prefill_into_pages(  # kanlint: ignore[KL105] (see decode_step)
     compute_dtype=torch.float32,
     view_blocks: int | None = None,   # attention-view table columns (covers
                                       # start + Ts_pad); None: all
+    shard=None,                       # the pool's: shard.for_pool(n_blocks)
 ) -> tuple[torch.Tensor, dict]:
     """Paged admission prefill: compute ONLY the uncached suffix (positions
     ``start .. len-1``; a prefix-cache hit makes ``start > 0``) and scatter
     its K/V into the pool blocks ``tables`` maps.  Returns ``(last_logits
     (k, vocab), caches)`` at each request's last real token (suffix row
-    ``lengths - 1 - start``)."""
+    ``lengths - 1 - start``).  On a mesh every rank prefills all ``k``
+    rows."""
     k, Ts = tokens.shape
     dev = tokens.device
-    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    h = _embed_tokens(params, cfg, tokens, compute_dtype, shard)
     positions = torch.arange(start, start + Ts, device=dev)[None, :]
     for p, blk, c in _walk(params, cfg, caches):
         h, _ = B.block_prefill_paged(
             p, blk, h, positions=positions, cache=c, table=tables, lengths=lengths,
-            start=start, chunk=cfg.attn_chunk, view_blocks=view_blocks)
-    logits = _logits(params, cfg, h)
+            start=start, chunk=cfg.attn_chunk, view_blocks=view_blocks, shard=shard)
+    logits = _logits(params, cfg, h, shard)
     last = logits[torch.arange(k, device=dev), lengths.long() - 1 - start]
-    return last, caches
+    return _whole_logits(cfg, last, shard), caches
 
 
-def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    h = L.rmsnorm(params["final_ln"], h)
-    logits = L.unembed_logits(params["embed"], h)
+def _logits(params: dict, cfg: ModelConfig, h: torch.Tensor, shard=None) -> torch.Tensor:
+    """Logits of the final hidden state; on a mesh whose model axis splits
+    the vocabulary, this rank's slice (:func:`_whole_logits` gathers)."""
+    h = L.rmsnorm(params["final_ln"], h, shard=shard)
+    logits = L.unembed_logits(params["embed"], h, shard, (cfg.vocab, cfg.d_model))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def _whole_logits(cfg: ModelConfig, logits: torch.Tensor, shard,
+                  rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """This rank's logits -> every row's whole vocabulary on every rank:
+    ``rows`` the row block this rank computed (None: all of them), the
+    vocabulary split as :func:`_logits` left it."""
+    if shard is None:
+        return logits
+    spec = [None] * logits.dim()
+    shape = list(logits.shape)
+    if rows is not None:
+        spec[0] = "data"
+        shape[0] *= shard.size("data")
+    if shard.model_split(L.TABLE_AXES, (cfg.vocab, cfg.d_model)) == "vocab":
+        spec[-1] = "model"
+        shape[-1] = cfg.vocab
+    return shard.gather(logits, tuple(spec), tuple(shape))
+
+
+def _fill(params: dict, cfg: ModelConfig, h: torch.Tensor, caches: dict,
+          shard=None) -> torch.Tensor:
+    """The prefill walk: every block on ``h (B, T, d)``, filling ``caches``
+    in place -> this rank's logits (:func:`_logits`)."""
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for p, blk, c in _walk(params, cfg, caches):
+        h, _ = B.block_prefill(p, blk, h, positions=positions, cache=c, chunk=cfg.attn_chunk,
+                               shard=shard)
+    return _logits(params, cfg, h, shard)
 
 
 @torch.no_grad()
@@ -606,29 +765,34 @@ def prefill(
     inputs,                           # (B, T) int tokens, or an inputs dict
     max_seq: int,
     compute_dtype=torch.float32,
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that fills fresh decode caches.
 
     Returns ``(logits (B, T, vocab) fp32, caches)``; each cache row holds the
     prompt's K/V at slots ``0..T-1`` and zeros beyond, or a ring's latest
     ``window`` positions (``blocks.block_prefill``).  ``T`` counts every
-    input position (a ``mixed`` model's prefix too)."""
+    input position (a ``mixed`` model's prefix too).  On a mesh (token
+    inputs) each rank computes and caches the rows of
+    ``shard.for_rows(B).row_range()`` and the logits are whole on every
+    rank."""
     check_supported(cfg)
-    h = _embed_inputs(params, cfg, inputs, compute_dtype)
-    Bsz, T = h.shape[:2]
-    dev = h.device
-    positions = torch.arange(T, device=dev)[None, :]
-    caches = init_caches(cfg, Bsz, max_seq, compute_dtype, dev)
-    for p, blk, c in _walk(params, cfg, caches):
-        h, _ = B.block_prefill(p, blk, h, positions=positions, cache=c, chunk=cfg.attn_chunk)
-    return _logits(params, cfg, h), caches
+    if shard is None:
+        h = _embed_inputs(params, cfg, inputs, compute_dtype)
+        caches = init_caches(cfg, h.shape[0], max_seq, compute_dtype, h.device)
+        return _fill(params, cfg, h, caches), caches
+    tokens = inputs["tokens"] if isinstance(inputs, dict) else inputs
+    caches = init_caches(cfg, tokens.shape[0], max_seq, compute_dtype, tokens.device, shard)
+    rows = shard.for_rows(tokens.shape[0]).row_range()
+    if rows is not None:
+        tokens = tokens.narrow(0, *rows)
+    logits = _fill(params, cfg, _embed_tokens(params, cfg, tokens, compute_dtype, shard),
+                   caches, shard)
+    return _whole_logits(cfg, logits, shard, rows), caches
 
 
-# kanlint's KL105 (thread a ShardingCtx through cache writes) is the JAX
-# package's mesh contract; on one device the in-place writes have no
-# sharding to pin.  Mesh serving is ROADMAP queue 1, item 9.
 @torch.no_grad()
-def decode_step(  # kanlint: ignore[KL105]
+def decode_step(
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,             # (B, 1) int, or (B, 1, d) / (B, d) embeddings
@@ -636,26 +800,36 @@ def decode_step(  # kanlint: ignore[KL105]
     pos: torch.Tensor,                # scalar or (B,) int
     compute_dtype=torch.float32,
     table: torch.Tensor | None = None,  # (B, n_logical) int32: paged block tables
+    shard=None,                       # shard.for_rows(B) (dense) or .for_pool(n) (paged)
 ) -> tuple[torch.Tensor, dict]:
     """One decode step for the whole model -> ``(logits (B, vocab), caches)``.
 
     ``tokens`` are ``(B, 1)`` ids for ``tokens`` and ``mixed`` models (the
     prefix is prompt only) and embedding rows for ``embeddings`` models.
     With ``table``, ``caches`` holds paged pools (:func:`init_paged_caches`)
-    and every layer reads and writes through the block table."""
+    and every layer reads and writes through the block table.  On a mesh
+    the inputs hold every row; a rank decodes the rows its dense caches
+    hold (``shard.row_range()``) or, paged, every row, and the logits are
+    whole on every rank."""
+    rows = None if shard is None else shard.row_range()
+    if rows is not None:
+        tokens = tokens.narrow(0, *rows)
+        pos = pos if pos.dim() == 0 else pos.narrow(0, *rows)
     if cfg.input_kind == "embeddings":
         h = tokens.to(compute_dtype)
         if h.dim() == 2:                   # (B, d) rows
             h = h[:, None]
     else:
-        h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+        h = _embed_tokens(params, cfg, tokens, compute_dtype, shard)
     for p, blk, c in _walk(params, cfg, caches):
-        h, _ = B.block_decode_step(p, blk, h, c, pos, table)
-    return _logits(params, cfg, h)[:, 0], caches
+        h, _ = B.block_decode_step(p, blk, h, c, pos, table, shard)
+    return _whole_logits(cfg, _logits(params, cfg, h, shard)[:, 0], shard, rows), caches
 
 
+# kanlint's KL105: a mesh serves no speculative window (ROADMAP queue 1,
+# item 9.4), so no ShardingCtx reaches these cache writes.
 @torch.no_grad()
-def verify_window(  # kanlint: ignore[KL105] (see decode_step)
+def verify_window(  # kanlint: ignore[KL105]
     params: dict,
     cfg: ModelConfig,
     tokens: torch.Tensor,             # (B, W) int: last accepted token + k drafts
@@ -677,7 +851,7 @@ def verify_window(  # kanlint: ignore[KL105] (see decode_step)
             f"{cfg.name}: speculative verify needs token-input full-attention "
             "GQA blocks throughout")
     check_supported(cfg)
-    h = L.embed_lookup(params["embed"], tokens, compute_dtype) * math.sqrt(cfg.d_model)
+    h = _embed_tokens(params, cfg, tokens, compute_dtype)
     for p, blk, c in _walk(params, cfg, caches):
         h, _ = B.block_verify_window(p, blk, h, c, pos, table)
     return _logits(params, cfg, h), caches

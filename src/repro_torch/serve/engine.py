@@ -60,7 +60,25 @@ Prompts are tokens.  A model with non-token inputs (paligemma-3b's patch
 prefix, musicgen-large's frames) is refused, as the reference's engine
 cannot serve one either (it prefills ``{"tokens": ...}`` and dies with a
 ``KeyError``); such models run through ``lm.prefill`` and
-``lm.decode_step``.  Meshes are not ported yet (ROADMAP queue 1, item 9).
+``lm.decode_step``.
+
+Mesh serving (``ServeConfig.mesh``, DESIGN.md §4a): a ``(data, model)``
+``DeviceMesh`` (``launch/mesh.py``) over one process per rank, each running
+this engine on the same inputs.  The engine places the parameters once
+(each rank keeps its shard, ``dist/sharding.py``), builds cache shards
+(dense rows on ``data`` and KV heads on ``model``; a pool's blocks on
+``data`` where the data axis divides their count), and threads a
+``ShardingCtx`` through every model call, which returns logits whole on
+every rank.  So every rank samples the same tokens and its host
+bookkeeping (scheduler, ``BlockPool``, ``PrefixCache``) makes the same
+decisions; the two reads that drive them (an admission group's first
+tokens, a chunk's tokens) take rank 0's copy.  The host bookkeeping never
+sees device counts.  On one rank the mesh runs the unmeshed operations,
+so its streams are bit-identical; across ranks the streams equal the
+unmeshed engine's unless a near-tie flips, since the row-parallel
+``all_reduce`` sums fp32 partials in another order, as the reference
+documents.  A mesh serves token-input ``attn_kan``/``attn_mlp`` models
+without speculative windows (``lm.mesh_refusal``).
 """
 
 from __future__ import annotations
@@ -72,6 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch import set_ieee_fp32
+from repro_torch.dist.sharding import ShardingCtx
 from repro_torch.models import lm
 from repro_torch.serve import speculative, threefry
 from repro_torch.serve.kv_pool import BlockPool, blocks_for, worst_case_blocks
@@ -116,6 +135,10 @@ class ServeConfig:
                                  # from the target's parameters at init
     draft_layers: int = 1        # derived drafter: leading unit repeats kept
     draft_quant: bool = False    # derived drafter: int8 fake-quant weights
+    # Mesh serving: a torch.distributed DeviceMesh with ("data", "model")
+    # dims (launch/mesh.py: make_host_mesh), this process one of its ranks.
+    # None: the single-device engine.
+    mesh: object | None = None
 
 
 def token_prompts_only(model_cfg: lm.ModelConfig) -> str:
@@ -146,11 +169,21 @@ class Engine:
         self.model = model_cfg
         self.cfg = serve_cfg
         self._dt = DTYPES[serve_cfg.compute_dtype]
+        if serve_cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {serve_cfg.spec_k}")
+        self.shard = None
+        if serve_cfg.mesh is not None:
+            why = lm.mesh_refusal(model_cfg)
+            if why is None and serve_cfg.spec_k:
+                why = ("speculative decoding on a mesh is not ported yet (ROADMAP queue 1, "
+                       "item 9.4)")
+            if why:
+                raise ValueError(why)
+            self.shard = ShardingCtx(serve_cfg.mesh)
+            params = self.shard.place_params(model_cfg, params)
         self.params = _to_device(params, self.device)
         self.last_serve_stats: dict | None = None
         self.last_generate_stats: dict | None = None
-        if serve_cfg.spec_k < 0:
-            raise ValueError(f"spec_k must be >= 0, got {serve_cfg.spec_k}")
         self.draft = None
         if serve_cfg.spec_k >= 1:
             if serve_cfg.draft is not None:
@@ -160,6 +193,23 @@ class Engine:
                 self.draft = speculative.DraftModel.from_target(
                     self.params, model_cfg, n_layers=serve_cfg.draft_layers,
                     quant=serve_cfg.draft_quant)
+
+    def _make_dense_caches(self, batch: int) -> dict:
+        """The dense decode caches ``generate`` and the continuous engine
+        serve from (this rank's shard on a mesh)."""
+        return lm.init_caches(self.model, batch, self.cfg.max_seq, self._dt, self.device,
+                              self.shard)
+
+    def _make_paged_caches(self, n_blocks: int, block_size: int) -> dict:
+        """The paged pools of the continuous engine (this rank's shard on a
+        mesh)."""
+        return lm.init_paged_caches(self.model, n_blocks, block_size, self._dt, self.device,
+                                    self.shard)
+
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """A device value the host decides on takes rank 0's copy on a mesh,
+        in place (``t`` must be contiguous)."""
+        return t if self.shard is None else self.shard.agree(t)
 
     def _sync(self) -> None:
         """Drain the stream, so a phase's host clock holds its device work."""
@@ -209,22 +259,23 @@ class Engine:
         return speculative.sample_tokens(logits, step_keys, self.cfg.temperature)
 
     def _decode_chunk(self, steps: int, tok, caches, pos, eos_hit, eos: int, table=None,
-                      step_keys=None):
+                      step_keys=None, shard=None):
         """``steps`` decode steps from ``tok (B, 1)`` at ``pos`` (scalar, or
         ``(B,)`` per row); the counterpart of the reference's
         ``_scan_impl``.  ``step_keys (B, steps, 2)`` on the device: each
         step's sampling key per row (every row splits at every step, latched
         rows too), ``None`` when greedy; the Gumbel noise of ``NOISE_STEPS``
         steps is drawn at a time.  A row whose EOS latch is set emits
-        ``pad_id`` and its per-row position freezes.  Returns ``(toks
-        (steps, B), tok, caches, pos, eos_hit)``, the carry the next chunk
-        resumes from."""
+        ``pad_id`` and its per-row position freezes.  ``shard``: the caches'
+        mesh context (``for_rows`` or ``for_pool``).  Returns ``(toks (steps,
+        B), tok, caches, pos, eos_hit)``, the carry the next chunk resumes
+        from."""
         pad = torch.full((), self.cfg.pad_id, dtype=torch.int32, device=tok.device)
         toks = []
         noise = None
         for s in range(steps):
             lg, caches = lm.decode_step(self.params, self.model, tok, caches, pos,
-                                        self._dt, table)
+                                        self._dt, table, shard)
             if self._sampled and s % NOISE_STEPS == 0:
                 noise = threefry.gumbel(step_keys[:, s:s + NOISE_STEPS],
                                         (self.model.vocab,))
@@ -279,7 +330,7 @@ class Engine:
         t0 = time.perf_counter()
         toks = torch.as_tensor(np.asarray(prompts, np.int64), device=dev)
         logits, caches = lm.prefill(self.params, self.model, toks,
-                                    self.cfg.max_seq, self._dt)
+                                    self.cfg.max_seq, self._dt, self.shard)
         rows = torch.arange(B, device=dev)
         if lengths is None:
             last = logits[:, T - 1]
@@ -302,7 +353,8 @@ class Engine:
         t1 = time.perf_counter()
         eos_hit = tok == eos                  # eos = -1 never matches
         toks, *_ = self._decode_chunk(max_new - 1, tok[:, None], caches, pos, eos_hit, eos,
-                                      step_keys=step_keys)
+                                      step_keys=step_keys,
+                                      shard=self.shard and self.shard.for_rows(B))
         out = torch.cat([tok[None], toks]).T.cpu().numpy()
         t2 = time.perf_counter()
         self.last_generate_stats = {
@@ -389,10 +441,10 @@ class Engine:
         recomputed from scratch on re-admission).
 
         Sets ``self.last_serve_stats``: the scheduler's counters, wall
-        time, per-request latency, useful tokens and, paged, a ``"paged"``
-        sub-dict of pool and prefix counters, as the reference does (its
-        ``compiles`` and ``mesh_shape`` describe JAX tracing and meshes and
-        have no counterpart here).  The port adds ``prefill_s`` and
+        time, per-request latency, useful tokens, ``mesh_shape`` (``{"data":
+        d, "model": m}`` or None) and, paged, a ``"paged"`` sub-dict of pool
+        and prefix counters, as the reference does (its ``compiles``
+        describes JAX tracing and has no counterpart here).  The port adds ``prefill_s`` and
         ``decode_s`` (host time of admission prefills and decode chunks,
         each ending in a read of its tokens) and ``prefill_groups`` (``[rows,
         padded length]`` of each admission prefill), from which a caller
@@ -467,7 +519,8 @@ class Engine:
                         f"shrink the request")
             if self.cfg.prefix_caching and not lm.model_kv_quant(self.model):
                 prefix = PrefixCache(bs_blk)
-            caches = lm.init_paged_caches(self.model, pool_blocks, bs_blk, self._dt, dev)
+            caches = self._make_paged_caches(pool_blocks, bs_blk)
+            shard = self.shard and self.shard.for_pool(pool_blocks)
             tables = np.zeros((slots, n_logical), np.int32)     # 0 == sentinel
             table_dev = {"arr": None, "dirty": True}           # uploaded per change
             covered = np.zeros((slots,), np.int64)             # blocks bound per slot
@@ -475,7 +528,8 @@ class Engine:
             prefill_tok = {"computed": 0, "saved": 0}
             key_chains: dict[int, list] = {}   # rid -> its prompt's hash chain
         else:
-            caches = lm.init_caches(self.model, slots, max_seq, self._dt, dev)
+            caches = self._make_dense_caches(slots)
+            shard = self.shard and self.shard.for_rows(slots)
         # the drafter's KV: dense per-slot rows, draft_layers deep, in the
         # paged mode too (draft_layers / n_repeats of one dense target cache)
         draft_caches = (lm.init_caches(self.draft.cfg, slots, max_seq, self._dt, dev)
@@ -521,6 +575,7 @@ class Engine:
             prefill logits; then activate its slot, or retire it at once (a
             budget of one token, or a first token that is EOS)."""
             kcs, firsts = self._keys_first(base, [rid for _, rid in pairs], last)
+            self._agree(firsts)
             firsts = firsts.cpu().numpy()  # kanlint: ignore[KL102] (one read per admission)
             for j, (b, rid) in enumerate(pairs):
                 first = int(firsts[j])
@@ -557,7 +612,7 @@ class Engine:
                     toks_d, lens_d = dev_int(padded), dev_int(lens)
                     last, _ = lm.prefill_into_slots(
                         self.params, self.model, toks_d, lens_d,
-                        [b for b, _ in grp], caches, max_seq, self._dt)
+                        [b for b, _ in grp], caches, max_seq, self._dt, shard)
                     prefill_groups.append([len(grp), t_pad])
                     if spec:
                         draft_prefill(toks_d, lens_d, [b for b, _ in grp])
@@ -648,7 +703,7 @@ class Engine:
                     lens_d = dev_int(lens)
                     last, _ = lm.prefill_into_pages(
                         self.params, self.model, dev_int(suffix), lens_d, tbls,
-                        caches, start, self._dt, blocks_for(start + t_pad, bs_blk))
+                        caches, start, self._dt, blocks_for(start + t_pad, bs_blk), shard)
                     prefill_groups.append([len(grp), t_pad])
                     if spec:
                         # the drafter has no pool and no prefix cache: its
@@ -793,17 +848,19 @@ class Engine:
             if paged and self.cfg.paged_read == "shadow":
                 # gather once per chunk, decode on the dense view, write the
                 # chunk's span back to the pools
-                view = lm.paged_views(caches, table_dev["arr"])
+                view = lm.paged_views(caches, table_dev["arr"], shard)
                 toks, tok_l, view, pos_l, eos_l = self._decode_chunk(
-                    chunk_steps, tok_d, view, pos_d, eos_d, eos, step_keys=kts_d)
-                lm.writeback_paged_chunk(caches, view, table_dev["arr"], pos_d, chunk_steps)
+                    chunk_steps, tok_d, view, pos_d, eos_d, eos, step_keys=kts_d,
+                    shard=shard)
+                lm.writeback_paged_chunk(caches, view, table_dev["arr"], pos_d, chunk_steps,
+                                         shard)
             else:
                 toks, tok_l, caches, pos_l, eos_l = self._decode_chunk(
                     chunk_steps, tok_d, caches, pos_d, eos_d, eos,
-                    table_dev["arr"] if paged else None, kts_d)
+                    table_dev["arr"] if paged else None, kts_d, shard)
             # one read: the chunk's tokens, tok, pos and the EOS latch per slot
-            host = torch.cat([toks.T.long(), tok_l.long(), pos_l[:, None].long(),
-                              eos_l[:, None].long()], dim=1).cpu()
+            host = self._agree(torch.cat([toks.T.long(), tok_l.long(), pos_l[:, None].long(),
+                                          eos_l[:, None].long()], dim=1)).cpu()
             h_toks, h_tok, h_pos, h_eos = host.split([chunk_steps, 1, 1, 1], dim=1)
             toks = h_toks.T.to(toks.dtype).numpy()
             tok = h_tok.to(tok_l.dtype).numpy()
@@ -838,6 +895,7 @@ class Engine:
                                      for i in range(n))),
             **timing,
             "prefill_groups": prefill_groups,
+            "mesh_shape": None if self.shard is None else self.shard.shape,
         }
         if spec:
             self.last_serve_stats["draft_prefill_groups"] = draft_prefill_groups

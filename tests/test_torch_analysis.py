@@ -325,6 +325,7 @@ PLANTS = {
     "KL100": ("serve", "def f(:\n    pass\n"),
     "KL102": ("serve", PER_TOKEN_LOOP),
     "KL103": ("models", "import torch\nx = torch.zeros(4, dtype=torch.float64)\n"),
+    "KL105": ("models", "def write(caches, x):\n    caches['k'][0] = x\n"),
 }
 
 
@@ -339,6 +340,31 @@ def test_cli_planted_violation_fails_check(rule, tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 1, out
     assert rule in out and "1 new finding(s)" in out
+
+
+KL105_SOURCES = [
+    "def write(cache, x, shard=None):\n    pass\n",
+    "def write(pool, x):\n    pass\n\n\ndef _helper(caches):\n    pass\n",
+    "@torch.no_grad()\ndef step(params, caches, pos):  # kanlint: ignore[KL105] (why)\n"
+    "    pass\n\n\ndef read(view):\n    pass\n",
+]
+
+
+@pytest.mark.parametrize("src", KL105_SOURCES)
+def test_kl105_matches_the_reference_audit(src):
+    """The port's sharding audit flags what the reference's flags, with its
+    line and message (pragmas apply afterwards, in both packages alike)."""
+    from repro.analysis import sharding_audit as ref_audit
+    from repro_torch.analysis import sharding_audit
+
+    path = "src/repro_torch/models/x.py"
+    got = sharding_audit.audit_source(src, path)
+    want = ref_audit.audit_source(src, path)
+    assert [(f.rule, f.line, f.message) for f in got] == \
+        [(f.rule, f.line, f.message) for f in want]
+    assert sharding_audit.audit_source(src, "src/repro_torch/serve/x.py") == []
+    kept = findings.apply_pragmas(got, {path: findings.file_pragmas(src)})
+    assert len(kept) == ("def write(pool" in src)
 
 
 def _cli(module: str, args: list[str]):

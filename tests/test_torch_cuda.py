@@ -30,7 +30,9 @@ and 99.9 % of them within 1e-3 lr.  The reduced kanformer's pipelined
 loss and gradients (``train/pipeline.py``) match the CPU's (loss rtol
 1e-5, each leaf within 1e-4 of its max|g|), a pipelined step of each model
 the pipeline takes launches no kernel, and naming the card for each stage
-gives the default placement's result bit for bit.
+gives the default placement's result bit for bit.  A 1x1 mesh on a one-rank
+NCCL group serves the continuous engine's streams bit for bit with the
+unmeshed engine's launch counts.
 """
 
 import ctypes
@@ -1521,3 +1523,36 @@ def test_pipeline_devices_one_card_per_stage_equals_the_default(cuda_device):
     got = flatten_with_paths(got)
     assert all(torch.equal(got[k], w) for k, w in flatten_with_paths(want).items())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, {"paged": True}, {"paged": True, "paged_read": "step"},
+                                 {"temperature": 0.7}])
+def test_one_rank_nccl_mesh_equals_the_unmeshed_engine(cuda_device, cfg, tmp_path):
+    """A 1x1 mesh on a one-rank NCCL group runs the unmeshed operations:
+    bit-equal streams and the same kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    model = configs.get_reduced("kanformer-100m").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for mesh in (None, make_host_mesh((1, 1))):
+            eng = Engine(params, model, ServeConfig(max_seq=32, max_new_tokens=8, block_size=4,
+                                                    mesh=mesh, **cfg), device=cuda_device)
+            ops.reset_launches()
+            streams = eng.serve_continuous(reqs, slots=3, chunk_steps=3)
+            out.append((streams, dict(ops.LAUNCHES), eng.last_serve_stats["mesh_shape"]))
+    finally:
+        dist.destroy_process_group()
+    (want, launches, _), (got, mesh_launches, shape) = out
+    assert all(np.array_equal(a, b) for a, b in zip(want, got))
+    assert mesh_launches == launches and launches["kan_sparse_gemm"] > 0
+    assert shape == {"data": 1, "model": 1}

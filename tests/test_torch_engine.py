@@ -111,9 +111,10 @@ def test_cli_static_engine_runs_on_cpu():
     assert "[serve:static] 3 requests, 12 tokens" in r.stdout
 
 
-@pytest.mark.parametrize("flags", [["--paged"], ["--mesh", "2x4"],
+@pytest.mark.parametrize("flags", [["--paged"],
+                                   ["--mesh", "2x4", "--engine", "continuous", "--spec-k", "2"],
                                    ["--spec-k", "2"], ["--spec-k", "-1"],
-                                   ["--mesh", "1x1"], ["--draft-layers", "0"]])
+                                   ["--mesh", "1x1", "--share-card"], ["--draft-layers", "0"]])
 def test_cli_rejects_what_is_not_ported(flags, capsys):
     assert tserve.main(["--arch", ARCH, "--device", "cpu", *flags]) == 2
     assert "[serve]" in capsys.readouterr().err

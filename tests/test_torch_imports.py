@@ -165,3 +165,12 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     r = _smoke(tmp_path)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+# the modules the mesh serving slice added
+MESH_MODULES = ["dist/sharding.py", "launch/mesh.py", "analysis/sharding_audit.py"]
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_modules_import_neither_jax_nor_repro(module):
+    assert not _imported_roots(PORT / module) & set(FORBIDDEN)

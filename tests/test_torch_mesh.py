@@ -1,0 +1,222 @@
+"""Mesh serving on the CPU (``ServeConfig.mesh``, ``launch/mesh.py``,
+``dist/sharding.py``): the reference battery (``tests/test_mesh_serving.py``)
+on the port.
+
+One spawned 2x2 ``(data, model)`` gloo group serves the battery's eight
+continuous cells and its static sampled run on reduced kanformer-100m and
+reduced qwen1.5-0.5b with an int8 KV cache (parameters from the JAX
+package's init, ``convert.params_from_jax``), and an MQA kanformer whose
+one KV head the model axis cannot split.  Every rank's tokens equal the
+port's ``mesh=None`` run in rank 0's process.  The distribution proofs
+read the shards' shapes: ``wq`` heads / 2, dense ``k`` batch / 2 and KV
+heads / 2, pool blocks / 2 (an odd pool whole), the int8 ``k_scale`` on
+``model``; each leaf's local shards, stitched across ranks, give the
+converted tree back.  A one-rank group in this process is bit-identical to
+``mesh=None``.  The CLI serves ``--mesh 2x2 --device cpu`` and refuses what
+it cannot run with rc=2.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import torch_mesh_cells as cells
+from repro.models import lm as jlm
+from repro_torch.convert import params_from_jax
+from repro_torch.dist.sharding import ShardingCtx, tree_specs
+from repro_torch.launch import mesh as M
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import lm
+
+SHAPE = (2, 2)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return {key: params_from_jax(jax.device_get(jlm.init_params(jax.random.PRNGKey(0),
+                                                                _jax_model(key))),
+                                 device="cpu")
+            for key in ("kan", "q8")}
+
+
+def _jax_model(key: str):
+    from repro import configs as jconfigs
+    from repro.configs.common import enable_kv_quant
+
+    if key == "kan":
+        return jconfigs.get_reduced("kanformer-100m").model
+    return enable_kv_quant(jconfigs.get_reduced("qwen1.5-0.5b")).model
+
+
+@pytest.fixture(scope="module")
+def ranks(params):
+    return M.run_ranks(cells.run_battery, SHAPE, "cpu", args=(params,))
+
+
+TAGS = sorted(cells.CELLS) + ["static_sampled"]
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_every_rank_serves_the_unmeshed_streams(ranks, tag):
+    ref = ranks[0]["ref"][tag]
+    assert len(ref) == 5
+    for r in ranks:
+        assert all(np.array_equal(a, b) for a, b in zip(ref, r["mesh"][tag])), (tag, r["coord"])
+        if tag != "static_sampled":
+            assert r["stats"][tag] == {"data": 2, "model": 2}
+
+
+def test_shards_are_distributed_not_replicated(ranks):
+    kan, q8 = cells.KAN, cells.Q8
+    L, H, KV, hd = kan.n_repeats, kan.unit[0].attn.n_heads, kan.unit[0].attn.n_kv_heads, \
+        kan.unit[0].attn.head_dim
+    for r in ranks:
+        s = r["shapes"]
+        assert s["wq"] == (L, kan.d_model, H // 2, hd)
+        assert s["dense_k"] == (L, 4 // 2, 48, KV // 2, hd)          # batch and KV heads
+        assert s["pool_k"] == (L, 16 // 2, 8, KV // 2, hd)           # blocks and KV heads
+        assert s["odd_pool_k"] == (L, 17, 8, KV // 2, hd)            # 17 blocks stay whole
+        assert s["q8_k_scale"] == (q8.n_repeats, 8, 8, q8.unit[0].attn.n_kv_heads // 2)
+    assert sorted(r["coord"] for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def _stitch(full: torch.Tensor, spec: tuple, blocks: list) -> torch.Tensor:
+    """Each rank's block written where its coordinates place it."""
+    out = torch.full_like(full, float("nan"))
+    for coord, local in blocks:
+        view = out
+        for i, axis in enumerate(spec):
+            if axis is not None:
+                n = local.shape[i]
+                view = view.narrow(i, coord[("data", "model").index(axis)] * n, n)
+        view.copy_(local)
+    return out
+
+
+@pytest.mark.parametrize("key", ["kan", "q8"])
+def test_local_shards_stitch_back_to_the_converted_tree(ranks, params, key):
+    model = {"kan": cells.KAN, "q8": cells.Q8}[key]
+    specs = tree_specs(lm.param_axes(model), lm.tree_of_shapes(lm.param_shapes(model)),
+                       {"data": 2, "model": 2})
+    n_split = 0
+
+    def check(full, spec, *locals_):
+        nonlocal n_split
+        n_split += any(a is not None for a in spec)
+        stitched = _stitch(full, spec, [(r["coord"], loc) for r, loc in zip(ranks, locals_)])
+        assert torch.equal(stitched, full), spec
+
+    def walk(full, spec, *locals_):
+        if isinstance(full, dict):
+            for k in full:
+                walk(full[k], spec[k], *(loc[k] for loc in locals_))
+        elif isinstance(full, list):
+            for i in range(len(full)):
+                walk(full[i], spec[i], *(loc[i] for loc in locals_))
+        else:
+            check(full, spec, *locals_)
+
+    walk(params[key], specs, *(r["local"][key] for r in ranks))
+    assert n_split > 5
+
+
+def test_block_copies_cross_the_data_split_pool(ranks):
+    """``lm.copy_paged_blocks`` on a pool the data axis splits: each copy's
+    source owner contributes it, its destination owner writes it."""
+    want = cells.copied_pool()
+    got = _stitch(want, (None, "data", None, "model", None),
+                  [(r["coord"], r["copied_pool"]) for r in ranks])
+    assert torch.equal(got, want)
+    assert torch.equal(want[:, 10], want[:, 1]) and torch.equal(want[:, 2], want[:, 9])
+
+
+def test_one_rank_mesh_is_bit_identical_to_no_mesh(params, tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = M.make_host_mesh((1, 1))
+        ctx = ShardingCtx(mesh)
+        assert ctx.n_devices == 1 and ctx.shape == {"data": 1, "model": 1}
+        names, shape = ("batch", "seq_cache", "kv_heads", "head_dim"), (4, 32, 4, 16)
+        assert ctx.spec(names, shape) == ("data", None, "model", None)   # named, size 1
+        assert ctx.local_shape(names, shape) == shape
+        assert ctx.model_split(names, shape) is None
+        assert ctx.for_rows(4).row_range() is None and ctx.for_pool(16).block_range() is None
+        assert ctx.cache_shardings(cells.Q8, 4, 48)["unit"][0]["k_scale"] == \
+            (None, "data", None, "model")
+        assert ctx.paged_cache_shardings(cells.Q8, 16, 8)["unit"][0]["k"] == \
+            (None, "data", None, "model", None)
+        assert ctx.param_shardings(cells.KAN)["embed"]["table"] == ("model", None)
+        for tag in ("dense_greedy", "paged_noprefix_sampled"):
+            key, kw = cells.CELLS[tag]
+            ref, _ = cells.serve(params, key, None, kw)
+            got, eng = cells.serve(params, key, mesh, kw)
+            assert all(np.array_equal(a, b) for a, b in zip(ref, got)), tag
+            assert eng.last_serve_stats["mesh_shape"] == {"data": 1, "model": 1}
+        toks = torch.as_tensor(np.stack([r[:9] for r in cells.requests()]))
+        want, _ = lm.prefill(params["kan"], cells.KAN, toks, 16)
+        got, _ = lm.prefill(params["kan"], cells.KAN, toks, 16, shard=ctx)
+        assert torch.equal(want, got)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_refuses_what_it_does_not_serve():
+    from repro_torch import configs
+
+    with pytest.raises(ValueError, match="item 9.4"):
+        _mesh_engine(configs.get_reduced("olmoe-1b-7b").model)
+    assert "MoE experts" in lm.mesh_refusal(configs.get_reduced("olmoe-1b-7b").model)
+    assert "MLA" in lm.mesh_refusal(configs.get_reduced("deepseek-v2-lite").model)
+    assert "windowed" in lm.mesh_refusal(configs.get_reduced("gemma3-12b").model)
+    assert "recurrent" in lm.mesh_refusal(configs.get_reduced("xlstm-1.3b").model)
+    assert "inputs" in lm.mesh_refusal(configs.get_reduced("paligemma-3b").model)
+    assert lm.mesh_refusal(cells.Q8) is None and lm.mesh_refusal(cells.KAN) is None
+
+
+def _mesh_engine(model):
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    return Engine({}, model, ServeConfig(mesh=object()), device="cpu")
+
+
+def test_cli_mesh_2x2_on_the_cpu():
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                        "kanformer-100m", "--device", "cpu", "--mesh", "2x2", "--engine",
+                        "continuous", "--paged", "--requests", "4", "--max-new", "6"],
+                       capture_output=True, text=True, timeout=300,
+                       env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "[serve] mesh={'data': 2, 'model': 2} over 4 ranks (gloo on cpu)" in r.stdout
+    assert r.stdout.count("[serve:continuous] 4 requests") == 1          # rank 0 alone
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--mesh", "2x"], "--mesh expects integers DxM"),
+    (["--mesh", "0x2"], "mesh shape must be positive"),
+    (["--mesh", "2x2", "--device", "cuda"], "mesh 2x2 on cuda"),
+    (["--mesh", "1x2", "--device", "cpu", "--spec-k", "2", "--engine", "continuous"],
+     "--spec-k on a mesh"),
+    (["--mesh", "2x2", "--device", "cpu", "--share-card"], "--share-card"),
+])
+def test_cli_refuses_a_mesh_it_cannot_build(argv, msg, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc = serve_main(["--arch", "kanformer-100m", *argv])
+    assert rc == 2 and msg in capsys.readouterr().err
+
+
+def test_a_cuda_mesh_larger_than_the_cards_is_refused(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    why = M.devices_missing((2, 2), "cuda")
+    assert "needs 4 CUDA devices, one per rank, and 1 is present" in why
+    assert M.devices_missing((2, 2), "cuda", share_card=True) is None
+    with pytest.raises(ValueError, match="needs 4 CUDA devices"):
+        M.run_ranks(cells.run_battery, (2, 2), "cuda")

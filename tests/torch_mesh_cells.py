@@ -1,0 +1,105 @@
+"""The mesh battery every rank of a spawned mesh runs for
+``tests/test_torch_mesh.py`` (a module the spawned ranks import, so it
+imports no JAX): the reference battery's cells
+(``tests/test_mesh_serving.py``) on the port, each served with the mesh and,
+on rank 0, without it, plus what the distribution proofs read."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.configs import kanformer_100m
+from repro_torch.configs.common import enable_kv_quant
+from repro_torch.dist.sharding import ShardingCtx
+from repro_torch.models import lm
+from repro_torch.serve.engine import Engine, ServeConfig
+
+KAN = configs.get_reduced("kanformer-100m").model
+Q8 = enable_kv_quant(configs.get_reduced("qwen1.5-0.5b")).model
+# heads split over a model axis of 2, the one KV head not: each rank pairs
+# its query heads with the whole KV head
+MQA = kanformer_100m.build(n_layers=2, d_model=64, n_heads=4, n_kv=1, kan_ff=96,
+                           vocab=512).model
+MODELS = {"kan": KAN, "q8": Q8, "mqa": MQA}
+PAGED = {"paged": True, "block_size": 8}
+CELLS = {
+    "dense_greedy": ("kan", {}),
+    "dense_sampled": ("kan", {"temperature": 0.7}),
+    "paged_prefix_greedy": ("kan", {**PAGED, "prefix_caching": True}),
+    "paged_noprefix_sampled": ("kan", {**PAGED, "prefix_caching": False, "temperature": 0.7}),
+    "paged_step_read": ("kan", {**PAGED, "paged_read": "step"}),
+    "paged_data_sharded_pool": ("kan", {**PAGED, "pool_blocks": 14}),
+    "dense_int8": ("q8", {}),
+    "paged_int8": ("q8", PAGED),
+    "mqa_dense": ("mqa", {}),
+    "mqa_paged_step": ("mqa", {**PAGED, "paged_read": "step"}),
+}
+
+
+def requests() -> list[np.ndarray]:
+    rs = np.random.RandomState(0)
+    shared = rs.randint(0, 512, 8).astype(np.int32)   # prefix-cache fodder
+    return [np.concatenate([shared, rs.randint(0, 512, rs.randint(3, 10)).astype(np.int32)])
+            for _ in range(5)]
+
+
+def serve(params, key, mesh, kw, device="cpu", static=False):
+    eng = Engine(params[key], MODELS[key],
+                 ServeConfig(max_seq=48, max_new_tokens=8, mesh=mesh, **kw), device=device)
+    reqs = requests()
+    if static:
+        return eng.serve_requests(reqs, batch_size=4), eng
+    return eng.serve_continuous(reqs, slots=2, chunk_steps=4), eng
+
+
+def run_battery(mesh, device, params: dict) -> dict:
+    """One rank's share: every cell with the mesh (and, on rank 0, without
+    it), the static sampled run, this rank's parameter shards and the
+    shapes of its cache shards."""
+    torch.set_num_threads(1)
+    params = dict(params, mqa=lm.init_params(MQA, seed=0, device="cpu"))
+    first = dist.get_rank() == 0
+    out = {"mesh": {}, "ref": {}, "stats": {}}
+    for tag, (key, kw) in CELLS.items():
+        out["mesh"][tag], eng = serve(params, key, mesh, kw, device)
+        out["stats"][tag] = eng.last_serve_stats["mesh_shape"]
+        if first:
+            out["ref"][tag], _ = serve(params, key, None, kw, device)
+    static = {"temperature": 0.5}
+    out["mesh"]["static_sampled"], engm = serve(params, "kan", mesh, static, device, True)
+    if first:
+        out["ref"]["static_sampled"], _ = serve(params, "kan", None, static, device, True)
+    engq = Engine(params["q8"], Q8, ServeConfig(max_seq=48, max_new_tokens=8, mesh=mesh),
+                  device=device)
+    out["local"] = {"kan": engm.params, "q8": engq.params}
+    out["shapes"] = {
+        "wq": tuple(engm.params["unit"][0]["attn"]["wq"].shape),
+        "dense_k": tuple(engm._make_dense_caches(4)["unit"][0]["k"].shape),
+        "pool_k": tuple(engm._make_paged_caches(16, 8)["unit"][0]["k"].shape),
+        "odd_pool_k": tuple(engm._make_paged_caches(17, 8)["unit"][0]["k"].shape),
+        "q8_k_scale": tuple(engq._make_paged_caches(16, 8)["unit"][0]["k_scale"].shape),
+    }
+    out["coord"] = tuple(mesh.get_coordinate())
+    out["copied_pool"] = copied_pool(ShardingCtx(mesh).for_pool(16))
+    return out
+
+
+COPIES = ([1, 9, 4], [10, 2, 15])     # across the two halves of a 16-block pool
+
+
+def copied_pool(shard=None) -> torch.Tensor:
+    """A 16-block pool of known values (this rank's shard on a mesh) after
+    ``lm.copy_paged_blocks(*COPIES)``: its stacked ``k`` leaf."""
+    pools = lm.init_paged_caches(KAN, 16, 8, torch.float32, "cpu", shard)
+    k = pools["unit"][0]["k"]                        # (layers, blocks, 8, kv, hd)
+    a = KAN.unit[0].attn
+    full = torch.arange(KAN.n_repeats * 16 * 8 * a.n_kv_heads * a.head_dim,
+                        dtype=torch.float32).reshape(KAN.n_repeats, 16, 8, a.n_kv_heads, -1)
+    first, n = (0, 16) if shard is None or shard.block_range() is None else shard.block_range()
+    kv0 = 0 if shard is None else shard.coord("model") * k.shape[3]
+    k.copy_(full[:, first:first + n, :, kv0:kv0 + k.shape[3]])
+    lm.copy_paged_blocks(pools, *COPIES, shard=shard)
+    return k
