@@ -131,8 +131,9 @@ Phases; any failed check raises and the script exits non-zero:
    for bit, at qwen1.5-0.5b's pools (24 layers, 97 blocks of 16 tokens, 16
    KV heads, head_dim 64): fp32 k and v, and an int8 cache's four leaves
    (int8 k, v and fp32 k_scale, v_scale) in one launch, stacked and one
-   layer, each timed.  (a) Full-width qwen1.5-0.5b (random weights from
-   seed 0, fp32) serves phase 4's requests statically: every stream equal
+   layer, each timed.  (a) Full-width qwen1.5-0.5b at ``QWEN_REPEATS`` = 8
+   of its 24 layers (random weights from seed 0, fp32) serves phase 4's
+   requests statically: every stream equal
    to the request served alone, teacher-forced decode logits within
    ``DENSE_REL`` of max|logit| of ``lm.forward``, two requests' first 8
    tokens equal to the same weights' run on the host's CPU (streams may
@@ -239,7 +240,7 @@ Phases; any failed check raises and the script exits non-zero:
    ``(S-1)/(M+S-1)``, and ``costs.model_flops`` as a share of the fp32
    peak (phase 13's warm step prints its share too).
 15. A JSON line with every ported kernel's numbers, the card's line, and as
-   the last line ``{"ok": true, "device": {...}}``, printed after phase 17.
+   the last line ``{"ok": true, "device": {...}}``, printed after phase 18.
 16. The port's kanlint on the card, where there is no JAX
    (``repro_torch.analysis``): ``python -m repro_torch.analysis --check
    src/repro_torch`` in a subprocess (the static rules, the registry half
@@ -272,6 +273,29 @@ Phases; any failed check raises and the script exits non-zero:
    below ``LOGIT_ATOL``; sampled: of the perturbed scores, times T).  Ms per
    dense decode step unmeshed, 1x1 and in the rehearsal (host-staged
    collectives on one card: not a scale-out figure) beside the card's line.
+18. Training on a mesh (``train/step.py``'s ``shard``, ZeRO-sharded AdamW,
+   ``launch/elastic.py``; see the note above ``MESH_TRAIN``).  (a)
+   Full-width kanformer-100m takes ``launch.train``'s recipe for 4 steps of
+   batch 8 x 64, unmeshed and on a 1x1 mesh of a one-rank NCCL group
+   (``launch.train`` trains on ``(1, world size)`` in a group): losses,
+   parameters and ``m``/``v`` bit-equal, launch counts equal (none); ms per
+   step and kernels per step (one more step of each under a device-only
+   profiler); both trained models serve phase 4's requests statically with
+   exact launch counts of kernels 1 and 2 and equal streams.  (b) The 2x2
+   rehearsal: four ranks spawned on this one card over gloo train
+   kanformer-100m (3 steps, full depth) and qwen1.5-0.5b (2 steps,
+   ``QWEN_REPEATS`` layers) at full width from seed 0, each rank's losses
+   equal to rank 0's and within ``MESH_LOSS_RTOL`` of the unmeshed run on
+   the same weights and batches,
+   its parameters held to the unmeshed run's slices (``MESH_BULK``,
+   ``MESH_MAX_LR``), no launch, its ZeRO ``m`` shapes those of
+   ``tree_zero_specs`` and its ``m`` + ``v`` bytes against the whole.  (c)
+   kanformer's checkpoint from the rehearsal at step 2 restored on 1x1 with
+   ``restore_elastic`` (bit-equal to the whole checkpoint) and continued to
+   step 3: bit-equal to the unmeshed continuation, its loss within
+   ``MESH_LOSS_RTOL`` of the rehearsal's straight run and its parameters
+   held to the unmeshed straight run's.  Ms per step unmeshed, 1x1 and in
+   the rehearsal (not a scale-out figure) beside the card's line.
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
 checkout of the repository.  Imports nothing of JAX.
@@ -2288,6 +2312,12 @@ def time_reskan(torch, layers, xs, batch, grid):
 # and gemma3-12b at full width and depth on the static path, past its
 # window.  Tolerances are relative to max|logit| of the logits compared
 # (fp32 sums in another order; derived on the CPU, PERF.md §6):
+# qwen1.5-0.5b's depth in phase 10 and in phase 18's rehearsal: 8 of its 24
+# layers at full width.  With phase 18 (mesh training) added and qwen at
+# full depth the whole script took 1282.1 s of command time on a slow host
+# (H100 80GB HBM3, 700 W; phase 10 246.8 s, ~218 s of it qwen's cells) and
+# ~1077 s on another; the cut keeps every check and exact launch count.
+QWEN_REPEATS = 8
 DENSE_REL = 1e-4                   # teacher-forced decode vs lm.forward
 DENSE_TIE = 1e-4                   # streams may part only at a top-2 gap below this
 QUANT_REL, QUANT_AGREE = 0.1, 0.9  # int8 KV vs fp32 KV (the reference's bounds)
@@ -2483,7 +2513,7 @@ def qwen_path(torch, np, device="cuda", cfg=None):
     def stamp() -> str:
         return f"(at {time.perf_counter() - t_start:.1f} s)"
 
-    cfg = cfg or qwen1_5_0_5b.config().model
+    cfg = cfg or qwen1_5_0_5b.build(n_layers=QWEN_REPEATS).model
     qcfg = enable_kv_quant(ArchConfig(model=cfg, family="dense")).model
     params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
     out = {"params": sum(t.numel() for t in flatten_with_paths(params).values())}
@@ -4429,6 +4459,356 @@ def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
     return out
 
 
+# Phase 18: training on a mesh.  The launcher's recipe (phase 13's batch and
+# lr) on kanformer-100m at full width and depth, unmeshed and on a 1x1 NCCL
+# mesh; the 2x2 rehearsal (four ranks sharing the card over gloo) trains
+# kanformer-100m at full width and depth and qwen1.5-0.5b at full width and
+# QWEN_REPEATS of its 24 layers from seed 0, held to the unmeshed step on the
+# same weights and batches; the rehearsal's
+# kanformer checkpoint continues on 1x1.  At fp32 a data split is a split
+# into microbatches and a model split changes the GEMMs' shapes, so sums move
+# by fp32 roundings (PR 27: two columns of kanformer's KAN FFN jump by 1.566e-3
+# of max|g| between batch splits), and Adam normalises each element's step,
+# so an element whose gradient is near zero can move by another fraction of
+# lr: the losses within MESH_LOSS_RTOL, MESH_BULK of the parameters within
+# 1e-3 lr (a wrong gradient moves most of them by O(lr)), and every one within
+# MESH_MAX_LR lr per step (two Adam steps part by at most ~4 lr).  qwen
+# takes 2 steps to keep the phase near 60 s.
+MESH_TRAIN = {"steps": 4, "batch": 8, "seq": 64, "lr": 2e-3, "rehearsal": (2, 2),
+              "rehearsal_steps": {"kanformer-100m": 3, "qwen1.5-0.5b": 2}, "ckpt_at": 2}
+MESH_LOSS_RTOL = 1e-5
+MESH_BULK = (0.999, 1e-3)               # this share of the parameters within this, x lr
+MESH_MAX_LR = 4.0                       # per step, x lr
+
+
+def mesh_opt(steps: int):
+    """AdamW as ``launch.train`` sets it for a run of ``steps``."""
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(lr=MESH_TRAIN["lr"], total_steps=steps,
+                             warmup_steps=min(20, steps // 10 + 1))
+
+
+def param_gaps(got: dict, want: dict, lr: float) -> dict:
+    """``{path: tensor}`` trees -> the largest gap and the share of the
+    elements within ``MESH_BULK[1]``, both in units of ``lr``."""
+    worst, near, n = 0.0, 0, 0
+    for k, g in got.items():
+        d = (g.detach().cpu().double() - want[k].double()).abs() / lr
+        worst = max(worst, float(d.max()))
+        near += int((d <= MESH_BULK[1]).sum())
+        n += d.numel()
+    return {"max_lr": worst, "bulk_share": near / n}
+
+
+def held_params(tag: str, gaps: dict, steps: int) -> None:
+    if gaps["bulk_share"] < MESH_BULK[0] or gaps["max_lr"] > MESH_MAX_LR * steps:
+        raise RuntimeError(f"{tag}: parameters {gaps} past {MESH_BULK} / "
+                           f"{MESH_MAX_LR * steps} lr")
+
+
+def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir) -> dict:
+    """One rank of phase 18's rehearsal (``launch.mesh.run_ranks``): each
+    model of ``runs`` trained on the mesh from seed 0 with the launcher's
+    recipe, its launches counted (none), its losses and host ms per step,
+    its ZeRO shapes and optimizer bytes, and its parameters held to the
+    slices of the unmeshed run's (read from ``ref_dir``); kanformer's state
+    saved at ``MESH_TRAIN["ckpt_at"]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.dist.sharding import ShardingCtx
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cuda = torch.device(device).type == "cuda"
+    shard = ShardingCtx(mesh)
+    out = {"coord": tuple(int(c) for c in mesh.get_coordinate())}
+    for arch, cfg, steps in runs:
+        params = shard.place_params(cfg, lm.init_params(cfg, seed=0, device=device))
+        state = adamw.init_state(params, shard=shard.for_model(cfg))
+        step = TS.make_train_step(cfg, mesh_opt(steps), shard=shard)
+        data = T.dp.LMDataConfig(cfg.vocab, MESH_TRAIN["seq"], MESH_TRAIN["batch"])
+        if cuda:
+            torch.cuda.synchronize()
+        ops.reset_launches()
+        losses, ms = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, T.make_batch(cfg, data, i, device))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if arch == "kanformer-100m" and i + 1 == MESH_TRAIN["ckpt_at"]:
+                store.save(ckpt_dir, i + 1, (params, state), shard=shard,
+                           specs=shard.state_specs(cfg, state))
+        launches = dict(ops.LAUNCHES)
+        ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"), mmap=True)
+        placed = store.spec_paths(params, shard.param_shardings(cfg))
+        local = flatten_with_paths(params)
+        gaps = param_gaps(local, {k: shard.local_slice(ref[k], placed[k])
+                                         for k in local}, MESH_TRAIN["lr"])
+        moments = [t for n in ("m", "v") for t in flatten_with_paths(state[n]).values()]
+        out[arch] = {"losses": losses, "ms": ms, "launches": launches, "gaps": gaps,
+                     "zero_shapes": {k: tuple(v.shape)
+                                     for k, v in flatten_with_paths(state["m"]).items()},
+                     "opt_bytes": sum(t.numel() * t.element_size() for t in moments),
+                     "finite": bool(np.isfinite(losses).all())}
+        del params, state, ref, local
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
+    """Phase 18 (see the module docstring; any miss raises).  ``device="cpu"``
+    with ``reduced`` rehearses it on the CPU (gloo; no profile)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import qwen1_5_0_5b
+    from repro_torch.convert import flatten_with_paths, tree_map
+    from repro_torch.dist.sharding import ShardingCtx, tree_zero_specs
+    from repro_torch.launch import elastic
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import step as TS
+
+    cuda = device == "cuda"
+    get = configs.get_reduced if reduced else configs.get_config
+    arch, B, S, lr = "kanformer-100m", MESH_TRAIN["batch"], MESH_TRAIN["seq"], MESH_TRAIN["lr"]
+    kan = get(arch).model
+    flags = ["--arch", arch, "--batch", str(B), "--seq", str(S), "--lr", str(lr), "--steps",
+             str(MESH_TRAIN["steps"]), "--device", device, "--log-every", "1000"]
+    flags += ["--reduced"] if reduced else []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    out, runs = {"runs": {}}, {}
+    where = card_line() if cuda else "the CPU (plain versions)"
+
+    def one_rank_group():
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"file://{tmp}/store{len(os.listdir(tmp))}",
+                                rank=0, world_size=1)
+        return ShardingCtx(M.make_host_mesh((1, 1)))
+
+    def median_ms(step_s) -> float:
+        return statistics.median(step_s[1:]) * 1e3
+
+    threads = torch.get_num_threads()
+    if not cuda:           # the CPU's index_put_ sums in another order on many threads
+        torch.set_num_threads(1)
+    try:
+        # (a) the launcher's recipe unmeshed, then on a 1x1 mesh
+        t0 = time.perf_counter()
+        plain, runs["unmeshed"] = counted(torch, f"{arch} unmeshed", lambda: T.run(flags), {},
+                                          device, tag="meshtrain")
+        shard1 = one_rank_group()
+        try:
+            one, runs["1x1"] = counted(torch, f"{arch} 1x1", lambda: T.run(flags), {}, device,
+                                       tag="meshtrain")
+            batch = T.make_batch(kan, T.dp.LMDataConfig(kan.vocab, S, B), 0, device)
+            per_step = {}
+            if cuda:                       # one more step each, on copies
+                for tag, sh, res in (("unmeshed", None, plain), ("1x1", shard1, one)):
+                    fn = TS.make_train_step(kan, mesh_opt(MESH_TRAIN["steps"]), shard=sh)
+                    p_, s_ = tree_map(torch.clone, (res["params"], res["opt_state"]))
+                    per_step[tag] = kernels_per_call(torch, lambda: fn(p_, s_, batch))
+                    del p_, s_
+        finally:
+            dist.destroy_process_group()
+        a = flatten_with_paths((plain["params"], plain["opt_state"]))
+        b = flatten_with_paths((one["params"], one["opt_state"]))
+        if one["losses"] != plain["losses"] or runs["1x1"]["launches"] != \
+                runs["unmeshed"]["launches"]:
+            raise RuntimeError(f"1x1 mesh training: losses {one['losses']} vs {plain['losses']}"
+                               f", launches {runs['1x1']['launches']}")
+        same = all(torch.equal(a[k], b[k]) for k in a)
+        if not same:
+            raise RuntimeError("1x1 mesh training: parameters or AdamW state differ from the "
+                               "unmeshed run's")
+        out["1x1"] = {"losses": one["losses"], "ms_per_step": median_ms(one["step_s"]),
+                      "unmeshed_ms_per_step": median_ms(plain["step_s"]),
+                      "kernels_per_step": per_step}
+        log(f"[meshtrain] {arch} d={kan.d_model} layers={kan.n_repeats}: "
+            f"{MESH_TRAIN['steps']} launcher steps of batch {B} x {S} on a 1x1 "
+            f"{'NCCL' if cuda else 'gloo'} mesh: losses {one['losses']} bit-equal to the "
+            f"unmeshed run's, parameters and m/v bit-equal, launches "
+            f"{ {k: v for k, v in runs['1x1']['launches'].items() if v} } (none) equal; "
+            f"{out['1x1']['ms_per_step']:.3f} ms per step (median of the warm steps; "
+            f"unmeshed {out['1x1']['unmeshed_ms_per_step']:.3f}); kernels per step "
+            f"{ {k: v['kernels'] for k, v in per_step.items()} }; on {where}")
+
+        # the mesh-trained weights served through kernels 1 and 2
+        rs = np.random.RandomState(0)
+        lens = rs.randint(32, 129, 8)
+        reqs = [rs.randint(0, kan.vocab, n).astype(np.int32) for n in lens]
+        new = 32
+        served = {}
+        for tag, res in (("unmeshed", plain), ("1x1", one)):
+            eng = Engine(res["params"], kan, ServeConfig(max_seq=int(lens.max()) + new + 8,
+                                                         max_new_tokens=new), device=device)
+
+            def want(eng=eng):
+                nb = len(eng.last_serve_stats["buckets"])
+                return {"kan_fused_gemm": nb * 2 * kan.n_repeats,
+                        "kan_sparse_gemm": nb * (new - 1) * 2 * kan.n_repeats}
+
+            served[tag], runs[f"served_{tag}"] = counted(
+                torch, f"{tag}-trained {arch} static", lambda eng=eng: eng.serve_requests(
+                    reqs, batch_size=4, seed=0), want, device, tag="meshtrain")
+        if not all(np.array_equal(x, y) for x, y in zip(served["1x1"], served["unmeshed"])):
+            raise RuntimeError("the 1x1-trained weights serve other streams than the unmeshed")
+        log(f"[meshtrain] the 1x1-trained weights serve phase 4's {len(reqs)} requests "
+            f"statically with the unmeshed-trained weights' streams, launches "
+            f"{ {k: v for k, v in runs['served_1x1']['launches'].items() if v} }")
+        del plain, one, a, b
+        out["1x1_s"] = time.perf_counter() - t0
+
+        # (b) the unmeshed references, then the 2x2 rehearsal
+        t1 = time.perf_counter()
+        ref_dir = os.path.join(tmp, "ref")
+        os.makedirs(ref_dir)
+        ckpt = os.path.join(tmp, "ckpt")
+        rehearsal = [(name, (qwen1_5_0_5b.build(n_layers=QWEN_REPEATS) if name ==
+                              "qwen1.5-0.5b" and not reduced else get(name)).model, n)
+                     for name, n in MESH_TRAIN["rehearsal_steps"].items()]
+        refs = {}
+        for name, cfg, n in rehearsal:
+            params = lm.init_params(cfg, seed=0, device=device)
+            state, fn = adamw.init_state(params), TS.make_train_step(cfg, mesh_opt(n))
+            data = T.dp.LMDataConfig(cfg.vocab, S, B)
+            losses, ms = [], []
+            for i in range(n):
+                t = time.perf_counter()
+                params, state, m = fn(params, state, T.make_batch(cfg, data, i, device))
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t) * 1e3)
+            torch.save({k: v.cpu() for k, v in flatten_with_paths(params).items()},
+                       os.path.join(ref_dir, f"{name}.pt"))
+            refs[name] = {"losses": losses, "ms": ms,
+                          "opt_bytes": sum(t.numel() * t.element_size() for k in ("m", "v")
+                                           for t in flatten_with_paths(state[k]).values())}
+            del params, state
+            if cuda:
+                torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        d, m = MESH_TRAIN["rehearsal"]
+        ranks = M.run_ranks(mesh_train_rank, (d, m), device, share_card=cuda,
+                            args=(rehearsal, ref_dir, ckpt))
+        out["rehearsal_s"] = time.perf_counter() - t2
+        out["references_s"] = t2 - t1
+        mesh = {"data": d, "model": m}
+        out["rehearsal"] = {}
+        for name, cfg, n in rehearsal:
+            zero = tree_zero_specs(lm.param_axes(cfg), lm.tree_of_shapes(lm.param_shapes(cfg)),
+                                   mesh)
+            placed = store.spec_paths(lm.param_shapes(cfg), zero)
+            whole = {k: v.shape for k, v in flatten_with_paths(lm.param_shapes(cfg)).items()}
+            want_bytes = 2 * 4 * sum(math.prod(s) // math.prod(
+                mesh[a] for a in placed[k] if a) for k, s in whole.items())
+            for r in ranks:
+                got = r[name]
+                coord = r["coord"]
+                tag = f"2x2 rank {coord} {name}"
+                shapes = {k: tuple(n_ // (mesh[a] if a else 1) for n_, a in zip(s, placed[k]))
+                          for k, s in whole.items()}
+                if got["zero_shapes"] != shapes or got["opt_bytes"] != want_bytes:
+                    raise RuntimeError(f"{tag}: ZeRO shapes or bytes differ from "
+                                       "tree_zero_specs'")
+                if any(got["launches"].values()) or not got["finite"]:
+                    raise RuntimeError(f"{tag}: launches {got['launches']}, losses "
+                                       f"{got['losses']}")
+                if got["losses"] != ranks[0][name]["losses"]:
+                    raise RuntimeError(f"{tag}: losses differ from rank 0's")
+                rel = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                              refs[name]["losses"]))
+                if rel > MESH_LOSS_RTOL:
+                    raise RuntimeError(f"{tag}: losses {got['losses']} vs the unmeshed "
+                                       f"{refs[name]['losses']} (rel {rel:.3e})")
+                held_params(tag, got["gaps"], n)
+            r0 = ranks[0][name]
+            row = {"steps": n, "losses": r0["losses"], "unmeshed_losses": refs[name]["losses"],
+                   "loss_rel": max(abs(x - y) / abs(y) for x, y in zip(r0["losses"],
+                                                                       refs[name]["losses"])),
+                   "gaps": [r[name]["gaps"] for r in ranks],
+                   "ms_per_step": statistics.median(r0["ms"][1:] or r0["ms"]),
+                   "unmeshed_ms_per_step": statistics.median(refs[name]["ms"][1:]
+                                                             or refs[name]["ms"]),
+                   "opt_bytes_per_rank": r0["opt_bytes"],
+                   "opt_bytes_unmeshed": refs[name]["opt_bytes"]}
+            out["rehearsal"][name] = row
+            runs[f"2x2_{name}"] = {"launches": r0["launches"]}
+            log(f"[meshtrain] 2x2 rehearsal {name} d={cfg.d_model} layers={cfg.n_repeats} "
+                f"vocab={cfg.vocab}, {n} fp32 steps of batch {B} x {S}: losses {r0['losses']} "
+                f"vs unmeshed {refs[name]['losses']} (max rel {row['loss_rel']:.3e}, tol "
+                f"{MESH_LOSS_RTOL:.0e}); parameters per rank (max gap / lr, share within "
+                f"{MESH_BULK[1]:.0e} lr): {[(round(g['max_lr'], 6), g['bulk_share']) for g in row['gaps']]}"
+                f"; no launch; m+v {row['opt_bytes_per_rank'] / 1e6:.1f} MB per rank against "
+                f"{row['opt_bytes_unmeshed'] / 1e6:.1f} MB whole "
+                f"({row['opt_bytes_per_rank'] / row['opt_bytes_unmeshed']:.4f}); "
+                f"{row['ms_per_step']:.1f} ms per step (REHEARSAL: 4 ranks on one card, "
+                f"collectives host-staged over gloo; not a scale-out figure; unmeshed "
+                f"{row['unmeshed_ms_per_step']:.1f} ms); on {where}")
+
+        # (c) the rehearsal's kanformer checkpoint continued on 1x1
+        at, n = MESH_TRAIN["ckpt_at"], MESH_TRAIN["rehearsal_steps"][arch]
+        whole, wstate, mf = elastic.restore_elastic(ckpt, at, kan, None, torch.float32,
+                                                    device=device)
+        shard1 = one_rank_group()
+        try:
+            p1, s1, _ = elastic.restore_elastic(ckpt, at, kan, shard1, torch.float32,
+                                                device=device)
+            fa, fb = flatten_with_paths((whole, wstate)), flatten_with_paths((p1, s1))
+            if mf["step"] != at or not all(torch.equal(fa[k], fb[k]) for k in fa):
+                raise RuntimeError("restore_elastic on 1x1 differs from the whole checkpoint")
+            data = T.dp.LMDataConfig(kan.vocab, S, B)
+            cont = {}
+            for tag, sh, p_, s_ in (("unmeshed", None, whole, wstate), ("1x1", shard1, p1, s1)):
+                fn = TS.make_train_step(kan, mesh_opt(n), shard=sh)
+                ls = []
+                for i in range(at, n):
+                    p_, s_, met = fn(p_, s_, T.make_batch(kan, data, i, device))
+                    ls.append(float(met["loss"]))
+                cont[tag] = (ls, flatten_with_paths(p_))
+        finally:
+            dist.destroy_process_group()
+        if cont["1x1"][0] != cont["unmeshed"][0] or not all(
+                torch.equal(cont["1x1"][1][k], v) for k, v in cont["unmeshed"][1].items()):
+            raise RuntimeError("the continuation on 1x1 differs from the unmeshed one")
+        straight = ranks[0][arch]["losses"][at:]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(cont["1x1"][0], straight))
+        ref = torch.load(os.path.join(ref_dir, f"{arch}.pt"), mmap=True)
+        gaps = param_gaps(cont["1x1"][1], ref, lr)
+        if rel > MESH_LOSS_RTOL:
+            raise RuntimeError(f"continuation: losses {cont['1x1'][0]} vs {straight}")
+        held_params("continuation on 1x1", gaps, n)
+        out["continuation"] = {"losses": cont["1x1"][0], "straight": straight, "loss_rel": rel,
+                               "gaps": gaps}
+        log(f"[meshtrain] the 2x2 checkpoint at step {at} restored on 1x1 (bit-equal to the "
+            f"whole checkpoint) and continued to step {n}: losses {cont['1x1'][0]} vs the "
+            f"straight 2x2 run's {straight} (rel {rel:.3e}); bit-equal to the unmeshed "
+            f"continuation; parameters vs the unmeshed straight run {gaps}")
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["runs"] = runs
+    log(f"[meshtrain] 1x1 {out['1x1_s']:.1f} s, references {out['references_s']:.1f} s, 2x2 "
+        f"rehearsal {out['rehearsal_s']:.1f} s")
+    return out
+
+
 def lint_path(torch) -> dict:
     """Phase 16: the port's kanlint on the card (see the module docstring)."""
     from repro_torch.analysis import kernel_configs
@@ -4559,13 +4939,18 @@ def main() -> int:
     lint = lint_path(torch)
     t12 = time.perf_counter()
     mesh = mesh_path(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    mesh_train = mesh_train_path(torch, np)
     log(f"[phases] kernel checks {t1 - t0:.1f} s, static path {t2 - t1:.1f} s, "
         f"continuous path {t3 - t2:.1f} s, speculative path {t3s - t3:.1f} s, "
         f"sampling path {t3c - t3s:.1f} s, int8 path {t4 - t3c:.1f} s, "
         f"GKAN {t5 - t4:.1f} s, KAN applications {t6 - t5:.1f} s, dense models "
         f"{t7 - t6:.1f} s, MoE models {t8 - t7:.1f} s, recurrent models "
         f"{t9 - t8:.1f} s, trainer and non-token inputs {t10 - t9:.1f} s, pipeline "
-        f"{t11 - t10:.1f} s, kanlint {t12 - t11:.1f} s, mesh {time.perf_counter() - t12:.1f} s")
+        f"{t11 - t10:.1f} s, kanlint {t12 - t11:.1f} s, mesh {t13 - t12:.1f} s, mesh training "
+        f"{time.perf_counter() - t13:.1f} s")
 
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
@@ -4573,7 +4958,8 @@ def main() -> int:
             "qwen_path": qwen, "gemma_path": gemma, "olmoe_path": olmoe,
             "deepseek_path": deepseek, "zamba2_path": zamba, "xlstm_path": xlstm,
             "train_path": trained, "nontoken_path": nontoken, "pipeline_path": pipe,
-            "lint_path": lint, "mesh_path": mesh, "build_s": built}
+            "lint_path": lint, "mesh_path": mesh, "mesh_train_path": mesh_train,
+            "build_s": built}
     by_path = {"static": launches, **{k: m["launches"] for k, m in cont["runs"].items()},
                **{k: m["launches"] for k, m in spec["runs"].items()},
                "sampled_static": samp["static"]["launches"],
@@ -4598,7 +4984,8 @@ def main() -> int:
                **{"inputs_" + k.replace(" ", "_"): m["launches"]
                   for k, m in nontoken["runs"].items()},
                **{"pipeline_" + k: m["launches"] for k, m in pipe["runs"].items()},
-               **{"mesh_" + k: m["launches"] for k, m in mesh["runs"].items()}}
+               **{"mesh_" + k: m["launches"] for k, m in mesh["runs"].items()},
+               **{"mesh_train_" + k: m["launches"] for k, m in mesh_train["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads
             t = next(e for e in results[name]["timings"] if e["dtype"] == "float32"

@@ -16,6 +16,13 @@ for a ``(params, opt_state)`` pair), the reference's keys.
   partial steps are ignored, and the writer keeps the newest ``keep``.
 * ``restore`` puts every leaf on the device asked for, with its stored
   dtype and bits.
+* Meshes: a save from a ``(data, model)`` mesh (``shard`` and the spec tree
+  of the saved tree, ``ShardingCtx.state_specs``) gathers every leaf whole
+  (a collective: every rank calls it), rank 0 writes the layout above, and
+  every rank waits until the write is complete; so a checkpoint written on
+  any mesh restores unmeshed, in the JAX package, or on another mesh, where
+  ``restore(..., shard=..., specs=...)`` returns this rank's slices
+  (``launch/elastic.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import json
 import os
 import shutil
 import threading
+import types
 
 import numpy as np
 import torch
@@ -36,14 +44,66 @@ def _host(tree) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in flatten_with_paths(tree).items()}
 
 
-def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+def spec_paths(tree, specs) -> dict:
+    """``{path: spec}`` of a spec tree congruent with ``tree`` (a spec is a
+    tuple, which the tree helpers would walk into)."""
+    boxed = tree_map(lambda _, spec: types.SimpleNamespace(spec=spec), tree, specs)
+    return {k: b.spec for k, b in flatten_with_paths(boxed).items()}
+
+
+def gather_host(tree, shard, specs) -> dict | None:
+    """A mesh's shards -> ``{path: whole numpy array}`` on rank 0 (None on
+    the others).  A collective: every rank calls it with the same tree.
+    Each block is written into zeros by one rank alone (the one at
+    coordinate 0 of every mesh axis that does not split its leaf), so one
+    packed sum over the whole mesh per ``sharding.BUCKET`` elements puts
+    every leaf together exactly."""
+    from repro_torch.dist.sharding import BUCKET
+
+    placed = spec_paths(tree, specs)
+    first = shard.mesh.get_rank() == 0
+    host, batch, n = {}, [], 0
+
+    def flush():
+        shard.sum_over_mesh([w for _, w in batch])
+        if first:
+            host.update((k, w.cpu().numpy()) for k, w in batch)
+
+    for k, x in flatten_with_paths(tree).items():
+        spec = placed[k]
+        whole = x.new_zeros(shard.whole_shape(tuple(x.shape), spec))
+        if shard.owns(spec):
+            shard.block(whole, spec).copy_(x.detach())
+        if batch and n + whole.numel() > BUCKET:
+            flush()
+            batch, n = [], 0
+        batch.append((k, whole))
+        n += whole.numel()
+    flush()
+    return host if first else None
+
+
+def save(ckpt_dir: str, step: int, tree, extra: dict | None = None, shard=None,
+         specs=None) -> str:
+    """Write ``tree`` as step ``step`` -> the step's directory; from a mesh
+    (``shard``, ``specs``) every rank calls it and rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if shard is None:
+        _write(final, step, _host(tree), extra)
+        return final
+    host = gather_host(tree, shard, specs)
+    if host is not None:
+        _write(final, step, host, extra)
+    shard.barrier()
+    return final
+
+
+def _write(final: str, step: int, host: dict, extra: dict | None) -> None:
+    os.makedirs(os.path.dirname(final), exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    host = _host(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **host)
     manifest = {
         "step": step,
@@ -60,32 +120,43 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 class AsyncCheckpointer:
-    """Snapshot on call, write in the background; ``wait()`` joins the writer."""
+    """Snapshot on call, write in the background; ``wait()`` joins the
+    writer.  On a mesh (``shard``, ``specs``: the saved tree's spec tree)
+    every rank calls both at the same steps: the snapshot gathers every
+    leaf whole, rank 0 writes, and ``wait()`` returns on every rank once
+    the write is complete."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, shard=None, specs=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.shard, self.specs = shard, specs
         self._thread: threading.Thread | None = None
 
     def save_async(self, step: int, tree, extra: dict | None = None) -> None:
         self.wait()
-        host_tree = tree_map(lambda v: v.detach().to("cpu", copy=True), tree)
+        if self.shard is None:
+            host = _host(tree_map(lambda v: v.detach().to("cpu", copy=True), tree))
+        else:
+            host = gather_host(tree, self.shard, self.specs)
+            if host is None:
+                return
 
-        def _write():
-            save(self.ckpt_dir, step, host_tree, extra)
+        def _run():
+            _write(os.path.join(self.ckpt_dir, f"step_{step:08d}"), step, host, extra)
             self._gc()
 
-        self._thread = threading.Thread(target=_write, daemon=True)
+        self._thread = threading.Thread(target=_run, daemon=True)
         self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.shard is not None:
+            self.shard.barrier()
 
     def _gc(self) -> None:
         for s in all_steps(self.ckpt_dir)[: -self.keep]:
@@ -113,13 +184,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree, device="cuda"):
+def restore(ckpt_dir: str, step: int, like_tree, device="cuda", shard=None, specs=None):
     """-> ``(tree, manifest)``: the checkpoint in ``like_tree``'s structure
     (shapes checked against it), each leaf a tensor on ``device`` with the
-    stored dtype and bits."""
+    stored dtype and bits; on a mesh (``shard``, ``specs``) this rank's
+    slice of each whole leaf."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
         manifest = json.load(f)
+    placed = None if shard is None else spec_paths(like_tree, specs)
     with np.load(os.path.join(final, "arrays.npz")) as data:
 
         def leaf(key, like):
@@ -127,7 +200,8 @@ def restore(ckpt_dir: str, step: int, like_tree, device="cuda"):
             if tuple(arr.shape) != tuple(like.shape):
                 raise ValueError(f"checkpoint leaf {key}: shape {arr.shape}, expected "
                                  f"{tuple(like.shape)}")
-            return torch.from_numpy(arr).to(device)
+            t = torch.from_numpy(arr)
+            return (t if placed is None else shard.local_slice(t, placed[key])).to(device)
 
         tree = map_with_paths(leaf, like_tree)
     return tree, manifest

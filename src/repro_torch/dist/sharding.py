@@ -22,16 +22,28 @@ or a tuple of names.  The rules read only a ``{axis name: size}`` mapping,
 so they run without a process group.
 
 :class:`ShardingCtx` bundles a ``torch.distributed`` device mesh with the
-rules for the serving stack, which runs explicit SPMD: one process per
-rank, each holding the local shard of every parameter and cache leaf, the
-model code calling named collectives on the mesh's ``data`` and ``model``
-groups where a sharded axis is contracted or needed whole.  Every
+rules for the serving stack and the trainer, which run explicit SPMD: one
+process per rank, each holding the local shard of every parameter and cache
+leaf, the model code calling named collectives on the mesh's ``data`` and
+``model`` groups where a sharded axis is contracted or needed whole.  Every
 collective is an ``all_reduce`` (or a ``broadcast``), the two that every
 backend offers for CUDA tensors, gloo included: a gather is an
 ``all_reduce`` of a zero-filled buffer in which each rank writes its own
 block, exact, since adding zeros changes no value.  A mesh axis of size 1
 shards nothing and calls no collective, so a 1x1 mesh runs the unmeshed
-operations; only :meth:`ShardingCtx.agree` broadcasts on any mesh.
+operations; only :meth:`ShardingCtx.agree` and :meth:`ShardingCtx.count`
+communicate on any mesh.
+
+Training differentiates through the same model code (Megatron's pattern):
+:meth:`ShardingCtx.copy_to_model` where a replicated value enters weights
+local to a rank (identity forward, sum over ``model`` backward),
+:meth:`ShardingCtx.reduce_from` after a partial sum (sum forward, identity
+backward) and :meth:`ShardingCtx.gather_whole` where a shard is read whole
+(this rank's block of the gradient backward).  Each is an
+``autograd.Function`` only while autograd records; otherwise it is the
+in-place collective that serving calls.  The optimizer's ``m``, ``v`` and
+``master`` are ZeRO-sharded (:func:`zero_spec`) over ``data`` on top of the
+parameters' ``model`` placement (:meth:`ShardingCtx.opt_state_specs`).
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ import math
 
 import torch
 
-from repro_torch.convert import tree_map
+from repro_torch.convert import flatten_with_paths, tree_map
 from repro_torch.models.layers import Axes
 
 
@@ -59,6 +71,9 @@ DATA_MESH_AXES = ("pod", "data")
 # Logical axes that may absorb the data-parallel mesh axes, in order of
 # preference; a paged pool has no batch or seq_cache, so its blocks take them.
 BATCH_AXIS_PRIORITY = ("batch", "seq_cache", "kv_blocks")
+
+# elements per packed collective of ShardingCtx.sum_over (128 MB of fp32)
+BUCKET = 1 << 25
 
 
 def _size(mesh: dict, name: str) -> int:
@@ -173,6 +188,53 @@ def mesh_shape(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over one mesh axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard, axis):
+        ctx.shard, ctx.axis = shard, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.shard.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                                    ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over one mesh axis forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard, axis):
+        return shard.all_reduce(x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """A local block -> the whole tensor forward; this rank's block of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard, spec, shape):
+        ctx.shard, ctx.spec, ctx.local = shard, spec, tuple(x.shape)
+        return shard.gather(x, spec, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        for i, a in ctx.shard._splits(ctx.spec):
+            n = ctx.local[i]
+            g = g.narrow(i, ctx.shard.coord(a) * n, n)
+        return g.contiguous(), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingCtx:
     """A ``(data, model)`` device mesh and the spec rules, bundled for the
@@ -190,6 +252,7 @@ class ShardingCtx:
     mesh: object                      # torch.distributed DeviceMesh ("data", "model")
     batch: int = 0
     pool_blocks: int = 0
+    model: object = None              # the ModelConfig whose training state it places
 
     # the mesh's shape and this rank's coordinates, read once per context
     # (the model layer asks for them on every call)
@@ -217,6 +280,11 @@ class ShardingCtx:
 
     def for_pool(self, n_blocks: int) -> "ShardingCtx":
         return dataclasses.replace(self, batch=0, pool_blocks=int(n_blocks))
+
+    def for_model(self, model_cfg) -> "ShardingCtx":
+        """This context placing ``model_cfg``'s parameters and optimizer
+        state (:meth:`leaf_plan`; the trainer's ``shard``)."""
+        return dataclasses.replace(self, model=model_cfg)
 
     # -- spec derivation --------------------------------------------------
 
@@ -276,15 +344,80 @@ class ShardingCtx:
 
     def local_slice(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """This rank's block of a whole tensor (a contiguous copy)."""
-        for i, a in self._splits(spec):
-            n = x.shape[i] // self.size(a)
-            x = x.narrow(i, self.coord(a) * n, n)
-        return x.contiguous()
+        return self.block(x, spec).contiguous()
 
     def place_params(self, model_cfg, params: dict) -> dict:
         """Whole parameter tensors -> this rank's local slices, by
         :meth:`param_shardings`."""
         return tree_map(self.local_slice, params, self.param_shardings(model_cfg))
+
+    # -- ZeRO: the optimizer state over data ------------------------------
+
+    def opt_state_specs(self, model_cfg, master_weights: bool = False) -> dict:
+        """Spec tree of an AdamW state: ``m``, ``v`` (and ``master``) by
+        :func:`tree_zero_specs`, ``step`` replicated (``()``)."""
+        from repro_torch.models import lm
+
+        shapes = lm.tree_of_shapes(lm.param_shapes(model_cfg))
+        zero = tree_zero_specs(lm.param_axes(model_cfg), shapes, self.shape)
+        specs = {"m": zero, "v": zero, "step": ()}
+        if master_weights:
+            specs["master"] = zero
+        return specs
+
+    def place_opt_state(self, model_cfg, state: dict) -> dict:
+        """A whole AdamW state -> this rank's ZeRO slices of ``m``, ``v``
+        and ``master``; ``step`` as it is."""
+        specs = self.opt_state_specs(model_cfg, "master" in state)
+        return {k: v if k == "step" else tree_map(self.local_slice, v, specs[k])
+                for k, v in state.items()}
+
+    def state_specs(self, model_cfg, opt_state: dict) -> tuple:
+        """Spec tree of a ``(params, opt_state)`` pair (checkpoints)."""
+        return (self.param_shardings(model_cfg),
+                self.opt_state_specs(model_cfg, "master" in opt_state))
+
+    @functools.cached_property
+    def leaf_plan(self) -> dict:
+        """``{path: (model_split, zero_dim)}`` of every parameter leaf of
+        :attr:`model`: whether ``model`` splits the leaf, and the dimension
+        of the rank's model-local leaf that ZeRO splits over ``data`` (None
+        where :func:`zero_spec` found none, or ``data`` has one rank)."""
+        from repro_torch.models import lm
+
+        if self.model is None:
+            raise ValueError("the training state's placement needs the model: "
+                             "use ShardingCtx.for_model(model_cfg)")
+        axes = flatten_with_paths(lm.param_axes(self.model))
+        plan = {}
+        for key, leaf in flatten_with_paths(lm.param_shapes(self.model)).items():
+            pspec = spec_for(axes[key], leaf.shape, self.shape)
+            zspec = zero_spec(pspec, leaf.shape, self.shape)
+            split = any(a == "model" for _, a in self._splits(pspec))
+            dims = [i for i, a in self._splits(zspec) if a == "data" and pspec[i] is None]
+            plan[key] = (split, dims[0] if dims else None)
+        return plan
+
+    def zero_slice(self, x: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """This data rank's block of a model-local leaf along ``dim`` (a
+        view; ``x`` itself when ``dim`` is None)."""
+        if dim is None:
+            return x
+        n = x.shape[dim] // self.size("data")
+        return x.narrow(dim, self.coord("data") * n, n)
+
+    def zero_gather(self, blocks) -> list:
+        """``(block, dim, shape)`` of each leaf's :meth:`zero_slice` ->
+        every data rank's blocks put together, the model-local leaves of
+        those shapes (exact: zeros and each rank's block, summed over
+        ``data`` by :meth:`sum_over`)."""
+        out = []
+        for x, dim, shape in blocks:
+            full = x.new_zeros(shape)
+            self.zero_slice(full, dim).copy_(x)
+            out.append(full)
+        self.sum_over(out, "data")
+        return out
 
     def row_range(self) -> tuple[int, int] | None:
         """``(first, count)`` of the :meth:`for_rows` dense-cache rows this
@@ -310,7 +443,11 @@ class ShardingCtx:
 
     def _group(self, axes: set[str]):
         if len(axes) > 1:
-            return None                   # both axes: the whole mesh, the default group
+            # both axes: the whole mesh, which must be the default group
+            if self.n_devices != torch.distributed.get_world_size():
+                raise NotImplementedError("a collective over both axes of a mesh that is a "
+                                          "part of the process group")
+            return None
         (axis,) = axes
         return self.mesh.get_group(axis)
 
@@ -320,6 +457,58 @@ class ShardingCtx:
         if self.size(axis) > 1:
             torch.distributed.all_reduce(x, group=self._group({axis}))
         return x
+
+    def sum_over(self, tensors, axis: str) -> None:
+        """Sum every tensor over the ranks of ``axis`` in place, packed by
+        dtype into one ``all_reduce`` per :data:`BUCKET` elements (the
+        trainer's gradients and ZeRO gathers: one collective, not one per
+        leaf); a no-op on an axis of size 1."""
+        if self.size(axis) == 1:
+            return
+        self._sum_packed(tensors, self._group({axis}))
+
+    def sum_over_mesh(self, tensors) -> None:
+        """:meth:`sum_over` every axis of the mesh at once."""
+        axes = {a for a, n in self.shape.items() if n > 1}
+        if axes:
+            self._sum_packed(tensors, self._group(axes))
+
+    def owns(self, spec: tuple) -> bool:
+        """Whether this rank is the one that contributes its block of a
+        leaf placed by ``spec`` to a sum over the whole mesh: coordinate 0
+        of every mesh axis the spec does not split."""
+        split = {a for _, a in self._splits(spec)}
+        return all(self.coord(a) == 0 for a, n in self.shape.items() if n > 1 and a not in split)
+
+    def block(self, whole: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's block of a whole tensor placed by ``spec`` (a view)."""
+        for i, a in self._splits(spec):
+            n = whole.shape[i] // self.size(a)
+            whole = whole.narrow(i, self.coord(a) * n, n)
+        return whole
+
+    def _sum_packed(self, tensors, group) -> None:
+        def flush(bucket):
+            if len(bucket) == 1 and bucket[0].is_contiguous():
+                torch.distributed.all_reduce(bucket[0], group=group)
+                return
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            torch.distributed.all_reduce(flat, group=group)
+            for t, piece in zip(bucket, flat.split([t.numel() for t in bucket])):
+                t.copy_(piece.view(t.shape))
+
+        by_kind: dict = {}
+        for t in tensors:
+            by_kind.setdefault((t.dtype, t.device), []).append(t)
+        for ts in by_kind.values():
+            bucket, n = [], 0
+            for t in ts:
+                if bucket and n + t.numel() > BUCKET:
+                    flush(bucket)
+                    bucket, n = [], 0
+                bucket.append(t)
+                n += t.numel()
+            flush(bucket)
 
     def gather(self, x: torch.Tensor, spec: tuple, shape: tuple[int, ...]) -> torch.Tensor:
         """A local block -> the whole tensor of ``shape`` on every rank of
@@ -337,10 +526,49 @@ class ShardingCtx:
         torch.distributed.all_reduce(full, group=self._group({a for _, a in splits}))
         return full
 
-    def whole(self, x: torch.Tensor, names: tuple, shape: tuple[int, ...]) -> torch.Tensor:
+    def whole_shape(self, local: tuple[int, ...], spec: tuple) -> tuple[int, ...]:
+        """The whole shape of a local block placed by ``spec``."""
+        out = list(local)
+        for i, a in self._splits(spec):
+            out[i] *= self.size(a)
+        return tuple(out)
+
+    def gather_whole(self, x: torch.Tensor, names: tuple,
+                     shape: tuple[int, ...]) -> torch.Tensor:
         """A local shard of a tensor of logical ``names`` and whole
-        ``shape`` -> the whole tensor (gathered at use)."""
-        return self.gather(x, self.spec(names, shape), shape)
+        ``shape`` -> the whole tensor (gathered at use).  While autograd
+        records, its backward is this rank's block of the gradient, which
+        is the shard's gradient only where every rank computes the same
+        thing downstream of the gather (the replicated stream between the
+        collectives of :meth:`copy_to_model` and :meth:`reduce_from`); a
+        whole weight that a rank-local computation reads must pass through
+        :meth:`copy_to_model` after the gather."""
+        spec = self.spec(names, shape)
+        if not self._splits(spec):
+            return x
+        if not _recording(x):
+            return self.gather(x, spec, shape)
+        return _GatherWhole.apply(x, self, spec, tuple(shape))
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it enters a computation local to this ``model`` rank
+        (local heads, a column-parallel FFN, a vocabulary slice): the
+        identity, whose backward sums the ranks' partial gradients over
+        ``model``."""
+        if self.size("model") == 1 or not _recording(x):
+            return x
+        return _CopyTo.apply(x, self, "model")
+
+    def reduce_from(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """The sum of the ranks' partial ``x`` over ``axis`` (a row-parallel
+        output, the vocab-parallel embedding, the loss's data shares); the
+        in-place :meth:`all_reduce` when autograd does not record, else an
+        out-of-place sum whose backward passes the gradient through."""
+        if not _recording(x):
+            return self.all_reduce(x, axis)
+        if self.size(axis) == 1:
+            return x
+        return _ReduceFrom.apply(x, self, axis)
 
     def agree(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank takes rank 0's copy of ``x``, in place: the engine's
@@ -349,3 +577,20 @@ class ShardingCtx:
         runs at least this collective."""
         torch.distributed.broadcast(x, src=0)
         return x
+
+    def count(self, flag: bool) -> int:
+        """How many ranks of the mesh raise ``flag``: one ``all_reduce``
+        over the whole mesh (none on one rank), so every rank reads the same
+        number (the trainer's stop and retry decisions)."""
+        axes = {a for a, n in self.shape.items() if n > 1}
+        if not axes:
+            return int(flag)
+        t = torch.tensor([int(flag)], dtype=torch.int32,
+                         device=torch.device(self.mesh.device_type))
+        torch.distributed.all_reduce(t, group=self._group(axes))
+        return int(t[0])
+
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has come here (a
+        :meth:`count`)."""
+        self.count(False)

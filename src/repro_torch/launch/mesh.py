@@ -1,4 +1,4 @@
-"""Serving meshes over ``torch.distributed`` (counterpart of
+"""Serving and training meshes over ``torch.distributed`` (counterpart of
 ``repro/launch/mesh.py``).
 
 A mesh is a ``DeviceMesh`` with dims ``("data", "model")`` over a process
@@ -136,10 +136,16 @@ def under_torchrun() -> bool:
     return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
 
 
-def init_from_env(shape: tuple[int, int], device: str, share_card: bool = False):
-    """Join ``torchrun``'s process group -> ``(mesh, device)`` of this rank
-    (its card is ``LOCAL_RANK``'s)."""
+def join_from_env(device: str, share_card: bool = False) -> torch.device:
+    """Join ``torchrun``'s process group -> this rank's device (its card is
+    ``LOCAL_RANK``'s)."""
     dev = _rank_device(int(os.environ.get("LOCAL_RANK", 0)), device, share_card,
                        int(os.environ["WORLD_SIZE"]))
     dist.init_process_group(backend(device, share_card), timeout=RANK_TIMEOUT)
+    return dev
+
+
+def init_from_env(shape: tuple[int, int], device: str, share_card: bool = False):
+    """Join ``torchrun``'s process group -> ``(mesh, device)`` of this rank."""
+    dev = join_from_env(device, share_card)
     return make_host_mesh(shape), dev

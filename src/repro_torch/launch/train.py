@@ -1,7 +1,18 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-The counterpart of ``repro/launch/train.py`` on one device (``--device``,
-``cuda`` unless ``cpu`` is given; no mesh):
+The counterpart of ``repro/launch/train.py`` (``--device``, ``cuda`` unless
+``cpu`` is given).  Alone it trains on one device.  In a process group
+(under ``torchrun``, which it joins, or inside ``launch.mesh.run_ranks``)
+it trains on the reference's default mesh, ``(1, world size)``: the
+parameters placed by the logical-axis rules, AdamW's ``m``/``v`` ZeRO
+slices, the step's collectives on the mesh (``train/step.py``).  Rank 0
+alone prints and writes the checkpoints (gathered whole); the stop flag
+and the retry decision are agreed by every rank (``ShardingCtx.count``),
+so every rank stops or retries at the same step; a family the mesh does
+not take exits with rc=2 and ``lm.mesh_refusal``'s reason.  A retry
+recovers a failure that every rank meets before the step's first
+collective; a rank that fails alone inside one leaves the others waiting
+in it until ``launch.mesh.RANK_TIMEOUT``.
 
 * parameters from the seed (``lm.init_params``), AdamW with a warmup of
   ``min(20, steps // 10 + 1)`` and a cosine decay over ``--steps``;
@@ -29,10 +40,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, set_ieee_fp32
 from repro_torch.checkpoint import store
 from repro_torch.data import pipeline as dp
+from repro_torch.dist.sharding import ShardingCtx
+from repro_torch.launch import elastic
+from repro_torch.launch import mesh as M
 from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch.train import step as train_step_lib
@@ -74,40 +89,66 @@ def make_batch(model, data_cfg: dp.LMDataConfig, step: int, device) -> dict:
     return {"prefix_embeddings": torch.from_numpy(prefix).to(device), **batch}
 
 
+def _arch(args):
+    return configs.get_reduced(args.arch) if args.reduced else configs.get_config(args.arch)
+
+
+def _quiet(*_args, **_kw) -> None:
+    pass
+
+
 def run(argv=None) -> dict:
     """Train as :func:`main` does -> ``{"steps", "start_step", "losses",
     "step_s", "params", "opt_state"}``: the step reached, the step it
     resumed from, this run's losses, the host seconds of each step (each
-    ends in a read of its loss), and the final state."""
+    ends in a read of its loss), and the final state (this rank's shards
+    on a mesh)."""
     args = build_parser().parse_args(argv)
-    arch = configs.get_reduced(args.arch) if args.reduced else configs.get_config(args.arch)
-    model = arch.model
+    model = _arch(args).model
     device = torch.device(args.device)
+    shard, world = None, 1
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        shard = ShardingCtx(M.make_host_mesh((1, world))).for_model(model)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    say = print if shard is None or dist.get_rank() == 0 else _quiet
     if device.type == "cuda":
         set_ieee_fp32()
 
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=min(20, args.steps // 10 + 1))
     tstep = train_step_lib.make_train_step(model, opt_cfg, compute_dtype=DTYPES[args.compute_dtype],
-                                           accum_steps=args.accum)
+                                           accum_steps=args.accum, shard=shard)
     params = lm.init_params(model, seed=args.seed, device=device)
-    opt_state = adamw.init_state(params)
+    if shard is not None:
+        params = shard.place_params(model, params)
+    opt_state = adamw.init_state(params, shard=shard)
 
     start_step = 0
-    ckpt = store.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
-    if ckpt is not None:
+    ckpt = None
+    if args.ckpt_dir:
+        specs = None if shard is None else shard.state_specs(model, opt_state)
+        ckpt = store.AsyncCheckpointer(args.ckpt_dir, shard=shard, specs=specs)
         latest = store.latest_step(args.ckpt_dir)
         if latest is not None:
-            (params, opt_state), mf = store.restore(args.ckpt_dir, latest, (params, opt_state),
-                                                    device=device)
+            if shard is None:
+                (params, opt_state), mf = store.restore(args.ckpt_dir, latest,
+                                                        (params, opt_state), device=device)
+            else:
+                params, opt_state, mf = elastic.restore_elastic(
+                    args.ckpt_dir, latest, model, shard, torch.float32, device=device)
             start_step = mf["step"]
-            print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
+            say(f"[resume] restored step {start_step} from {args.ckpt_dir}")
 
     stop = {"flag": False}
 
     def _on_signal(signum, frame):
-        print(f"[signal] {signum}: checkpoint-and-exit requested")
+        say(f"[signal] {signum}: checkpoint-and-exit requested")
         stop["flag"] = True
+
+    def stopping() -> bool:
+        return stop["flag"] if shard is None else shard.count(stop["flag"]) > 0
 
     before = {s: signal.signal(s, _on_signal) for s in (signal.SIGTERM, signal.SIGINT)}
     data_cfg = dp.LMDataConfig(vocab=model.vocab, seq_len=args.seq, global_batch=args.batch,
@@ -115,18 +156,26 @@ def run(argv=None) -> dict:
     t_start = time.time()
     losses, step_s = [], []
     step_i = start_step
+    halt = stopping()
     try:
-        while step_i < args.steps and not stop["flag"]:
+        while step_i < args.steps and not halt:
             t0 = time.perf_counter()
             batch = make_batch(model, data_cfg, step_i, device)
             for attempt in range(args.max_retries + 1):
+                err = None
                 try:
                     params, opt_state, metrics = tstep(params, opt_state, batch)
-                    break
                 except Exception as e:  # bounded retry (transient failures)
-                    if attempt == args.max_retries:
-                        raise
-                    print(f"[retry] step {step_i} attempt {attempt + 1}: {e}")
+                    err = e
+                failed = int(err is not None) if shard is None else shard.count(err is not None)
+                if not failed:
+                    break
+                if err is None:
+                    raise RuntimeError(f"step {step_i}: {failed} of {world} ranks failed and "
+                                       "this one stepped: a retry would part their states")
+                if attempt == args.max_retries or failed != world:
+                    raise err
+                say(f"[retry] step {step_i} attempt {attempt + 1}: {err}")
             step_i += 1
             loss = float(metrics["loss"])  # kanlint: ignore[KL102] (each step's loss)
             step_s.append(time.perf_counter() - t0)
@@ -136,9 +185,10 @@ def run(argv=None) -> dict:
                 tok_s = step_i * args.batch * args.seq / max(dt, 1e-9)
                 gnorm = float(metrics["grad_norm"])  # kanlint: ignore[KL102] (the log line)
                 lr = float(metrics["lr"])  # kanlint: ignore[KL102] (the log line)
-                print(f"step {step_i:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                      f"lr {lr:.2e} tok/s {tok_s:,.0f}")
-            if ckpt is not None and (step_i % args.ckpt_every == 0 or stop["flag"]):
+                say(f"step {step_i:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                    f"lr {lr:.2e} tok/s {tok_s:,.0f}")
+            halt = stopping()
+            if ckpt is not None and (step_i % args.ckpt_every == 0 or halt):
                 ckpt.save_async(step_i, (params, opt_state), {"loss": loss})
         if ckpt is not None:
             ckpt.save_async(step_i, (params, opt_state), {"loss": losses[-1] if losses else None})
@@ -149,13 +199,27 @@ def run(argv=None) -> dict:
     first = (float(np.mean(losses[:10])) if len(losses) >= 10
              else (losses[0] if losses else float("nan")))
     last = float(np.mean(losses[-10:])) if losses else float("nan")
-    print(f"[done] steps={step_i} loss {first:.4f} -> {last:.4f}")
+    say(f"[done] steps={step_i} loss {first:.4f} -> {last:.4f}")
     return {"steps": step_i, "start_step": start_step, "losses": losses, "step_s": step_s,
             "params": params, "opt_state": opt_state}
 
 
 def main(argv=None) -> int:
-    run(argv)
+    """Train; under ``torchrun`` join its group first (and leave it after).
+    A model the mesh does not take exits with rc=2."""
+    args = build_parser().parse_args(argv)
+    joined = M.under_torchrun() and not dist.is_initialized()
+    if joined:
+        M.join_from_env(args.device)
+    try:
+        why = lm.mesh_refusal(_arch(args).model) if dist.is_initialized() else None
+        if why:
+            print(why, file=sys.stderr)
+            return 2
+        run(argv)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

@@ -100,7 +100,10 @@ def _local_attn(params: dict, cfg: AttnConfig, shard):
     other shard is gathered whole; ``kv`` the KV head of each local query
     head when the heads are split and the KV heads are not (else None);
     ``partial`` whether the output projection gives a partial sum over
-    ``model``."""
+    ``model``.  With split heads the whole computation is local to the
+    rank, so a whole leaf (the MQA pairing's K/V weights, a replicated
+    bias) enters it through ``copy_to_model``: its gradient is the sum of
+    every rank's heads' share."""
     if shard is None:
         return params, None, False
     if cfg.window is not None or cfg.kv_lora_rank is not None:
@@ -109,8 +112,10 @@ def _local_attn(params: dict, cfg: AttnConfig, shard):
     heads = shard.model_split(*axes["wq"]) == "heads"
     kv_heads = shard.model_split(*axes["wk"]) == "kv_heads"
     local = {name for name, split in (("heads", heads), ("kv_heads", kv_heads)) if split}
-    p = {n: w if local & set(axes[n][0]) else shard.whole(w, *axes[n])
+    p = {n: w if local & set(axes[n][0]) else shard.gather_whole(w, *axes[n])
          for n, w in params.items()}
+    if heads:
+        p = {n: w if local & set(axes[n][0]) else shard.copy_to_model(w) for n, w in p.items()}
     kv = None
     if heads and not kv_heads:
         n = cfg.n_heads // shard.size("model")
@@ -126,7 +131,7 @@ def _pick(cache: dict, kv) -> dict:
 
 
 def _finish(y: torch.Tensor, partial: bool, shard) -> torch.Tensor:
-    return shard.all_reduce(y, "model") if partial else y
+    return shard.reduce_from(y, "model") if partial else y
 
 
 def _check_full_attention(cfg: AttnConfig, what: str) -> None:
@@ -225,7 +230,7 @@ def attn_forward(
     params, kv_of, partial = _local_attn(params, cfg, shard)
     if cfg.kv_lora_rank is not None:
         return _mla_forward(params, cfg, x, positions, chunk, return_cache)
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, shard.copy_to_model(x) if partial else x, positions)
     kq = _pick({"k": k, "v": v}, kv_of)
     o = flash_attention(q, kq["k"], kq["v"], causal=True, window=cfg.window, chunk=chunk)
     y = _finish(torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype)), partial, shard)

@@ -23,6 +23,9 @@ partial sum, one ``all_reduce`` over ``model`` completes it).  A KAN layer
 is a sum over its input features (``sum_k B(h_k) C_k + ReLU(h_k) Wb_k``),
 so the KAN kernels run on the local rows as they are.  The attention
 blocks take a mesh (``attn_kan``, ``attn_mlp``); the others do not.
+:func:`block_apply` trains on a mesh: the FFN's input enters the local
+columns through ``copy_to_model`` and its partial output leaves through
+``reduce_from`` (``dist/sharding.py``).
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ def _local_ffn(params: dict, blk: BlockCfg, d: int, shard) -> tuple[dict, bool]:
     axes = _ffn_axes(blk, d)
     if shard.model_split(*next(iter(axes.values()))) == "ffn":
         return params, True
-    return {n: shard.whole(w, *axes[n]) for n, w in params.items()}, False
+    return {n: shard.gather_whole(w, *axes[n]) for n, w in params.items()}, False
 
 
 def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -131,8 +134,10 @@ def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor,
         return M.moe_forward(params["moe"], blk.moe, h)
     key = "mlp" if blk.kind == "attn_mlp" else "kan"
     p, partial = _local_ffn(params[key], blk, h.shape[-1], shard)
+    if partial:
+        h = shard.copy_to_model(h)
     y = _mlp(p, h) if key == "mlp" else _kan_ffn(p, h, blk.kan_grid, method=method)
-    return (shard.all_reduce(y, "model") if partial else y), {}
+    return (shard.reduce_from(y, "model") if partial else y), {}
 
 
 def _residual_ffn(params: dict, blk: BlockCfg, x: torch.Tensor, shard=None) -> torch.Tensor:
@@ -153,17 +158,23 @@ def block_apply(
     *,
     positions: torch.Tensor | None = None,
     chunk: int = 1024,
+    shard=None,
 ) -> tuple[torch.Tensor, dict]:
     """Pre-norm residual application (training/forward path: the KAN FFN
     runs ``method="dense"``, as the reference's); returns ``(x, aux)``,
-    ``aux`` an attn_moe block's auxiliary losses, else empty."""
+    ``aux`` an attn_moe block's auxiliary losses, else empty.  On a mesh
+    (``shard``; attn_mlp and attn_kan blocks) it differentiates through the
+    mesh's collectives."""
     check_supported(blk)
-    h = L.rmsnorm(params["ln1"], x)
+    _check_mesh(blk, shard)
+    h = L.rmsnorm(params["ln1"], x, shard=shard)
     if blk.kind in RECURRENT:
         key, fwd, _, _ = RECURRENT[blk.kind]
         return x + fwd(params[key], _recurrent_cfg(blk), h), {}
-    x = x + A.attn_forward(params["attn"], blk.attn, h, positions=positions, chunk=chunk)
-    y, aux = _ffn(params, blk, L.rmsnorm(params["ln2"], x), method="dense")
+    x = x + A.attn_forward(params["attn"], blk.attn, h, positions=positions, chunk=chunk,
+                           shard=shard)
+    y, aux = _ffn(params, blk, L.rmsnorm(params["ln2"], x, shard=shard), method="dense",
+                  shard=shard)
     return x + y, aux
 
 

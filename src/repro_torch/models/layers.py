@@ -9,6 +9,13 @@ the ids in its vocabulary slice, zeros for the others, one ``all_reduce``
 over ``model``: exact, since the sum adds only zeros), the unembedding
 gives this rank's vocabulary slice of the logits (the caller gathers what
 it keeps), and a norm's ``scale``, sharded on ``embed``, is gathered at use.
+Under autograd the same calls differentiate: the sums pass the gradient
+through, the vocabulary slice's input sums it over ``model``, and a
+gathered leaf takes its block of the gradient (``ShardingCtx``).
+
+The norm and the logits are computed in fp32, or in fp64 at fp64 compute
+(the reference always takes fp32; no fp32 or bf16 result changes), so that
+an fp64 run carries no fp32 sum whose order depends on the mesh.
 """
 
 from __future__ import annotations
@@ -29,13 +36,18 @@ class Axes:
 TABLE_AXES = ("vocab", "embed")
 
 
+def _wide(dtype) -> torch.dtype:
+    """fp32, or the compute dtype where it is wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6, shard=None) -> torch.Tensor:
     scale = params["scale"]
     if shard is not None:
-        scale = shard.whole(scale, ("embed",), (x.shape[-1],))
-    xf = x.float()
+        scale = shard.gather_whole(scale, ("embed",), (x.shape[-1],))
+    xf = x.to(_wide(x.dtype))
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * scale.float()
+    out = xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)
     return out.to(x.dtype)
 
 
@@ -55,23 +67,27 @@ def embed_lookup(params: dict, ids: torch.Tensor, compute_dtype, shard=None,
     v0 = _vocab_slice(table, shape, shard)
     if v0 is None:
         if shard is not None:
-            table = shard.whole(table, TABLE_AXES, shape)
+            table = shard.gather_whole(table, TABLE_AXES, shape)
         return table.to(compute_dtype)[ids.long()]
     local = ids.long() - v0
     mine = (local >= 0) & (local < table.shape[0])
     rows = table.to(compute_dtype)[local.clamp(0, table.shape[0] - 1)]
-    return shard.all_reduce(torch.where(mine[..., None], rows, 0), "model")
+    return shard.reduce_from(torch.where(mine[..., None], rows, 0), "model")
 
 
 def unembed_logits(params: dict, h: torch.Tensor, shard=None,
                    shape: tuple[int, int] | None = None) -> torch.Tensor:
-    """Tied unembedding: logits in fp32; on a mesh whose model axis splits
-    the vocabulary, this rank's slice of them (``shape`` as in
-    :func:`embed_lookup`)."""
+    """Tied unembedding: logits in fp32 (fp64 at fp64 compute); on a mesh
+    whose model axis splits the vocabulary, this rank's slice of them
+    (``shape`` as in :func:`embed_lookup`)."""
     table = params["table"]
-    if shard is not None and _vocab_slice(table, shape, shard) is None:
-        table = shard.whole(table, TABLE_AXES, shape)
-    return torch.einsum("...d,vd->...v", h.float(), table.float())
+    if shard is not None:
+        if _vocab_slice(table, shape, shard) is None:
+            table = shard.gather_whole(table, TABLE_AXES, shape)
+        else:
+            h = shard.copy_to_model(h)
+    dt = _wide(h.dtype)
+    return torch.einsum("...d,vd->...v", h.to(dt), table.to(dt))
 
 
 def rotary_embedding(

@@ -347,7 +347,7 @@ def _embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor, dtype,
     return e * math.sqrt(cfg.d_model)
 
 
-def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype) -> torch.Tensor:
+def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype, shard=None) -> torch.Tensor:
     """The first hidden state ``(B, T, d)`` of an inputs dict (or a bare
     token tensor): scaled token embeddings, precomputed embeddings as they
     are, or ``mixed``'s prefix before the scaled text embeddings."""
@@ -359,48 +359,74 @@ def _embed_inputs(params: dict, cfg: ModelConfig, inputs, dtype) -> torch.Tensor
                        f"{INPUT_KEYS[cfg.input_kind]}; missing {missing}")
     if cfg.input_kind == "embeddings":
         return inputs["embeddings"].to(dtype)
-    txt = _embed_tokens(params, cfg, inputs["tokens"], dtype)
+    txt = _embed_tokens(params, cfg, inputs["tokens"], dtype, shard)
     if cfg.input_kind == "mixed":
         return torch.cat([inputs["prefix_embeddings"].to(dtype), txt], dim=1)
     return txt
 
 
+def check_mesh(cfg: ModelConfig, shard) -> None:
+    """Raise ``ValueError`` with :func:`mesh_refusal`'s reason when a mesh
+    is asked for a model it does not take."""
+    why = None if shard is None else mesh_refusal(cfg)
+    if why:
+        raise ValueError(why)
+
+
 def forward(params: dict, cfg: ModelConfig, inputs,
-            compute_dtype=torch.float32) -> tuple[torch.Tensor, dict]:
+            compute_dtype=torch.float32, shard=None) -> tuple[torch.Tensor, dict]:
     """``inputs`` (see the module docstring) -> ``(logits (B, T, vocab)
     fp32, aux)``: the reference's ``lm.forward`` (no remat), ``aux`` its
     fp32 auxiliary losses summed over the blocks (:data:`AUX_KEYS`; zeros
     without MoE blocks).  Windowed layers use the sliding flash mask.  It
-    records for autograd when grad is on and a parameter requires grad."""
+    records for autograd when grad is on and a parameter requires grad.
+    On a mesh (``shard``, the parameters this rank's shards) the rows are
+    the ones this rank was given, and the vocabulary split of the logits
+    is gathered whole (``gather_whole``: every model rank then computes the
+    same thing from them)."""
     check_supported(cfg)
-    h = _embed_inputs(params, cfg, inputs, compute_dtype)
+    check_mesh(cfg, shard)
+    h = _embed_inputs(params, cfg, inputs, compute_dtype, shard)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = {k: torch.zeros((), device=h.device) for k in AUX_KEYS}
     for p, blk, _ in _walk(params, cfg):
-        h, a = B.block_apply(p, blk, h, positions=positions, chunk=cfg.attn_chunk)
+        h, a = B.block_apply(p, blk, h, positions=positions, chunk=cfg.attn_chunk, shard=shard)
         for k, v in a.items():
             aux[k] = aux[k] + v
-    return _logits(params, cfg, h), aux
+    logits = _logits(params, cfg, h, shard)
+    if shard is not None:
+        lead = tuple(logits.shape[:-1])
+        logits = shard.gather_whole(logits, (None,) * len(lead) + ("vocab",),
+                                    lead + (cfg.vocab,))
+    return logits, aux
 
 
 def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.float32,
-            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+            aux_weight: float = 0.01, shard=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy over ``batch["labels"]`` (aligned with the
     token positions, -100 masked; a ``mixed`` model's ``n_prefix`` prefix
     positions are masked too) plus ``aux_weight`` times the MoE balance
     and z losses -> ``(total, metrics)``: ``loss``, ``ntokens`` (labels >=
     0), the MoE losses, ``moe_drop_frac`` and ``total_loss``, as the
-    reference's ``lm_loss``."""
-    logits, aux = forward(params, cfg, batch, compute_dtype)
+    reference's ``lm_loss``.  On a mesh each data rank holds its rows of
+    the batch; the loss is the mean over the whole batch's label tokens
+    (``ntokens`` summed over ``data``), each rank's share summed over
+    ``data`` with a backward that keeps the share's own gradient."""
+    logits, aux = forward(params, cfg, batch, compute_dtype, shard)
     labels = batch["labels"].long()
     if cfg.input_kind == "mixed":
         pad = labels.new_full((labels.shape[0], cfg.n_prefix), -100)
         labels = torch.cat([pad, labels], dim=1)
     mask = (labels >= 0).float()
+    ntokens = mask.sum()
+    if shard is not None:
+        ntokens = shard.reduce_from(ntokens, "data")
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp(0, cfg.vocab - 1)[..., None])[..., 0]
-    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    metrics = {"loss": loss, "ntokens": mask.sum()}
+    loss = (nll * mask).sum() / torch.clamp_min(ntokens, 1.0)
+    if shard is not None:
+        loss = shard.reduce_from(loss, "data")
+    metrics = {"loss": loss, "ntokens": ntokens}
     total = loss
     for k in ("moe_lb_loss", "moe_z_loss"):
         total = total + aux_weight * aux[k]
@@ -416,9 +442,9 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.flo
 
 
 def mesh_refusal(cfg: ModelConfig) -> str | None:
-    """Why a mesh cannot serve ``cfg`` yet, or None: the port's mesh serves
-    token-input models of full-attention GQA ``attn_kan`` and ``attn_mlp``
-    blocks (the reference serves every family through GSPMD)."""
+    """Why a mesh cannot serve or train ``cfg`` yet, or None: the port's
+    mesh takes token-input models of full-attention GQA ``attn_kan`` and
+    ``attn_mlp`` blocks (the reference shards every family through GSPMD)."""
     why = None
     if cfg.input_kind != "tokens":
         why = f"{cfg.input_kind!r} inputs"
@@ -435,8 +461,9 @@ def mesh_refusal(cfg: ModelConfig) -> str | None:
             why = "windowed attention"
     if why is None:
         return None
-    return (f"{cfg.name}: serving {why} on a mesh is not ported yet (ROADMAP queue 1, "
-            "item 9.4); the mesh serves token-input attn_kan and attn_mlp models")
+    return (f"{cfg.name}: a mesh does not take {why} yet (not ported: ROADMAP queue 1, "
+            "item 9.4.2); a mesh serves and trains token-input attn_kan and attn_mlp "
+            "models of full-attention GQA")
 
 
 def cache_axes(cfg: ModelConfig) -> dict:

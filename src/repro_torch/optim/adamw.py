@@ -14,6 +14,17 @@ reference's launcher donates both to its jitted step) and returns the same
 trees.  It walks each leaf in pieces of :data:`CHUNK` elements, so its
 temporaries stay within about 0.5 GB whatever the leaf's size
 (musicgen-large has 3.2 GB leaves).
+
+On a ``(data, model)`` mesh (``shard``, a ``ShardingCtx.for_model``) the
+parameters and gradients are this rank's model-local leaves, the gradients
+already summed over ``data``, and ``m``, ``v`` and ``master`` are ZeRO
+slices: each data rank keeps the block of a leaf that ``zero_spec`` gives
+it (``ShardingCtx.leaf_plan``), updates it with the same block of the
+gradient, and the updated blocks are gathered over ``data`` into the
+model-local parameter.  The global norm counts every logical element once:
+the sums of squares of model-split leaves are summed over ``model``.  The
+elementwise arithmetic is the unsharded one, so for the same gradients the
+update is bit-equal to it.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.convert import flatten_with_paths, tree_map
+from repro_torch.convert import flatten_with_paths, map_with_paths
 
 CHUNK = 1 << 24                       # elements per piece of a leaf's update
 
@@ -68,23 +79,50 @@ def lr_at(cfg: AdamWConfig, step: int) -> float:
     return float(f32(cfg.lr) * warm * decay)
 
 
-def init_state(params, master_weights: bool = False) -> dict:
+def _zero_dims(tree, shard) -> dict:
+    """``{path: ZeRO dimension or None}`` of a parameter-shaped tree."""
+    plan = None if shard is None else shard.leaf_plan
+    return {k: None if plan is None else plan[k][1] for k in flatten_with_paths(tree)}
+
+
+def init_state(params, master_weights: bool = False, shard=None) -> dict:
     """Zero moments (fp32, on each parameter's device), ``step`` 0 (int32),
-    and with ``master_weights`` an fp32 copy of the parameters."""
-    zeros = lambda: tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+    and with ``master_weights`` an fp32 copy of the parameters; on a mesh
+    each of them this rank's ZeRO slice of its model-local leaf."""
+    dims = _zero_dims(params, shard)
+
+    def mine(key, p):
+        return p if dims[key] is None else shard.zero_slice(p, dims[key])
+
+    zeros = lambda: map_with_paths(lambda k, p: torch.zeros(
+        mine(k, p).shape, dtype=torch.float32, device=p.device), params)
     first = next(iter(flatten_with_paths(params).values()))
     state = {"m": zeros(), "v": zeros(),
              "step": torch.zeros((), dtype=torch.int32, device=first.device)}
     if master_weights:
-        state["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
+        state["master"] = map_with_paths(
+            lambda k, p: mine(k, p).detach().to(torch.float32, copy=True).contiguous(), params)
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    leaves = list(flatten_with_paths(tree).values())
-    return torch.sqrt(torch.stack([torch.sum(g.float() ** 2) for g in leaves]).sum())
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """The sum of a leaf's fp32 squares, accumulated in fp64 piece by piece."""
+    return sum(torch.sum(p.float() ** 2, dtype=torch.float64) for p in _pieces(g, view=False))
+
+
+def global_norm(tree, shard=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, an fp32 value: the fp32
+    squares are summed in fp64 and rounded to fp32 once (the reference sums
+    in fp32), so that neither the order of the sums nor a mesh's split of
+    a leaf moves the norm by an fp32 ulp; on a mesh the sums of the leaves
+    ``model`` splits are summed over ``model``."""
+    flat = flatten_with_paths(tree)
+    sq = torch.stack([_sum_sq(g) for g in flat.values()])
+    split = [] if shard is None else [shard.leaf_plan[k][0] for k in flat]
+    if any(split):
+        mask = torch.tensor(split, device=sq.device)
+        sq = torch.where(mask, shard.all_reduce(torch.where(mask, sq, 0), "model"), sq)
+    return torch.sqrt(sq.sum().float())
 
 
 def _pieces(t: torch.Tensor, view: bool = True):
@@ -94,11 +132,13 @@ def _pieces(t: torch.Tensor, view: bool = True):
     return (t.view(-1) if view else t.reshape(-1)).split(CHUNK)
 
 
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig) -> tuple[dict, dict, dict]:
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig,
+                  shard=None) -> tuple[dict, dict, dict]:
     """One AdamW step -> ``(params, state, {"grad_norm", "lr"})``, the
-    parameters and the state updated in place (see the module docstring)."""
+    parameters and the state updated in place (see the module docstring;
+    ``shard`` for a mesh's ZeRO slices)."""
     step = int(state["step"]) + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shard)
     scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     f32 = np.float32
@@ -111,10 +151,16 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig) -> tuple[dict, d
     flat_p = flatten_with_paths(params)
     flat_ref = flatten_with_paths(state["master"]) if cfg.master_weights else flat_p
     flat_g, flat_m, flat_v = (flatten_with_paths(t) for t in (grads, state["m"], state["v"]))
+    dims = _zero_dims(params, shard)
+    gathered = []                          # (parameter, its updated ZeRO block, dim)
     with torch.no_grad():
         for key, p in flat_p.items():
-            ref = flat_ref[key]
-            for r, g, m, v in zip(_pieces(ref), _pieces(flat_g[key], view=False),
+            ref, grad, dim = flat_ref[key], flat_g[key], dims[key]
+            if dim is not None:
+                grad = shard.zero_slice(grad, dim)
+                if not cfg.master_weights:
+                    ref = shard.zero_slice(p, dim).contiguous()
+            for r, g, m, v in zip(_pieces(ref), _pieces(grad, view=False),
                                   _pieces(flat_m[key]), _pieces(flat_v[key])):
                 g = g.float() * scale
                 m.mul_(b1).add_(one_b1 * g)
@@ -122,7 +168,13 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig) -> tuple[dict, d
                 p32 = r.float()
                 delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p32
                 r.copy_(p32 - lr * delta)
-            if cfg.master_weights:
+            if dim is not None:
+                gathered.append((p, ref, dim))
+            elif cfg.master_weights:
                 p.copy_(ref)
+        if gathered:
+            wholes = shard.zero_gather([(r, dim, tuple(p.shape)) for p, r, dim in gathered])
+            for (p, _, _), w in zip(gathered, wholes):
+                p.copy_(w)
     state["step"] = torch.full((), step, dtype=torch.int32, device=state["step"].device)
     return params, state, {"grad_norm": gnorm, "lr": lr}

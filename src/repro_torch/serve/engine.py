@@ -176,7 +176,7 @@ class Engine:
             why = lm.mesh_refusal(model_cfg)
             if why is None and serve_cfg.spec_k:
                 why = ("speculative decoding on a mesh is not ported yet (ROADMAP queue 1, "
-                       "item 9.4)")
+                       "item 9.4.2)")
             if why:
                 raise ValueError(why)
             self.shard = ShardingCtx(serve_cfg.mesh)

@@ -32,7 +32,8 @@ loss and gradients (``train/pipeline.py``) match the CPU's (loss rtol
 the pipeline takes launches no kernel, and naming the card for each stage
 gives the default placement's result bit for bit.  A 1x1 mesh on a one-rank
 NCCL group serves the continuous engine's streams bit for bit with the
-unmeshed engine's launch counts.
+unmeshed engine's launch counts, and its train steps give the unmeshed
+step's losses, parameters and moments bit for bit, launching no kernel.
 """
 
 import ctypes
@@ -1556,3 +1557,44 @@ def test_one_rank_nccl_mesh_equals_the_unmeshed_engine(cuda_device, cfg, tmp_pat
     assert all(np.array_equal(a, b) for a, b in zip(want, got))
     assert mesh_launches == launches and launches["kan_sparse_gemm"] > 0
     assert shape == {"data": 1, "model": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("master", [False, True])
+def test_one_rank_nccl_mesh_trains_as_the_unmeshed_step(cuda_device, master, tmp_path):
+    """``make_train_step`` on a 1x1 mesh of a one-rank NCCL group: the
+    unmeshed step's losses, parameters and AdamW state, bit for bit, and no
+    kernel launched (the KAN FFN trains on its dense path)."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.data import pipeline as dp
+    from repro_torch.dist.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    model = configs.get_reduced("kanformer-100m").model
+    opt = adamw.AdamWConfig(lr=2e-3, warmup_steps=1, total_steps=3, master_weights=master)
+    data = dp.LMDataConfig(vocab=model.vocab, seq_len=16, global_batch=4, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for shard in (None, ShardingCtx(make_host_mesh((1, 1)))):
+            params = lm.init_params(model, seed=0, device=cuda_device)
+            state = adamw.init_state(params, master,
+                                     shard=None if shard is None else shard.for_model(model))
+            step = TS.make_train_step(model, opt, shard=shard)
+            ops.reset_launches()
+            losses = []
+            for i in range(3):
+                params, state, m = step(params, state, dp.lm_batch(data, i, device=cuda_device))
+                losses.append(float(m["loss"]))
+            out.append((losses, flatten_with_paths((params, state)), dict(ops.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+    (want, want_tree, want_launch), (got, got_tree, got_launch) = out
+    assert got == want
+    assert all(torch.equal(got_tree[k], v) for k, v in want_tree.items())
+    assert got_launch == want_launch and not any(want_launch.values())

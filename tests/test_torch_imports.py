@@ -109,7 +109,10 @@ def test_kanlint_modules_import_neither_jax_nor_repro(module):
 def test_chip_smoke_sampling_phase_rehearses_on_the_cpu(monkeypatch):
     """Phase 6c's checks at the reduced width on the kernels' plain versions
     (every launch count 0): the threefry answers, seven sampled runs, a
-    preemption, a trim that frees blocks, streams equal across runs."""
+    preemption, a trim that frees blocks, streams equal across runs.  Its
+    many small torch ops run on one thread: on all the cores each of the
+    suite's parallel workers would spin against the others (951.6 s in a
+    6-worker run of the suite against ~20 s alone)."""
     import numpy as np
     import torch
 
@@ -118,7 +121,12 @@ def test_chip_smoke_sampling_phase_rehearses_on_the_cpu(monkeypatch):
     from repro_torch import configs
 
     cfg = configs.get_reduced("kanformer-100m").model
-    out = chip_smoke.sampling_path(torch, np, device="cpu", cfg=cfg)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.sampling_path(torch, np, device="cpu", cfg=cfg)
+    finally:
+        torch.set_num_threads(threads)
     assert out["threefry"]["bits_equal_cpu"] and out["divergences"] == []
     assert out["runs"]["paged_preempt"]["n_preemptions"] >= 1
     assert out["runs"]["spec_paged_blocks4"]["blocks_freed_by_trims"] >= 1
@@ -173,4 +181,14 @@ MESH_MODULES = ["dist/sharding.py", "launch/mesh.py", "analysis/sharding_audit.p
 
 @pytest.mark.parametrize("module", MESH_MODULES)
 def test_mesh_modules_import_neither_jax_nor_repro(module):
+    assert not _imported_roots(PORT / module) & set(FORBIDDEN)
+
+
+# the modules the mesh training slice added
+MESH_TRAIN_MODULES = ["launch/elastic.py", "launch/train.py", "checkpoint/store.py",
+                      "optim/adamw.py", "train/step.py"]
+
+
+@pytest.mark.parametrize("module", MESH_TRAIN_MODULES)
+def test_mesh_training_modules_import_neither_jax_nor_repro(module):
     assert not _imported_roots(PORT / module) & set(FORBIDDEN)
