@@ -155,8 +155,8 @@ Phases; any failed check raises and the script exits non-zero:
    check also holds the kernel, bit for bit, at olmoe-1b-7b's pools (16
    layers, 97 blocks of 16 tokens, 16 KV heads, head_dim 128), stacked and
    one layer, each timed.  (a) Full-width olmoe-1b-7b at ``OLMOE_REPEATS``
-   = 8 of its 16 layers (64 experts top-8 in each; random weights from seed
-   0, fp32, 3.5 B parameters) serves phase 4's requests statically, held to its buckets
+   = 4 of its 16 layers (64 experts top-8 in each; random weights from seed
+   0, fp32, 1.78 B parameters) serves phase 4's requests statically, held to its buckets
    recomputed step by step, its teacher-forced decode logits within
    ``DENSE_REL`` of ``lm.forward``'s at ``capacity_factor = E / top_k``;
    then phase 6's continuous cell dense, paged shadow, paged step, the
@@ -273,6 +273,18 @@ Phases; any failed check raises and the script exits non-zero:
    below ``LOGIT_ATOL``; sampled: of the perturbed scores, times T).  Ms per
    dense decode step unmeshed, 1x1 and in the rehearsal (host-staged
    collectives on one card: not a scale-out figure) beside the card's line.
+   olmoe-1b-7b at full width and ``MESH_OLMOE_REPEATS`` = 2 of its 16
+   layers (experts on the model axis, routing over the global batch): (a)
+   the static sampled cell and continuous dense on 1x1, streams, drop
+   fractions and launches (none) equal to the unmeshed engine's; (b) every
+   rehearsal cell in the same spawn as kanformer's, each rank's expert
+   shards (``wi`` (2, 32, 2048, 1024)) and their bytes, its launches exact
+   at its local shapes (kernel 5 on the paged runs), its drop fractions
+   equal to rank 0's, its streams equal to rank 0's and to the unmeshed
+   run of the same cell unless the first divergence is a logits near-tie
+   (``DENSE_TIE``; sampled ``LOGIT_ATOL`` x T) or a router near-tie
+   (``MESH_ROUTER_TIE``), the parting step recomputed and its smallest
+   router-probability gap printed.
 18. Training on a mesh (``train/step.py``'s ``shard``, ZeRO-sharded AdamW,
    ``launch/elastic.py``; see the note above ``MESH_TRAIN``).  (a)
    Full-width kanformer-100m takes ``launch.train``'s recipe for 4 steps of
@@ -296,6 +308,15 @@ Phases; any failed check raises and the script exits non-zero:
    ``MESH_LOSS_RTOL`` of the rehearsal's straight run and its parameters
    held to the unmeshed straight run's.  Ms per step unmeshed, 1x1 and in
    the rehearsal (not a scale-out figure) beside the card's line.
+   olmoe-1b-7b at full width, ``MESH_OLMOE_REPEATS`` layers, batch 8 x 64:
+   2 steps unmeshed and on 1x1 bit-equal (losses, parameters, ``m``/``v``;
+   no launch; ms and kernels per step), and 2 rehearsal steps held as
+   qwen's, with the experts' ``m`` + ``v`` bytes per rank.  The rehearsal
+   also takes one kanformer step with the int8 wire format (its scale's
+   ``all_reduce`` MAX over ``model``, gloo on CUDA tensors) and one with
+   bf16 parameters under ZeRO (``MESH_TRAIN_VARIANTS``), each held to the
+   same step unmeshed (the bf16 one's fp32 master to ``MESH_BF16_BULK``,
+   its parameters the master's rounding).
 
 Needs one CUDA card; exits non-zero without one, and when run outside a
 checkout of the repository.  Imports nothing of JAX.
@@ -2815,7 +2836,9 @@ def no_drop(cfg):
 class DropMeter:
     """Counts the routed choices and the dropped ones of every
     ``moe_forward`` call while active (device scalars, summed once at the
-    end: no host sync per call)."""
+    end: no host sync per call).  On a mesh a call's drop fraction is the
+    global batch's, so its choices are counted over the global rows
+    (``ShardingCtx.global_rows``)."""
 
     def __init__(self):
         from repro_torch.models import moe
@@ -2823,9 +2846,11 @@ class DropMeter:
         self.moe, self.real, self.calls = moe, moe.moe_forward, []
 
     def __enter__(self):
-        def metered(params, cfg, x):
-            y, aux = self.real(params, cfg, x)
-            self.calls.append((x.shape[0] * x.shape[1] * cfg.top_k, aux["moe_drop_frac"]))
+        def metered(params, cfg, x, shard=None):
+            y, aux = self.real(params, cfg, x, shard)
+            rows = x.shape[0] * x.shape[1]
+            rows = rows if shard is None else shard.global_rows(rows)
+            self.calls.append((rows * cfg.top_k, aux["moe_drop_frac"]))
             return y, aux
 
         self.calls = []
@@ -3061,11 +3086,15 @@ def parted_from(np, tag, outs, ref) -> list[dict]:
     return divs
 
 
-# olmoe-1b-7b's depth in phase 11: 8 of its 16 layers at full width.  With
+# olmoe-1b-7b's depth in phase 11: 4 of its 16 layers at full width.  With
 # phase 17 (mesh serving) added and olmoe at full depth the whole script
 # took ~1118 s of its 1200 on an H100 80GB HBM3 at 700 W, phase 11 220.9 s
-# of it; the cut keeps every check and exact launch count of the cells.
-OLMOE_REPEATS = 8
+# of it, so it was cut to 8 layers; with olmoe's mesh cells added to phases
+# 17 and 18 (+86 s on that card: 86.5 and 107.2 s against 49-56 each) the
+# 8-layer script would end near 1177 s, so it is cut to 4.  The cut keeps
+# every check and exact launch count of the cells; the 8-layer figures are
+# in PERF.md.
+OLMOE_REPEATS = 4
 
 
 def olmoe_path(torch, np, device="cuda", cfg=None):
@@ -4218,6 +4247,17 @@ MESH_RUNS = [("dense", {}), ("paged_shadow", {"paged": True}),
 # blocks make the 8 slots wait or preempt
 MESH_REHEARSAL_RUNS = MESH_RUNS + [("paged_data_sharded_pool",
                                     {"paged": True, "pool_blocks": MESH["pool_blocks"]})]
+# olmoe-1b-7b in phase 17 and 18: full width, 2 of its 16 layers, so that the
+# rehearsal's four ranks (each with half the experts, and in phase 18 their
+# gradients and ZeRO moments) fit on the card beside the unmeshed run (16
+# layers: 27 GB of fp32 weights) and the script stays inside its 1200 s
+MESH_OLMOE_REPEATS = 2
+MESH_OLMOE_ONE_RUNS = [("dense", {})]           # on 1x1, with the static sampled cell
+# an olmoe stream may part from the unmeshed one where its first divergence
+# is a logits near-tie (DENSE_TIE of max|logit|; sampled: LOGIT_ATOL of the
+# perturbed scores, times T) or a router near-tie: a k-th vs (k+1)-th
+# router-probability gap below this at a position up to the parting step
+MESH_ROUTER_TIE = 1e-5
 
 
 def mesh_cells(torch, np, params, cfg, mesh, device, runs) -> dict:
@@ -4238,10 +4278,12 @@ def mesh_cells(torch, np, params, cfg, mesh, device, runs) -> dict:
         sync()
         ops.reset_launches()
         t0 = time.perf_counter()
-        outs = serve(eng)
-        sync()
+        with DropMeter() as meter:
+            outs = serve(eng)
+            sync()
         return {"streams": outs, "launches": dict(ops.LAUNCHES),
-                "wall_s": time.perf_counter() - t0}
+                "wall_s": time.perf_counter() - t0,
+                "drops": meter.summary() if meter.calls else None}
 
     rs = np.random.RandomState(0)                  # phase 4's requests
     lens4 = rs.randint(32, 129, 8)
@@ -4277,12 +4319,15 @@ def mesh_requests(np, vocab: int):
     return reqs, [min(b, MESH["budget"]) for b in budgets]
 
 
-def mesh_rank(mesh, device, cfg, runs) -> dict:
+def mesh_rank(mesh, device, cfg, runs, olmoe=None) -> dict:
     """One rank of phase 17's rehearsal (``launch.mesh.run_ranks``): the
-    cells, and the shapes of this rank's shards."""
+    cells, and the shapes of this rank's shards; with ``olmoe = (cfg,
+    runs)`` that model's cells too, with its expert shards' shapes and
+    bytes."""
     import numpy as np
     import torch
 
+    from repro_torch.dist.sharding import ShardingCtx
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -4298,7 +4343,60 @@ def mesh_rank(mesh, device, cfg, runs) -> dict:
         "pool_k": tuple(eng._make_paged_caches(MESH["pool_blocks"], bs)["unit"][0]["k"].shape),
         "default_pool_k": tuple(eng._make_paged_caches(default_pool, bs)["unit"][0]["k"].shape)}
     out["coord"] = tuple(int(c) for c in mesh.get_coordinate())
+    if olmoe is not None:
+        ocfg, oruns = olmoe
+        del params, eng
+        oparams = lm.init_params(ocfg, seed=0, device=device, dtype=torch.float32)
+        out["olmoe"] = mesh_cells(torch, np, oparams, ocfg, mesh, device, oruns)
+        local = ShardingCtx(mesh).place_params(ocfg, oparams)["unit"][0]["moe"]
+        out["olmoe"]["shapes"] = {n: tuple(w.shape) for n, w in local.items()}
+        out["olmoe"]["expert_bytes"] = sum(w.numel() * w.element_size()
+                                           for n, w in local.items() if n != "router")
     return out
+
+
+def router_gaps(torch, np, params, cfg, seq, device):
+    """``lm.forward`` of one token sequence -> ``(logits (T, vocab), the
+    smallest k-th vs (k+1)-th router-probability gap of each position over
+    the MoE layers)``."""
+    from repro_torch.models import lm, moe
+
+    real, gaps = moe.route, []
+
+    def spy(params_, mcfg, xf, shard=None):
+        r = real(params_, mcfg, xf, shard)
+        srt = torch.sort(r[1], dim=-1, descending=True).values
+        gaps.append(srt[:, mcfg.top_k - 1] - srt[:, mcfg.top_k])
+        return r
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            logits, _ = lm.forward(params, cfg, torch.as_tensor(seq[None], device=device))
+    finally:
+        moe.route = real
+    return logits[0], torch.stack(gaps).amin(0)
+
+
+def moe_parting(torch, np, params, cfg, prompt, stream, j, device, sampled=None) -> dict:
+    """Why an olmoe stream may part from the unmeshed ``stream`` at step
+    ``j``: the logits gap that predicts ``stream[j]`` (greedy: top-2 over
+    max|logit|; ``sampled = (rid, seed, T)``: the perturbed scores' top-2
+    gap times T) and the smallest router gap up to that position, each
+    against its tie (:data:`MESH_ROUTER_TIE`)."""
+    seq = np.concatenate([prompt, stream[:j]]).astype(np.int64)
+    logits, rg = router_gaps(torch, np, params, cfg, seq, device)
+    if sampled is None:
+        top = torch.topk(logits[-1], 2).values
+        gap, tie = float((top[0] - top[1]) / logits[-1].abs().max()), DENSE_TIE
+    else:
+        rid, seed, temp = sampled
+        gap = float(sampled_gaps(torch, np, params, cfg, prompt, stream, rid, seed, temp,
+                                 device)[0][j]) * temp
+        tie = LOGIT_ATOL
+    router = float(rg.min())
+    return {"logit_gap": gap, "logit_tie": tie, "router_gap": router,
+            "near_tie": gap < tie or router < MESH_ROUTER_TIE}
 
 
 def mesh_expected(cfg, cell: str, r: dict, run: dict, d: int) -> dict:
@@ -4310,7 +4408,7 @@ def mesh_expected(cfg, cell: str, r: dict, run: dict, d: int) -> dict:
     if cell != "static_sampled":
         rows = CONT["slots"] // d if not run.get("paged") else CONT["slots"]
         return expected_launches(cfg, r["stats"], run, slots=rows)
-    per_pass = 2 * len(cfg.unit) * cfg.n_repeats
+    per_pass = 2 * sum(b.kind == "attn_kan" for b in cfg.unit) * cfg.n_repeats
     want = dict.fromkeys(ops.LAUNCHES, 0)
     for rows, t in r["buckets"]:
         local = rows // d if rows % d == 0 else rows
@@ -4320,21 +4418,22 @@ def mesh_expected(cfg, cell: str, r: dict, run: dict, d: int) -> dict:
     return want
 
 
-def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
+def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
     """Phase 17 (see the module docstring; any miss raises).  ``device="cpu"``
-    with a reduced ``cfg`` rehearses it on the kernels' plain versions
-    (gloo; every count 0)."""
+    with a reduced ``cfg`` and ``olmoe_cfg`` rehearses it on the kernels'
+    plain versions (gloo; every count 0)."""
     import shutil
     import tempfile
 
     import torch.distributed as dist
 
-    from repro_torch.configs import kanformer_100m
+    from repro_torch.configs import kanformer_100m, olmoe_1b_7b
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as M
     from repro_torch.models import lm
 
     cfg = cfg or kanformer_100m.config().model
+    ocfg = olmoe_cfg or olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS).model
     cuda = device == "cuda"
     zeros = dict.fromkeys(ops.LAUNCHES, 0)
     params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
@@ -4344,14 +4443,24 @@ def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
         f"continuous cell's {len(reqs)} requests, budgets cut to {MESH['budget']}, and phase "
         f"4's 8 requests sampled at T = {SAMPLE_T} (batch 4)")
 
-    # (a) the unmeshed engine, then a 1x1 mesh on a one-rank group
+    # (a) the unmeshed engine, then a 1x1 mesh on a one-rank group; olmoe's
+    # unmeshed cells are every rehearsal cell's reference (an MoE stream
+    # depends on the rows routed with it, so each cell has its own)
     t0 = time.perf_counter()
     ref = mesh_cells(torch, np, params, cfg, None, device, MESH_RUNS)
+    t_o = time.perf_counter()
+    oparams = lm.init_params(ocfg, seed=0, device=device, dtype=torch.float32)
+    oref = mesh_cells(torch, np, oparams, ocfg, None, device, MESH_REHEARSAL_RUNS)
+    out["olmoe_unmeshed_s"] = time.perf_counter() - t_o
     tmp = tempfile.mkdtemp(prefix="mesh-")
     dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
                             rank=0, world_size=1)
     try:
         one = mesh_cells(torch, np, params, cfg, M.make_host_mesh((1, 1)), device, MESH_RUNS)
+        t_o = time.perf_counter()
+        oone = mesh_cells(torch, np, oparams, ocfg, M.make_host_mesh((1, 1)), device,
+                          MESH_OLMOE_ONE_RUNS)
+        out["olmoe_1x1_s"] = time.perf_counter() - t_o
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4374,13 +4483,34 @@ def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
         log(f"[mesh] 1x1 {'NCCL' if cuda else 'gloo'} {cell}: streams bit-equal to the "
             f"unmeshed engine's, launches {r['launches']} equal; {r['decode_ms_per_step']:.3f} "
             f"ms per decode step (unmeshed {ref[cell]['decode_ms_per_step']:.3f})")
+    moe = ocfg.unit[0].moe
+    olog = (f"olmoe-1b-7b d={ocfg.d_model} layers={ocfg.n_repeats} of 16 experts="
+            f"{moe.n_experts} top-{moe.top_k}")
+    out["olmoe"] = {"layers": ocfg.n_repeats, "runs": {}}
+    for cell, r in oone.items():
+        want = oref[cell]
+        if r["launches"] != want["launches"] or want["launches"] != zeros:
+            raise RuntimeError(f"olmoe 1x1 {cell}: launches {r['launches']} vs unmeshed "
+                               f"{want['launches']} (none expected)")
+        if not all(np.array_equal(a, b) for a, b in zip(r["streams"], want["streams"])):
+            raise RuntimeError(f"olmoe 1x1 {cell}: streams differ from the unmeshed engine's")
+        if r["drops"] != want["drops"]:
+            raise RuntimeError(f"olmoe 1x1 {cell}: drops {r['drops']} vs {want['drops']}")
+        out["olmoe"]["runs"]["1x1_" + cell] = {"launches": r["launches"],
+                                              "decode_ms_per_step": r["decode_ms_per_step"],
+                                              "drops": r["drops"]}
+        log(f"[mesh] {olog}: 1x1 {'NCCL' if cuda else 'gloo'} {cell}: streams bit-equal to the "
+            f"unmeshed engine's, launches equal (none), moe_drop_frac "
+            f"{r['drops']['moe_drop_frac']:.4f} equal; {r['decode_ms_per_step']:.3f} ms per "
+            f"decode step (unmeshed {want['decode_ms_per_step']:.3f})")
     out["1x1_s"] = time.perf_counter() - t0
 
-    # (b) the 2x2 rehearsal: four ranks on this one card (gloo)
+    # (b) the 2x2 rehearsal: four ranks on this one card (gloo), kanformer's
+    # cells then olmoe's in one spawn
     d, m = MESH["rehearsal"]
     t1 = time.perf_counter()
     ranks = M.run_ranks(mesh_rank, (d, m), device, share_card=cuda,
-                        args=(cfg, MESH_REHEARSAL_RUNS))
+                        args=(cfg, MESH_REHEARSAL_RUNS, (ocfg, MESH_REHEARSAL_RUNS)))
     out["rehearsal_s"] = time.perf_counter() - t1
     a, hd = cfg.unit[0].attn, cfg.unit[0].attn.head_dim
     L, bs = cfg.n_repeats, CONT["block_size"]
@@ -4455,7 +4585,98 @@ def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
         f"1x1 mesh {out['decode_ms_per_step']['1x1']:.3f}, 2x2 REHEARSAL (4 ranks on one card, "
         f"collectives staged through the host over gloo; not a scale-out figure) "
         f"{out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
-    log(f"[mesh] 1x1 cells {out['1x1_s']:.1f} s, 2x2 rehearsal {out['rehearsal_s']:.1f} s")
+    out["olmoe"].update(mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device))
+    ms = out["olmoe"]["decode_ms_per_step"]
+    ms["1x1"] = oone["dense"]["decode_ms_per_step"]
+    log(f"[mesh] olmoe-1b-7b ms per dense decode step: unmeshed {ms['unmeshed']:.3f}, 1x1 mesh "
+        f"{ms['1x1']:.3f}, 2x2 REHEARSAL (not a scale-out figure) {ms['2x2_rehearsal']:.3f}; on "
+        f"{card_line() if cuda else 'the CPU (plain versions)'}")
+    log(f"[mesh] 1x1 cells {out['1x1_s']:.1f} s (olmoe's unmeshed cells "
+        f"{out['olmoe_unmeshed_s']:.1f} s, its 1x1 cells {out['olmoe_1x1_s']:.1f} s), 2x2 "
+        f"rehearsal {out['rehearsal_s']:.1f} s (both models, one spawn)")
+    return out
+
+
+def mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device) -> dict:
+    """Phase 17's olmoe checks on the rehearsal's ranks (any miss raises):
+    expert shard shapes, launches exact at local shapes, drop fractions
+    equal on every rank, every rank's streams equal to rank 0's and to the
+    unmeshed cell's unless the first divergence is a near-tie
+    (:func:`moe_parting`)."""
+    from repro_torch.kernels import ops
+
+    cuda = device == "cuda"
+    d, m = MESH["rehearsal"]
+    moe = ocfg.unit[0].moe
+    E, dm, f, L = moe.n_experts, ocfg.d_model, moe.d_ff, ocfg.n_repeats
+    shapes = {"router": (L, dm, E // m), "wi": (L, E // m, dm, f), "wg": (L, E // m, dm, f),
+              "wo": (L, E // m, f, dm)}
+    expert_bytes = 3 * L * (E // m) * dm * f * 4
+    zeros = dict.fromkeys(ops.LAUNCHES, 0)
+    rs = np.random.RandomState(0)                  # phase 4's requests
+    lens4 = rs.randint(32, 129, 8)
+    reqs4 = [rs.randint(0, ocfg.vocab, n).astype(np.int32) for n in lens4]
+    reqs, _ = mesh_requests(np, ocfg.vocab)
+    cells = [("static_sampled", {})] + MESH_REHEARSAL_RUNS
+    partings, out = [], {"runs": {}}
+    for r in ranks:
+        got = r["olmoe"]
+        tag = f"olmoe 2x2 rank {r['coord']}"
+        if got["shapes"] != shapes or got["expert_bytes"] != expert_bytes:
+            raise RuntimeError(f"{tag}: expert shards {got['shapes']} "
+                               f"({got['expert_bytes']} B) != {shapes} ({expert_bytes} B)")
+        for cell, run in cells:
+            c = got[cell]
+            want = mesh_expected(ocfg, cell, c, run, d) if cuda else zeros
+            if c["launches"] != want:
+                raise RuntimeError(f"{tag} {cell}: launches {c['launches']} != {want}")
+            if c["drops"] != ranks[0]["olmoe"][cell]["drops"]:
+                raise RuntimeError(f"{tag} {cell}: drops {c['drops']} differ from rank 0's "
+                                   f"{ranks[0]['olmoe'][cell]['drops']}")
+            if not all(np.array_equal(x, y) for x, y in zip(
+                    c["streams"], ranks[0]["olmoe"][cell]["streams"])):
+                raise RuntimeError(f"{tag} {cell}: other streams than rank 0")
+    r0 = ranks[0]["olmoe"]
+    for cell, run in cells:
+        static = cell == "static_sampled"
+        for i, (g, w) in enumerate(zip(r0[cell]["streams"], oref[cell]["streams"])):
+            diff = np.nonzero(g != w)[0]
+            if not diff.size:
+                continue
+            j = int(diff[0])
+            why = moe_parting(torch, np, oparams, ocfg, reqs4[i] if static else reqs[i], w, j,
+                              device, (i, SAMPLE_SEED, SAMPLE_T) if static else None)
+            partings.append({"cell": cell, "request": i, "step": j, **why})
+            log(f"[mesh] olmoe 2x2 {cell}: request {i} parts at step {j}: logits gap "
+                f"{why['logit_gap']:.3e} (tie {why['logit_tie']:.0e}), smallest k-th vs "
+                f"(k+1)-th router-probability gap {why['router_gap']:.3e} (tie "
+                f"{MESH_ROUTER_TIE:.0e})")
+            if not why["near_tie"]:
+                raise RuntimeError(f"olmoe 2x2 {cell}: request {i} parts at step {j}, not a "
+                                   "near-tie of the logits or the router")
+        out["runs"]["2x2_" + cell] = {"launches": r0[cell]["launches"],
+                                      "decode_ms_per_step": r0[cell]["decode_ms_per_step"],
+                                      "drops": r0[cell]["drops"],
+                                      "n_preemptions": r0[cell].get("stats", {}).get(
+                                          "n_preemptions")}
+        log(f"[mesh] olmoe 2x2 rehearsal {cell}: every rank's launches exact at its local "
+            f"shapes (rank 0 { {k: v for k, v in r0[cell]['launches'].items() if v} }), "
+            f"moe_drop_frac {r0[cell]['drops']['moe_drop_frac']:.4f} on every rank (unmeshed "
+            f"{oref[cell]['drops']['moe_drop_frac']:.4f}); {r0[cell]['decode_ms_per_step']:.3f} "
+            f"ms per decode step (unmeshed {oref[cell]['decode_ms_per_step']:.3f})")
+    out["partings"] = partings
+    out["shapes"] = {k: list(v) for k, v in shapes.items()}
+    out["expert_bytes_per_rank"] = expert_bytes
+    out["expert_bytes_unmeshed"] = expert_bytes * m
+    out["decode_ms_per_step"] = {"unmeshed": oref["dense"]["decode_ms_per_step"],
+                                 "2x2_rehearsal": r0["dense"]["decode_ms_per_step"]}
+    where = card_line() if cuda else "the CPU (plain versions)"
+    log(f"[mesh] olmoe-1b-7b d={ocfg.d_model} layers={L}: expert shards per rank {shapes}; "
+        f"each rank reads {expert_bytes / 1e9:.3f} GB of expert weights per decode step "
+        f"(every local expert runs its cap slots) against {expert_bytes * m / 1e9:.3f} GB "
+        f"unmeshed; streams parted at {len(partings)} near-ties; ms per dense decode step "
+        f"unmeshed {out['decode_ms_per_step']['unmeshed']:.3f}, 2x2 REHEARSAL (not a "
+        f"scale-out figure) {out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
     return out
 
 
@@ -4475,9 +4696,24 @@ def mesh_path(torch, np, device="cuda", cfg=None) -> dict:
 # MESH_MAX_LR lr per step (two Adam steps part by at most ~4 lr).  qwen
 # takes 2 steps to keep the phase near 60 s.
 MESH_TRAIN = {"steps": 4, "batch": 8, "seq": 64, "lr": 2e-3, "rehearsal": (2, 2),
-              "rehearsal_steps": {"kanformer-100m": 3, "qwen1.5-0.5b": 2}, "ckpt_at": 2}
+              "rehearsal_steps": {"kanformer-100m": 3, "qwen1.5-0.5b": 2, "olmoe-1b-7b": 2},
+              "ckpt_at": 2, "olmoe_steps": 2}
+# kanformer's step variants in the rehearsal, one step each from seed 0, held
+# to the same step unmeshed: the int8 wire format (its scale's all_reduce MAX
+# over model, gloo on CUDA tensors) and bf16 parameters under ZeRO (an fp32
+# master copy ZeRO-split over data, the bf16 wire format)
+MESH_TRAIN_VARIANTS = {"int8": {"grad_compression": "int8"},
+                       "bf16": {"param_dtype": "bfloat16", "master_weights": True,
+                                "grad_compression": "bf16"}}
 MESH_LOSS_RTOL = 1e-5
 MESH_BULK = (0.999, 1e-3)               # this share of the parameters within this, x lr
+# bf16 parameters have bf16 gradients, and a data rank's half of a gradient is
+# rounded to bf16 before the halves are summed: where the halves cancel to
+# within a bf16 ulp (~1% of kanformer's elements in the CPU rehearsal, 1.1e-2),
+# the sum keeps neither its sign nor its size, and Adam moves that element by
+# up to 2 lr.  So the fp32 master of the bf16 variant is held to this bulk
+# (and MESH_MAX_LR), its bf16 parameters to being the master's rounding
+MESH_BF16_BULK = (0.97, 1e-3)
 MESH_MAX_LR = 4.0                       # per step, x lr
 
 
@@ -4501,13 +4737,41 @@ def param_gaps(got: dict, want: dict, lr: float) -> dict:
     return {"max_lr": worst, "bulk_share": near / n}
 
 
-def held_params(tag: str, gaps: dict, steps: int) -> None:
-    if gaps["bulk_share"] < MESH_BULK[0] or gaps["max_lr"] > MESH_MAX_LR * steps:
-        raise RuntimeError(f"{tag}: parameters {gaps} past {MESH_BULK} / "
+def held_params(tag: str, gaps: dict, steps: int, bulk=MESH_BULK) -> None:
+    if gaps["bulk_share"] < bulk[0] or gaps["max_lr"] > MESH_MAX_LR * steps:
+        raise RuntimeError(f"{tag}: parameters {gaps} past {bulk} / "
                            f"{MESH_MAX_LR * steps} lr")
 
 
-def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir) -> dict:
+def variant_step(torch, cfg, name: str, shard, device):
+    """One step of :data:`MESH_TRAIN_VARIANTS` ``[name]`` from seed 0 on
+    batch 0 (``shard``: this rank's shards) -> ``(loss, params, state,
+    launches)``."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    kw = dict(MESH_TRAIN_VARIANTS[name])
+    dtype = getattr(torch, kw.pop("param_dtype", "float32"))
+    master = kw.pop("master_weights", False)
+    params = lm.init_params(cfg, seed=0, device=device, dtype=dtype)
+    if shard is not None:
+        params = shard.place_params(cfg, params)
+    state = adamw.init_state(params, master, shard=None if shard is None else shard.for_model(cfg))
+    fn = TS.make_train_step(cfg, dataclasses.replace(mesh_opt(1), master_weights=master),
+                            shard=shard, **kw)
+    batch = T.make_batch(cfg, T.dp.LMDataConfig(cfg.vocab, MESH_TRAIN["seq"], MESH_TRAIN["batch"]),
+                         0, device)
+    ops.reset_launches()
+    params, state, m = fn(params, state, batch)
+    return float(m["loss"]), params, state, dict(ops.LAUNCHES)
+
+
+def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir, variants=None) -> dict:
     """One rank of phase 18's rehearsal (``launch.mesh.run_ranks``): each
     model of ``runs`` trained on the mesh from seed 0 with the launcher's
     recipe, its launches counted (none), its losses and host ms per step,
@@ -4552,16 +4816,42 @@ def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir) -> dict:
         local = flatten_with_paths(params)
         gaps = param_gaps(local, {k: shard.local_slice(ref[k], placed[k])
                                          for k in local}, MESH_TRAIN["lr"])
-        moments = [t for n in ("m", "v") for t in flatten_with_paths(state[n]).values()]
+        moments = [(k, t) for n in ("m", "v") for k, t in flatten_with_paths(state[n]).items()]
         out[arch] = {"losses": losses, "ms": ms, "launches": launches, "gaps": gaps,
                      "zero_shapes": {k: tuple(v.shape)
                                      for k, v in flatten_with_paths(state["m"]).items()},
-                     "opt_bytes": sum(t.numel() * t.element_size() for t in moments),
+                     "opt_bytes": sum(t.numel() * t.element_size() for _, t in moments),
+                     "expert_opt_bytes": sum(t.numel() * t.element_size() for k, t in moments
+                                             if is_expert_leaf(k)),
                      "finite": bool(np.isfinite(losses).all())}
         del params, state, ref, local
         if cuda:
             torch.cuda.empty_cache()
+    for name, cfg in variants or ():
+        loss, params, state, launches = variant_step(torch, cfg, name, shard, device)
+        ref = torch.load(os.path.join(ref_dir, f"variant-{name}.pt"), mmap=True)
+        placed = store.spec_paths(params, shard.param_shardings(cfg))
+        local = flatten_with_paths(params)
+        res = {"loss": loss, "launches": launches, "gaps": param_gaps(
+            local, {k: shard.local_slice(ref["params"][k], placed[k]) for k in local},
+            MESH_TRAIN["lr"])}
+        if "master" in state:            # the ZeRO slices of the fp32 master copy
+            zero = store.spec_paths(params, shard.opt_state_specs(cfg, True)["master"])
+            master = flatten_with_paths(state["master"])
+            res["master_gaps"] = param_gaps(master, {k: shard.local_slice(
+                ref["master"][k], zero[k]) for k in master}, MESH_TRAIN["lr"])
+            plan = shard.for_model(cfg).leaf_plan
+            res["params_round_master"] = all(torch.equal(
+                shard.zero_slice(local[k], plan[k][1]), master[k].to(local[k].dtype))
+                for k in master)
+        out["variant_" + name] = res
+        del params, state, ref, local
     return out
+
+
+def is_expert_leaf(path: str) -> bool:
+    """A routed expert's weight (``wi``/``wg``/``wo`` of an MoE block)."""
+    return "['moe']" in path and path.rsplit("/", 1)[-1] in ("['wi']", "['wg']", "['wo']")
 
 
 def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
@@ -4575,7 +4865,7 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
 
     from repro_torch import configs
     from repro_torch.checkpoint import store
-    from repro_torch.configs import qwen1_5_0_5b
+    from repro_torch.configs import olmoe_1b_7b, qwen1_5_0_5b
     from repro_torch.convert import flatten_with_paths, tree_map
     from repro_torch.dist.sharding import ShardingCtx, tree_zero_specs
     from repro_torch.launch import elastic
@@ -4676,13 +4966,21 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
         del plain, one, a, b
         out["1x1_s"] = time.perf_counter() - t0
 
+        # olmoe-1b-7b at full width, MESH_OLMOE_REPEATS layers: unmeshed and on 1x1
+        t_o = time.perf_counter()
+        ocfg = (get("olmoe-1b-7b") if reduced
+                else olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS)).model
+        out["olmoe_1x1"] = olmoe_one_by_one(torch, np, ocfg, device, one_rank_group)
+        out["olmoe_1x1_s"] = time.perf_counter() - t_o
+
         # (b) the unmeshed references, then the 2x2 rehearsal
         t1 = time.perf_counter()
         ref_dir = os.path.join(tmp, "ref")
         os.makedirs(ref_dir)
         ckpt = os.path.join(tmp, "ckpt")
-        rehearsal = [(name, (qwen1_5_0_5b.build(n_layers=QWEN_REPEATS) if name ==
-                              "qwen1.5-0.5b" and not reduced else get(name)).model, n)
+        cut = {"qwen1.5-0.5b": lambda: qwen1_5_0_5b.build(n_layers=QWEN_REPEATS),
+               "olmoe-1b-7b": lambda: olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS)}
+        rehearsal = [(name, (cut[name]() if name in cut and not reduced else get(name)).model, n)
                      for name, n in MESH_TRAIN["rehearsal_steps"].items()]
         refs = {}
         for name, cfg, n in rehearsal:
@@ -4703,10 +5001,19 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
             del params, state
             if cuda:
                 torch.cuda.empty_cache()
+        variants = [(name, kan) for name in MESH_TRAIN_VARIANTS]
+        for name, cfg in variants:
+            loss, params, state, launches = variant_step(torch, cfg, name, None, device)
+            torch.save({part: {k: v.cpu() for k, v in flatten_with_paths(tree).items()}
+                        for part, tree in (("params", params),
+                                           ("master", state.get("master", {})))},
+                       os.path.join(ref_dir, f"variant-{name}.pt"))
+            refs["variant_" + name] = {"loss": loss, "launches": launches}
+            del params, state
         t2 = time.perf_counter()
         d, m = MESH_TRAIN["rehearsal"]
         ranks = M.run_ranks(mesh_train_rank, (d, m), device, share_card=cuda,
-                            args=(rehearsal, ref_dir, ckpt))
+                            args=(rehearsal, ref_dir, ckpt, variants))
         out["rehearsal_s"] = time.perf_counter() - t2
         out["references_s"] = t2 - t1
         mesh = {"data": d, "model": m}
@@ -4724,7 +5031,11 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                 tag = f"2x2 rank {coord} {name}"
                 shapes = {k: tuple(n_ // (mesh[a] if a else 1) for n_, a in zip(s, placed[k]))
                           for k, s in whole.items()}
-                if got["zero_shapes"] != shapes or got["opt_bytes"] != want_bytes:
+                want_expert = 2 * 4 * sum(math.prod(s) // math.prod(
+                    mesh[a] for a in placed[k] if a) for k, s in whole.items()
+                    if is_expert_leaf(k))
+                if got["zero_shapes"] != shapes or got["opt_bytes"] != want_bytes or \
+                        got["expert_opt_bytes"] != want_expert:
                     raise RuntimeError(f"{tag}: ZeRO shapes or bytes differ from "
                                        "tree_zero_specs'")
                 if any(got["launches"].values()) or not got["finite"]:
@@ -4747,7 +5058,10 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                    "unmeshed_ms_per_step": statistics.median(refs[name]["ms"][1:]
                                                              or refs[name]["ms"]),
                    "opt_bytes_per_rank": r0["opt_bytes"],
-                   "opt_bytes_unmeshed": refs[name]["opt_bytes"]}
+                   "opt_bytes_unmeshed": refs[name]["opt_bytes"],
+                   "expert_opt_bytes_per_rank": r0["expert_opt_bytes"],
+                   "expert_opt_bytes_unmeshed": 2 * 4 * sum(
+                       math.prod(s) for k, s in whole.items() if is_expert_leaf(k))}
             out["rehearsal"][name] = row
             runs[f"2x2_{name}"] = {"launches": r0["launches"]}
             log(f"[meshtrain] 2x2 rehearsal {name} d={cfg.d_model} layers={cfg.n_repeats} "
@@ -4757,10 +5071,42 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                 f"{MESH_BULK[1]:.0e} lr): {[(round(g['max_lr'], 6), g['bulk_share']) for g in row['gaps']]}"
                 f"; no launch; m+v {row['opt_bytes_per_rank'] / 1e6:.1f} MB per rank against "
                 f"{row['opt_bytes_unmeshed'] / 1e6:.1f} MB whole "
-                f"({row['opt_bytes_per_rank'] / row['opt_bytes_unmeshed']:.4f}); "
+                f"({row['opt_bytes_per_rank'] / row['opt_bytes_unmeshed']:.4f})"
+                + (f", the experts' {row['expert_opt_bytes_per_rank'] / 1e6:.1f} MB against "
+                   f"{row['expert_opt_bytes_unmeshed'] / 1e6:.1f} MB"
+                   if row["expert_opt_bytes_unmeshed"] else "") + "; "
                 f"{row['ms_per_step']:.1f} ms per step (REHEARSAL: 4 ranks on one card, "
                 f"collectives host-staged over gloo; not a scale-out figure; unmeshed "
                 f"{row['unmeshed_ms_per_step']:.1f} ms); on {where}")
+
+        # item 9.4.2 step 1: the int8 and bf16 variants' steps on the rehearsal
+        for name, _ in variants:
+            ref = refs["variant_" + name]
+            gaps = []
+            for r in ranks:
+                got = r["variant_" + name]
+                tag = f"2x2 rank {r['coord']} {arch} {name} step"
+                rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+                if any(got["launches"].values()) or rel > MESH_LOSS_RTOL:
+                    raise RuntimeError(f"{tag}: loss {got['loss']} vs unmeshed {ref['loss']} "
+                                       f"(rel {rel:.3e}), launches {got['launches']}")
+                if "master_gaps" in got:       # bf16 parameters: their master's rounding
+                    held_params(tag + " (fp32 master)", got["master_gaps"], 1, MESH_BF16_BULK)
+                    if not got["params_round_master"]:
+                        raise RuntimeError(f"{tag}: parameters are not their master's rounding")
+                    got["gaps"] = got["master_gaps"]
+                else:
+                    held_params(tag, got["gaps"], 1)
+                gaps.append(got["gaps"])
+            out["rehearsal"][f"{arch}_{name}"] = {"loss": ranks[0]["variant_" + name]["loss"],
+                                                  "unmeshed_loss": ref["loss"], "gaps": gaps}
+            log(f"[meshtrain] 2x2 rehearsal {arch} one step, {name} "
+                f"({MESH_TRAIN_VARIANTS[name]}): loss {ranks[0]['variant_' + name]['loss']} vs "
+                f"unmeshed {ref['loss']}; parameters per rank (max gap / lr, share within "
+                f"{MESH_BULK[1]:.0e} lr): {[(round(g['max_lr'], 6), g['bulk_share']) for g in gaps]}"
+                + ("; the bf16 parameters are the rounding of their fp32 master"
+                   if name == "bf16" else "")
+                + f"; no launch (gloo on {'CUDA' if cuda else 'CPU'} tensors)")
 
         # (c) the rehearsal's kanformer checkpoint continued on 1x1
         at, n = MESH_TRAIN["ckpt_at"], MESH_TRAIN["rehearsal_steps"][arch]
@@ -4806,6 +5152,74 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
     out["runs"] = runs
     log(f"[meshtrain] 1x1 {out['1x1_s']:.1f} s, references {out['references_s']:.1f} s, 2x2 "
         f"rehearsal {out['rehearsal_s']:.1f} s")
+    return out
+
+
+def olmoe_one_by_one(torch, np, cfg, device, one_rank_group) -> dict:
+    """Phase 18 (a) for olmoe-1b-7b (any miss raises): ``MESH_TRAIN
+    ["olmoe_steps"]`` fp32 steps of batch 8 x 64 from seed 0 unmeshed and
+    on a 1x1 mesh of a one-rank group (``one_rank_group()`` joins it and
+    returns its ``ShardingCtx``): no launch, losses, parameters and
+    ``m``/``v`` bit-equal; host ms per step, and kernels per step of one
+    more step of each under a device-only profiler (on the card)."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cuda = device == "cuda"
+    n, B, S = MESH_TRAIN["olmoe_steps"], MESH_TRAIN["batch"], MESH_TRAIN["seq"]
+    data = T.dp.LMDataConfig(cfg.vocab, S, B)
+    batches = [T.make_batch(cfg, data, i, device) for i in range(n + 1)]
+    res = {}
+
+    def train(tag, shard):
+        params = lm.init_params(cfg, seed=0, device=device)
+        state = adamw.init_state(params, shard=None if shard is None else shard.for_model(cfg))
+        fn = TS.make_train_step(cfg, mesh_opt(n), shard=shard)
+        losses, ms = [], []
+
+        def steps():
+            nonlocal params, state
+            for b in batches[:n]:
+                t = time.perf_counter()
+                params, state, m = fn(params, state, b)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t) * 1e3)
+
+        counted(torch, f"olmoe-1b-7b {tag}, {n} steps", steps, {}, device, tag="meshtrain")
+        res[tag] = {"losses": losses, "ms": ms, "fn": fn, "params": params, "state": state}
+
+    train("unmeshed", None)
+    shard1 = one_rank_group()
+    out = {}
+    try:
+        train("1x1", shard1)
+        a, b = (flatten_with_paths((res[t]["params"], res[t]["state"]))
+                for t in ("unmeshed", "1x1"))
+        if res["1x1"]["losses"] != res["unmeshed"]["losses"] or \
+                not all(torch.equal(a[k], b[k]) for k in a):
+            raise RuntimeError(f"olmoe 1x1 mesh training: losses {res['1x1']['losses']} vs "
+                               f"{res['unmeshed']['losses']}, or parameters or m/v differ")
+        out = {"losses": res["1x1"]["losses"], "ms": {k: v["ms"] for k, v in res.items()}}
+        if cuda:                                  # one more step each, in place
+            out["kernels_per_step"] = {}
+            for tag in ("unmeshed", "1x1"):
+                r = res[tag]
+                out["kernels_per_step"][tag] = kernels_per_call(
+                    torch, lambda: r["fn"](r["params"], r["state"], batches[n]))
+    finally:
+        dist.destroy_process_group()
+    del res, a, b
+    where = card_line() if cuda else "the CPU (plain versions)"
+    log(f"[meshtrain] olmoe-1b-7b d={cfg.d_model} layers={cfg.n_repeats} of 16 experts="
+        f"{cfg.unit[0].moe.n_experts}: {n} fp32 steps of batch {B} x {S} unmeshed and on a 1x1 "
+        f"{'NCCL' if cuda else 'gloo'} mesh: losses {out['losses']} bit-equal, parameters and "
+        f"m/v bit-equal, no launch; ms per step {out['ms']} (the first step warms up); "
+        f"kernels per step {out.get('kernels_per_step')}; on {where}")
     return out
 
 

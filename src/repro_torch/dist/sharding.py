@@ -44,6 +44,13 @@ backward) and :meth:`ShardingCtx.gather_whole` where a shard is read whole
 in-place collective that serving calls.  The optimizer's ``m``, ``v`` and
 ``master`` are ZeRO-sharded (:func:`zero_spec`) over ``data`` on top of the
 parameters' ``model`` placement (:meth:`ShardingCtx.opt_state_specs`).
+
+The MoE (``models/moe.py``) routes the global batch as GSPMD does:
+:meth:`ShardingCtx.split_rows` marks a model call whose rows are this data
+rank's block of a split batch, :meth:`ShardingCtx.global_rows` gives that
+batch's row count (its capacity), :meth:`ShardingCtx.counts_below` the
+lower data ranks' per-expert counts (its queue positions), and
+:meth:`ShardingCtx.expert_range` this model rank's experts.
 """
 
 from __future__ import annotations
@@ -253,6 +260,9 @@ class ShardingCtx:
     batch: int = 0
     pool_blocks: int = 0
     model: object = None              # the ModelConfig whose training state it places
+    # the rows the model layer is handed are this data rank's block of a batch
+    # split over ``data`` (:meth:`split_rows`; the MoE routes the global batch)
+    rows_split: bool = False
 
     # the mesh's shape and this rank's coordinates, read once per context
     # (the model layer asks for them on every call)
@@ -276,10 +286,17 @@ class ShardingCtx:
         return self._coords[axis]
 
     def for_rows(self, batch: int) -> "ShardingCtx":
-        return dataclasses.replace(self, batch=int(batch), pool_blocks=0)
+        return dataclasses.replace(self, batch=int(batch), pool_blocks=0, rows_split=False)
 
     def for_pool(self, n_blocks: int) -> "ShardingCtx":
-        return dataclasses.replace(self, batch=0, pool_blocks=int(n_blocks))
+        return dataclasses.replace(self, batch=0, pool_blocks=int(n_blocks), rows_split=False)
+
+    def split_rows(self) -> "ShardingCtx":
+        """This context for a model call whose rows are this data rank's
+        contiguous block of a batch split evenly over ``data`` (rank 0's
+        block first): a decode or prefill over :meth:`row_range`, the
+        trainer's :func:`~repro_torch.train.step.data_rows`."""
+        return dataclasses.replace(self, rows_split=True)
 
     def for_model(self, model_cfg) -> "ShardingCtx":
         """This context placing ``model_cfg``'s parameters and optimizer
@@ -427,6 +444,36 @@ class ShardingCtx:
             return None
         n = self.batch // self.size("data")
         return self.coord("data") * n, n
+
+    def global_rows(self, n: int) -> int:
+        """The row count of the whole batch whose block of ``n`` rows this
+        rank holds: ``n`` times the data ranks under :meth:`split_rows`,
+        else ``n`` (every rank holds every row)."""
+        return n * self.size("data") if self.rows_split else n
+
+    def expert_range(self, n_experts: int) -> tuple[int, int] | None:
+        """``(first, count)`` of this model rank's experts, or None where
+        ``experts`` does not take the model axis (a model axis of 1, or one
+        that does not divide ``n_experts``: the spec rules then split each
+        expert's ``ffn``, or another axis, or nothing)."""
+        m = self.size("model")
+        if m == 1 or n_experts % m:
+            return None
+        n = n_experts // m
+        return self.coord("model") * n, n
+
+    def counts_below(self, counts: torch.Tensor) -> torch.Tensor:
+        """``counts`` (``(E,)`` int64, this rank's per-expert choices under
+        :meth:`split_rows`) -> the sum of the lower data ranks' counts: one
+        exact ``all_reduce`` over ``data`` of a zero-filled ``(D, E)``
+        buffer in which each rank writes its own row (:meth:`gather`'s
+        pattern).  The exclusive prefix that makes a local queue position
+        the position over the global rows."""
+        rows = torch.zeros((self.size("data"),) + tuple(counts.shape), dtype=counts.dtype,
+                           device=counts.device)
+        rows[self.coord("data")] = counts
+        self.all_reduce(rows, "data")
+        return rows[:self.coord("data")].sum(0)
 
     def block_range(self) -> tuple[int, int] | None:
         """``(first, count)`` of the paged pool's blocks this rank holds

@@ -141,10 +141,33 @@ def _check_full_attention(cfg: AttnConfig, what: str) -> None:
         raise NotImplementedError(f"{what} supports full-attention GQA layers only")
 
 
+class _NormScale(torch.autograd.Function):
+    """``xn * scale.float()`` (fp32, as the reference's q/k norm), whose
+    scale gradient sums the rows' fp32 products in fp64 and rounds once to
+    the scale's dtype: a mesh's split of the heads over ``model`` and of
+    the rows over ``data`` then moves it by no fp32 rounding (an fp64 step
+    stays within fp64 roundings of the unmeshed one)."""
+
+    @staticmethod
+    def forward(ctx, xn, scale):
+        ctx.save_for_backward(xn, scale)
+        return xn * scale.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        xn, scale = ctx.saved_tensors
+        wide = torch.float64  # kanlint: ignore[KL103] (the scale gradient's row sum)
+        gs = (g.to(wide) * xn.to(wide)).reshape(-1, xn.shape[-1]).sum(0)
+        return g * scale.float(), gs.to(scale.dtype)
+
+
 def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
+    xn = xf * torch.rsqrt(var + 1e-6)
+    if torch.is_grad_enabled() and scale.requires_grad:
+        return _NormScale.apply(xn, scale).to(x.dtype)
+    return (xn * scale.float()).to(x.dtype)
 
 
 def flash_attention(

@@ -21,8 +21,11 @@ column-parallel (``ffn`` on ``model``: each rank computes its ``ff/m``
 hidden columns), the second row-parallel (its ``ff/m`` input rows give a
 partial sum, one ``all_reduce`` over ``model`` completes it).  A KAN layer
 is a sum over its input features (``sum_k B(h_k) C_k + ReLU(h_k) Wb_k``),
-so the KAN kernels run on the local rows as they are.  The attention
-blocks take a mesh (``attn_kan``, ``attn_mlp``); the others do not.
+so the KAN kernels run on the local rows as they are.  An ``attn_moe``
+block's experts take the mesh as ``models/moe.py`` sets out (experts on
+``model``, routing over the global batch on ``data``).  The attention
+blocks take a mesh (``attn_kan``, ``attn_mlp``, ``attn_moe``); the
+recurrent ones do not.
 :func:`block_apply` trains on a mesh: the FFN's input enters the local
 columns through ``copy_to_model`` and its partial output leaves through
 ``reduce_from`` (``dist/sharding.py``).
@@ -131,7 +134,7 @@ def _ffn(params: dict, blk: BlockCfg, h: torch.Tensor,
     at prefill and verify-window row counts and the sparse one at decode
     row counts on CUDA (``KL.resolve_inference_method``)."""
     if blk.kind == "attn_moe":
-        return M.moe_forward(params["moe"], blk.moe, h)
+        return M.moe_forward(params["moe"], blk.moe, h, shard)
     key = "mlp" if blk.kind == "attn_mlp" else "kan"
     p, partial = _local_ffn(params[key], blk, h.shape[-1], shard)
     if partial:
@@ -146,9 +149,9 @@ def _residual_ffn(params: dict, blk: BlockCfg, x: torch.Tensor, shard=None) -> t
 
 
 def _check_mesh(blk: BlockCfg, shard) -> None:
-    if shard is not None and blk.kind not in ("attn_mlp", "attn_kan"):
+    if shard is not None and blk.kind not in ATTN_KINDS:
         raise NotImplementedError(
-            f"a mesh serves attn_mlp and attn_kan blocks, not {blk.kind!r}")
+            f"a mesh serves attn_mlp, attn_moe and attn_kan blocks, not {blk.kind!r}")
 
 
 def block_apply(
@@ -163,8 +166,8 @@ def block_apply(
     """Pre-norm residual application (training/forward path: the KAN FFN
     runs ``method="dense"``, as the reference's); returns ``(x, aux)``,
     ``aux`` an attn_moe block's auxiliary losses, else empty.  On a mesh
-    (``shard``; attn_mlp and attn_kan blocks) it differentiates through the
-    mesh's collectives."""
+    (``shard``; attention blocks) it differentiates through the mesh's
+    collectives."""
     check_supported(blk)
     _check_mesh(blk, shard)
     h = L.rmsnorm(params["ln1"], x, shard=shard)

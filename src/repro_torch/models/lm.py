@@ -381,9 +381,10 @@ def forward(params: dict, cfg: ModelConfig, inputs,
     without MoE blocks).  Windowed layers use the sliding flash mask.  It
     records for autograd when grad is on and a parameter requires grad.
     On a mesh (``shard``, the parameters this rank's shards) the rows are
-    the ones this rank was given, and the vocabulary split of the logits
-    is gathered whole (``gather_whole``: every model rank then computes the
-    same thing from them)."""
+    the ones this rank was given (under ``shard.split_rows()`` its block of
+    a batch split over ``data``, which the MoE routes as one), and the
+    vocabulary split of the logits is gathered whole (``gather_whole``:
+    every model rank then computes the same thing from them)."""
     check_supported(cfg)
     check_mesh(cfg, shard)
     h = _embed_inputs(params, cfg, inputs, compute_dtype, shard)
@@ -411,8 +412,10 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.flo
     reference's ``lm_loss``.  On a mesh each data rank holds its rows of
     the batch; the loss is the mean over the whole batch's label tokens
     (``ntokens`` summed over ``data``), each rank's share summed over
-    ``data`` with a backward that keeps the share's own gradient."""
-    logits, aux = forward(params, cfg, batch, compute_dtype, shard)
+    ``data`` with a backward that keeps the share's own gradient, and the
+    MoE auxiliaries are the whole batch's (``models/moe.py``)."""
+    logits, aux = forward(params, cfg, batch, compute_dtype,
+                          None if shard is None else shard.split_rows())
     labels = batch["labels"].long()
     if cfg.input_kind == "mixed":
         pad = labels.new_full((labels.shape[0], cfg.n_prefix), -100)
@@ -443,17 +446,16 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.flo
 
 def mesh_refusal(cfg: ModelConfig) -> str | None:
     """Why a mesh cannot serve or train ``cfg`` yet, or None: the port's
-    mesh takes token-input models of full-attention GQA ``attn_kan`` and
-    ``attn_mlp`` blocks (the reference shards every family through GSPMD)."""
+    mesh takes token-input models of full-attention GQA ``attn_kan``,
+    ``attn_mlp`` and ``attn_moe`` blocks (the reference shards every family
+    through GSPMD)."""
     why = None
     if cfg.input_kind != "tokens":
         why = f"{cfg.input_kind!r} inputs"
     for blk in cfg.prologue + cfg.unit + cfg.epilogue + cfg.shared:
         if why:
             break
-        if blk.kind == "attn_moe":
-            why = "MoE experts"
-        elif blk.kind not in ("attn_mlp", "attn_kan"):
+        if blk.kind not in B.ATTN_KINDS:
             why = f"recurrent {blk.kind} blocks"
         elif blk.attn.kv_lora_rank is not None:
             why = "MLA (kv_lora) attention"
@@ -462,8 +464,8 @@ def mesh_refusal(cfg: ModelConfig) -> str | None:
     if why is None:
         return None
     return (f"{cfg.name}: a mesh does not take {why} yet (not ported: ROADMAP queue 1, "
-            "item 9.4.2); a mesh serves and trains token-input attn_kan and attn_mlp "
-            "models of full-attention GQA")
+            "item 9.4.2); a mesh serves and trains token-input attn_kan, attn_mlp and "
+            "attn_moe models of full-attention GQA")
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
@@ -813,6 +815,7 @@ def prefill(
     rows = shard.for_rows(tokens.shape[0]).row_range()
     if rows is not None:
         tokens = tokens.narrow(0, *rows)
+        shard = shard.split_rows()
     logits = _fill(params, cfg, _embed_tokens(params, cfg, tokens, compute_dtype, shard),
                    caches, shard)
     return _whole_logits(cfg, logits, shard, rows), caches
@@ -842,6 +845,7 @@ def decode_step(
     if rows is not None:
         tokens = tokens.narrow(0, *rows)
         pos = pos if pos.dim() == 0 else pos.narrow(0, *rows)
+        shard = shard.split_rows()
     if cfg.input_kind == "embeddings":
         h = tokens.to(compute_dtype)
         if h.dim() == 2:                   # (B, d) rows

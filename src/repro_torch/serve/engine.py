@@ -77,7 +77,7 @@ sees device counts.  On one rank the mesh runs the unmeshed operations,
 so its streams are bit-identical; across ranks the streams equal the
 unmeshed engine's unless a near-tie flips, since the row-parallel
 ``all_reduce`` sums fp32 partials in another order, as the reference
-documents.  A mesh serves token-input ``attn_kan``/``attn_mlp`` models
+documents.  A mesh serves token-input ``attn_kan``/``attn_mlp``/``attn_moe`` models
 without speculative windows (``lm.mesh_refusal``).
 """
 

@@ -33,7 +33,11 @@ the pipeline takes launches no kernel, and naming the card for each stage
 gives the default placement's result bit for bit.  A 1x1 mesh on a one-rank
 NCCL group serves the continuous engine's streams bit for bit with the
 unmeshed engine's launch counts, and its train steps give the unmeshed
-step's losses, parameters and moments bit for bit, launching no kernel.
+step's losses, parameters and moments bit for bit, launching no kernel;
+so does reduced olmoe-1b-7b (streams, drop fractions, launches; train
+steps).  ``launch/train.py`` under ``torchrun --nproc-per-node 1`` joins a
+one-rank NCCL group and prints the in-process unmeshed run's losses, its
+checkpoint holding that run's parameters bit for bit.
 """
 
 import ctypes
@@ -1598,3 +1602,124 @@ def test_one_rank_nccl_mesh_trains_as_the_unmeshed_step(cuda_device, master, tmp
     assert got == want
     assert all(torch.equal(got_tree[k], v) for k, v in want_tree.items())
     assert got_launch == want_launch and not any(want_launch.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [{}, {"paged": True, "paged_read": "step"}])
+def test_one_rank_nccl_mesh_serves_olmoe_as_the_unmeshed_engine(cuda_device, cfg, tmp_path):
+    """Reduced olmoe-1b-7b on a 1x1 mesh of a one-rank NCCL group: the
+    unmeshed engine's streams, drop fractions and launch counts, bit for
+    bit (the MoE's mesh code runs the unmeshed operations on one rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    model = configs.get_reduced("olmoe-1b-7b").model
+    params = lm.init_params(model, seed=0, device="cpu")
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    real = moe.moe_forward
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for mesh in (None, make_host_mesh((1, 1))):
+            drops = []
+
+            def metered(*args, **kw):
+                y, aux = real(*args, **kw)
+                drops.append(aux["moe_drop_frac"])
+                return y, aux
+
+            eng = Engine(params, model, ServeConfig(max_seq=32, max_new_tokens=8, block_size=4,
+                                                    mesh=mesh, **cfg), device=cuda_device)
+            ops.reset_launches()
+            moe.moe_forward = metered
+            try:
+                streams = eng.serve_continuous(reqs, slots=4, chunk_steps=3)
+            finally:
+                moe.moe_forward = real
+            out.append((streams, dict(ops.LAUNCHES), [float(d) for d in drops]))
+    finally:
+        dist.destroy_process_group()
+    (want, launches, want_drops), (got, mesh_launches, got_drops) = out
+    assert all(np.array_equal(a, b) for a, b in zip(want, got))
+    assert mesh_launches == launches and got_drops == want_drops and any(want_drops)
+    assert (launches["gather_blocks"] > 0) == bool(cfg)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_trains_olmoe_as_the_unmeshed_step(cuda_device, tmp_path):
+    """Reduced olmoe-1b-7b's ``make_train_step`` on a 1x1 mesh of a one-rank
+    NCCL group: the unmeshed step's losses, parameters and AdamW state, bit
+    for bit, and no kernel launched."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.data import pipeline as dp
+    from repro_torch.dist.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    model = configs.get_reduced("olmoe-1b-7b").model
+    opt = adamw.AdamWConfig(lr=2e-3, warmup_steps=1, total_steps=2)
+    data = dp.LMDataConfig(vocab=model.vocab, seq_len=16, global_batch=4, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for shard in (None, ShardingCtx(make_host_mesh((1, 1)))):
+            params = lm.init_params(model, seed=0, device=cuda_device)
+            state = adamw.init_state(params,
+                                     shard=None if shard is None else shard.for_model(model))
+            step = TS.make_train_step(model, opt, shard=shard)
+            ops.reset_launches()
+            losses = []
+            for i in range(2):
+                params, state, m = step(params, state, dp.lm_batch(data, i, device=cuda_device))
+                losses.append(float(m["loss"]))
+            out.append((losses, flatten_with_paths((params, state)), dict(ops.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+    (want, want_tree, want_launch), (got, got_tree, got_launch) = out
+    assert got == want
+    assert all(torch.equal(got_tree[k], v) for k, v in want_tree.items())
+    assert got_launch == want_launch and not any(want_launch.values())
+
+
+@pytest.mark.cuda
+def test_the_launcher_trains_under_torchrun_on_one_nccl_rank(cuda_device, tmp_path):
+    """``torchrun --nproc-per-node 1 -m repro_torch.launch.train`` joins a
+    one-rank NCCL group and trains on its ``(1, 1)`` mesh: the printed
+    losses are the in-process unmeshed run's, and the parameters of its last
+    checkpoint are that run's bit for bit."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.launch import elastic
+    from repro_torch.launch import train as launcher
+
+    argv = ["--arch", "kanformer-100m", "--reduced", "--steps", "4", "--batch", "4",
+            "--seq", "16", "--lr", "2e-3", "--log-every", "1", "--ckpt-every", "4"]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv,
+                        "--ckpt-dir", str(tmp_path / "ckpt")],
+                       capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    assert r.returncode == 0, r.stderr[-3000:]
+    want = launcher.run(argv)
+    printed = re.findall(r"step\s+\d+ loss ([-\d.]+)", r.stdout)
+    assert printed == [f"{x:.4f}" for x in want["losses"]] and len(printed) == 4
+    model = configs.get_reduced("kanformer-100m").model
+    params, _, mf = elastic.restore_elastic(str(tmp_path / "ckpt"), 4, model, None,
+                                            torch.float32, device=cuda_device)
+    assert mf["step"] == 4
+    got = flatten_with_paths(params)
+    assert all(torch.equal(got[k], v) for k, v in flatten_with_paths(want["params"]).items())

@@ -5,9 +5,14 @@ on the port.
 One spawned 2x2 ``(data, model)`` gloo group serves the battery's eight
 continuous cells and its static sampled run on reduced kanformer-100m and
 reduced qwen1.5-0.5b with an int8 KV cache (parameters from the JAX
-package's init, ``convert.params_from_jax``), and an MQA kanformer whose
-one KV head the model axis cannot split.  Every rank's tokens equal the
-port's ``mesh=None`` run in rank 0's process.  The distribution proofs
+package's init, ``convert.params_from_jax``), an MQA kanformer whose
+one KV head the model axis cannot split, and four MoE models (reduced
+olmoe-1b-7b, 8 experts on the model axis at capacity 1.25; 5 experts, whose
+ffn takes it; GQA with a shared expert; the einsum dispatch) dense, paged,
+on a data-split pool and in static buckets.  Every rank's tokens equal the
+port's ``mesh=None`` run in rank 0's process.  The MoE routes the global
+batch: a fp64 prefill's routing integers and drop fractions on each rank
+equal the unmeshed whole batch's at its rows.  The distribution proofs
 read the shards' shapes: ``wq`` heads / 2, dense ``k`` batch / 2 and KV
 heads / 2, pool blocks / 2 (an odd pool whole), the int8 ``k_scale`` on
 ``model``; each leaf's local shards, stitched across ranks, give the
@@ -60,7 +65,7 @@ def ranks(params):
     return M.run_ranks(cells.run_battery, SHAPE, "cpu", args=(params,))
 
 
-TAGS = sorted(cells.CELLS) + ["static_sampled"]
+TAGS = sorted(cells.CELLS) + ["static_sampled", cells.STATIC_MOE[0]]
 
 
 @pytest.mark.parametrize("tag", TAGS)
@@ -69,8 +74,53 @@ def test_every_rank_serves_the_unmeshed_streams(ranks, tag):
     assert len(ref) == 5
     for r in ranks:
         assert all(np.array_equal(a, b) for a, b in zip(ref, r["mesh"][tag])), (tag, r["coord"])
-        if tag != "static_sampled":
+        if tag in cells.CELLS:
             assert r["stats"][tag] == {"data": 2, "model": 2}
+
+
+def test_moe_routes_the_global_batch_on_every_rank(ranks):
+    """The fp64 prefill's rows split over data: each rank's routing
+    integers are the unmeshed whole batch's at its rows (``cap`` of the 36
+    global rows, queue positions after the lower data rank's), tokens drop,
+    and every rank reads the whole batch's drop fraction."""
+    ref = cells.routes()
+    S = cells.ROUTE_ROWS * cells.ROUTE_LEN
+    n = S // 2
+    assert len(ref["routes"]) == cells.OLMOE.n_repeats
+    assert all(d > 0 for d in ref["drops"])               # capacity 1.25 binds
+    for r in ranks:
+        got, rows = r["routes"], slice(r["coord"][0] * n, (r["coord"][0] + 1) * n)
+        assert got["drops"] == ref["drops"]
+        for (te, pos, keep, cap), (rte, rpos, rkeep, rcap) in zip(got["routes"], ref["routes"]):
+            assert cap == rcap < S
+            assert te.shape[0] == n
+            assert torch.equal(te, rte[rows]) and torch.equal(pos, rpos[rows])
+            assert torch.equal(keep, rkeep[rows])
+        torch.testing.assert_close(got["logits"], ref["logits"], rtol=1e-10, atol=1e-10)
+
+
+def test_moe_drop_fraction_is_equal_on_every_rank(ranks):
+    """The static engine's buckets split over data: every MoE call on every
+    rank reads the drop fraction of the unmeshed call."""
+    want = ranks[0]["moe_static_ref_drops"]
+    assert len(want) == 2 * cells.OLMOE.n_repeats * 8        # two buckets, 8 passes each
+    for r in ranks:
+        assert r["moe_static_drops"] == want, r["coord"]
+
+
+def test_moe_experts_are_split_over_the_model_axis(ranks):
+    L, m = cells.OLMOE.n_repeats, cells.OLMOE.unit[0].moe
+    E, d, f = m.n_experts, m.d_model, m.d_ff
+    for r in ranks:
+        s = r["moe_shapes"]
+        # expert parallelism: each rank holds E / 2 experts and the router's columns
+        assert s["moe"]["wi"] == s["moe"]["wg"] == (L, E // 2, d, f)
+        assert s["moe"]["wo"] == (L, E // 2, f, d) and s["moe"]["router"] == (L, d, E // 2)
+        # 5 experts: each expert's ffn splits, the router's embed rows
+        assert s["moe5"]["wi"] == (L, 5, d, f // 2) and s["moe5"]["wo"] == (L, 5, f // 2, d)
+        assert s["moe5"]["router"] == (L, d // 2, 5)
+        assert s["moe_sh"]["shared_wi"] == s["moe_sh"]["shared_wg"] == (L, d, f // 2)
+        assert s["moe_sh"]["shared_wo"] == (L, f // 2, d)
 
 
 def test_shards_are_distributed_not_replicated(ranks):
@@ -172,8 +222,10 @@ def test_mesh_refuses_what_it_does_not_serve():
     from repro_torch import configs
 
     with pytest.raises(ValueError, match="item 9.4"):
-        _mesh_engine(configs.get_reduced("olmoe-1b-7b").model)
-    assert "MoE experts" in lm.mesh_refusal(configs.get_reduced("olmoe-1b-7b").model)
+        _mesh_engine(configs.get_reduced("deepseek-v2-lite").model)
+    # MoE experts take the mesh (item 9.4.2 step 2); deepseek stays refused by its MLA
+    assert lm.mesh_refusal(configs.get_reduced("olmoe-1b-7b").model) is None
+    assert lm.mesh_refusal(configs.get_config("olmoe-1b-7b").model) is None
     assert "MLA" in lm.mesh_refusal(configs.get_reduced("deepseek-v2-lite").model)
     assert "windowed" in lm.mesh_refusal(configs.get_reduced("gemma3-12b").model)
     assert "recurrent" in lm.mesh_refusal(configs.get_reduced("xlstm-1.3b").model)

@@ -35,9 +35,18 @@ which ``tests/test_torch_train.py`` holds to the reference's.
 * ``launch.train.run`` in the group trains on ``(1, 4)``, rank 0 alone
   prints, a failure planted on every rank is retried together, and a
   SIGTERM to one rank stops every rank at the same step.
-* In process: a one-rank group's step is bit-identical to ``shard=None``;
+* In process: a one-rank group's step is bit-identical to ``shard=None``
+  (kanformer and reduced olmoe); the launcher trains olmoe in the group;
   the refused families raise ``ValueError`` naming item 9.4.2, and the
   launcher exits with rc=2 on them.
+
+The four MoE models of the serving battery (``tests/torch_mesh_cells.py``:
+experts on the model axis with tokens dropping at capacity 1.25, each
+expert's ffn on it, GQA with a shared expert, the einsum dispatch) take
+every case above; the routing of each microbatch is the global
+microbatch's, its auxiliaries the whole batch's, and the router's gradient
+sums its rows in fp64 (``models/moe.py``), so fp64 holds to 1e-10 there
+too.  Reduced olmoe's checkpoint continues on 1x1 as kanformer's.
 """
 
 from __future__ import annotations
@@ -300,6 +309,31 @@ def test_checkpoint_from_2x2_continues_unmeshed_on_1x1_and_on_1x2(ranks, ckpt_di
     assert _max_err(got, unmeshed["params"]) <= FP64_TOL
 
 
+def test_moe_checkpoint_from_2x2_continues_unmeshed_and_on_1x1(ranks, ckpt_dir, tmp_path):
+    """Reduced olmoe's fp64 run saved on 2x2 (expert leaves split over model,
+    their moments ZeRO-split over data) continues through ``restore_elastic``
+    unmeshed and on a 1x1 mesh equal to the straight 2x2 run."""
+    key, dtype = cells.MOE_CKPT_KEY
+    path = cells.ckpt_path(ckpt_dir, cells.MOE_CKPT_KEY)
+    straight = [r["train"][key, dtype, "plain"] for r in ranks]
+    want = _stitch(key, [s["params"] for s in straight], _coords(ranks))
+    unmeshed = cells.continue_case(path, case=cells.MOE_CKPT_KEY)
+    assert unmeshed["step"] == cells.CKPT_AT and len(unmeshed["losses"]) == 2
+    np.testing.assert_allclose(unmeshed["losses"], straight[0]["losses"][cells.CKPT_AT:],
+                               rtol=FP64_TOL)
+    assert _max_err(want, unmeshed["params"]) <= FP64_TOL
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        one = cells.continue_case(path, ShardingCtx(M.make_host_mesh((1, 1))),
+                                  case=cells.MOE_CKPT_KEY)
+    finally:
+        dist.destroy_process_group()
+    assert one["losses"] == unmeshed["losses"]
+    for k, v in flatten_with_paths(unmeshed["params"]).items():
+        assert torch.equal(flatten_with_paths(one["params"])[k], v), k
+
+
 def test_a_jax_checkpoint_restores_onto_the_2x2_mesh(ranks, jax_ckpt):
     whole = params_from_jax(numpy_params(cells.QWEN, 11), device="cpu")
     params, state, mf = elastic.restore_elastic(jax_ckpt, 3, cells.QWEN, None, torch.float32,
@@ -340,10 +374,23 @@ def test_one_rank_mesh_step_is_bit_identical_and_refusals_exit_2(tmp_path, capsy
                 fa, fb = flatten_with_paths(a), flatten_with_paths(b)
                 assert fa.keys() == fb.keys()
                 assert all(torch.equal(fa[k], fb[k]) for k in fa), variant
-        rc = launcher.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu"])
+        want = cells.train_case("moe", "fp32", "plain", steps=2)
+        got = cells.train_case("moe", "fp32", "plain", shard, steps=2)
+        assert got["losses"] == want["losses"]
+        fa, fb = (flatten_with_paths(t) for t in ((got["params"], got["state"]),
+                                                   (want["params"], want["state"])))
+        assert all(torch.equal(fa[k], fb[k]) for k in fb), "moe"
+        # MoE trains in the group (item 9.4.2 step 2); MLA stays refused
+        rc = launcher.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                            "--steps", "2", "--batch", "4", "--seq", "8"])
+        assert rc == 0 and "[done] steps=2" in capsys.readouterr().out
+        rc = launcher.main(["--arch", "deepseek-v2-lite", "--reduced", "--device", "cpu"])
         assert rc == 2 and "item 9.4.2" in capsys.readouterr().err
     finally:
         dist.destroy_process_group()
+
+
+ACCEPTED = ("olmoe-1b-7b",)
 
 
 @pytest.mark.parametrize("arch,why", [
@@ -355,6 +402,10 @@ def test_the_mesh_refuses_to_train_other_families(arch, why):
     cfg = configs.get_reduced(arch).model
     shard = ShardingCtx(object())
     opt = adamw.AdamWConfig()
+    if arch in ACCEPTED:              # MoE experts train on a mesh (item 9.4.2 step 2)
+        assert lm.mesh_refusal(cfg) is None
+        assert callable(TS.make_train_step(cfg, opt, shard=shard))
+        return
     with pytest.raises(ValueError, match=f"{why}.*item 9.4.2"):
         TS.make_train_step(cfg, opt, shard=shard)
     with pytest.raises(ValueError, match="item 9.4.2"):

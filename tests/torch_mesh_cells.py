@@ -6,6 +6,9 @@ on rank 0, without it, plus what the distribution proofs read."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -15,6 +18,7 @@ from repro_torch.configs import kanformer_100m
 from repro_torch.configs.common import enable_kv_quant
 from repro_torch.dist.sharding import ShardingCtx
 from repro_torch.models import lm
+from repro_torch.models import moe as MOE_LIB
 from repro_torch.serve.engine import Engine, ServeConfig
 
 KAN = configs.get_reduced("kanformer-100m").model
@@ -23,7 +27,24 @@ Q8 = enable_kv_quant(configs.get_reduced("qwen1.5-0.5b")).model
 # its query heads with the whole KV head
 MQA = kanformer_100m.build(n_layers=2, d_model=64, n_heads=4, n_kv=1, kan_ff=96,
                            vocab=512).model
-MODELS = {"kan": KAN, "q8": Q8, "mqa": MQA}
+# reduced olmoe-1b-7b: 8 experts on a model axis of 2 (expert parallelism),
+# capacity factor 1.25 (tokens drop); and three test-built variants: 5
+# experts, which the model axis does not divide (each expert's ffn takes it);
+# GQA (2 KV heads) with one shared expert; the einsum dispatch
+OLMOE = configs.get_reduced("olmoe-1b-7b").model
+
+
+def moe_variant(name: str, n_kv: int | None = None, **moe) -> lm.ModelConfig:
+    blk = OLMOE.unit[0]
+    attn = blk.attn if n_kv is None else dataclasses.replace(blk.attn, n_kv_heads=n_kv)
+    blk = dataclasses.replace(blk, attn=attn, moe=dataclasses.replace(blk.moe, **moe))
+    return dataclasses.replace(OLMOE, name=name, unit=(blk,))
+
+
+MOE_MODELS = {"moe": OLMOE, "moe5": moe_variant("olmoe-e5", n_experts=5),
+              "moe_sh": moe_variant("olmoe-gqa-shared", n_kv=2, n_shared=1),
+              "moe_es": moe_variant("olmoe-einsum", dispatch="einsum")}
+MODELS = {"kan": KAN, "q8": Q8, "mqa": MQA, **MOE_MODELS}
 PAGED = {"paged": True, "block_size": 8}
 CELLS = {
     "dense_greedy": ("kan", {}),
@@ -36,7 +57,21 @@ CELLS = {
     "paged_int8": ("q8", PAGED),
     "mqa_dense": ("mqa", {}),
     "mqa_paged_step": ("mqa", {**PAGED, "paged_read": "step"}),
+    "moe_dense_greedy": ("moe", {}),
+    "moe_paged_step_sampled": ("moe", {**PAGED, "paged_read": "step", "temperature": 0.7}),
+    "moe_paged_data_sharded_pool": ("moe", {**PAGED, "pool_blocks": 14}),
+    "moe5_dense": ("moe5", {}),
+    "moe5_paged_shadow": ("moe5", PAGED),
+    "moe_shared_dense": ("moe_sh", {}),
+    "moe_shared_paged_step": ("moe_sh", {**PAGED, "paged_read": "step"}),
+    "moe_einsum_dense": ("moe_es", {}),
 }
+# the static engine's buckets: batch 4 splits over the data axis, so the MoE
+# routes each rank's rows as one global batch
+STATIC_MOE = ("moe_static_greedy", "moe", 4)
+# the routing proof: a fp64 prefill of ROUTE_ROWS prompts of ROUTE_LEN tokens
+# (rows split over data; 36 routed rows, cap 11 of 9 per expert on average)
+ROUTE_ROWS, ROUTE_LEN = 4, 9
 
 
 def requests() -> list[np.ndarray]:
@@ -60,7 +95,8 @@ def run_battery(mesh, device, params: dict) -> dict:
     it), the static sampled run, this rank's parameter shards and the
     shapes of its cache shards."""
     torch.set_num_threads(1)
-    params = dict(params, mqa=lm.init_params(MQA, seed=0, device="cpu"))
+    params = dict(params, mqa=lm.init_params(MQA, seed=0, device="cpu"),
+                  **{k: lm.init_params(m, seed=0, device="cpu") for k, m in MOE_MODELS.items()})
     first = dist.get_rank() == 0
     out = {"mesh": {}, "ref": {}, "stats": {}}
     for tag, (key, kw) in CELLS.items():
@@ -72,6 +108,17 @@ def run_battery(mesh, device, params: dict) -> dict:
     out["mesh"]["static_sampled"], engm = serve(params, "kan", mesh, static, device, True)
     if first:
         out["ref"]["static_sampled"], _ = serve(params, "kan", None, static, device, True)
+    tag, key, batch = STATIC_MOE
+    out["mesh"][tag], eng = serve_static(params, key, mesh, batch, device)
+    out["moe_static_drops"] = eng.drops
+    if first:
+        out["ref"][tag], eng = serve_static(params, key, None, batch, device)
+        out["moe_static_ref_drops"] = eng.drops
+    out["routes"] = routes(mesh)
+    out["moe_shapes"] = {}
+    for key, model in MOE_MODELS.items():
+        local = ShardingCtx(mesh).place_params(model, params[key])["unit"][0]["moe"]
+        out["moe_shapes"][key] = {n: tuple(w.shape) for n, w in local.items()}
     engq = Engine(params["q8"], Q8, ServeConfig(max_seq=48, max_new_tokens=8, mesh=mesh),
                   device=device)
     out["local"] = {"kan": engm.params, "q8": engq.params}
@@ -103,3 +150,57 @@ def copied_pool(shard=None) -> torch.Tensor:
     k.copy_(full[:, first:first + n, :, kv0:kv0 + k.shape[3]])
     lm.copy_paged_blocks(pools, *COPIES, shard=shard)
     return k
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``moe.route`` call's integers ``(top_e, pos, keep, cap)`` and
+    every ``moe_forward`` call's ``moe_drop_frac`` while active."""
+    real_route, real_forward = MOE_LIB.route, MOE_LIB.moe_forward
+    got = {"routes": [], "drops": []}
+
+    def route(*args, **kw):
+        r = real_route(*args, **kw)
+        got["routes"].append(tuple(t.clone() if torch.is_tensor(t) else t for t in r[3:]))
+        return r
+
+    def forward(*args, **kw):
+        y, aux = real_forward(*args, **kw)
+        got["drops"].append(float(aux["moe_drop_frac"]))
+        return y, aux
+
+    MOE_LIB.route, MOE_LIB.moe_forward = route, forward
+    try:
+        yield got
+    finally:
+        MOE_LIB.route, MOE_LIB.moe_forward = real_route, real_forward
+
+
+def route_prompts() -> torch.Tensor:
+    rs = np.random.RandomState(1)
+    return torch.as_tensor(rs.randint(0, OLMOE.vocab, (ROUTE_ROWS, ROUTE_LEN)))
+
+
+def routes(mesh=None) -> dict:
+    """The routing proof's fp64 prefill of reduced olmoe (on a mesh this
+    rank's rows, split over data) -> each layer's routing integers and drop
+    fraction, and the logits."""
+    params = lm.init_params(OLMOE, seed=0, device="cpu", dtype=torch.float64)
+    shard = None
+    if mesh is not None:
+        shard = ShardingCtx(mesh)
+        params = shard.place_params(OLMOE, params)
+    with recorded_routes() as got:
+        logits, _ = lm.prefill(params, OLMOE, route_prompts(), 16, torch.float64, shard)
+    return {**got, "logits": logits}
+
+
+def serve_static(params, key, mesh, batch, device="cpu"):
+    """``serve_requests`` greedy in buckets of ``batch`` -> ``(streams,
+    engine)``, the engine's ``drops`` every MoE call's drop fraction."""
+    eng = Engine(params[key], MODELS[key], ServeConfig(max_seq=48, max_new_tokens=8, mesh=mesh),
+                 device=device)
+    with recorded_routes() as got:
+        outs = eng.serve_requests(requests(), batch_size=batch)
+    eng.drops = got["drops"]
+    return outs, eng

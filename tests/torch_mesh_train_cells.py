@@ -34,7 +34,9 @@ QWEN = configs.get_reduced("qwen1.5-0.5b").model
 # its one KV head not) with a vocabulary the model axis does not divide:
 # the tied table then splits on embed and is gathered whole
 MQA = dataclasses.replace(serving.MQA, vocab=509)
-MODELS = {"kan": KAN, "qwen": QWEN, "mqa": MQA}
+# the serving battery's four MoE models: experts on model (capacity 1.25,
+# tokens drop), experts' ffn on model, GQA with a shared expert, einsum
+MODELS = {"kan": KAN, "qwen": QWEN, "mqa": MQA, **serving.MOE_MODELS}
 DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
 # master weights, accumulation and the bf16 wire format share a run: each
 # changes another part of the step, and fewer runs keep the group's time low
@@ -49,9 +51,11 @@ TRAIN_CASES = ([(k, "fp64", v) for k in MODELS for v in VARIANTS]
                + [(k, "fp32", "plain") for k in MODELS]
                + [("kan", "fp32", v) for v in VARIANTS if v != "plain"])
 B, T, STEPS, LR = 8, 8, 3, 2e-3
-# the checkpoint case: a fp64 run saved at step CKPT_AT and continued to STEPS + 2
+# the checkpoint cases: a fp64 run saved at step CKPT_AT and continued to STEPS + 2
 CKPT_AT = STEPS
 CKPT_KEY = ("kan", "fp64")
+MOE_CKPT_KEY = ("moe", "fp64")
+CKPT_KEYS = (CKPT_KEY, MOE_CKPT_KEY)
 LAUNCH = ["--arch", "kanformer-100m", "--reduced", "--device", "cpu", "--steps", "6",
           "--batch", "4", "--seq", "8", "--ckpt-every", "2", "--log-every", "1", "--lr", "2e-3"]
 FAIL_CALL, STOP_CALL, STOP_RANK = 2, 4, 1     # the launcher's planted failure and stop
@@ -112,10 +116,16 @@ def train_case(key: str, dtype: str, variant: str, shard=None, steps: int = STEP
     return {**out, "params": params, "state": state}
 
 
-def continue_case(ckpt: str, shard=None, device="cpu") -> dict:
+def ckpt_path(ckpt_dir: str, key: tuple) -> str:
+    """Where the checkpoint case ``key`` saves (kanformer's in ``ckpt_dir``
+    itself)."""
+    return ckpt_dir if key == CKPT_KEY else os.path.join(ckpt_dir, key[0])
+
+
+def continue_case(ckpt: str, shard=None, device="cpu", case: tuple = CKPT_KEY) -> dict:
     """The checkpoint case's run restored at :data:`CKPT_AT` through
     ``restore_elastic`` and taken to ``STEPS + 2``."""
-    key, dtype = CKPT_KEY
+    key, dtype = case
     cfg = MODELS[key]
     params, state, mf = elastic.restore_elastic(ckpt, CKPT_AT, cfg, shard, DTYPES[dtype],
                                                 device=device)
@@ -213,7 +223,8 @@ def run_battery(mesh, device, ckpt_dir: str, jax_ckpt: str) -> dict:
     for key, dtype in cases:
         out["grads"][key, dtype] = grads_case(key, dtype, shard)
     for key, dtype, variant in TRAIN_CASES:
-        ck = ckpt_dir if (key, dtype) == CKPT_KEY and variant == "plain" else None
+        ck = ckpt_path(ckpt_dir, (key, dtype)) if (key, dtype) in CKPT_KEYS and \
+            variant == "plain" else None
         out["train"][key, dtype, variant] = train_case(
             key, dtype, variant, shard, steps=STEPS + 2 if ck else STEPS, ckpt=ck)
     out["zero"] = zero_update(shard)
@@ -232,6 +243,6 @@ def run_battery(mesh, device, ckpt_dir: str, jax_ckpt: str) -> dict:
         if kind == "grads":
             out["ref_grads"][case] = grads_case(*case)
         else:
-            ck = case[:2] == CKPT_KEY and case[2] == "plain"
+            ck = case[:2] in CKPT_KEYS and case[2] == "plain"
             out["ref_train"][case] = train_case(*case, steps=STEPS + 2 if ck else STEPS)
     return out
