@@ -167,9 +167,10 @@ Phases; any failed check raises and the script exits non-zero:
    partings from the dense run counted; the dense, paged shadow and both
    speculative runs again at no drop, the paged and speculative streams
    equal to the dense ones and the dense ones to ``lm.forward``, up to
-   near-ties; a warm bucket and a warm wave profiled.  (b) Full-width,
-   full-depth deepseek-v2-lite (MLA, a dense prologue, 2 shared and 64
-   routed experts top-6; 62.0 GB) serves 4 prompts statically (held as
+   near-ties; a warm bucket and a warm wave profiled.  (b) Full-width
+   deepseek-v2-lite (MLA, a dense prologue, 2 shared and 64 routed experts
+   top-6) at ``DEEPSEEK_REPEATS`` = 8 of its 26 MoE layers (19.9 GB of its
+   62.0 in fp32) serves 4 prompts statically (held as
    (a)'s) and 8 requests through 4 dense continuous slots, at the
    published capacity and at no drop (held to ``lm.forward``); peak memory
    and the latent cache's bytes beside the GQA cache's.
@@ -284,7 +285,15 @@ Phases; any failed check raises and the script exits non-zero:
    run of the same cell unless the first divergence is a logits near-tie
    (``DENSE_TIE``; sampled ``LOGIT_ATOL`` x T) or a router near-tie
    (``MESH_ROUTER_TIE``), the parting step recomputed and its smallest
-   router-probability gap printed.
+   router-probability gap printed.  deepseek-v2-lite (MLA) at full width,
+   its dense prologue and ``MESH_DEEPSEEK_REPEATS`` = 1 of its 26 MoE
+   layers: the static sampled cell and continuous dense (its latent does
+   not page), (a) on 1x1 as olmoe's and (b) in the same spawn, each rank's
+   shards the reference's placement (``wq`` (1, 2048, 8, 192), ``w_dkv``
+   (1, 2048, 288), ``kv_norm`` (1, 256), the dense cache's ``ckv`` (1, 4,
+   192, 288): rows over data and 288 of the latent's 576 columns over model;
+   32 of 64 experts; the prologue's ffn 5472), its latent cache's bytes a
+   quarter of the unmeshed one's, its streams held as olmoe's.
 18. Training on a mesh (``train/step.py``'s ``shard``, ZeRO-sharded AdamW,
    ``launch/elastic.py``; see the note above ``MESH_TRAIN``).  (a)
    Full-width kanformer-100m takes ``launch.train``'s recipe for 4 steps of
@@ -311,7 +320,9 @@ Phases; any failed check raises and the script exits non-zero:
    olmoe-1b-7b at full width, ``MESH_OLMOE_REPEATS`` layers, batch 8 x 64:
    2 steps unmeshed and on 1x1 bit-equal (losses, parameters, ``m``/``v``;
    no launch; ms and kernels per step), and 2 rehearsal steps held as
-   qwen's, with the experts' ``m`` + ``v`` bytes per rank.  The rehearsal
+   qwen's, with the experts' ``m`` + ``v`` bytes per rank; deepseek-v2-lite
+   at ``MESH_DEEPSEEK_REPEATS`` (MLA: heads on model, the latent projection
+   gathered whole) the same.  The rehearsal
    also takes one kanformer step with the int8 wire format (its scale's
    ``all_reduce`` MAX over ``model``, gloo on CUDA tensors) and one with
    bf16 parameters under ZeRO (``MESH_TRAIN_VARIANTS``), each held to the
@@ -3235,9 +3246,19 @@ def olmoe_path(torch, np, device="cuda", cfg=None):
     return out
 
 
+# deepseek-v2-lite's depth in phase 11 (b): its dense prologue and 8 of its
+# 26 MoE layers at full width (4.97 B parameters, 19.9 GB of fp32).  The
+# script without deepseek's mesh cells took 1132 s of its 1200 on an H100
+# 80GB HBM3 at 700 W; with them, phase 11 (b) at full depth (28.9 s there,
+# 10.5 s cut) is the first depth to cut.  The cut keeps every check and
+# exact launch count of the cells, and the full-depth figures are in PERF.md.
+DEEPSEEK_REPEATS = 8
+
+
 def deepseek_path(torch, np, device="cuda", cfg=None):
-    """Phase 11 (b), any miss raises: deepseek-v2-lite at full width and
-    depth (random weights from seed 0, fp32; MLA, a dense prologue, 2
+    """Phase 11 (b), any miss raises: deepseek-v2-lite at full width, its
+    prologue and ``DEEPSEEK_REPEATS`` of its 26 MoE layers (random weights
+    from seed 0, fp32; MLA, a dense prologue, 2
     shared + 64 routed experts): the static cell of 4 prompts and the dense
     continuous cell (8 requests, 4 slots), each counted, at the published
     capacity; the continuous cell again at no drop, held to ``lm.forward``;
@@ -3250,14 +3271,14 @@ def deepseek_path(torch, np, device="cuda", cfg=None):
 
     cuda = device == "cuda"
     t_start = time.perf_counter()
-    cfg = cfg or deepseek_v2_lite.config().model
+    cfg = cfg or deepseek_v2_lite.build(n_layers=DEEPSEEK_REPEATS + 1).model
     a, moe = cfg.unit[0].attn, cfg.unit[0].moe
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
     out = {"params": sum(t.numel() for t in flatten_with_paths(params).values()),
            "params_peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
-    log(f"[moe] deepseek-v2-lite full width and depth: d={cfg.d_model} layers={cfg.n_layers} "
+    log(f"[moe] deepseek-v2-lite full width: d={cfg.d_model} layers={cfg.n_layers} of 27 "
         f"(1 dense prologue, d_ff {cfg.prologue[0].d_ff}) MLA kv_lora {a.kv_lora_rank} rope "
         f"{a.qk_rope_dim} heads {a.n_heads} x {a.head_dim}; experts {moe.n_experts} routed "
         f"top-{moe.top_k} + {moe.n_shared} shared, d_ff {moe.d_ff}; vocab {cfg.vocab}; "
@@ -4253,6 +4274,14 @@ MESH_REHEARSAL_RUNS = MESH_RUNS + [("paged_data_sharded_pool",
 # layers: 27 GB of fp32 weights) and the script stays inside its 1200 s
 MESH_OLMOE_REPEATS = 2
 MESH_OLMOE_ONE_RUNS = [("dense", {})]           # on 1x1, with the static sampled cell
+# deepseek-v2-lite in phases 17 and 18: full width, its dense prologue and 1
+# of its 26 MoE layers (0.876 B parameters, 3.50 GB of fp32, about olmoe's 2
+# layers), so that the rehearsal's four ranks fit beside the unmeshed run and
+# the script stays inside its 1200 s.  Its MLA latent does not page, so it
+# takes the static sampled cell and the dense continuous cell only, on 1x1
+# and in the rehearsal (each model rank holds 288 of the latent's 576 columns)
+MESH_DEEPSEEK_REPEATS = 1
+MESH_DEEPSEEK_RUNS = [("dense", {})]
 # an olmoe stream may part from the unmeshed one where its first divergence
 # is a logits near-tie (DENSE_TIE of max|logit|; sampled: LOGIT_ATOL of the
 # perturbed scores, times T) or a router near-tie: a k-th vs (k+1)-th
@@ -4319,11 +4348,13 @@ def mesh_requests(np, vocab: int):
     return reqs, [min(b, MESH["budget"]) for b in budgets]
 
 
-def mesh_rank(mesh, device, cfg, runs, olmoe=None) -> dict:
+def mesh_rank(mesh, device, cfg, runs, olmoe=None, deepseek=None) -> dict:
     """One rank of phase 17's rehearsal (``launch.mesh.run_ranks``): the
     cells, and the shapes of this rank's shards; with ``olmoe = (cfg,
     runs)`` that model's cells too, with its expert shards' shapes and
-    bytes."""
+    bytes; with ``deepseek = (cfg, runs)`` that model's cells, its MLA,
+    expert and prologue shards' shapes and its latent cache's shape and
+    bytes (:func:`mla_shard_facts`)."""
     import numpy as np
     import torch
 
@@ -4352,7 +4383,33 @@ def mesh_rank(mesh, device, cfg, runs, olmoe=None) -> dict:
         out["olmoe"]["shapes"] = {n: tuple(w.shape) for n, w in local.items()}
         out["olmoe"]["expert_bytes"] = sum(w.numel() * w.element_size()
                                            for n, w in local.items() if n != "router")
+        del oparams, local
+    if deepseek is not None:
+        dcfg, druns = deepseek
+        dparams = lm.init_params(dcfg, seed=0, device=device, dtype=torch.float32)
+        out["deepseek"] = mesh_cells(torch, np, dparams, dcfg, mesh, device, druns)
+        out["deepseek"].update(mla_shard_facts(torch, dcfg, dparams, ShardingCtx(mesh)))
+        del dparams
     return out
+
+
+def mla_shard_facts(torch, cfg, params, shard=None) -> dict:
+    """deepseek's shards on this rank (``shard``; None: whole): the unit's
+    attention leaves, the routed experts' ``wi`` and the prologue's FFN
+    ``wi``, the latent cache of the continuous cell's dense slots (its
+    shape and the bytes of every layer's) and of phase 4's static buckets
+    (4 rows)."""
+    from repro_torch.models import lm
+
+    local = params if shard is None else shard.place_params(cfg, params)
+    shapes = {n: tuple(w.shape) for n, w in local["unit"][0]["attn"].items()}
+    shapes["experts_wi"] = tuple(local["unit"][0]["moe"]["wi"].shape)
+    shapes["prologue_wi"] = tuple(local["prologue"][0]["mlp"]["wi"].shape)
+    caches = lm.init_caches(cfg, CONT["slots"], CONT["max_seq"], torch.float32, "meta", shard)
+    shapes["ckv"] = tuple(caches["unit"][0]["ckv"].shape)
+    static = lm.init_caches(cfg, 4, CONT["max_seq"], torch.float32, "meta", shard)
+    return {"shapes": shapes, "latent_bytes": tree_bytes(caches),
+            "static_latent_bytes": tree_bytes(static)}
 
 
 def router_gaps(torch, np, params, cfg, seq, device):
@@ -4418,22 +4475,23 @@ def mesh_expected(cfg, cell: str, r: dict, run: dict, d: int) -> dict:
     return want
 
 
-def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
+def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None, deepseek_cfg=None) -> dict:
     """Phase 17 (see the module docstring; any miss raises).  ``device="cpu"``
-    with a reduced ``cfg`` and ``olmoe_cfg`` rehearses it on the kernels'
-    plain versions (gloo; every count 0)."""
+    with a reduced ``cfg``, ``olmoe_cfg`` and ``deepseek_cfg`` rehearses it
+    on the kernels' plain versions (gloo; every count 0)."""
     import shutil
     import tempfile
 
     import torch.distributed as dist
 
-    from repro_torch.configs import kanformer_100m, olmoe_1b_7b
+    from repro_torch.configs import deepseek_v2_lite, kanformer_100m, olmoe_1b_7b
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as M
     from repro_torch.models import lm
 
     cfg = cfg or kanformer_100m.config().model
     ocfg = olmoe_cfg or olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS).model
+    dcfg = deepseek_cfg or deepseek_v2_lite.build(n_layers=MESH_DEEPSEEK_REPEATS + 1).model
     cuda = device == "cuda"
     zeros = dict.fromkeys(ops.LAUNCHES, 0)
     params = lm.init_params(cfg, seed=0, device=device, dtype=torch.float32)
@@ -4452,6 +4510,10 @@ def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
     oparams = lm.init_params(ocfg, seed=0, device=device, dtype=torch.float32)
     oref = mesh_cells(torch, np, oparams, ocfg, None, device, MESH_REHEARSAL_RUNS)
     out["olmoe_unmeshed_s"] = time.perf_counter() - t_o
+    t_o = time.perf_counter()
+    dparams = lm.init_params(dcfg, seed=0, device=device, dtype=torch.float32)
+    dref = mesh_cells(torch, np, dparams, dcfg, None, device, MESH_DEEPSEEK_RUNS)
+    out["deepseek_unmeshed_s"] = time.perf_counter() - t_o
     tmp = tempfile.mkdtemp(prefix="mesh-")
     dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
                             rank=0, world_size=1)
@@ -4461,6 +4523,10 @@ def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
         oone = mesh_cells(torch, np, oparams, ocfg, M.make_host_mesh((1, 1)), device,
                           MESH_OLMOE_ONE_RUNS)
         out["olmoe_1x1_s"] = time.perf_counter() - t_o
+        t_o = time.perf_counter()
+        done = mesh_cells(torch, np, dparams, dcfg, M.make_host_mesh((1, 1)), device,
+                          MESH_DEEPSEEK_RUNS)
+        out["deepseek_1x1_s"] = time.perf_counter() - t_o
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4486,23 +4552,29 @@ def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
     moe = ocfg.unit[0].moe
     olog = (f"olmoe-1b-7b d={ocfg.d_model} layers={ocfg.n_repeats} of 16 experts="
             f"{moe.n_experts} top-{moe.top_k}")
-    out["olmoe"] = {"layers": ocfg.n_repeats, "runs": {}}
-    for cell, r in oone.items():
-        want = oref[cell]
-        if r["launches"] != want["launches"] or want["launches"] != zeros:
-            raise RuntimeError(f"olmoe 1x1 {cell}: launches {r['launches']} vs unmeshed "
-                               f"{want['launches']} (none expected)")
-        if not all(np.array_equal(a, b) for a, b in zip(r["streams"], want["streams"])):
-            raise RuntimeError(f"olmoe 1x1 {cell}: streams differ from the unmeshed engine's")
-        if r["drops"] != want["drops"]:
-            raise RuntimeError(f"olmoe 1x1 {cell}: drops {r['drops']} vs {want['drops']}")
-        out["olmoe"]["runs"]["1x1_" + cell] = {"launches": r["launches"],
-                                              "decode_ms_per_step": r["decode_ms_per_step"],
-                                              "drops": r["drops"]}
-        log(f"[mesh] {olog}: 1x1 {'NCCL' if cuda else 'gloo'} {cell}: streams bit-equal to the "
-            f"unmeshed engine's, launches equal (none), moe_drop_frac "
-            f"{r['drops']['moe_drop_frac']:.4f} equal; {r['decode_ms_per_step']:.3f} ms per "
-            f"decode step (unmeshed {want['decode_ms_per_step']:.3f})")
+    dmoe, da = dcfg.unit[0].moe, dcfg.unit[0].attn
+    dlog = (f"deepseek-v2-lite d={dcfg.d_model} layers={dcfg.n_layers} (the dense prologue and "
+            f"{dcfg.n_repeats} of 26 MoE layers) MLA kv_lora {da.kv_lora_rank} + rope "
+            f"{da.qk_rope_dim}, experts={dmoe.n_experts} top-{dmoe.top_k}")
+    for key, mlog, mone, mref in (("olmoe", olog, oone, oref), ("deepseek", dlog, done, dref)):
+        out[key] = {"layers": (ocfg if key == "olmoe" else dcfg).n_repeats, "runs": {}}
+        for cell, r in mone.items():
+            want = mref[cell]
+            if r["launches"] != want["launches"] or want["launches"] != zeros:
+                raise RuntimeError(f"{key} 1x1 {cell}: launches {r['launches']} vs unmeshed "
+                                   f"{want['launches']} (none expected)")
+            if not all(np.array_equal(a, b) for a, b in zip(r["streams"], want["streams"])):
+                raise RuntimeError(f"{key} 1x1 {cell}: streams differ from the unmeshed "
+                                   "engine's")
+            if r["drops"] != want["drops"]:
+                raise RuntimeError(f"{key} 1x1 {cell}: drops {r['drops']} vs {want['drops']}")
+            out[key]["runs"]["1x1_" + cell] = {"launches": r["launches"],
+                                               "decode_ms_per_step": r["decode_ms_per_step"],
+                                               "drops": r["drops"]}
+            log(f"[mesh] {mlog}: 1x1 {'NCCL' if cuda else 'gloo'} {cell}: streams bit-equal to "
+                f"the unmeshed engine's, launches equal (none), moe_drop_frac "
+                f"{r['drops']['moe_drop_frac']:.4f} equal; {r['decode_ms_per_step']:.3f} ms per "
+                f"decode step (unmeshed {want['decode_ms_per_step']:.3f})")
     out["1x1_s"] = time.perf_counter() - t0
 
     # (b) the 2x2 rehearsal: four ranks on this one card (gloo), kanformer's
@@ -4510,7 +4582,8 @@ def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
     d, m = MESH["rehearsal"]
     t1 = time.perf_counter()
     ranks = M.run_ranks(mesh_rank, (d, m), device, share_card=cuda,
-                        args=(cfg, MESH_REHEARSAL_RUNS, (ocfg, MESH_REHEARSAL_RUNS)))
+                        args=(cfg, MESH_REHEARSAL_RUNS, (ocfg, MESH_REHEARSAL_RUNS),
+                              (dcfg, MESH_DEEPSEEK_RUNS)))
     out["rehearsal_s"] = time.perf_counter() - t1
     a, hd = cfg.unit[0].attn, cfg.unit[0].attn.head_dim
     L, bs = cfg.n_repeats, CONT["block_size"]
@@ -4585,98 +4658,166 @@ def mesh_path(torch, np, device="cuda", cfg=None, olmoe_cfg=None) -> dict:
         f"1x1 mesh {out['decode_ms_per_step']['1x1']:.3f}, 2x2 REHEARSAL (4 ranks on one card, "
         f"collectives staged through the host over gloo; not a scale-out figure) "
         f"{out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
-    out["olmoe"].update(mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device))
+    rehearsed = mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device)
+    out["olmoe"]["runs"].update(rehearsed.pop("runs"))          # beside the 1x1 runs
+    out["olmoe"].update(rehearsed)
     ms = out["olmoe"]["decode_ms_per_step"]
     ms["1x1"] = oone["dense"]["decode_ms_per_step"]
     log(f"[mesh] olmoe-1b-7b ms per dense decode step: unmeshed {ms['unmeshed']:.3f}, 1x1 mesh "
         f"{ms['1x1']:.3f}, 2x2 REHEARSAL (not a scale-out figure) {ms['2x2_rehearsal']:.3f}; on "
         f"{card_line() if cuda else 'the CPU (plain versions)'}")
+    del oparams
+    rehearsed = mesh_deepseek_rehearsal(torch, np, ranks, dref, dparams, dcfg, device)
+    out["deepseek"]["runs"].update(rehearsed.pop("runs"))
+    out["deepseek"].update(rehearsed)
+    ms = out["deepseek"]["decode_ms_per_step"]
+    ms["1x1"] = done["dense"]["decode_ms_per_step"]
+    log(f"[mesh] deepseek-v2-lite ms per dense decode step: unmeshed {ms['unmeshed']:.3f}, 1x1 "
+        f"mesh {ms['1x1']:.3f}, 2x2 REHEARSAL (not a scale-out figure) "
+        f"{ms['2x2_rehearsal']:.3f}; on {card_line() if cuda else 'the CPU (plain versions)'}")
     log(f"[mesh] 1x1 cells {out['1x1_s']:.1f} s (olmoe's unmeshed cells "
-        f"{out['olmoe_unmeshed_s']:.1f} s, its 1x1 cells {out['olmoe_1x1_s']:.1f} s), 2x2 "
-        f"rehearsal {out['rehearsal_s']:.1f} s (both models, one spawn)")
+        f"{out['olmoe_unmeshed_s']:.1f} s, its 1x1 cells {out['olmoe_1x1_s']:.1f} s; "
+        f"deepseek's {out['deepseek_unmeshed_s']:.1f} s and {out['deepseek_1x1_s']:.1f} s), 2x2 "
+        f"rehearsal {out['rehearsal_s']:.1f} s (three models, one spawn)")
     return out
 
 
 def mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device) -> dict:
     """Phase 17's olmoe checks on the rehearsal's ranks (any miss raises):
-    expert shard shapes, launches exact at local shapes, drop fractions
-    equal on every rank, every rank's streams equal to rank 0's and to the
-    unmeshed cell's unless the first divergence is a near-tie
-    (:func:`moe_parting`)."""
-    from repro_torch.kernels import ops
-
-    cuda = device == "cuda"
+    expert shard shapes, then :func:`held_moe_cells`."""
     d, m = MESH["rehearsal"]
     moe = ocfg.unit[0].moe
     E, dm, f, L = moe.n_experts, ocfg.d_model, moe.d_ff, ocfg.n_repeats
     shapes = {"router": (L, dm, E // m), "wi": (L, E // m, dm, f), "wg": (L, E // m, dm, f),
               "wo": (L, E // m, f, dm)}
     expert_bytes = 3 * L * (E // m) * dm * f * 4
+    for r in ranks:
+        got = r["olmoe"]
+        if got["shapes"] != shapes or got["expert_bytes"] != expert_bytes:
+            raise RuntimeError(f"olmoe 2x2 rank {r['coord']}: expert shards {got['shapes']} "
+                               f"({got['expert_bytes']} B) != {shapes} ({expert_bytes} B)")
+    out = held_moe_cells(torch, np, ranks, "olmoe", oref, oparams, ocfg, device,
+                         [("static_sampled", {})] + MESH_REHEARSAL_RUNS)
+    out["shapes"] = {k: list(v) for k, v in shapes.items()}
+    out["expert_bytes_per_rank"] = expert_bytes
+    out["expert_bytes_unmeshed"] = expert_bytes * m
+    where = card_line() if device == "cuda" else "the CPU (plain versions)"
+    log(f"[mesh] olmoe-1b-7b d={ocfg.d_model} layers={L}: expert shards per rank {shapes}; "
+        f"each rank reads {expert_bytes / 1e9:.3f} GB of expert weights per decode step "
+        f"(every local expert runs its cap slots) against {expert_bytes * m / 1e9:.3f} GB "
+        f"unmeshed; streams parted at {len(out['partings'])} near-ties; ms per dense decode "
+        f"step unmeshed {out['decode_ms_per_step']['unmeshed']:.3f}, 2x2 REHEARSAL (not a "
+        f"scale-out figure) {out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
+    return out
+
+
+def mesh_deepseek_rehearsal(torch, np, ranks, dref, dparams, dcfg, device) -> dict:
+    """Phase 17's deepseek checks on the rehearsal's ranks (any miss
+    raises): each rank's shards the reference's placement (heads and the
+    latent's 576 columns halved, rows over data, half the experts, half the
+    prologue's FFN) and its latent cache a quarter of the unmeshed one's
+    bytes, then :func:`held_moe_cells`."""
+    d, m = MESH["rehearsal"]
+    a, L, dm = dcfg.unit[0].attn, dcfg.n_repeats, dcfg.d_model
+    H, hd, r_, rope = a.n_heads, a.head_dim, a.kv_lora_rank, a.qk_rope_dim
+    moe = dcfg.unit[0].moe
+    shapes = {"wq": (L, dm, H // m, hd + rope), "w_dkv": (L, dm, (r_ + rope) // m),
+              "w_uk": (L, r_, H // m, hd), "w_uv": (L, r_, H // m, hd),
+              "wo": (L, H // m, hd, dm), "kv_norm": (L, r_ // m),
+              "experts_wi": (L, moe.n_experts // m, dm, moe.d_ff),
+              "prologue_wi": (dm, dcfg.prologue[0].d_ff // m),
+              "ckv": (L, CONT["slots"] // d, CONT["max_seq"], (r_ + rope) // m)}
+    whole = mla_shard_facts(torch, dcfg, dparams)
+    for r in ranks:
+        got = r["deepseek"]
+        if got["shapes"] != shapes:
+            raise RuntimeError(f"deepseek 2x2 rank {r['coord']}: shards {got['shapes']} != "
+                               f"{shapes}")
+        if 4 * got["latent_bytes"] != whole["latent_bytes"] or \
+                4 * got["static_latent_bytes"] != whole["static_latent_bytes"]:
+            raise RuntimeError(f"deepseek 2x2 rank {r['coord']}: latent bytes "
+                               f"{got['latent_bytes']} / {got['static_latent_bytes']} are not a "
+                               f"quarter of {whole['latent_bytes']} / "
+                               f"{whole['static_latent_bytes']}")
+    out = held_moe_cells(torch, np, ranks, "deepseek", dref, dparams, dcfg, device,
+                         [("static_sampled", {})] + MESH_DEEPSEEK_RUNS)
+    got = ranks[0]["deepseek"]
+    out["shapes"] = {k: list(v) for k, v in shapes.items()}
+    out["latent_bytes_per_rank"] = got["latent_bytes"]
+    out["latent_bytes_unmeshed"] = whole["latent_bytes"]
+    where = card_line() if device == "cuda" else "the CPU (plain versions)"
+    log(f"[mesh] deepseek-v2-lite d={dm} layers={dcfg.n_layers}: shards per rank {shapes}; "
+        f"latent cache per rank {got['latent_bytes'] / 1e6:.3f} MB of the continuous cell's "
+        f"{CONT['slots']} slots x {CONT['max_seq']} ({got['static_latent_bytes'] / 1e6:.3f} MB "
+        f"of a static bucket of 4) against {whole['latent_bytes'] / 1e6:.3f} MB "
+        f"({whole['static_latent_bytes'] / 1e6:.3f} MB) unmeshed: "
+        f"{got['latent_bytes'] / whole['latent_bytes']:.4f}; streams parted at "
+        f"{len(out['partings'])} near-ties; ms per dense decode step unmeshed "
+        f"{out['decode_ms_per_step']['unmeshed']:.3f}, 2x2 REHEARSAL (not a scale-out figure) "
+        f"{out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
+    return out
+
+
+def held_moe_cells(torch, np, ranks, key, mref, mparams, mcfg, device, cells) -> dict:
+    """An MoE model's rehearsal cells (``ranks[i][key]``; any miss
+    raises): launches exact at local shapes, drop fractions equal on every
+    rank, every rank's streams equal to rank 0's and to the unmeshed cell's
+    unless the first divergence is a near-tie (:func:`moe_parting`)."""
+    from repro_torch.kernels import ops
+
+    cuda = device == "cuda"
+    d, m = MESH["rehearsal"]
     zeros = dict.fromkeys(ops.LAUNCHES, 0)
     rs = np.random.RandomState(0)                  # phase 4's requests
     lens4 = rs.randint(32, 129, 8)
-    reqs4 = [rs.randint(0, ocfg.vocab, n).astype(np.int32) for n in lens4]
-    reqs, _ = mesh_requests(np, ocfg.vocab)
-    cells = [("static_sampled", {})] + MESH_REHEARSAL_RUNS
+    reqs4 = [rs.randint(0, mcfg.vocab, n).astype(np.int32) for n in lens4]
+    reqs, _ = mesh_requests(np, mcfg.vocab)
     partings, out = [], {"runs": {}}
     for r in ranks:
-        got = r["olmoe"]
-        tag = f"olmoe 2x2 rank {r['coord']}"
-        if got["shapes"] != shapes or got["expert_bytes"] != expert_bytes:
-            raise RuntimeError(f"{tag}: expert shards {got['shapes']} "
-                               f"({got['expert_bytes']} B) != {shapes} ({expert_bytes} B)")
+        got = r[key]
+        tag = f"{key} 2x2 rank {r['coord']}"
         for cell, run in cells:
             c = got[cell]
-            want = mesh_expected(ocfg, cell, c, run, d) if cuda else zeros
+            want = mesh_expected(mcfg, cell, c, run, d) if cuda else zeros
             if c["launches"] != want:
                 raise RuntimeError(f"{tag} {cell}: launches {c['launches']} != {want}")
-            if c["drops"] != ranks[0]["olmoe"][cell]["drops"]:
+            if c["drops"] != ranks[0][key][cell]["drops"]:
                 raise RuntimeError(f"{tag} {cell}: drops {c['drops']} differ from rank 0's "
-                                   f"{ranks[0]['olmoe'][cell]['drops']}")
+                                   f"{ranks[0][key][cell]['drops']}")
             if not all(np.array_equal(x, y) for x, y in zip(
-                    c["streams"], ranks[0]["olmoe"][cell]["streams"])):
+                    c["streams"], ranks[0][key][cell]["streams"])):
                 raise RuntimeError(f"{tag} {cell}: other streams than rank 0")
-    r0 = ranks[0]["olmoe"]
+    r0 = ranks[0][key]
     for cell, run in cells:
         static = cell == "static_sampled"
-        for i, (g, w) in enumerate(zip(r0[cell]["streams"], oref[cell]["streams"])):
+        for i, (g, w) in enumerate(zip(r0[cell]["streams"], mref[cell]["streams"])):
             diff = np.nonzero(g != w)[0]
             if not diff.size:
                 continue
             j = int(diff[0])
-            why = moe_parting(torch, np, oparams, ocfg, reqs4[i] if static else reqs[i], w, j,
+            why = moe_parting(torch, np, mparams, mcfg, reqs4[i] if static else reqs[i], w, j,
                               device, (i, SAMPLE_SEED, SAMPLE_T) if static else None)
             partings.append({"cell": cell, "request": i, "step": j, **why})
-            log(f"[mesh] olmoe 2x2 {cell}: request {i} parts at step {j}: logits gap "
+            log(f"[mesh] {key} 2x2 {cell}: request {i} parts at step {j}: logits gap "
                 f"{why['logit_gap']:.3e} (tie {why['logit_tie']:.0e}), smallest k-th vs "
                 f"(k+1)-th router-probability gap {why['router_gap']:.3e} (tie "
                 f"{MESH_ROUTER_TIE:.0e})")
             if not why["near_tie"]:
-                raise RuntimeError(f"olmoe 2x2 {cell}: request {i} parts at step {j}, not a "
+                raise RuntimeError(f"{key} 2x2 {cell}: request {i} parts at step {j}, not a "
                                    "near-tie of the logits or the router")
         out["runs"]["2x2_" + cell] = {"launches": r0[cell]["launches"],
                                       "decode_ms_per_step": r0[cell]["decode_ms_per_step"],
                                       "drops": r0[cell]["drops"],
                                       "n_preemptions": r0[cell].get("stats", {}).get(
                                           "n_preemptions")}
-        log(f"[mesh] olmoe 2x2 rehearsal {cell}: every rank's launches exact at its local "
+        log(f"[mesh] {key} 2x2 rehearsal {cell}: every rank's launches exact at its local "
             f"shapes (rank 0 { {k: v for k, v in r0[cell]['launches'].items() if v} }), "
             f"moe_drop_frac {r0[cell]['drops']['moe_drop_frac']:.4f} on every rank (unmeshed "
-            f"{oref[cell]['drops']['moe_drop_frac']:.4f}); {r0[cell]['decode_ms_per_step']:.3f} "
-            f"ms per decode step (unmeshed {oref[cell]['decode_ms_per_step']:.3f})")
+            f"{mref[cell]['drops']['moe_drop_frac']:.4f}); {r0[cell]['decode_ms_per_step']:.3f} "
+            f"ms per decode step (unmeshed {mref[cell]['decode_ms_per_step']:.3f})")
     out["partings"] = partings
-    out["shapes"] = {k: list(v) for k, v in shapes.items()}
-    out["expert_bytes_per_rank"] = expert_bytes
-    out["expert_bytes_unmeshed"] = expert_bytes * m
-    out["decode_ms_per_step"] = {"unmeshed": oref["dense"]["decode_ms_per_step"],
+    out["decode_ms_per_step"] = {"unmeshed": mref["dense"]["decode_ms_per_step"],
                                  "2x2_rehearsal": r0["dense"]["decode_ms_per_step"]}
-    where = card_line() if cuda else "the CPU (plain versions)"
-    log(f"[mesh] olmoe-1b-7b d={ocfg.d_model} layers={L}: expert shards per rank {shapes}; "
-        f"each rank reads {expert_bytes / 1e9:.3f} GB of expert weights per decode step "
-        f"(every local expert runs its cap slots) against {expert_bytes * m / 1e9:.3f} GB "
-        f"unmeshed; streams parted at {len(partings)} near-ties; ms per dense decode step "
-        f"unmeshed {out['decode_ms_per_step']['unmeshed']:.3f}, 2x2 REHEARSAL (not a "
-        f"scale-out figure) {out['decode_ms_per_step']['2x2_rehearsal']:.3f}; on {where}")
     return out
 
 
@@ -4696,7 +4837,11 @@ def mesh_olmoe_rehearsal(torch, np, ranks, oref, oparams, ocfg, device) -> dict:
 # MESH_MAX_LR lr per step (two Adam steps part by at most ~4 lr).  qwen
 # takes 2 steps to keep the phase near 60 s.
 MESH_TRAIN = {"steps": 4, "batch": 8, "seq": 64, "lr": 2e-3, "rehearsal": (2, 2),
-              "rehearsal_steps": {"kanformer-100m": 3, "qwen1.5-0.5b": 2, "olmoe-1b-7b": 2},
+              # the rehearsal's models, the largest per rank first: deepseek's four
+              # ranks peaked at 9.70 GB each when it ran first and at 13.34 GB after
+              # the other three (H100 80GB HBM3), with 55.3 GB of the card free
+              "rehearsal_steps": {"deepseek-v2-lite": 2, "olmoe-1b-7b": 2,
+                                  "kanformer-100m": 3, "qwen1.5-0.5b": 2},
               "ckpt_at": 2, "olmoe_steps": 2}
 # kanformer's step variants in the rehearsal, one step each from seed 0, held
 # to the same step unmeshed: the int8 wire format (its scale's all_reduce MAX
@@ -4794,6 +4939,9 @@ def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir, variants=None) -> dic
     shard = ShardingCtx(mesh)
     out = {"coord": tuple(int(c) for c in mesh.get_coordinate())}
     for arch, cfg, steps in runs:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            free_at_start = torch.cuda.mem_get_info()[0]
         params = shard.place_params(cfg, lm.init_params(cfg, seed=0, device=device))
         state = adamw.init_state(params, shard=shard.for_model(cfg))
         step = TS.make_train_step(cfg, mesh_opt(steps), shard=shard)
@@ -4823,9 +4971,12 @@ def mesh_train_rank(mesh, device, runs, ref_dir, ckpt_dir, variants=None) -> dic
                      "opt_bytes": sum(t.numel() * t.element_size() for _, t in moments),
                      "expert_opt_bytes": sum(t.numel() * t.element_size() for k, t in moments
                                              if is_expert_leaf(k)),
-                     "finite": bool(np.isfinite(losses).all())}
-        del params, state, ref, local
+                     "finite": bool(np.isfinite(losses).all()),
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+                     "card_free_at_start": free_at_start if cuda else None}
+        del params, state, ref, local, step, m
         if cuda:
+            gc.collect()
             torch.cuda.empty_cache()
     for name, cfg in variants or ():
         loss, params, state, launches = variant_step(torch, cfg, name, shard, device)
@@ -4865,7 +5016,7 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
 
     from repro_torch import configs
     from repro_torch.checkpoint import store
-    from repro_torch.configs import olmoe_1b_7b, qwen1_5_0_5b
+    from repro_torch.configs import deepseek_v2_lite, olmoe_1b_7b, qwen1_5_0_5b
     from repro_torch.convert import flatten_with_paths, tree_map
     from repro_torch.dist.sharding import ShardingCtx, tree_zero_specs
     from repro_torch.launch import elastic
@@ -4972,6 +5123,12 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                 else olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS)).model
         out["olmoe_1x1"] = olmoe_one_by_one(torch, np, ocfg, device, one_rank_group)
         out["olmoe_1x1_s"] = time.perf_counter() - t_o
+        # deepseek-v2-lite (MLA) at full width, its prologue and MESH_DEEPSEEK_REPEATS layers
+        t_o = time.perf_counter()
+        dcfg = (get("deepseek-v2-lite") if reduced
+                else deepseek_v2_lite.build(n_layers=MESH_DEEPSEEK_REPEATS + 1)).model
+        out["deepseek_1x1"] = olmoe_one_by_one(torch, np, dcfg, device, one_rank_group)
+        out["deepseek_1x1_s"] = time.perf_counter() - t_o
 
         # (b) the unmeshed references, then the 2x2 rehearsal
         t1 = time.perf_counter()
@@ -4979,7 +5136,9 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
         os.makedirs(ref_dir)
         ckpt = os.path.join(tmp, "ckpt")
         cut = {"qwen1.5-0.5b": lambda: qwen1_5_0_5b.build(n_layers=QWEN_REPEATS),
-               "olmoe-1b-7b": lambda: olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS)}
+               "olmoe-1b-7b": lambda: olmoe_1b_7b.build(n_layers=MESH_OLMOE_REPEATS),
+               "deepseek-v2-lite": lambda: deepseek_v2_lite.build(
+                   n_layers=MESH_DEEPSEEK_REPEATS + 1)}
         rehearsal = [(name, (cut[name]() if name in cut and not reduced else get(name)).model, n)
                      for name, n in MESH_TRAIN["rehearsal_steps"].items()]
         refs = {}
@@ -5010,6 +5169,11 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                        os.path.join(ref_dir, f"variant-{name}.pt"))
             refs["variant_" + name] = {"loss": loss, "launches": launches}
             del params, state
+        del fn, m
+        if cuda:                       # the four ranks share the card with this process
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["reserved_before_rehearsal"] = torch.cuda.memory_reserved()
         t2 = time.perf_counter()
         d, m = MESH_TRAIN["rehearsal"]
         ranks = M.run_ranks(mesh_train_rank, (d, m), device, share_card=cuda,
@@ -5075,7 +5239,9 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
                 + (f", the experts' {row['expert_opt_bytes_per_rank'] / 1e6:.1f} MB against "
                    f"{row['expert_opt_bytes_unmeshed'] / 1e6:.1f} MB"
                    if row["expert_opt_bytes_unmeshed"] else "") + "; "
-                f"{row['ms_per_step']:.1f} ms per step (REHEARSAL: 4 ranks on one card, "
+                f"peak {r0['peak_mem_bytes'] / 1e9 if cuda else 0:.2f} GB allocated per rank "
+                f"({r0['card_free_at_start'] / 1e9 if cuda else 0:.1f} GB free on the card at "
+                f"its start); {row['ms_per_step']:.1f} ms per step (REHEARSAL: 4 ranks on one card, "
                 f"collectives host-staged over gloo; not a scale-out figure; unmeshed "
                 f"{row['unmeshed_ms_per_step']:.1f} ms); on {where}")
 
@@ -5151,12 +5317,14 @@ def mesh_train_path(torch, np, device="cuda", reduced=False) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out["runs"] = runs
     log(f"[meshtrain] 1x1 {out['1x1_s']:.1f} s, references {out['references_s']:.1f} s, 2x2 "
-        f"rehearsal {out['rehearsal_s']:.1f} s")
+        f"rehearsal {out['rehearsal_s']:.1f} s; this process held "
+        f"{out.get('reserved_before_rehearsal', 0) / 1e9:.2f} GB of the card during it")
     return out
 
 
 def olmoe_one_by_one(torch, np, cfg, device, one_rank_group) -> dict:
-    """Phase 18 (a) for olmoe-1b-7b (any miss raises): ``MESH_TRAIN
+    """Phase 18 (a) for an MoE model, olmoe-1b-7b or deepseek-v2-lite (any
+    miss raises): ``MESH_TRAIN
     ["olmoe_steps"]`` fp32 steps of batch 8 x 64 from seed 0 unmeshed and
     on a 1x1 mesh of a one-rank group (``one_rank_group()`` joins it and
     returns its ``ShardingCtx``): no launch, losses, parameters and
@@ -5190,7 +5358,7 @@ def olmoe_one_by_one(torch, np, cfg, device, one_rank_group) -> dict:
                 losses.append(float(m["loss"]))
                 ms.append((time.perf_counter() - t) * 1e3)
 
-        counted(torch, f"olmoe-1b-7b {tag}, {n} steps", steps, {}, device, tag="meshtrain")
+        counted(torch, f"{cfg.name} {tag}, {n} steps", steps, {}, device, tag="meshtrain")
         res[tag] = {"losses": losses, "ms": ms, "fn": fn, "params": params, "state": state}
 
     train("unmeshed", None)
@@ -5202,7 +5370,7 @@ def olmoe_one_by_one(torch, np, cfg, device, one_rank_group) -> dict:
                 for t in ("unmeshed", "1x1"))
         if res["1x1"]["losses"] != res["unmeshed"]["losses"] or \
                 not all(torch.equal(a[k], b[k]) for k in a):
-            raise RuntimeError(f"olmoe 1x1 mesh training: losses {res['1x1']['losses']} vs "
+            raise RuntimeError(f"{cfg.name} 1x1 mesh training: losses {res['1x1']['losses']} vs "
                                f"{res['unmeshed']['losses']}, or parameters or m/v differ")
         out = {"losses": res["1x1"]["losses"], "ms": {k: v["ms"] for k, v in res.items()}}
         if cuda:                                  # one more step each, in place
@@ -5215,7 +5383,8 @@ def olmoe_one_by_one(torch, np, cfg, device, one_rank_group) -> dict:
         dist.destroy_process_group()
     del res, a, b
     where = card_line() if cuda else "the CPU (plain versions)"
-    log(f"[meshtrain] olmoe-1b-7b d={cfg.d_model} layers={cfg.n_repeats} of 16 experts="
+    log(f"[meshtrain] {cfg.name} d={cfg.d_model} layers={cfg.n_layers} (of "
+        f"{16 if cfg.name == 'olmoe-1b-7b' else 27}) experts="
         f"{cfg.unit[0].moe.n_experts}: {n} fp32 steps of batch {B} x {S} unmeshed and on a 1x1 "
         f"{'NCCL' if cuda else 'gloo'} mesh: losses {out['losses']} bit-equal, parameters and "
         f"m/v bit-equal, no launch; ms per step {out['ms']} (the first step warms up); "
@@ -5366,6 +5535,10 @@ def main() -> int:
         f"{t11 - t10:.1f} s, kanlint {t12 - t11:.1f} s, mesh {t13 - t12:.1f} s, mesh training "
         f"{time.perf_counter() - t13:.1f} s")
 
+    # the MoE models' mesh runs (phases 17 and 18): no kernel on their dense
+    # and static cells, kernel 5 on olmoe's paged ones
+    mesh_runs = {f"mesh_{key}_{k}": m["launches"] for key in ("olmoe", "deepseek")
+                 for k, m in mesh[key]["runs"].items()}
     line = {"kernels": [], "pending": [], "main_path": e2e, "continuous_path": cont,
             "speculative_path": spec, "sampling_path": samp, "int8_path": int8,
             "gkan_path": gkan, "mnist_trained_path": mnist, "reskan18_path": reskan,
@@ -5399,6 +5572,7 @@ def main() -> int:
                   for k, m in nontoken["runs"].items()},
                **{"pipeline_" + k: m["launches"] for k, m in pipe["runs"].items()},
                **{"mesh_" + k: m["launches"] for k, m in mesh["runs"].items()},
+               **mesh_runs,
                **{"mesh_train_" + k: m["launches"] for k, m in mesh_train["runs"].items()}}
     for name, meta in KERNELS.items():
         if name == "gather_blocks":       # the continuous path's default, shadow reads

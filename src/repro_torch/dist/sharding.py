@@ -50,7 +50,8 @@ The MoE (``models/moe.py``) routes the global batch as GSPMD does:
 rank's block of a split batch, :meth:`ShardingCtx.global_rows` gives that
 batch's row count (its capacity), :meth:`ShardingCtx.counts_below` the
 lower data ranks' per-expert counts (its queue positions), and
-:meth:`ShardingCtx.expert_range` this model rank's experts.
+:meth:`ShardingCtx.model_range` this model rank's experts (as MLA,
+``models/attention.py``, its latent columns).
 """
 
 from __future__ import annotations
@@ -359,6 +360,18 @@ class ShardingCtx:
                 return names[i]
         return None
 
+    def model_range(self, names: tuple, shape: tuple[int, ...]) -> tuple[int, int] | None:
+        """``(first, count)`` of this rank's block of the dimension that a
+        ``model`` axis larger than 1 splits in a tensor of logical ``names``
+        and whole ``shape`` (an MoE's experts, an MLA cache's latent
+        columns), or None when the tensor is whole on every model rank
+        (a model axis of 1, or one the spec rules put elsewhere)."""
+        for i, a in self._splits(self.spec(names, shape)):
+            if a == "model":
+                n = shape[i] // self.size("model")
+                return self.coord("model") * n, n
+        return None
+
     def local_slice(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
         """This rank's block of a whole tensor (a contiguous copy)."""
         return self.block(x, spec).contiguous()
@@ -450,17 +463,6 @@ class ShardingCtx:
         rank holds: ``n`` times the data ranks under :meth:`split_rows`,
         else ``n`` (every rank holds every row)."""
         return n * self.size("data") if self.rows_split else n
-
-    def expert_range(self, n_experts: int) -> tuple[int, int] | None:
-        """``(first, count)`` of this model rank's experts, or None where
-        ``experts`` does not take the model axis (a model axis of 1, or one
-        that does not divide ``n_experts``: the spec rules then split each
-        expert's ``ffn``, or another axis, or nothing)."""
-        m = self.size("model")
-        if m == 1 or n_experts % m:
-            return None
-        n = n_experts // m
-        return self.coord("model") * n, n
 
     def counts_below(self, counts: torch.Tensor) -> torch.Tensor:
         """``counts`` (``(E,)`` int64, this rank's per-expert choices under

@@ -24,8 +24,9 @@ NCCL, and exits with rc=2 when the mesh has more ranks than cards, unless
 ``--share-card`` asks for the one-card rehearsal (every rank on
 ``cuda:0``, collectives over gloo through the host).  A mesh serves the
 token-input ``attn_kan``/``attn_mlp``/``attn_moe`` models (olmoe-1b-7b's
-experts on the model axis) without ``--spec-k``; the others exit with
-rc=2 (ROADMAP queue 1, item 9.4).  A windowed model
+experts on the model axis; deepseek-v2-lite's MLA latent on it, its heads
+too) without ``--spec-k``; recurrent, windowed and non-token models exit
+with rc=2 (ROADMAP queue 1, item 9.4.2).  A windowed model
 (gemma3), an MLA one (deepseek-v2-lite) or a recurrent one (zamba2-1.2b,
 xlstm-1.3b) is refused as the reference refuses it: ``--spec-k`` with
 rc=2, ``--paged`` by the ``NotImplementedError`` of its paged caches.  Reduced

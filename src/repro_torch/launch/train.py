@@ -9,8 +9,11 @@ slices, the step's collectives on the mesh (``train/step.py``).  Rank 0
 alone prints and writes the checkpoints (gathered whole); the stop flag
 and the retry decision are agreed by every rank (``ShardingCtx.count``),
 so every rank stops or retries at the same step; MoE models train with
-their experts on the model axis (``models/moe.py``); a family the mesh
-does not take exits with rc=2 and ``lm.mesh_refusal``'s reason.  A retry
+their experts on the model axis (``models/moe.py``), MLA models
+(deepseek-v2-lite) with their heads on it and the latent projection
+gathered whole (``models/attention.py``); a family the mesh does not take
+(recurrent, windowed, non-token) exits with rc=2 and ``lm.mesh_refusal``'s
+reason.  A retry
 recovers a failure that every rank meets before the step's first
 collective; a rank that fails alone inside one leaves the others waiting
 in it until ``launch.mesh.RANK_TIMEOUT``.

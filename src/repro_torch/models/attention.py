@@ -37,7 +37,14 @@ every rank), each local query head reads its own KV head
 (:func:`_local_attn`).  A paged pool whose ``kv_blocks`` the data axis
 splits is read by gathering this rank's blocks, zeros elsewhere, and one
 ``all_reduce`` over ``data``; a write lands only in the rank that owns its
-block.  Windowed and MLA layers, and the verify window, take no mesh.
+block.  An MLA layer on a mesh keeps the reference's placement: ``wq``,
+``w_uk``, ``w_uv`` and ``wo`` on ``heads``, and ``w_dkv``, ``kv_norm`` and
+the latent cache on ``kv_lora``, so each model rank holds ``(r + rope) /
+M`` columns of every cached latent row (columns that need not line up
+with ``r`` or with the rotary halves).  Prefill computes the latent whole
+and caches this rank's columns; :func:`mla_decode_step` contracts over the
+split latent without gathering the cache (:func:`_mla_split_read`).
+Windowed layers and the verify window take no mesh.
 
 MLA (DeepSeek-V2's multi-head latent attention, ``kv_lora_rank``):
 :func:`attn_forward` runs it through :func:`_mla_forward`, whose cache is
@@ -82,8 +89,17 @@ class AttnConfig:
 
 
 def _attn_axes(cfg: AttnConfig) -> dict:
-    """Logical axes and whole shape of each GQA attention leaf."""
+    """Logical axes and whole shape of each attention leaf (GQA or MLA)."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.kv_lora_rank is not None:
+        r, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+        return {"wq": (("embed", "heads", "head_dim"), (d, H, hd + rope)),
+                "w_dkv": (("embed", "kv_lora"), (d, r + rope)),
+                "w_uk": (("kv_lora", "heads", "head_dim"), (r, H, hd)),
+                "w_uv": (("kv_lora", "heads", "head_dim"), (r, H, hd)),
+                "wo": (("heads", "head_dim", "embed"), (H, hd, d)),
+                "kv_norm": (("kv_lora",), (r,)),
+                "q_norm": (("head_dim",), (hd,)), "k_norm": (("head_dim",), (hd,))}
     return {"wq": (("embed", "heads", "head_dim"), (d, H, hd)),
             "wk": (("embed", "kv_heads", "head_dim"), (d, KV, hd)),
             "wv": (("embed", "kv_heads", "head_dim"), (d, KV, hd)),
@@ -94,28 +110,34 @@ def _attn_axes(cfg: AttnConfig) -> dict:
             "q_norm": (("head_dim",), (hd,)), "k_norm": (("head_dim",), (hd,))}
 
 
-def _local_attn(params: dict, cfg: AttnConfig, shard):
+def _local_attn(params: dict, cfg: AttnConfig, shard, keep: tuple = ()):
     """The weights as this rank computes with them -> ``(weights, kv,
-    partial)``: leaves sharded on ``heads``/``kv_heads`` stay local, any
-    other shard is gathered whole; ``kv`` the KV head of each local query
-    head when the heads are split and the KV heads are not (else None);
-    ``partial`` whether the output projection gives a partial sum over
-    ``model``.  With split heads the whole computation is local to the
-    rank, so a whole leaf (the MQA pairing's K/V weights, a replicated
-    bias) enters it through ``copy_to_model``: its gradient is the sum of
-    every rank's heads' share."""
+    partial)``: leaves sharded on ``heads``/``kv_heads`` stay local, and so
+    do the leaves named in ``keep``; any other shard is gathered whole
+    (an MLA layer's ``w_dkv`` and ``kv_norm``, and its ``wq``/``w_uk``/
+    ``w_uv``/``wo`` where the model axis does not divide the heads); ``kv``
+    the KV head of each local query head when the heads are split and the
+    KV heads are not (else None); ``partial`` whether the output projection
+    gives a partial sum over ``model``.  With split heads the whole
+    computation is local to the rank, so a whole leaf (the MQA pairing's
+    K/V weights, a replicated bias, MLA's latent projection) enters it
+    through ``copy_to_model``: its gradient is the sum of every rank's
+    heads' share."""
     if shard is None:
         return params, None, False
-    if cfg.window is not None or cfg.kv_lora_rank is not None:
-        raise NotImplementedError("a mesh serves full-attention GQA layers only")
+    if cfg.window is not None:
+        raise NotImplementedError("a mesh serves full-attention layers only")
     axes = _attn_axes(cfg)
     heads = shard.model_split(*axes["wq"]) == "heads"
-    kv_heads = shard.model_split(*axes["wk"]) == "kv_heads"
+    kv_heads = cfg.kv_lora_rank is None and shard.model_split(*axes["wk"]) == "kv_heads"
     local = {name for name, split in (("heads", heads), ("kv_heads", kv_heads)) if split}
-    p = {n: w if local & set(axes[n][0]) else shard.gather_whole(w, *axes[n])
-         for n, w in params.items()}
+
+    def mine(n):
+        return n in keep or bool(local & set(axes[n][0]))
+
+    p = {n: w if mine(n) else shard.gather_whole(w, *axes[n]) for n, w in params.items()}
     if heads:
-        p = {n: w if local & set(axes[n][0]) else shard.copy_to_model(w) for n, w in p.items()}
+        p = {n: w if mine(n) else shard.copy_to_model(w) for n, w in p.items()}
     kv = None
     if heads and not kv_heads:
         n = cfg.n_heads // shard.size("model")
@@ -142,32 +164,43 @@ def _check_full_attention(cfg: AttnConfig, what: str) -> None:
 
 
 class _NormScale(torch.autograd.Function):
-    """``xn * scale.float()`` (fp32, as the reference's q/k norm), whose
-    scale gradient sums the rows' fp32 products in fp64 and rounds once to
-    the scale's dtype: a mesh's split of the heads over ``model`` and of
-    the rows over ``data`` then moves it by no fp32 rounding (an fp64 step
-    stays within fp64 roundings of the unmeshed one)."""
+    """``xn * scale`` in ``xn``'s dtype (fp32, as the reference's q/k norm,
+    or fp64 for MLA's latent norm at fp64 compute), whose scale gradient
+    sums the rows' products in fp64 and rounds once to the scale's dtype: a
+    mesh's split of the heads over ``model`` and of the rows over ``data``
+    then moves it by no fp32 rounding (an fp64 step stays within fp64
+    roundings of the unmeshed one)."""
 
     @staticmethod
     def forward(ctx, xn, scale):
         ctx.save_for_backward(xn, scale)
-        return xn * scale.float()
+        return xn * scale.to(xn.dtype)
 
     @staticmethod
     def backward(ctx, g):
         xn, scale = ctx.saved_tensors
         wide = torch.float64  # kanlint: ignore[KL103] (the scale gradient's row sum)
         gs = (g.to(wide) * xn.to(wide)).reshape(-1, xn.shape[-1]).sum(0)
-        return g * scale.float(), gs.to(scale.dtype)
+        return g * scale.to(xn.dtype), gs.to(scale.dtype)
 
 
-def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
+def _qk_rmsnorm(x: torch.Tensor, scale: torch.Tensor, wide=torch.float32) -> torch.Tensor:
+    """RMS norm over the last dim computed in ``wide`` (fp32: the
+    reference's q/k norm), cast back to ``x``'s dtype."""
+    xf = x.to(wide)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xn = xf * torch.rsqrt(var + 1e-6)
     if torch.is_grad_enabled() and scale.requires_grad:
         return _NormScale.apply(xn, scale).to(x.dtype)
-    return (xn * scale.float()).to(x.dtype)
+    return (xn * scale.to(wide)).to(x.dtype)
+
+
+def _kv_norm(c: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """MLA's latent norm: fp32 as the reference's, fp64 at fp64 compute (as
+    ``layers.rmsnorm``), so that an fp64 decode whose latent columns are
+    split over ``model`` (:func:`_mla_split_read`) carries no fp32 sum
+    whose order depends on the mesh."""
+    return _qk_rmsnorm(c, scale, L._wide(c.dtype))
 
 
 def flash_attention(
@@ -246,14 +279,22 @@ def attn_forward(
 ):
     """Prefill attention; with ``return_cache`` also what the decode cache
     stores: the post-rotary K/V (this rank's KV heads on a mesh), or MLA's
-    latent (:func:`_mla_forward`)."""
+    latent (:func:`_mla_forward`; this rank's ``kv_lora`` columns of it on
+    a mesh that splits them)."""
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
     params, kv_of, partial = _local_attn(params, cfg, shard)
+    if partial:
+        x = shard.copy_to_model(x)
     if cfg.kv_lora_rank is not None:
-        return _mla_forward(params, cfg, x, positions, chunk, return_cache)
-    q, k, v = _project_qkv(params, cfg, shard.copy_to_model(x) if partial else x, positions)
+        y, ckv = _mla_forward(params, cfg, x, positions, chunk)
+        y = _finish(y, partial, shard)
+        if return_cache:
+            cols = _latent_cols(cfg, shard)
+            return y, {"ckv": ckv if cols is None else ckv[..., cols[0]:sum(cols)]}
+        return y
+    q, k, v = _project_qkv(params, cfg, x, positions)
     kq = _pick({"k": k, "v": v}, kv_of)
     o = flash_attention(q, kq["k"], kq["v"], causal=True, window=cfg.window, chunk=chunk)
     y = _finish(torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype)), partial, shard)
@@ -262,17 +303,26 @@ def attn_forward(
     return y
 
 
+def _latent_cols(cfg: AttnConfig, shard) -> tuple[int, int] | None:
+    """``(first, count)`` of the latent columns (of ``r + rope``) this
+    rank's MLA cache holds, or None where they are whole on every rank."""
+    if shard is None:
+        return None
+    return shard.model_range(("kv_lora",), (cfg.kv_lora_rank + cfg.qk_rope_dim,))
+
+
 def _mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
-                 chunk: int, return_cache: bool = False):
-    """MLA prefill: queries of ``head_dim + rope`` dims per head; keys and
-    values expanded from the normalised latent by ``w_uk``/``w_uv``, the
-    rotated rope key shared by every head.  The cache keeps the latent
-    before its norm (``mla_decode_step`` normalises on read)."""
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA prefill -> ``(y, latent)``: queries of ``head_dim + rope`` dims
+    per head; keys and values expanded from the normalised latent by
+    ``w_uk``/``w_uv``, the rotated rope key shared by every head.  The
+    latent the cache keeps, ``(B, T, r + rope)``, is the one before its norm
+    (``mla_decode_step`` normalises on read) with its rope part rotated."""
     hd, rope, r = cfg.head_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     ckv = x @ params["w_dkv"].to(x.dtype)                      # (B, T, r + rope)
-    c_kv = _qk_rmsnorm(ckv[..., :r], params["kv_norm"])
+    c_kv = _kv_norm(ckv[..., :r], params["kv_norm"])
     k_nope = torch.einsum("btr,rhk->bthk", c_kv, params["w_uk"].to(x.dtype))
     v = torch.einsum("btr,rhk->bthk", c_kv, params["w_uv"].to(x.dtype))
     cos, sin = L.rotary_embedding(positions, rope, cfg.rope_theta, x.dtype)
@@ -282,9 +332,7 @@ def _mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor, positions: torc
     o = flash_attention(torch.cat([q_nope, q_rope], -1), torch.cat([k_nope, k_rope], -1),
                         v, causal=True, chunk=chunk)
     y = torch.einsum("bthk,hkd->btd", o, params["wo"].to(x.dtype))
-    if return_cache:
-        return y, {"ckv": torch.cat([ckv[..., :r], k_rope1], -1)}
-    return y
+    return y, torch.cat([ckv[..., :r], k_rope1], -1)
 
 
 def _kv_quantize(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -360,44 +408,106 @@ def attn_decode_step(
     return _finish(y, partial, shard), cache
 
 
-# kanlint's KL105: a mesh serves no MLA layer (ROADMAP queue 1, item 9.4),
-# so no ShardingCtx reaches this cache write.
-def mla_decode_step(  # kanlint: ignore[KL105]
+def mla_decode_step(
     params: dict,
     cfg: AttnConfig,
     x: torch.Tensor,                  # (B, 1, d_model)
     cache_ckv: torch.Tensor,          # (B, S, r + rope) latent cache, written in place
     pos: torch.Tensor,                # scalar or (B,) absolute position
+    shard=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """MLA decode: write the token's latent (unnormalised) and rotated rope
     key at ``pos`` (per row, a slot ``>= S`` writes nothing, as the
     reference's scatter drops it), then attend the whole cache with the
     absorbed weights: ``score = (q_nope W_uk)·norm(c) + q_rope·k_rope`` over
-    ``sqrt(head_dim + rope)``, and ``((p·norm(c)) W_uv) W_o``."""
+    ``sqrt(head_dim + rope)``, and ``((p·norm(c)) W_uv) W_o``.
+
+    On a mesh whose model axis splits the latent (``cache_ckv`` this rank's
+    columns), the new row is computed from this rank's ``w_dkv`` columns,
+    gathered whole (rotary pairs may lie on two ranks), rotated, and its
+    columns written; the read contracts over the split columns
+    (:func:`_mla_split_read`) and never gathers the cache.  Where the
+    latent is whole on every rank, the unmeshed operations run on this
+    rank's heads."""
     B = x.shape[0]
     S = cache_ckv.shape[1]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     r, rope, hd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.head_dim
+    cols = _latent_cols(cfg, shard)
+    params, _, partial = _local_attn(params, cfg, shard, keep=("w_dkv",) if cols else ())
     q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     ckv_new = x @ params["w_dkv"].to(x.dtype)                  # (B, 1, r + rope)
+    if cols is not None:
+        ckv_new = shard.gather(ckv_new, (None, None, "model"), (B, 1, r + rope))
     cos, sin = L.rotary_embedding(pos_b[:, None], rope, cfg.rope_theta, x.dtype)
     q_rope = L.apply_rotary(q_rope, cos, sin)
     rotated = L.apply_rotary(ckv_new[..., None, r:], cos, sin)[..., 0, :]
-    _write_cache({"ckv": cache_ckv}, "ckv", torch.cat([ckv_new[..., :r], rotated], -1), pos)
-    c_kv = _qk_rmsnorm(cache_ckv[..., :r].to(x.dtype), params["kv_norm"])   # (B, S, r)
-    k_rope = cache_ckv[..., r:].to(x.dtype)                                  # (B, S, rope)
+    ckv_new = torch.cat([ckv_new[..., :r], rotated], -1)
+    if cols is not None:
+        ckv_new = ckv_new[..., cols[0]:sum(cols)]
+    _write_cache({"ckv": cache_ckv}, "ckv", ckv_new, pos)
     q_abs = torch.einsum("bthk,rhk->bthr", q_nope, params["w_uk"].to(x.dtype))
-    s = torch.einsum("bhr,bsr->bhs", q_abs[:, 0], c_kv)
-    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], k_rope)
-    s = s / math.sqrt(hd + rope)
-    mask = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
-    s = torch.where(mask[:, None], s.float(), NEG_INF)
-    p = torch.softmax(s, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", p, c_kv)                 # (B, H, r)
+    if cols is not None:
+        o_lat = _mla_split_read(params, cfg, shard, cache_ckv, q_abs[:, 0], q_rope[:, 0],
+                                pos_b, cols, partial)
+    else:
+        c_kv = _kv_norm(cache_ckv[..., :r].to(x.dtype), params["kv_norm"])   # (B, S, r)
+        k_rope = cache_ckv[..., r:].to(x.dtype)                              # (B, S, rope)
+        s = torch.einsum("bhr,bsr->bhs", q_abs[:, 0], c_kv)
+        s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], k_rope)
+        s = s / math.sqrt(hd + rope)
+        mask = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
+        s = torch.where(mask[:, None], s.float(), NEG_INF)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhs,bsr->bhr", p, c_kv)             # (B, H, r)
     o = torch.einsum("bhr,rhk->bhk", o_lat, params["w_uv"].to(x.dtype))
     y = torch.einsum("bhk,hkd->bd", o, params["wo"].to(x.dtype))[:, None]
-    return y, cache_ckv
+    return _finish(y, partial, shard), cache_ckv
+
+
+def _mla_split_read(params: dict, cfg: AttnConfig, shard, cache_ckv: torch.Tensor,
+                    q_abs: torch.Tensor, q_rope: torch.Tensor, pos_b: torch.Tensor,
+                    cols: tuple[int, int], heads: bool) -> torch.Tensor:
+    """:func:`mla_decode_step`'s read of a latent split over ``model`` ->
+    ``o_lat = p·norm(c)`` of this rank's heads, ``(B, H_local, r)``.
+
+    Each query is the ``r + rope``-dim ``u = [q_nope·W_uk, q_rope]``, laid
+    out as the latent's columns, so the score is ``u·[norm(c), k_rope]``
+    summed over columns, and each rank sums over its own: the norm's
+    ``Σc²`` over this rank's latent columns, summed over ``model``
+    (``(B, S)``); ``u`` of every head gathered where the heads are split
+    (``(B, H, r + rope)``); the partial scores summed over ``model``
+    (``(B, H, S)``); the mask and softmax on every rank; ``p·norm(c)`` on
+    this rank's latent columns, gathered whole (``(B, H, r)``).  ``heads``:
+    whether this rank holds a block of the heads (``q_abs``/``q_rope``
+    those heads' rows) or all of them."""
+    r, rope, hd = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.head_dim
+    c0, n = cols
+    nl = max(0, min(c0 + n, r) - c0)      # latent columns first, then rope ones
+    B, S = cache_ckv.shape[:2]
+    H, Hl = cfg.n_heads, q_abs.shape[1]
+    dt = q_abs.dtype
+    wide = L._wide(dt)
+    c = cache_ckv.to(dt)
+    lat = c[..., :nl].to(wide)
+    ss = shard.all_reduce((lat * lat).sum(-1), "model")               # Σc²: (B, S)
+    c_norm = (lat * torch.rsqrt(ss[..., None] / r + 1e-6)
+              * params["kv_norm"][c0:c0 + nl].to(wide)).to(dt)       # (B, S, nl)
+    u = torch.cat([q_abs, q_rope], -1)                                 # (B, Hl, r + rope)
+    if heads:
+        u = shard.gather(u.contiguous(), (None, "model", None), (B, H, r + rope))
+    s = torch.einsum("bhj,bsj->bhs", u[..., c0:c0 + n], torch.cat([c_norm, c[..., nl:]], -1))
+    s = shard.all_reduce(s.contiguous(), "model") / math.sqrt(hd + rope)
+    mask = torch.arange(S, device=c.device)[None, :] <= pos_b[:, None]
+    s = torch.where(mask[:, None], s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o_lat = torch.zeros((B, H, r), dtype=dt, device=c.device)
+    o_lat[..., c0:c0 + nl] = torch.einsum("bhs,bsj->bhj", p, c_norm)
+    o_lat = shard.all_reduce(o_lat, "model")                           # (B, H, r)
+    if heads:
+        o_lat = o_lat.narrow(1, shard.coord("model") * Hl, Hl)
+    return o_lat
 
 
 def _slot_mask(cfg: AttnConfig, kv_slot: torch.Tensor, pos_b: torch.Tensor,

@@ -189,6 +189,14 @@ def block_supports_paging(blk: BlockCfg) -> bool:
             and blk.attn.kv_lora_rank is None and blk.attn.window is None)
 
 
+def _local_kv(c: A.AttnConfig, shard) -> A.AttnConfig:
+    """``c`` with this rank's KV heads (``kv_heads`` on ``model`` where it
+    divides), to build a cache shard."""
+    if shard is None:
+        return c
+    return dataclasses.replace(c, n_kv_heads=shard.local_shape(("kv_heads",), (c.n_kv_heads,))[0])
+
+
 def _kv_leaves(c: A.AttnConfig, lead: tuple, dtype, device) -> dict:
     """Zeroed K/V leaves of shape ``lead + (KV, D)``: ``dtype`` values, or
     int8 values with fp32 ``lead + (KV,)`` scales under ``kv_quant``."""
@@ -242,32 +250,37 @@ def _kv_axes(c: A.AttnConfig, lead: tuple) -> dict:
 
 
 def block_init_paged_cache(blk: BlockCfg, n_blocks: int, block_size: int,
-                           dtype, device) -> dict:
+                           dtype, device, shard=None) -> dict:
     """Pool-shaped decode cache: ``(n_blocks, block_size, ...)`` leaves in
-    place of :func:`block_init_cache`'s ``(batch, max_seq, ...)`` rows.
+    place of :func:`block_init_cache`'s ``(batch, max_seq, ...)`` rows (on a
+    mesh this rank's KV heads; the caller gives the blocks).
     Physical block 0 is the engine's sentinel (``serve/kv_pool.py``)."""
     if not block_supports_paging(blk):
         raise NotImplementedError(
             f"paged KV cache: unsupported block kind {blk.kind!r} "
             "(full-attention GQA layers only)")
     check_supported(blk)
-    return _kv_leaves(blk.attn, (n_blocks, block_size), dtype, device)
+    return _kv_leaves(_local_kv(blk.attn, shard), (n_blocks, block_size), dtype, device)
 
 
 def block_init_cache(blk: BlockCfg, batch: int, max_seq: int, dtype,
-                     device) -> dict:
+                     device, shard=None) -> dict:
     """Per-block decode state: the ``(batch, S, KV, D)`` K/V rows, ``S`` =
     ``window`` slots for a windowed layer's ring, else ``max_seq``; an MLA
     layer's ``(batch, max_seq, r + rope)`` latent; a recurrent layer's state
-    (fp32 but for the ``conv`` row, in ``dtype``, as the reference's)."""
+    (fp32 but for the ``conv`` row, in ``dtype``, as the reference's).  On
+    a mesh (``shard``) this rank's KV heads, or an MLA latent's ``kv_lora``
+    columns (``block_cache_axes``); the caller gives the rows."""
     check_supported(blk)
     if blk.kind in RECURRENT:
         return RECURRENT[blk.kind][3](_recurrent_cfg(blk), batch, dtype, device)
     c = blk.attn
     if c.kv_lora_rank is not None:
-        return {"ckv": torch.zeros((batch, max_seq, c.kv_lora_rank + c.qk_rope_dim),
-                                   dtype=dtype, device=device)}
-    return _kv_leaves(c, (batch, c.cache_len(max_seq)), dtype, device)
+        cols = c.kv_lora_rank + c.qk_rope_dim
+        if shard is not None:
+            cols = shard.local_shape(("kv_lora",), (cols,))[0]
+        return {"ckv": torch.zeros((batch, max_seq, cols), dtype=dtype, device=device)}
+    return _kv_leaves(_local_kv(c, shard), (batch, c.cache_len(max_seq)), dtype, device)
 
 
 def block_prefill(
@@ -303,7 +316,7 @@ def block_prefill(
                            chunk=chunk, return_cache=True, shard=shard)
     if "ckv" in kv:
         cache["ckv"][:, :T] = kv["ckv"].to(cache["ckv"].dtype)
-        return _residual_ffn(params, blk, x + y), cache
+        return _residual_ffn(params, blk, x + y, shard), cache
     S = cache["k"].shape[1]
     if c.window and S < T:
         s_idx = torch.arange(S, device=x.device)
@@ -378,7 +391,8 @@ def block_decode_step(
         y, cache = A.attn_decode_step_paged(params["attn"], blk.attn, h, cache,
                                             table, pos, shard)
     elif blk.attn.kv_lora_rank is not None:
-        y, _ = A.mla_decode_step(params["attn"], blk.attn, h, cache["ckv"], pos)
+        y, ckv = A.mla_decode_step(params["attn"], blk.attn, h, cache["ckv"], pos, shard)
+        cache["ckv"] = ckv
     else:
         y, cache = A.attn_decode_step(params["attn"], blk.attn, h, cache, pos, shard)
     # decode sees B rows: "auto" resolves to the sparse kernel on CUDA

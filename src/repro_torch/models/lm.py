@@ -446,9 +446,9 @@ def lm_loss(params: dict, cfg: ModelConfig, batch: dict, compute_dtype=torch.flo
 
 def mesh_refusal(cfg: ModelConfig) -> str | None:
     """Why a mesh cannot serve or train ``cfg`` yet, or None: the port's
-    mesh takes token-input models of full-attention GQA ``attn_kan``,
-    ``attn_mlp`` and ``attn_moe`` blocks (the reference shards every family
-    through GSPMD)."""
+    mesh takes token-input models of full-attention (GQA or MLA)
+    ``attn_kan``, ``attn_mlp`` and ``attn_moe`` blocks (the reference shards
+    every family through GSPMD)."""
     why = None
     if cfg.input_kind != "tokens":
         why = f"{cfg.input_kind!r} inputs"
@@ -457,15 +457,13 @@ def mesh_refusal(cfg: ModelConfig) -> str | None:
             break
         if blk.kind not in B.ATTN_KINDS:
             why = f"recurrent {blk.kind} blocks"
-        elif blk.attn.kv_lora_rank is not None:
-            why = "MLA (kv_lora) attention"
         elif blk.attn.window is not None:
             why = "windowed attention"
     if why is None:
         return None
     return (f"{cfg.name}: a mesh does not take {why} yet (not ported: ROADMAP queue 1, "
             "item 9.4.2); a mesh serves and trains token-input attn_kan, attn_mlp and "
-            "attn_moe models of full-attention GQA")
+            "attn_moe models of full attention, GQA or MLA")
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
@@ -490,15 +488,6 @@ def _axes_tree(cfg: ModelConfig, one_block) -> dict:
     return axes
 
 
-def _local_blk(blk: BlockCfg, shard) -> BlockCfg:
-    """``blk`` with this rank's KV heads (``kv_heads`` on ``model`` where it
-    divides), to build the cache shard."""
-    if shard is None:
-        return blk
-    kv = shard.local_shape(("kv_heads",), (blk.attn.n_kv_heads,))[0]
-    return dataclasses.replace(blk, attn=dataclasses.replace(blk.attn, n_kv_heads=kv))
-
-
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.float32, device="cuda", shard=None) -> dict:
     """Zeroed decode caches: ``{"unit": [{"k", "v"[, "k_scale", "v_scale"]}
@@ -510,14 +499,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     fp32 for a recurrent state but its ``conv`` row).
 
     On a mesh each rank builds its shard: the rows of
-    ``shard.for_rows(batch).row_range()`` and its KV heads.  Where the data
-    axis does not divide ``batch``, the reference shards ``seq_cache``
-    instead; the port keeps every row and position on every data rank."""
+    ``shard.for_rows(batch).row_range()``, and its KV heads or its MLA
+    latent columns (``kv_lora`` on ``model``).  Where the data axis does not
+    divide ``batch``, the reference shards ``seq_cache`` instead; the port
+    keeps every row and position on every data rank."""
     check_supported(cfg)
     rows = None if shard is None else shard.for_rows(batch).row_range()
     n = batch if rows is None else rows[1]
-    return _make_caches(cfg, lambda blk: B.block_init_cache(_local_blk(blk, shard), n, max_seq,
-                                                           dtype, device))
+    return _make_caches(cfg, lambda blk: B.block_init_cache(blk, n, max_seq, dtype, device,
+                                                           shard))
 
 
 def _make_caches(cfg: ModelConfig, one_block) -> dict:
@@ -567,8 +557,8 @@ def init_paged_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
             f"{cfg.name}: paged KV needs full-attention GQA blocks throughout")
     blocks = None if shard is None else shard.for_pool(n_blocks).block_range()
     n = n_blocks if blocks is None else blocks[1]
-    return _make_caches(cfg, lambda blk: B.block_init_paged_cache(
-        _local_blk(blk, shard), n, block_size, dtype, device))
+    return _make_caches(cfg, lambda blk: B.block_init_paged_cache(blk, n, block_size, dtype,
+                                                                 device, shard))
 
 
 def paged_views(caches: dict, table: torch.Tensor, shard=None) -> dict:
@@ -701,8 +691,8 @@ def prefill_into_slots(
     own last real token.  On a mesh every rank prefills all ``k`` rows (its
     KV heads) and keeps the rows whose slots it holds."""
     k = tokens.shape[0]
-    many = _make_caches(cfg, lambda blk: B.block_init_cache(
-        _local_blk(blk, shard), k, max_seq, compute_dtype, tokens.device))
+    many = _make_caches(cfg, lambda blk: B.block_init_cache(blk, k, max_seq, compute_dtype,
+                                                           tokens.device, shard))
     logits = _fill(params, cfg, _embed_tokens(params, cfg, tokens, compute_dtype, shard),
                    many, shard)
     last = _whole_logits(cfg, logits[torch.arange(k, device=tokens.device),

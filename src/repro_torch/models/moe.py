@@ -199,7 +199,7 @@ def moe_forward(params: dict, cfg: MoEConfig, x: torch.Tensor, shard=None
     xf = x.reshape(S, d)
     logits, probs, top_p, top_e, pos, keep, cap = route(params, cfg, xf, shard)
     experts, partial = _local(params, cfg, EXPERT_AXES, shard, ("experts", "ffn"))
-    owned = None if shard is None else shard.expert_range(E)
+    owned = None if shard is None else shard.model_range(("experts",), (E,))
     xe_in, w_top = xf, top_p.to(xf.dtype)
     if partial:                          # rank-local experts: gradients sum over model
         xe_in, w_top = shard.copy_to_model(xf), shard.copy_to_model(w_top)

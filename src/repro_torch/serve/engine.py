@@ -66,8 +66,9 @@ Mesh serving (``ServeConfig.mesh``, DESIGN.md §4a): a ``(data, model)``
 ``DeviceMesh`` (``launch/mesh.py``) over one process per rank, each running
 this engine on the same inputs.  The engine places the parameters once
 (each rank keeps its shard, ``dist/sharding.py``), builds cache shards
-(dense rows on ``data`` and KV heads on ``model``; a pool's blocks on
-``data`` where the data axis divides their count), and threads a
+(dense rows on ``data``, and KV heads or an MLA latent's ``kv_lora``
+columns on ``model``; a pool's blocks on ``data`` where the data axis
+divides their count), and threads a
 ``ShardingCtx`` through every model call, which returns logits whole on
 every rank.  So every rank samples the same tokens and its host
 bookkeeping (scheduler, ``BlockPool``, ``PrefixCache``) makes the same
@@ -78,7 +79,10 @@ so its streams are bit-identical; across ranks the streams equal the
 unmeshed engine's unless a near-tie flips, since the row-parallel
 ``all_reduce`` sums fp32 partials in another order, as the reference
 documents.  A mesh serves token-input ``attn_kan``/``attn_mlp``/``attn_moe`` models
-without speculative windows (``lm.mesh_refusal``).
+of full attention, GQA or MLA (deepseek-v2-lite, on the static and dense
+continuous paths that it takes unmeshed), without speculative windows
+(``lm.mesh_refusal``); recurrent, windowed and non-token models are
+refused (ROADMAP queue 1, item 9.4.2).
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ NCCL group serves the continuous engine's streams bit for bit with the
 unmeshed engine's launch counts, and its train steps give the unmeshed
 step's losses, parameters and moments bit for bit, launching no kernel;
 so does reduced olmoe-1b-7b (streams, drop fractions, launches; train
-steps).  ``launch/train.py`` under ``torchrun --nproc-per-node 1`` joins a
+steps), and reduced deepseek-v2-lite (MLA: prefill and decode logits and
+latent caches, dense continuous streams and launches; train steps).
+``launch/train.py`` under ``torchrun --nproc-per-node 1`` joins a
 one-rank NCCL group and prints the in-process unmeshed run's losses, its
 checkpoint holding that run's parameters bit for bit.
 """
@@ -1651,10 +1653,69 @@ def test_one_rank_nccl_mesh_serves_olmoe_as_the_unmeshed_engine(cuda_device, cfg
 
 
 @pytest.mark.cuda
+def test_one_rank_nccl_mesh_decodes_deepseek_as_the_unmeshed_model(cuda_device, tmp_path):
+    """Reduced deepseek-v2-lite (MLA) on a 1x1 mesh of a one-rank NCCL
+    group: ``lm.prefill`` and 4 per-row decode steps give the unmeshed
+    logits and latent caches, and ``serve_continuous`` dense the unmeshed
+    streams and launch counts, bit for bit (a model axis of 1 splits no
+    latent column, so ``mla_decode_step`` runs the unmeshed operations)."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import flatten_with_paths
+    from repro_torch.dist.sharding import ShardingCtx
+    from repro_torch.launch.mesh import make_host_mesh
+
+    model = configs.get_reduced("deepseek-v2-lite").model
+    params = lm.init_params(model, seed=0, device=cuda_device)
+    rs = np.random.RandomState(4)
+    toks = torch.as_tensor(rs.randint(0, model.vocab, (4, 9)), device=cuda_device)
+    steps = torch.as_tensor(rs.randint(0, model.vocab, (4, 4, 1)), device=cuda_device)
+    reqs = [rs.randint(1, model.vocab, int(rs.randint(3, 14))).astype(np.int32)
+            for _ in range(6)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        out = []
+        for mesh in (None, make_host_mesh((1, 1))):
+            shard = None if mesh is None else ShardingCtx(mesh)
+            logits, caches = lm.prefill(params, model, toks, 24, shard=shard)
+            got = [logits]
+            pos = torch.tensor([9, 10, 11, 12], device=cuda_device)
+            for t in steps:
+                lg, caches = lm.decode_step(params, model, t, caches, pos,
+                                            shard=None if shard is None else shard.for_rows(4))
+                got.append(lg)
+                pos = pos + 1
+            eng = Engine(params, model, ServeConfig(max_seq=32, max_new_tokens=8, mesh=mesh),
+                         device=cuda_device)
+            ops.reset_launches()
+            streams = eng.serve_continuous(reqs, slots=4, chunk_steps=3)
+            out.append((got, flatten_with_paths(caches), streams, dict(ops.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+    (want, want_c, want_s, want_l), (got, got_c, got_s, got_l) = out
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert all(torch.equal(got_c[k], v) for k, v in want_c.items())
+    assert all(np.array_equal(a, b) for a, b in zip(want_s, got_s))
+    assert got_l == want_l
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_trains_deepseek_as_the_unmeshed_step(cuda_device, tmp_path):
+    """Reduced deepseek-v2-lite's ``make_train_step`` on a 1x1 NCCL mesh,
+    as olmoe's below."""
+    _one_rank_train(cuda_device, tmp_path, "deepseek-v2-lite")
+
+
+@pytest.mark.cuda
 def test_one_rank_nccl_mesh_trains_olmoe_as_the_unmeshed_step(cuda_device, tmp_path):
     """Reduced olmoe-1b-7b's ``make_train_step`` on a 1x1 mesh of a one-rank
     NCCL group: the unmeshed step's losses, parameters and AdamW state, bit
     for bit, and no kernel launched."""
+    _one_rank_train(cuda_device, tmp_path, "olmoe-1b-7b")
+
+
+def _one_rank_train(cuda_device, tmp_path, arch: str) -> None:
     import torch.distributed as dist
 
     from repro_torch.convert import flatten_with_paths
@@ -1664,7 +1725,7 @@ def test_one_rank_nccl_mesh_trains_olmoe_as_the_unmeshed_step(cuda_device, tmp_p
     from repro_torch.optim import adamw
     from repro_torch.train import step as TS
 
-    model = configs.get_reduced("olmoe-1b-7b").model
+    model = configs.get_reduced(arch).model
     opt = adamw.AdamWConfig(lr=2e-3, warmup_steps=1, total_steps=2)
     data = dp.LMDataConfig(vocab=model.vocab, seq_len=16, global_batch=4, seed=0)
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,

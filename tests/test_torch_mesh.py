@@ -9,16 +9,24 @@ package's init, ``convert.params_from_jax``), an MQA kanformer whose
 one KV head the model axis cannot split, and four MoE models (reduced
 olmoe-1b-7b, 8 experts on the model axis at capacity 1.25; 5 experts, whose
 ffn takes it; GQA with a shared expert; the einsum dispatch) dense, paged,
-on a data-split pool and in static buckets.  Every rank's tokens equal the
-port's ``mesh=None`` run in rank 0's process.  The MoE routes the global
+on a data-split pool and in static buckets, and four MLA models (reduced
+deepseek-v2-lite, heads and latent columns split, its rope block whole on
+one rank; a latent split inside its rope block; 3 heads, whole on every
+rank; a 23-column latent, whole on every rank) dense greedy, deepseek also
+sampled and in static buckets.  Every rank's tokens equal the
+port's ``mesh=None`` run in rank 0's process, which ``tests/test_torch_mla.py``
+holds to the JAX package.  An fp64 MLA prefill and decode: the latent
+columns stitched by the reference's spec within 1e-12 of the unmeshed
+cache, the logits within 1e-10, and each decode step's collectives (a
+wrapper around ``torch.distributed``'s) the split read's small ones.  The MoE routes the global
 batch: a fp64 prefill's routing integers and drop fractions on each rank
 equal the unmeshed whole batch's at its rows.  The distribution proofs
 read the shards' shapes: ``wq`` heads / 2, dense ``k`` batch / 2 and KV
 heads / 2, pool blocks / 2 (an odd pool whole), the int8 ``k_scale`` on
 ``model``; each leaf's local shards, stitched across ranks, give the
 converted tree back.  A one-rank group in this process is bit-identical to
-``mesh=None``.  The CLI serves ``--mesh 2x2 --device cpu`` and refuses what
-it cannot run with rc=2.
+``mesh=None``.  The CLI serves ``--mesh 2x2 --device cpu`` (deepseek on
+``1x2``) and refuses what it cannot run with rc=2.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ def ranks(params):
     return M.run_ranks(cells.run_battery, SHAPE, "cpu", args=(params,))
 
 
-TAGS = sorted(cells.CELLS) + ["static_sampled", cells.STATIC_MOE[0]]
+TAGS = sorted(cells.CELLS) + ["static_sampled", cells.STATIC_MOE[0], cells.STATIC_MLA[0]]
 
 
 @pytest.mark.parametrize("tag", TAGS)
@@ -106,6 +114,90 @@ def test_moe_drop_fraction_is_equal_on_every_rank(ranks):
     assert len(want) == 2 * cells.OLMOE.n_repeats * 8        # two buckets, 8 passes each
     for r in ranks:
         assert r["moe_static_drops"] == want, r["coord"]
+
+
+def test_mla_drop_fraction_is_equal_on_every_rank(ranks):
+    """deepseek's static buckets split over data: its MoE reads the
+    unmeshed drop fraction on every rank."""
+    want = ranks[0]["mla_static_ref_drops"]
+    assert len(want) == 2 * cells.MLA.n_repeats * 8
+    for r in ranks:
+        assert r["mla_static_drops"] == want, r["coord"]
+
+
+def _latent_spec(key: str, lead: tuple) -> tuple:
+    """The reference's spec of an MLA cache leaf on the 2x2 mesh."""
+    from jax.sharding import AbstractMesh
+
+    from repro.dist import sharding as jsharding
+    from repro.models import layers as JL
+
+    a = cells.MLA_MODELS[key].unit[0].attn
+    names = lead + ("batch", "seq_cache", "kv_lora")
+    shape = (cells.MLA_MODELS[key].n_repeats,) * len(lead) + (
+        cells.MLA_ROWS, cells.MLA_SEQ, a.kv_lora_rank + a.qk_rope_dim)
+    return tuple(jsharding.spec_for(JL.Axes(names), shape, AbstractMesh(SHAPE, ("data", "model"))))
+
+
+@pytest.mark.parametrize("key", sorted(cells.MLA_MODELS))
+def test_mla_latent_and_logits_match_the_unmeshed_run(ranks, key):
+    """The fp64 prefill and 3 decode steps (per-row positions, one row past
+    the cache): each rank's latent columns, stitched across ranks by the
+    reference's spec, within 1e-12 of the unmeshed cache after the prefill
+    and after the steps, and every rank's decode logits within 1e-10."""
+    ref = cells.mla_decode(None, key)
+    cols, heads = cells.MLA_PLACEMENT[key]
+    for stage in ("prefill", "caches"):
+        for part, lead in (("prologue", ()), ("unit", ("layers",))):
+            spec = _latent_spec(key, lead)
+            assert spec[-3:] == ("data", None, "model" if cols else None), spec
+            want = ref[stage][part][0]["ckv"]
+            got = _stitch(want, spec, [(r["coord"], r["mla"][key][stage][part][0]["ckv"])
+                                       for r in ranks])
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+            for r in ranks:
+                assert r["mla"][key][stage][part][0]["ckv"].shape[-1] == (
+                    cols or want.shape[-1])
+    for r in ranks:
+        for got, want in zip(r["mla"][key]["logits"], ref["logits"]):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("key", ["mla", "mla_rope"])
+def test_mla_decode_gathers_no_cache_leaf(ranks, key):
+    """With the heads and the latent split, each ``mla_decode_step`` call
+    makes the collectives of the split read and no other: the new latent
+    row, ``kv_norm`` (gathered whole), ``Σc²``, ``u``, the partial scores,
+    ``p·norm(c)`` and the output's ``reduce_from``, each smaller than the
+    rank's cache leaf of that layer."""
+    cfg = cells.MLA_MODELS[key]
+    a = cfg.unit[0].attn
+    B, S, H, rr = cells.MLA_ROWS // 2, cells.MLA_SEQ, a.n_heads, a.kv_lora_rank + a.qk_rope_dim
+    want = sorted([B * rr, a.kv_lora_rank, B * S, B * H * rr, B * H * S, B * H * a.kv_lora_rank,
+                   B * cfg.d_model])
+    for r in ranks:
+        calls = r["mla"][key]["collectives"]
+        assert len(calls) == cells.MLA_STEPS * (len(cfg.prologue) + cfg.n_repeats)
+        for c in calls:
+            assert sorted(c["sizes"]) == want, (r["coord"], c)
+            assert max(c["sizes"]) < c["cache"] == B * S * rr // 2
+
+
+def test_mla_shards_have_the_reference_placement(ranks):
+    """Reduced deepseek on 2x2: heads / 2 in wq, w_uk, w_uv and wo, the
+    latent's columns / 2 in w_dkv, kv_norm and the cache, batch / 2 in the
+    cache, experts / 2, the dense prologue's ffn / 2."""
+    cfg = cells.MLA
+    a, L = cfg.unit[0].attn, cfg.n_repeats
+    d, H, hd, r_, rope = cfg.d_model, a.n_heads, a.head_dim, a.kv_lora_rank, a.qk_rope_dim
+    want = {"wq": (L, d, H // 2, hd + rope), "w_dkv": (L, d, (r_ + rope) // 2),
+            "w_uk": (L, r_, H // 2, hd), "w_uv": (L, r_, H // 2, hd), "wo": (L, H // 2, hd, d),
+            "kv_norm": (L, r_ // 2), "ckv": (L, 2, 48, (r_ + rope) // 2),
+            "prologue_ckv": (2, 48, (r_ + rope) // 2),
+            "experts_wi": (L, cfg.unit[0].moe.n_experts // 2, d, cfg.unit[0].moe.d_ff),
+            "prologue_wi": (d, cfg.prologue[0].d_ff // 2)}
+    for r in ranks:
+        assert r["mla_shapes"] == want, r["coord"]
 
 
 def test_moe_experts_are_split_over_the_model_axis(ranks):
@@ -204,7 +296,8 @@ def test_one_rank_mesh_is_bit_identical_to_no_mesh(params, tmp_path):
         assert ctx.paged_cache_shardings(cells.Q8, 16, 8)["unit"][0]["k"] == \
             (None, "data", None, "model", None)
         assert ctx.param_shardings(cells.KAN)["embed"]["table"] == ("model", None)
-        for tag in ("dense_greedy", "paged_noprefix_sampled"):
+        params = dict(params, mla=lm.init_params(cells.MLA, seed=0, device="cpu"))
+        for tag in ("dense_greedy", "paged_noprefix_sampled", "mla_dense_greedy"):
             key, kw = cells.CELLS[tag]
             ref, _ = cells.serve(params, key, None, kw)
             got, eng = cells.serve(params, key, mesh, kw)
@@ -214,6 +307,11 @@ def test_one_rank_mesh_is_bit_identical_to_no_mesh(params, tmp_path):
         want, _ = lm.prefill(params["kan"], cells.KAN, toks, 16)
         got, _ = lm.prefill(params["kan"], cells.KAN, toks, 16, shard=ctx)
         assert torch.equal(want, got)
+        # MLA: the latent, the decode logits and the written cache bit-equal
+        want, got = cells.mla_decode(None, "mla"), cells.mla_decode(mesh, "mla")
+        assert all(torch.equal(a, b) for a, b in zip(want["logits"], got["logits"]))
+        assert torch.equal(want["caches"]["unit"][0]["ckv"], got["caches"]["unit"][0]["ckv"])
+        assert all(c["sizes"] == [] for c in got["collectives"])      # none on 1x1
     finally:
         dist.destroy_process_group()
 
@@ -222,14 +320,16 @@ def test_mesh_refuses_what_it_does_not_serve():
     from repro_torch import configs
 
     with pytest.raises(ValueError, match="item 9.4"):
-        _mesh_engine(configs.get_reduced("deepseek-v2-lite").model)
-    # MoE experts take the mesh (item 9.4.2 step 2); deepseek stays refused by its MLA
-    assert lm.mesh_refusal(configs.get_reduced("olmoe-1b-7b").model) is None
-    assert lm.mesh_refusal(configs.get_config("olmoe-1b-7b").model) is None
-    assert "MLA" in lm.mesh_refusal(configs.get_reduced("deepseek-v2-lite").model)
-    assert "windowed" in lm.mesh_refusal(configs.get_reduced("gemma3-12b").model)
-    assert "recurrent" in lm.mesh_refusal(configs.get_reduced("xlstm-1.3b").model)
-    assert "inputs" in lm.mesh_refusal(configs.get_reduced("paligemma-3b").model)
+        _mesh_engine(configs.get_reduced("zamba2-1.2b").model)
+    # MoE experts (item 9.4.2 step 2) and MLA (step 3) take the mesh
+    for arch in ("olmoe-1b-7b", "deepseek-v2-lite"):
+        assert lm.mesh_refusal(configs.get_reduced(arch).model) is None
+        assert lm.mesh_refusal(configs.get_config(arch).model) is None
+    for arch, why in (("zamba2-1.2b", "recurrent"), ("xlstm-1.3b", "recurrent"),
+                      ("gemma3-12b", "windowed"), ("paligemma-3b", "inputs"),
+                      ("musicgen-large", "inputs")):
+        msg = lm.mesh_refusal(configs.get_reduced(arch).model)
+        assert why in msg and "item 9.4.2" in msg, arch
     assert lm.mesh_refusal(cells.Q8) is None and lm.mesh_refusal(cells.KAN) is None
 
 
@@ -248,6 +348,19 @@ def test_cli_mesh_2x2_on_the_cpu():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "[serve] mesh={'data': 2, 'model': 2} over 4 ranks (gloo on cpu)" in r.stdout
     assert r.stdout.count("[serve:continuous] 4 requests") == 1          # rank 0 alone
+
+
+def test_cli_mesh_serves_deepseek_on_1x2():
+    """MLA on a mesh through the CLI: reduced deepseek-v2-lite's heads and
+    latent columns over a model axis of 2."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                        "deepseek-v2-lite", "--device", "cpu", "--mesh", "1x2", "--requests", "4",
+                        "--max-new", "6"],
+                       capture_output=True, text=True, timeout=300,
+                       env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "[serve] mesh={'data': 1, 'model': 2} over 2 ranks (gloo on cpu)" in r.stdout
+    assert r.stdout.count("[serve:static] 4 requests") == 1
 
 
 @pytest.mark.parametrize("argv,msg", [

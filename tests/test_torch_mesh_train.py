@@ -36,9 +36,9 @@ which ``tests/test_torch_train.py`` holds to the reference's.
   prints, a failure planted on every rank is retried together, and a
   SIGTERM to one rank stops every rank at the same step.
 * In process: a one-rank group's step is bit-identical to ``shard=None``
-  (kanformer and reduced olmoe); the launcher trains olmoe in the group;
-  the refused families raise ``ValueError`` naming item 9.4.2, and the
-  launcher exits with rc=2 on them.
+  (kanformer, reduced olmoe and reduced deepseek-v2-lite); the launcher
+  trains olmoe in the group; the refused families raise ``ValueError``
+  naming item 9.4.2, and the launcher exits with rc=2 on them.
 
 The four MoE models of the serving battery (``tests/torch_mesh_cells.py``:
 experts on the model axis with tokens dropping at capacity 1.25, each
@@ -47,6 +47,12 @@ every case above; the routing of each microbatch is the global
 microbatch's, its auxiliaries the whole batch's, and the router's gradient
 sums its rows in fp64 (``models/moe.py``), so fp64 holds to 1e-10 there
 too.  Reduced olmoe's checkpoint continues on 1x1 as kanformer's.
+
+Reduced deepseek-v2-lite (MLA: heads on model, the latent projection and
+its norm gathered whole; its MoE and dense prologue as above) takes every
+case too, and the serving battery's three other MLA placements (a latent
+split inside its rope block, 3 heads whole on every rank, a 23-column
+latent) the fp64 gradient case.
 """
 
 from __future__ import annotations
@@ -116,7 +122,7 @@ def ranks(ckpt_dir, jax_ckpt):
 def _specs(key: str, zero: bool = False) -> dict:
     """``{path: (whole shape, spec)}`` of a model's parameters (or of their
     ZeRO state) on the 2x2 mesh."""
-    cfg = cells.MODELS[key]
+    cfg = cells.ALL_MODELS[key]
     leaves = lm.param_shapes(cfg)
     rule = tree_zero_specs if zero else tree_specs
     specs = rule(lm.param_axes(cfg), lm.tree_of_shapes(leaves), MESH)
@@ -164,10 +170,7 @@ def _max_err(got: dict, want: dict, rel: bool = False) -> float:
     return max(errs)
 
 
-CASES = [(k, d) for k in cells.MODELS for d in cells.DTYPES]
-
-
-@pytest.mark.parametrize("key,dtype", CASES)
+@pytest.mark.parametrize("key,dtype", cells.GRAD_CASES)
 def test_losses_and_stitched_gradients(ranks, key, dtype):
     ref = _ref(ranks, "ref_grads", (key, dtype))
     got = [r["grads"][key, dtype] for r in ranks]
@@ -374,23 +377,25 @@ def test_one_rank_mesh_step_is_bit_identical_and_refusals_exit_2(tmp_path, capsy
                 fa, fb = flatten_with_paths(a), flatten_with_paths(b)
                 assert fa.keys() == fb.keys()
                 assert all(torch.equal(fa[k], fb[k]) for k in fa), variant
-        want = cells.train_case("moe", "fp32", "plain", steps=2)
-        got = cells.train_case("moe", "fp32", "plain", shard, steps=2)
-        assert got["losses"] == want["losses"]
-        fa, fb = (flatten_with_paths(t) for t in ((got["params"], got["state"]),
-                                                   (want["params"], want["state"])))
-        assert all(torch.equal(fa[k], fb[k]) for k in fb), "moe"
-        # MoE trains in the group (item 9.4.2 step 2); MLA stays refused
+        for key in ("moe", "mla"):
+            want = cells.train_case(key, "fp32", "plain", steps=2)
+            got = cells.train_case(key, "fp32", "plain", shard, steps=2)
+            assert got["losses"] == want["losses"]
+            fa, fb = (flatten_with_paths(t) for t in ((got["params"], got["state"]),
+                                                       (want["params"], want["state"])))
+            assert all(torch.equal(fa[k], fb[k]) for k in fb), key
+        # MoE and MLA train in the group (item 9.4.2 steps 2 and 3); recurrent
+        # models stay refused
         rc = launcher.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
                             "--steps", "2", "--batch", "4", "--seq", "8"])
         assert rc == 0 and "[done] steps=2" in capsys.readouterr().out
-        rc = launcher.main(["--arch", "deepseek-v2-lite", "--reduced", "--device", "cpu"])
+        rc = launcher.main(["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu"])
         assert rc == 2 and "item 9.4.2" in capsys.readouterr().err
     finally:
         dist.destroy_process_group()
 
 
-ACCEPTED = ("olmoe-1b-7b",)
+ACCEPTED = ("olmoe-1b-7b", "deepseek-v2-lite")
 
 
 @pytest.mark.parametrize("arch,why", [
@@ -402,7 +407,7 @@ def test_the_mesh_refuses_to_train_other_families(arch, why):
     cfg = configs.get_reduced(arch).model
     shard = ShardingCtx(object())
     opt = adamw.AdamWConfig()
-    if arch in ACCEPTED:              # MoE experts train on a mesh (item 9.4.2 step 2)
+    if arch in ACCEPTED:              # MoE experts and MLA train on a mesh (item 9.4.2)
         assert lm.mesh_refusal(cfg) is None
         assert callable(TS.make_train_step(cfg, opt, shard=shard))
         return

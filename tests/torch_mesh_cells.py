@@ -44,7 +44,34 @@ def moe_variant(name: str, n_kv: int | None = None, **moe) -> lm.ModelConfig:
 MOE_MODELS = {"moe": OLMOE, "moe5": moe_variant("olmoe-e5", n_experts=5),
               "moe_sh": moe_variant("olmoe-gqa-shared", n_kv=2, n_shared=1),
               "moe_es": moe_variant("olmoe-einsum", dispatch="einsum")}
-MODELS = {"kan": KAN, "q8": Q8, "mqa": MQA, **MOE_MODELS}
+# reduced deepseek-v2-lite (MLA, kv_lora 16 + rope 8, 4 heads) and three
+# test-built variants, one per placement of the reference's specs on a model
+# axis of 2: "mla" heads and latent columns split, rank 1 holding latent
+# 12..15 and the whole rope block; "mla_rope" (kv_lora 6, rope 10) the
+# columns split inside the rope block, so its rotary pairs lie on two
+# ranks; "mla_h3" 3 heads, whole on every rank (wq, w_uk, w_uv, wo gathered)
+# beside split columns; "mla_c23" (kv_lora 15, rope 8) heads split and a
+# latent of 23 columns whole on every rank
+MLA = configs.get_reduced("deepseek-v2-lite").model
+
+
+def mla_variant(name: str, **attn) -> lm.ModelConfig:
+    def swap(blk):
+        return dataclasses.replace(blk, attn=dataclasses.replace(blk.attn, **attn))
+
+    return dataclasses.replace(MLA, name=name, prologue=tuple(map(swap, MLA.prologue)),
+                               unit=tuple(map(swap, MLA.unit)))
+
+
+MLA_MODELS = {"mla": MLA, "mla_rope": mla_variant("deepseek-rope-split", kv_lora_rank=6,
+                                                  qk_rope_dim=10),
+              "mla_h3": mla_variant("deepseek-h3", n_heads=3, n_kv_heads=3),
+              "mla_c23": mla_variant("deepseek-c23", kv_lora_rank=15)}
+# the latent columns (first, count) each model rank holds, by the reference's
+# spec_for, and whether the heads are split
+MLA_PLACEMENT = {"mla": (12, True), "mla_rope": (8, True), "mla_h3": (12, False),
+                 "mla_c23": (None, True)}
+MODELS = {"kan": KAN, "q8": Q8, "mqa": MQA, **MOE_MODELS, **MLA_MODELS}
 PAGED = {"paged": True, "block_size": 8}
 CELLS = {
     "dense_greedy": ("kan", {}),
@@ -65,10 +92,19 @@ CELLS = {
     "moe_shared_dense": ("moe_sh", {}),
     "moe_shared_paged_step": ("moe_sh", {**PAGED, "paged_read": "step"}),
     "moe_einsum_dense": ("moe_es", {}),
+    "mla_dense_greedy": ("mla", {}),
+    "mla_dense_sampled": ("mla", {"temperature": 0.7}),
+    "mla_rope_dense": ("mla_rope", {}),
+    "mla_h3_dense": ("mla_h3", {}),
+    "mla_c23_dense": ("mla_c23", {}),
 }
 # the static engine's buckets: batch 4 splits over the data axis, so the MoE
 # routes each rank's rows as one global batch
 STATIC_MOE = ("moe_static_greedy", "moe", 4)
+STATIC_MLA = ("mla_static_greedy", "mla", 4)
+# the MLA proofs: a fp64 prefill of MLA_ROWS prompts of MLA_LEN tokens (rows
+# split over data), then MLA_STEPS decode steps at per-row positions
+MLA_ROWS, MLA_LEN, MLA_STEPS, MLA_SEQ = 4, 7, 3, 16
 # the routing proof: a fp64 prefill of ROUTE_ROWS prompts of ROUTE_LEN tokens
 # (rows split over data; 36 routed rows, cap 11 of 9 per expert on average)
 ROUTE_ROWS, ROUTE_LEN = 4, 9
@@ -96,7 +132,8 @@ def run_battery(mesh, device, params: dict) -> dict:
     shapes of its cache shards."""
     torch.set_num_threads(1)
     params = dict(params, mqa=lm.init_params(MQA, seed=0, device="cpu"),
-                  **{k: lm.init_params(m, seed=0, device="cpu") for k, m in MOE_MODELS.items()})
+                  **{k: lm.init_params(m, seed=0, device="cpu")
+                     for k, m in {**MOE_MODELS, **MLA_MODELS}.items()})
     first = dist.get_rank() == 0
     out = {"mesh": {}, "ref": {}, "stats": {}}
     for tag, (key, kw) in CELLS.items():
@@ -114,6 +151,14 @@ def run_battery(mesh, device, params: dict) -> dict:
     if first:
         out["ref"][tag], eng = serve_static(params, key, None, batch, device)
         out["moe_static_ref_drops"] = eng.drops
+    tag, key, batch = STATIC_MLA
+    out["mesh"][tag], eng = serve_static(params, key, mesh, batch, device)
+    out["mla_static_drops"] = eng.drops
+    if first:
+        out["ref"][tag], eng = serve_static(params, key, None, batch, device)
+        out["mla_static_ref_drops"] = eng.drops
+    out["mla"] = {key: mla_decode(mesh, key) for key in MLA_MODELS}
+    out["mla_shapes"] = mla_shapes(mesh, params["mla"])
     out["routes"] = routes(mesh)
     out["moe_shapes"] = {}
     for key, model in MOE_MODELS.items():
@@ -204,3 +249,84 @@ def serve_static(params, key, mesh, batch, device="cpu"):
         outs = eng.serve_requests(requests(), batch_size=batch)
     eng.drops = got["drops"]
     return outs, eng
+
+
+def mla_prompts(vocab: int) -> torch.Tensor:
+    rs = np.random.RandomState(2)
+    return torch.as_tensor(rs.randint(0, vocab, (MLA_ROWS, MLA_LEN)))
+
+
+@contextlib.contextmanager
+def recorded_collectives():
+    """The element count of every collective (``all_reduce``/``broadcast``)
+    made inside ``attention.mla_decode_step``, one list per call, beside
+    that call's cache leaf (its element count) while active."""
+    from repro_torch.models import attention as A
+
+    real_step, real_ar, real_bc = A.mla_decode_step, dist.all_reduce, dist.broadcast
+    got, inside = [], []
+
+    def collective(real):
+        def wrapped(t, *args, **kw):
+            if inside:
+                got[-1]["sizes"].append(t.numel())
+            return real(t, *args, **kw)
+        return wrapped
+
+    def step(params, cfg, x, cache_ckv, pos, shard=None):
+        got.append({"cache": cache_ckv.numel(), "sizes": []})
+        inside.append(True)
+        try:
+            return real_step(params, cfg, x, cache_ckv, pos, shard)
+        finally:
+            inside.pop()
+
+    A.mla_decode_step = step
+    dist.all_reduce, dist.broadcast = collective(real_ar), collective(real_bc)
+    try:
+        yield got
+    finally:
+        A.mla_decode_step, dist.all_reduce, dist.broadcast = real_step, real_ar, real_bc
+
+
+def mla_decode(mesh, key: str) -> dict:
+    """The MLA proof's fp64 prefill of :func:`mla_prompts` and
+    ``MLA_STEPS`` decode steps at per-row positions (on a mesh this rank's
+    rows and latent columns) -> the caches after the prefill and after the
+    steps, the decode logits, and the collectives of each
+    ``mla_decode_step`` call."""
+    cfg = MLA_MODELS[key]
+    params = lm.init_params(cfg, seed=0, device="cpu", dtype=torch.float64)
+    shard = None
+    if mesh is not None:
+        shard = ShardingCtx(mesh)
+        params = shard.place_params(cfg, params)
+    toks = mla_prompts(cfg.vocab)
+    _, caches = lm.prefill(params, cfg, toks, MLA_SEQ, torch.float64, shard)
+    out = {"logits": [], "prefill": {part: [{n: t.clone() for n, t in c.items()} for c in cs]
+                                     for part, cs in caches.items()}}
+    pos = torch.tensor([MLA_LEN - 1, MLA_LEN, MLA_LEN + 1, MLA_SEQ + 2])   # the last row past S
+    dshard = None if shard is None else shard.for_rows(MLA_ROWS)
+    rs = np.random.RandomState(3)
+    with recorded_collectives() as got:
+        for _ in range(MLA_STEPS):
+            tok = torch.as_tensor(rs.randint(0, cfg.vocab, (MLA_ROWS, 1)))
+            logits, caches = lm.decode_step(params, cfg, tok, caches, pos, torch.float64, None,
+                                            dshard)
+            out["logits"].append(logits)
+            pos = pos + 1
+    out["caches"] = caches
+    out["collectives"] = got
+    return out
+
+
+def mla_shapes(mesh, params) -> dict:
+    """This rank's MLA shards of reduced deepseek: the unit's attention
+    leaves and the dense cache's latent of a batch of 4."""
+    local = ShardingCtx(mesh).place_params(MLA, params)
+    attn = {n: tuple(w.shape) for n, w in local["unit"][0]["attn"].items()}
+    caches = lm.init_caches(MLA, 4, 48, torch.float32, "cpu", ShardingCtx(mesh))
+    return {**attn, "ckv": tuple(caches["unit"][0]["ckv"].shape),
+            "prologue_ckv": tuple(caches["prologue"][0]["ckv"].shape),
+            "experts_wi": tuple(local["unit"][0]["moe"]["wi"].shape),
+            "prologue_wi": tuple(local["prologue"][0]["mlp"]["wi"].shape)}

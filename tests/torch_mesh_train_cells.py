@@ -36,8 +36,14 @@ QWEN = configs.get_reduced("qwen1.5-0.5b").model
 MQA = dataclasses.replace(serving.MQA, vocab=509)
 # the serving battery's four MoE models: experts on model (capacity 1.25,
 # tokens drop), experts' ffn on model, GQA with a shared expert, einsum
-MODELS = {"kan": KAN, "qwen": QWEN, "mqa": MQA, **serving.MOE_MODELS}
+# and reduced deepseek-v2-lite (MLA, heads and latent columns on model,
+# beside its MoE and dense prologue); the serving battery's other three MLA
+# placements take the fp64 gradient case only (GRAD_CASES)
+MODELS = {"kan": KAN, "qwen": QWEN, "mqa": MQA, **serving.MOE_MODELS, "mla": serving.MLA}
+MLA_VARIANTS = {k: m for k, m in serving.MLA_MODELS.items() if k != "mla"}
+ALL_MODELS = {**MODELS, **MLA_VARIANTS}
 DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
+GRAD_CASES = [(k, d) for k in MODELS for d in DTYPES] + [(k, "fp64") for k in MLA_VARIANTS]
 # master weights, accumulation and the bf16 wire format share a run: each
 # changes another part of the step, and fewer runs keep the group's time low
 VARIANTS = {"plain": {}, "int8": {"grad_compression": "int8"},
@@ -62,13 +68,13 @@ FAIL_CALL, STOP_CALL, STOP_RANK = 2, 4, 1     # the launcher's planted failure a
 
 
 def params_of(key: str, dtype) -> dict:
-    return lm.init_params(MODELS[key], seed=0, device="cpu", dtype=dtype)
+    return lm.init_params(ALL_MODELS[key], seed=0, device="cpu", dtype=dtype)
 
 
 def batch_of(key: str, step: int) -> dict:
     """``lm_batch``'s rows, row ``b``'s last ``b % 4`` labels masked as well,
     so the rows carry different label counts."""
-    batch = dp.lm_batch(dp.LMDataConfig(vocab=MODELS[key].vocab, seq_len=T, global_batch=B,
+    batch = dp.lm_batch(dp.LMDataConfig(vocab=ALL_MODELS[key].vocab, seq_len=T, global_batch=B,
                                         seed=0), step)
     labels = batch["labels"].clone()
     for b in range(B):
@@ -80,7 +86,7 @@ def batch_of(key: str, step: int) -> dict:
 def grads_case(key: str, dtype: str, shard=None) -> dict:
     """One loss and gradient: on a mesh this rank's model-local gradient,
     summed over ``data``, and the whole batch's loss."""
-    cfg = MODELS[key]
+    cfg = ALL_MODELS[key]
     params = params_of(key, DTYPES[dtype])
     batch = batch_of(key, 0)
     if shard is not None:
@@ -219,7 +225,7 @@ def run_battery(mesh, device, ckpt_dir: str, jax_ckpt: str) -> dict:
     shard = ShardingCtx(mesh)
     out = {"coord": tuple(int(c) for c in mesh.get_coordinate()), "grads": {}, "train": {},
            "ref_grads": {}, "ref_train": {}}
-    cases = [(k, d) for k in MODELS for d in DTYPES]
+    cases = GRAD_CASES
     for key, dtype in cases:
         out["grads"][key, dtype] = grads_case(key, dtype, shard)
     for key, dtype, variant in TRAIN_CASES:
